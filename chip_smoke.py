@@ -10,9 +10,10 @@ Phases (any failure exits non-zero; no exception is caught):
      stage-1 shapes (n = 480*640 pixels, d = 64, m = 100 seeds), on
      clustered unit embeddings made from a numpy seed, in parity mode
      (float32, stride-1 seeding) and fast mode (bfloat16, stride-8
-     seeding); median CUDA-event times of kernel and plain version beside
-     the bound computed from the shapes.  Then the whole clustering
-     (mean_shift_smart_init with the 0.8 depth filter) on those
+     seeding); the launch configuration of the two cooperative kernels
+     (seeding, hill climb); median CUDA-event times of kernel and plain
+     version beside the bound computed from the shapes.  Then the whole
+     clustering (mean_shift_smart_init with the 0.8 depth filter) on those
      embeddings, kernel route against plain route, timed.
   3. stage 1 through Segmentor.segment_sample: seg_resnet34_8s_embedding,
      RGB-D, add fusion, 64-D embeddings, 480x640, weights from a fixed-seed
@@ -55,8 +56,12 @@ KAPPA, ITERS, EPS = 20.0, 10, 0.04
 FRAMES = 3  # timed frames per mode, after one warm-up frame
 # H100 SXM published peaks (dense): the bound of each kernel is the larger
 # of its bytes over HBM bandwidth and its operations over the peak rate of
-# its input type
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# its input type.  float32 work to fp32 accuracy runs fastest on the tensor
+# cores as split TF32 (three TF32 products per fp32 product, as the hill
+# climb does), so its least time is 3 * ops / 495 TFLOP/s, not ops over the
+# 67 TFLOP/s of the CUDA cores.
+TF32_PEAK_OPS = 495e12
+PEAK_OPS = {torch.float32: TF32_PEAK_OPS / 3, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 Z_TOL = {"parity": 1e-5, "fast": 1e-3}
 SEED_GAP = 1e-6  # fast mode: a seed flip is allowed below this gap
@@ -164,6 +169,10 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
     esize = x.element_size()
     out: dict[str, dict] = {}
 
+    print(f"[{mode}] select_seeds launch: "
+          f"{json.dumps(cuda_seeding.launch_config(x_seed))}")
+    print(f"[{mode}] hill_climb launch: "
+          f"{json.dumps(cms.hill_climb_config(x, M))}")
     got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
     want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
     step, gap = seed_gap(x_seed, got_i, want_i)

@@ -2,9 +2,10 @@
 
 chip_smoke.py holds each kernel to its plain version at the stage-1 shapes
 (n = 480*640, d = 64, m = 100).  These tests cover the other shapes each
-kernel takes: m from 1 to 128, a ragged last pixel tile, a strided seeding
-view (and seeding widths other than 64), and bf16 rows that do not start on
-a 16-byte boundary.  They need a CUDA device and skip without one.  On the machine with the card:
+kernel takes: m from 1 to 128 (ragged against the hill climb's 16-row
+groups), a ragged last pixel tile, seeding over fewer pixels than a block
+has threads and over more than the blocks hold on chip, a strided seeding
+view, and rows that do not start on a 16-byte boundary.  They need a CUDA device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -74,10 +75,16 @@ def converged(card, x, m, seed=1):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,d,stride", [(1000, 16, 1), (4099, 64, 1),
-                                        (6001, 64, 3), (2000, 128, 1)])
-def test_seeding_kernel_matches_plain(card, dtype, n, d, stride):
-    x = on_card(card, clustered(n, d)[0], dtype)[::stride]
+@pytest.mark.parametrize("n,stride", [
+    (100, 1),      # fewer pixels than one block's threads
+    (1000, 1),
+    (4099, 1),
+    (6001, 3),     # a strided view
+    (2000, 1),
+    (400000, 1),   # more than the blocks hold on chip: part re-read from L2
+])
+def test_seeding_kernel_matches_plain(card, dtype, n, stride):
+    x = on_card(card, clustered(n * stride, 64)[0], dtype)[::stride]
     before = cuda_seeding.launches
     seeds, idx = cuda_seeding.select_seeds(x, 40, 5)
     want_seeds, want_idx = cuda_seeding.select_seeds_reference(x, 40, 5)
@@ -88,7 +95,32 @@ def test_seeding_kernel_matches_plain(card, dtype, n, d, stride):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m", [1, 20, 128])
+@pytest.mark.parametrize("num_seeds", [1, 128])
+def test_seeding_kernel_seed_counts(card, dtype, num_seeds):
+    x = on_card(card, clustered(30000, 64, seed=7)[0], dtype)
+    _, idx = cuda_seeding.select_seeds(x, num_seeds, 29999)
+    _, want_idx = cuda_seeding.select_seeds_reference(x, num_seeds, 29999)
+    assert idx.shape == (num_seeds,) and torch.equal(idx, want_idx)
+
+
+def test_launch_configs_fit_the_card(card):
+    """Both cooperative kernels: every block resident at once, and the
+    seeding blocks hold their X on chip up to the shared-memory limit."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    x = torch.zeros(480 * 640, 64, device=card)
+    seed = cuda_seeding.launch_config(x)
+    assert seed["grid"] == sms and seed["blocks_per_sm"] >= 1
+    assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * 64 * 4
+    # float32: two warpgroups of 64 rows; bfloat16: two halves of 7 groups
+    # of 16 rows each, not 8
+    for dtype, threads in zip(DTYPES, (2 * 128, 2 * 7 * 32)):
+        hill = cms.hill_climb_config(x.to(dtype), 100)
+        assert hill["threads"] == threads
+        assert 1 <= hill["grid"] <= hill["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 20, 100, 113, 128])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_hill_climb_kernel_matches_plain(card, dtype, m, misaligned):
     d = 64
@@ -100,6 +132,17 @@ def test_hill_climb_kernel_matches_plain(card, dtype, m, misaligned):
     want = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
     assert cms.hill_climb_launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (m, d)
+    assert float((got - want).abs().max()) <= Z_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hill_climb_kernel_many_tiles(card, dtype):
+    """Many 128-pixel tiles per block and a ragged last one (n = 70001)."""
+    x = on_card(card, clustered(70001, 64, seed=8)[0], dtype)
+    pick = np.random.RandomState(9).choice(70001, 100, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    got = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    want = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
     assert float((got - want).abs().max()) <= Z_ATOL[dtype]
 
 
@@ -157,6 +200,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         cuda_seeding.select_seeds(x.half(), 4, 0)
     with pytest.raises(ValueError):
         cuda_seeding.select_seeds(x, 4, 256)
+    with pytest.raises(ValueError):
+        cuda_seeding.select_seeds(x[:, :32], 4, 0)
     with pytest.raises(ValueError):
         cms.hill_climb(x, torch.randn(129, 64, device=card))
     with pytest.raises(ValueError):

@@ -3,7 +3,9 @@ kernel replaces, on the same numpy inputs (CPU, small shapes).
 
 On a CPU tensor every kernel wrapper runs its plain version, so these hold
 the plain versions (the references the kernels are held against on the
-card) to the JAX package's Pallas kernels in interpret mode.
+card) to the JAX package's Pallas kernels in interpret mode.  One test
+emulates the float32 hill-climb kernel's split-TF32 arithmetic in torch and
+holds it to the float32 plain version.
 
 Tolerances:
   * seed indices, seed labels, pixel labels and counts: equal;
@@ -231,3 +233,52 @@ def test_random_first_seed_comes_from_the_generator():
     first = int(torch.randint(N, (1,),
                               generator=torch.Generator().manual_seed(3)))
     assert int(a[1][0]) == first
+
+
+def _tf32(a):
+    """a (float32) rounded to TF32: the mantissa cut to 10 bits, nearest
+    even."""
+    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return (u - ((u >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def _tf32_truncated(a):
+    """a (float32) as the tensor cores read a TF32 operand: the low 13 bits
+    dropped."""
+    return (a.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the hill-climb kernel computes it: each operand split as
+    big + small, big = tf32(a), small = a - big as the tensor cores read
+    it; the small terms, then big * big, summed in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def test_split_tf32_hill_climb_meets_the_float32_tolerance():
+    """The float32 hill climb's arithmetic on the tensor cores, emulated:
+    every operand of both products split into two TF32 parts. After 10
+    iterations Z stays within 1e-5 of the float32 plain version and the
+    connected components give the same labels."""
+    n, m, d = 4096, 100, 64
+    x, _ = clustered(13, k=8, n=n, d=d)
+    xt = torch.from_numpy(x)
+    z0 = xt[torch.from_numpy(np.random.RandomState(14).choice(n, m,
+                                                              replace=False))]
+    ab = _tf32(xt)
+    assert torch.equal(ab, _tf32(ab))            # rounding is idempotent
+    assert float(((xt - ab) / xt).abs().max()) <= 2.0 ** -11
+    z = z0.clone()
+    for _ in range(10):
+        w = torch.exp(20.0 * _mm_3xtf32(z, xt.T))
+        v = _mm_3xtf32(w, xt)
+        z = v / torch.clamp(torch.sqrt((v * v).sum(dim=1, keepdim=True)),
+                            min=1e-12)
+    want = cms.hill_climb_reference(xt, z0, kappa=20.0, max_iters=10)
+    assert float((z - want).abs().max()) <= 1e-5
+    labels = cms.connected_components_reference(z, 0.04)
+    assert torch.equal(labels, cms.connected_components_reference(want, 0.04))
+    assert int(labels.max()) > 0  # more than one cluster

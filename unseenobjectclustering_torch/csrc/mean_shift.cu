@@ -2,22 +2,28 @@
 // over the converged seeds, and the fused pixel assignment + histograms.
 //
 // Replace the TPU kernels in unseenobjectclustering_tpu/ops/pallas_mean_shift.py:
-//   hill_partial + hill_reduce  <- _hill_climb_kernel / hill_climb_pallas
-//   cc_kernel                   <- _cc_kernel / connected_components_pallas
-//   assign_kernel               <- _assign_kernel / assign_labels_pallas
+//   hill_tf32_kernel,
+//   hill_bf16_kernel   <- _hill_climb_kernel / hill_climb_pallas
+//   cc_kernel          <- _cc_kernel / connected_components_pallas
+//   assign_kernel      <- _assign_kernel / assign_labels_pallas
 //
-// Shared tiling.  The kernels take the embedding width d = 64 (NUM_UNITS of
-// every recipe) and m <= 128 seeds.  A block of 256 threads (16 x 16) walks
-// tiles of kTileN = 64 pixels.  float32 X runs on CUDA cores: each tile of X
-// is staged in shared memory as [64][kDP] (kDP = 65, padded against bank
+// The kernels take the embedding width d = 64 (NUM_UNITS of every recipe)
+// and m <= 128 seeds.  the hill climb runs on the tensor cores in both modes
+// (split TF32 on wgmma for float32 X, bf16 on mma.sync for bfloat16 X); see
+// its section.
+// The assignment's tiling: a block of 256 threads (16 x 16) walks tiles of
+// kTileN = 64 pixels.  float32 X runs on CUDA cores: each tile of X is
+// staged in shared memory as [64][kDP] (kDP = 65, padded against bank
 // conflicts), the seeds Z sit in shared memory as [128][kDP], and thread
 // (ty, tx) computes the similarity block S[ty + 16i][tx + 16jj] (i < 8,
 // jj < 4) as a sequential fp32 FMA chain over d: no tensor cores, so no
-// TF32 truncation.  bfloat16 X (the fast mode) runs on the tensor cores
-// (hill_partial_mma, assign_kernel_mma).  Seed rows past m are zero and
-// are never written out or selected.
+// TF32 truncation.  bfloat16 X runs on the tensor cores
+// (assign_kernel_mma).  Seed rows past m are zero and are never written
+// out or selected.
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -74,90 +80,16 @@ __device__ __forceinline__ void similarity_block(const float* zs,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Hill climbing: Z <- normalize_rows(exp(kappa * Z X^T) X), max_iters times.
-//
-// Bound on the H100: 4*m*n*d flops per iteration (78.6 GFLOP for 10
-// iterations at m=100, n=307200, d=64); fp32 on CUDA cores is compute-bound.
-// The [m, n] weights never reach device memory: each block turns its S
-// tile into W = exp(kappa S) in shared memory (registers for bf16) and
-// accumulates W X_tile into a register-resident [m, d] partial.  The TPU
-// carried one accumulator across an in-order grid; here blocks run in no
-// order, so each block writes its own partial and hill_reduce sums the
-// partials in a fixed order (deterministic) and normalizes once per
-// iteration.  No max-subtraction inside exp (kappa = 20 stays finite in
-// fp32), matching the reference.  With bf16 X, Z is rounded to bf16 for the
-// first product and W is rounded to bf16 before the second, as the TPU
-// kernel did; both products accumulate in fp32.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-hill_partial(const float* __restrict__ x, int n, const float* __restrict__ z,
-             int m, float kappa, float* __restrict__ partial) {
-  extern __shared__ __align__(16) float smem[];
-  float* zs = smem;
-  float* xs = zs + kZF;
-  float* ws = xs + kXF;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  stage_seeds(z, m, zs);
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-
-  const int num_tiles = (n + kTileN - 1) / kTileN;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    __syncthreads();  // the previous tile's readers are done with xs / ws
-    stage_tile(x, n, tile * kTileN, xs);
-    __syncthreads();
-    float s[8][4];
-    similarity_block(zs, xs, s);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ws[(ty + 16 * i) * kWP + tx + 16 * jj] = expf(kappa * s[i][jj]);
-    __syncthreads();
-    // padded pixels have x = 0, so their weight adds nothing
-    for (int p = 0; p < kTileN; ++p) {
-      float wr[8], xr[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wr[i] = ws[(ty + 16 * i) * kWP + p];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) xr[jj] = xs[p * kDP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(wr[i], xr[jj], acc[i][jj]);
-    }
-  }
-
-  float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = ty + 16 * i;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      if (row < m) out[row * kD + tx + 16 * jj] = acc[i][jj];
-  }
-}
-
-// bf16 hill climbing on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators).  The partial sums of the plain version: the products of
-// bf16 values are exact and the sums fp32, in the tensor cores' order.
-// The global loads need 16-byte aligned rows of X.  Warp w owns seed rows [16w, 16w + 16): it keeps
-// its Z fragments in registers, computes its S rows for a 64-pixel tile,
-// turns them into W = bf16(exp(kappa S)) in registers and feeds them
-// straight back as the A operand of W X_tile (the accumulator layout of
-// m16n8 is the operand layout of m16k16).  X tiles sit in shared memory as
-// bf16 with a 144-byte row pitch, so every ldmatrix row hits its own banks.
+// bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators), shared
+// by the bf16 hill climb and assign_kernel_mma: the products of bf16 values
+// are exact and the sums fp32, in the tensor cores' order.  Warp w owns
+// seed rows [16w, 16w + 16) and keeps their Z fragments in registers.  X
+// tiles sit in shared memory as bf16 with a 144-byte row pitch, so every
+// ldmatrix row hits its own banks; the global loads need 16-byte aligned
+// rows of X.
 constexpr int kMmaPitch = kD + 8;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+using uoc::smem_addr;
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -243,108 +175,563 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-hill_partial_mma(const __nv_bfloat16* __restrict__ x, int n,
-                 const float* __restrict__ z, int m, float kappa,
-                 float* __restrict__ partial) {
-  __shared__ __align__(16) __nv_bfloat16 zs[kMaxSeeds * kMmaPitch];
-  __shared__ __align__(16) __nv_bfloat16 xs[kTileN * kMmaPitch];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = 16 * warp;
-  const bool active = r0 < m;  // warp-uniform: rows past m are padding
+// ---------------------------------------------------------------------------
+// Hill climbing: Z <- normalize_rows(exp(kappa * Z X^T) X), max_iters times.
+//
+// Replaces _hill_climb_kernel / hill_climb_pallas.  It is attention with
+// m <= 128 queries and K = V = X: S = Z X^T, W = exp(kappa S) (no max
+// subtraction: kappa = 20 stays finite in fp32, as in the reference),
+// acc += W X.
+//
+// Bound on the H100: 4*m*n*d flops per iteration (78.6 GFLOP for 10
+// iterations at m=100, n=307200, d=64) against one read of X per
+// iteration; bound by the tensor cores in both modes.
+//
+// Design: one persistent cooperative launch runs every iteration, one
+// block per SM.  Each block walks its share of 128-pixel X tiles (split-K
+// over pixels) through a ring of tiles in shared memory, filled by
+// cp.async so that the next tile loads while the warps compute; the ring
+// runs on across iterations, so the first tiles of the next iteration load
+// during the barriers.  No seed row past what the instruction shape forces
+// is computed.  The [m, n] weights never leave registers: S comes out of
+// the first product as accumulators, becomes W in place and is fed
+// straight back as the A operand of W X_tile.  Each block writes one
+// [m, 64] partial; after a grid-wide barrier, block b sums the partials of
+// seed rows b, b + grid, ... in a fixed block order (the same result from
+// run to run) and normalizes them; a second barrier publishes the new Z.
+//
+//  * float32 X: split TF32 ("3xTF32") on the tensor cores with wgmma
+//    (hill_tf32_kernel).  Each operand a is big + small, big = tf32(a)
+//    (round to nearest even), small = a - big as the tensor cores read it
+//    (truncated to tf32), and each product is small*big + big*small +
+//    big*big with fp32 accumulators: about fp32 accuracy.  A warpgroup
+//    owns 64 seed rows (ceil(m/64) warpgroups) and keeps Z's split A
+//    fragments in registers.  The whole block splits each landed tile once
+//    into big and small copies in the two K-major layouts that wgmma reads
+//    from shared memory (8-row x 16-byte core matrices, no swizzle): X as
+//    [pixel][dim] for S = Z X^T and as [dim][pixel] for W X.  The
+//    accumulator columns (2t, 2t+1) of S are taken as the A operand's k
+//    columns (t, t+4) of W X by storing the pixels of each group of 8 in
+//    the order 0, 2, 4, 6, 1, 3, 5, 7 in the second layout: the sum over
+//    pixels does not depend on their order.
+//  * bfloat16 X: mma.sync m16n8k16 (hill_bf16_kernel), two halves of
+//    ceil(m/16) warps, each half owning 64 pixels of a tile; Z is rounded
+//    to bf16 for the first product and W before the second, as the TPU
+//    kernel did.  The halves' sums are added in shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kHillTile = 128;        // pixels per X tile
+constexpr int kHalfTile = kHillTile / 2;
+constexpr int kStages = 3;            // bf16 X tiles in flight per block
+constexpr int kTf32Stages = 2;        // float32 X tiles in flight per block
+constexpr int kBF16Threads = 2 * 32 * (kMaxSeeds / 16);
+constexpr int kF32Pitch = kD + 4;     // floats per raw X row in the ring
+constexpr int kRedFloats = 16 * kD;   // per-group sums of a reduced row
+constexpr int kCore = 128;            // bytes of a core matrix (8 x 16 B)
+constexpr int kHalfWords = kHalfTile * kD;  // one split copy of a half
 
-  stage_seeds_bf16(z, m, zs);
-  __syncthreads();
-  unsigned za[4][4];
-  load_seed_fragments(zs, r0, lane, za);
-  float acc[8][4];
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[t][q] = 0.0f;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  const int quad = lane >> 3;
-  const int num_tiles = (n + kTileN - 1) / kTileN;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    __syncthreads();  // the previous tile's readers are done with xs
-    stage_tile_bf16(x, n, tile * kTileN, xs);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// X rows [p0, p0 + kHillTile) -> xs [kHillTile][kPitch], 16 bytes per
+// copy; rows past n are zero-filled.
+template <typename T, int kPitch>
+__device__ __forceinline__ void issue_tile(const T* __restrict__ x, int n,
+                                           int p0, T* xs) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int kChunks = kD / kPer;
+  for (int e = threadIdx.x; e < kHillTile * kChunks; e += blockDim.x) {
+    const int p = e / kChunks, c = e % kChunks;
+    const bool ok = p0 + p < n;
+    cp_async16(xs + p * kPitch + c * kPer,
+               ok ? x + static_cast<size_t>(p0 + p) * kD + c * kPer : x, ok);
+  }
+}
+
+// a = big + small: big = tf32(a) (the mantissa rounded to 10 bits,
+// nearest even, by Veltkamp's split: four fp32 operations, none fused),
+// small = a - big exactly, whose low 13 bits the tensor cores drop (a
+// truncation of small: 2^-22 of a).  a is finite and below 4e34 here.
+__device__ __forceinline__ void split_tf32(float a, unsigned& big,
+                                           unsigned& small) {
+  const float t = __fmul_rn(a, 8193.0f);  // 2^13 + 1
+  const float hi = __fsub_rn(t, __fsub_rn(t, a));
+  big = __float_as_uint(hi);
+  small = __float_as_uint(__fsub_rn(a, hi));
+}
+
+// d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 8 tf32 from
+// registers, the m16n8k8 A layout per warp) * b (8 x 64 tf32, K-major in
+// shared memory, described by desc).  Asynchronous: see wgmma_commit and
+// wgmma_wait.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait for every committed wgmma of this warpgroup.
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The compiler does not see that a wgmma reads and writes its registers
+// after it issues: pinning them here, after wgmma_wait, keeps them from
+// being read early or reused while the wgmma runs.
+__device__ __forceinline__ void pin_registers(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void pin_registers(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void pin_registers(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin_registers(r[i]);
+}
+
+// The descriptor of a K-major operand in shared memory without swizzle:
+// core matrices lbo bytes apart along K and sbo bytes apart along M/N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo) {
+  return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3FFFu) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// The whole block: pixels [64h, 64h + 64) of the landed raw tile xs
+// [kHillTile][kF32Pitch] -> big and small copies in the two layouts of
+// `buf` (4 x kHalfWords words):
+//   first  [dim / 4][pixel / 8] core matrices, row = pixel % 8;
+//   second [pixel / 4][dim / 8] core matrices, row = dim % 8, pixels of
+//          each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7.
+// The core matrices neighbouring along N (pixels, then dims) are adjacent.
+// In each pass 8 neighbouring threads read and write 8 distinct 16-byte
+// bank groups.
+__device__ __forceinline__ void split_half(const float* xs, int h,
+                                           unsigned* buf) {
+  uint4* pb = reinterpret_cast<uint4*>(buf);     // [pixel][dim], big
+  uint4* ps = pb + kHalfWords / 4;               // [pixel][dim], small
+  uint4* qb = ps + kHalfWords / 4;               // [dim][pixel], big
+  uint4* qs = qb + kHalfWords / 4;               // [dim][pixel], small
+  xs += kHalfTile * h * kF32Pitch;
+  for (int e = threadIdx.x; e < kHalfTile * kD / 4; e += blockDim.x) {
+    const int r = e % 8, kq = (e / 8) % (kD / 4), c = e / (2 * kD);
+    const float4 v =
+        reinterpret_cast<const float4*>(xs + (8 * c + r) * kF32Pitch)[kq];
+    uint4 b, s;
+    split_tf32(v.x, b.x, s.x);
+    split_tf32(v.y, b.y, s.y);
+    split_tf32(v.z, b.z, s.z);
+    split_tf32(v.w, b.w, s.w);
+    const int o = (kq * (kHalfTile / 8) + c) * 8 + r;
+    pb[o] = b;
+    ps[o] = s;
+  }
+  for (int e = threadIdx.x; e < kHalfTile * kD / 4; e += blockDim.x) {
+    const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
+    const float* col = xs + (8 * c + par) * kF32Pitch + n;
+    uint4 b, s;
+    split_tf32(col[0], b.x, s.x);
+    split_tf32(col[2 * kF32Pitch], b.y, s.y);
+    split_tf32(col[4 * kF32Pitch], b.z, s.z);
+    split_tf32(col[6 * kF32Pitch], b.w, s.w);
+    const int o = ((2 * c + par) * (kD / 8) + n / 8) * 8 + n % 8;
+    qb[o] = b;
+    qs[o] = s;
+  }
+}
+
+// One warp's state and per-tile work, bfloat16 X.
+struct HillBF16 {
+  unsigned za[4][4];  // A fragments of bf16(Z), per k-chunk of 16
+
+  // Every thread of the block stages z into zs (bf16, as many rows as a
+  // half has warps), then each warp loads its fragments; the caller's
+  // barrier has freed zs.
+  __device__ __forceinline__ void load_seeds(const float* z, int m, int r0,
+                                             int lane, __nv_bfloat16* zs) {
+    const int rows = blockDim.x / 4;  // 16 rows per warp of a half
+    for (int e = threadIdx.x; e < rows * kD; e += blockDim.x) {
+      const int s = e / kD, j = e % kD;
+      zs[s * kMmaPitch + j] =
+          __float2bfloat16_rn(s < m ? __ldcg(&z[s * kD + j]) : 0.0f);
+    }
     __syncthreads();
-    if (!active) continue;
-    float s[8][4];
-    mma_similarity(za, xs, lane, s);
+    load_seed_fragments(zs, r0, lane, za);
+  }
 
+  __device__ __forceinline__ void tile(const __nv_bfloat16* xs, int half,
+                                       int lane, float kappa,
+                                       float (&acc)[8][4]) const {
+    static_assert(kHalfTile == kTileN, "a half tile is one S block");
+    const int quad = lane >> 3;
+    const __nv_bfloat16* xh = xs + half * kHalfTile * kMmaPitch;
+    float s[8][4];
+    mma_similarity(za, xh, lane, s);
     // W = bf16(exp(kappa S)), laid out as the A operand over pixel chunks
+    // of 16 (the m16n8 accumulator layout is the m16k16 operand layout)
     unsigned wa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wa[kk][0] = pack_bf16(expf(kappa * s[2 * kk][0]), expf(kappa * s[2 * kk][1]));
-      wa[kk][1] = pack_bf16(expf(kappa * s[2 * kk][2]), expf(kappa * s[2 * kk][3]));
+      wa[kk][0] = pack_bf16(expf(kappa * s[2 * kk][0]),
+                            expf(kappa * s[2 * kk][1]));
+      wa[kk][1] = pack_bf16(expf(kappa * s[2 * kk][2]),
+                            expf(kappa * s[2 * kk][3]));
       wa[kk][2] = pack_bf16(expf(kappa * s[2 * kk + 1][0]),
                             expf(kappa * s[2 * kk + 1][1]));
       wa[kk][3] = pack_bf16(expf(kappa * s[2 * kk + 1][2]),
                             expf(kappa * s[2 * kk + 1][3]));
     }
-
-    // acc (16 seeds x 64 dims) += W X_tile; padded pixels have x = 0, and
-    // X is read transposed as [d][pixel]
+    // acc += W X_tile, X read transposed as [d][pixel]
 #pragma unroll
     for (int t = 0; t < 8; t += 2)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         unsigned b[4];
-        ldmatrix_x4_trans(b, &xs[(16 * kk + (lane & 7) + (quad & 1) * 8) * kMmaPitch +
-                                 8 * t + (quad >> 1) * 8]);
+        ldmatrix_x4_trans(
+            b, &xh[(16 * kk + (lane & 7) + (quad & 1) * 8) * kMmaPitch +
+                   8 * t + (quad >> 1) * 8]);
         mma_bf16(acc[t], wa[kk], b[0], b[1]);
         mma_bf16(acc[t + 1], wa[kk], b[2], b[3]);
       }
   }
+};
 
-  if (!active) return;
-  float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
+// Seed row r of the next Z: the block sums partial[0..grid)[r] in block
+// order, then z[r] = v / max(||v||, 1e-12).
+__device__ __forceinline__ void reduce_row(const float* partial, int m, int r,
+                                           float* red, float* z) {
+  const int ng = max(1, static_cast<int>(blockDim.x) / kD);  // <= 16 groups
+  for (int e = threadIdx.x; e < kD * ng; e += blockDim.x) {
+    const int dim = e % kD, q = e / kD;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int b = q; b < static_cast<int>(gridDim.x); b += ng)
+      acc += __ldcg(&partial[(static_cast<size_t>(b) * m + r) * kD + dim]);
+    red[q * kD + dim] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float v[2] = {0.0f, 0.0f}, ss = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      for (int q = 0; q < ng; ++q) v[h] += red[q * kD + lane + 32 * h];
+      ss = fmaf(v[h], v[h], ss);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xFFFFFFFFu, ss, off);
+    const float den = fmaxf(sqrtf(ss), 1e-12f);
+    z[r * kD + lane] = v[0] / den;
+    z[r * kD + lane + 32] = v[1] / den;
+  }
+  __syncthreads();  // red is free again
+}
+
+// acc (the m16n8 accumulators of eight 8-column tiles, rows [r0, r0 + 16))
+// plus, when given, the same rows of `other` ([rows][64]) -> rows < m of
+// `out` [m][64].
+__device__ __forceinline__ void store_rows(const float (&acc)[8][4], int r0,
+                                           int m, const float* other,
+                                           float* out) {
+  const int lane = threadIdx.x % 32;
   const int row = r0 + lane / 4, col = 2 * (lane % 4);
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    if (row < m) {
-      out[row * kD + 8 * t + col] = acc[t][0];
-      out[row * kD + 8 * t + col + 1] = acc[t][1];
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = row + (q >> 1) * 8, c = 8 * t + col + (q & 1);
+      if (r < m)
+        out[r * kD + c] = acc[t][q] + (other ? other[r * kD + c] : 0.0f);
     }
-    if (row + 8 < m) {
-      out[(row + 8) * kD + 8 * t + col] = acc[t][2];
-      out[(row + 8) * kD + 8 * t + col + 1] = acc[t][3];
-    }
-  }
 }
 
-// One block per seed row: sum the per-block partials in a fixed order, then
-// z = v / max(||v||, 1e-12).  256 threads = 8 groups of 32 lanes; lane l
-// covers dims l and l + 32.
-__global__ void __launch_bounds__(kThreads)
-hill_reduce(const float* __restrict__ partial, int num_partials, int m,
-            float* __restrict__ z) {
-  __shared__ float red[8][kD];
-  const int s = blockIdx.x, g = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[2] = {0.0f, 0.0f};
-  for (int b = g; b < num_partials; b += 8) {
-    const float* row = partial + (static_cast<size_t>(b) * m + s) * kD;
-    acc[0] += row[lane];
-    acc[1] += row[lane + 32];
-  }
-  red[g][lane] = acc[0];
-  red[g][lane + 32] = acc[1];
-  __syncthreads();
-  if (g != 0) return;
-  float v[2] = {0.0f, 0.0f}, ss = 0.0f;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    for (int gg = 0; gg < 8; ++gg) v[q] += red[gg][lane + 32 * q];
-    ss = fmaf(v[q], v[q], ss);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xFFFFFFFFu, ss, off);
-  const float den = fmaxf(sqrtf(ss), 1e-12f);
-  z[s * kD + lane] = v[0] / den;
-  z[s * kD + lane + 32] = v[1] / den;
+// Every partial is written: sum them into the next Z (two grid barriers).
+__device__ __forceinline__ void next_seeds(const float* partial, int m,
+                                           float* red, float* z,
+                                           unsigned* arrived,
+                                           unsigned& barriers) {
+  uoc::grid_barrier(arrived, ++barriers);  // every partial is written
+  for (int r = blockIdx.x; r < m; r += gridDim.x)
+    reduce_row(partial, m, r, red, z);
+  uoc::grid_barrier(arrived, ++barriers);  // the new Z is written
 }
+
+// This block's tiles are blockIdx.x + k * gridDim.x, k < tiles_of_block();
+// the q-th load of the launch (q = it * mine + k) goes to ring stage
+// q % stages.
+__device__ __forceinline__ int tiles_of_block(int n) {
+  const int num_tiles = (n + kHillTile - 1) / kHillTile;
+  return (num_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) /
+         gridDim.x;
+}
+
+template <typename T, int kPitch, int kRing>
+__device__ __forceinline__ void issue_load(const T* x, int n, int q, int mine,
+                                           int total, T* ring) {
+  if (q < total)
+    issue_tile<T, kPitch>(
+        x, n,
+        (static_cast<int>(blockIdx.x) + (q % mine) * gridDim.x) * kHillTile,
+        ring + (q % kRing) * kHillTile * kPitch);
+  cp_async_commit();
+}
+
+// x: [n, 64] rows 16-byte aligned; z: [m, 64] float32, holding Z0 on entry
+// and the result on exit; partial: [gridDim.x, m, 64] scratch; arrived: a
+// zeroed counter for the grid barriers.  blockDim.x = 128 * ceil(m / 64).
+// Shared memory: the ring of raw tiles, the split copies of a tile's two
+// halves, the reduction scratch.
+__global__ void __launch_bounds__(256, 1)
+hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
+                 int max_iters, float* __restrict__ partial,
+                 unsigned* __restrict__ arrived, float* __restrict__ z) {
+  constexpr int kRawElems = kHillTile * kF32Pitch;
+  extern __shared__ __align__(128) float tf32_smem[];
+  float* ring = tf32_smem;
+  unsigned* split = reinterpret_cast<unsigned*>(ring + kTf32Stages * kRawElems);
+  float* red = reinterpret_cast<float*>(split + 8 * kHalfWords);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // rows of this warp: warpgroup warp / 4
+  const int mine = tiles_of_block(n);
+  const int total = max_iters * mine;
+  unsigned barriers = 0;
+
+  issue_load<float, kF32Pitch, kTf32Stages>(x, n, 0, mine, total, ring);
+  for (int it = 0; it < max_iters; ++it) {
+    // split A fragments of Z rows [r0, r0 + 16), per k-chunk of 8
+    unsigned zb[8][4], zs[8][4];
+    {
+      const int lo = r0 + g, hi = r0 + g + 8;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int c = 8 * kk + t;
+        const float a[4] = {lo < m ? __ldcg(&z[lo * kD + c]) : 0.0f,
+                            hi < m ? __ldcg(&z[hi * kD + c]) : 0.0f,
+                            lo < m ? __ldcg(&z[lo * kD + c + 4]) : 0.0f,
+                            hi < m ? __ldcg(&z[hi * kD + c + 4]) : 0.0f};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(a[q], zb[kk][q], zs[kk][q]);
+      }
+    }
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+    for (int k = 0; k < mine; ++k) {
+      const int q = it * mine + k;
+      cp_async_wait<0>();  // load q has landed
+      __syncthreads();     // ... for every thread; tile q-1 is done with
+      issue_load<float, kF32Pitch, kTf32Stages>(x, n, q + 1, mine, total,
+                                                ring);
+      const float* xs = ring + (q % kTf32Stages) * kRawElems;
+      split_half(xs, 0, split);
+      split_half(xs, 1, split + 4 * kHalfWords);
+      // the split copies are read by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const unsigned* pb = split + 4 * h * kHalfWords;  // [pixel][dim] big
+        const unsigned* ps = pb + kHalfWords;          // [pixel][dim] small
+        const unsigned* qb = pb + 2 * kHalfWords;      // [dim][pixel] big
+        const unsigned* qs = pb + 3 * kHalfWords;      // [dim][pixel] small
+        // S (64 seeds x 64 pixels) = Z X_h^T: K = dims, 8 per wgmma
+        float s[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int o = 2 * kk * (kHalfTile / 8) * (kCore / 4);
+          const uint64_t db = smem_desc(pb + o, (kHalfTile / 8) * kCore, kCore);
+          const uint64_t ds = smem_desc(ps + o, (kHalfTile / 8) * kCore, kCore);
+          wgmma_tf32(s, zs[kk], db);
+          wgmma_tf32(s, zb[kk], ds);
+          wgmma_tf32(s, zb[kk], db);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        pin_registers(s);
+        // W as the A operand over pixel chunks of 8: accumulator order
+        // (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> operand order
+        // (g, k t), (g+8, t), (g, t+4), (g+8, t+4)
+        unsigned wb[8][4], ws[8][4];
+#pragma unroll
+        for (int kc = 0; kc < 8; ++kc)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
+                       wb[kc][i], ws[kc][i]);
+        // acc (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 8; ++kc) {
+          const int o = 2 * kc * (kD / 8) * (kCore / 4);
+          const uint64_t db = smem_desc(qb + o, (kD / 8) * kCore, kCore);
+          const uint64_t ds = smem_desc(qs + o, (kD / 8) * kCore, kCore);
+          wgmma_tf32(acc, ws[kc], db);
+          wgmma_tf32(acc, wb[kc], ds);
+          wgmma_tf32(acc, wb[kc], db);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        pin_registers(acc);
+        pin_registers(wb);
+        pin_registers(ws);
+      }
+    }
+
+    float rows[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) rows[i / 4][i % 4] = acc[i];
+    store_rows(rows, r0, m, nullptr,
+               partial + static_cast<size_t>(blockIdx.x) * m * kD);
+    next_seeds(partial, m, red, z, arrived, barriers);
+  }
+  cp_async_wait<0>();
+}
+
+// As hill_tf32_kernel, for bf16 X on mma.sync; blockDim.x = 64 *
+// ceil(m / 16).  Shared memory: the ring of tiles, the second half's sums
+// [16 * groups][64], the reduction scratch, bf16(Z) [16 * groups][72].
+__global__ void __launch_bounds__(kBF16Threads, 1)
+hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
+                 float kappa, int max_iters, float* __restrict__ partial,
+                 unsigned* __restrict__ arrived, float* __restrict__ z) {
+  constexpr int kStageElems = kHillTile * kMmaPitch;
+  extern __shared__ __align__(16) float bf16_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(bf16_smem);
+  float* other = bf16_smem + kStages * kStageElems / 2;
+  const int groups = blockDim.x / 64;
+  float* red = other + 16 * groups * kD;
+  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(red + kRedFloats);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp / groups;
+  const int r0 = 16 * (warp % groups);
+  const int mine = tiles_of_block(n);
+  const int total = max_iters * mine;
+  unsigned barriers = 0;
+
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q)
+    issue_load<__nv_bfloat16, kMmaPitch, kStages>(x, n, q, mine, total, ring);
+  for (int it = 0; it < max_iters; ++it) {
+    HillBF16 w;
+    w.load_seeds(z, m, r0, lane, zs);
+    float acc[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[t][q] = 0.0f;
+
+    for (int k = 0; k < mine; ++k) {
+      const int q = it * mine + k;
+      cp_async_wait<kStages - 2>();  // load q has landed
+      __syncthreads();  // ... for every thread; tile q-1 is done with
+      issue_load<__nv_bfloat16, kMmaPitch, kStages>(x, n, q + kStages - 1,
+                                                    mine, total, ring);
+      w.tile(ring + (q % kStages) * kStageElems, half, lane, kappa, acc);
+    }
+
+    // the two halves' sums, added in a fixed order, are the block's partial
+    if (half == 1) store_rows(acc, r0, 16 * groups, nullptr, other);
+    __syncthreads();
+    if (half == 0)
+      store_rows(acc, r0, m, other,
+                 partial + static_cast<size_t>(blockIdx.x) * m * kD);
+    next_seeds(partial, m, red, z, arrived, barriers);
+  }
+  cp_async_wait<0>();
+}
+
+size_t hill_tf32_smem_bytes() {
+  return sizeof(float) * kTf32Stages * kHillTile * kF32Pitch +
+         sizeof(unsigned) * 8 * kHalfWords + sizeof(float) * kRedFloats;
+}
+
+size_t hill_bf16_smem_bytes(int groups) {
+  return sizeof(__nv_bfloat16) * kStages * kHillTile * kMmaPitch +
+         sizeof(float) * 16 * groups * kD + sizeof(float) * kRedFloats +
+         sizeof(__nv_bfloat16) * 16 * groups * kMmaPitch;
+}
+
+// The launch shape: ceil(m/64) warpgroups per block (float32) or two
+// halves of ceil(m/16) warps (bfloat16), as many blocks as can be resident
+// at once (at most one per X tile).
+struct HillPlan {
+  int grid, per_sm, threads;
+  size_t smem;
+};
+
+cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (dtype == uoc::kBF16) {
+    const int groups = (m + 15) / 16;
+    p->threads = 64 * groups;
+    p->smem = hill_bf16_smem_bytes(groups);
+    err = uoc::blocks_per_sm<hill_bf16_kernel>(
+        dev, p->threads, p->smem, hill_bf16_smem_bytes(kMaxSeeds / 16),
+        &p->per_sm);
+  } else {
+    p->threads = 128 * ((m + 63) / 64);
+    p->smem = hill_tf32_smem_bytes();
+    err = uoc::blocks_per_sm<hill_tf32_kernel>(dev, p->threads, p->smem,
+                                               p->smem, &p->per_sm);
+  }
+  if (err != cudaSuccess) return err;
+  const int num_tiles = (n + kHillTile - 1) / kHillTile;
+  p->grid = std::max(1, std::min(p->per_sm * sms, num_tiles));
+  return cudaSuccess;
+}
+
 
 // ---------------------------------------------------------------------------
 // Connected components over the m converged seeds (reference
@@ -574,34 +961,57 @@ bool misaligned(const void* p) {
 
 }  // namespace
 
-// x: [n, 64] row-major float32 or bfloat16 (bf16 rows 16-byte aligned); z0:
-// [m, 64] float32; partial: [grid, m, 64] float32 scratch; z: [m, 64]
-// float32 out.  m <= 128.
+// The launch configuration uoc_hill_climb uses for n pixels and m seeds:
+// out = [grid, blocks per SM, threads per block, dynamic shared bytes,
+// bytes of X held on chip per block].
+extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, long long* out) {
+  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  HillPlan p;
+  const cudaError_t err = plan_hill_for(dtype, n, m, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = p.grid;
+  out[1] = p.per_sm;
+  out[2] = p.threads;
+  out[3] = static_cast<long long>(p.smem);
+  // the ring of raw tiles, and for float32 the tile's four split copies
+  out[4] = dtype == uoc::kBF16 ? 2LL * kStages * kHillTile * kD
+                               : 4LL * (kTf32Stages + 4) * kHillTile * kD;
+  return 0;
+}
+
+// x: [n, 64] row-major float32 or bfloat16, rows 16-byte aligned; z0:
+// [m, 64] float32; partial: [grid, m, 64] float32 scratch with the grid of
+// uoc_hill_climb_plan; arrived: one uint32 scratch (the grid barrier's
+// counter, zero-filled here); z: [m, 64] float32 out.
+// m <= 128.  One cooperative launch on `stream` runs all iterations; a
+// grid that cannot be resident at once is refused by the launch.
 extern "C" int uoc_hill_climb(const void* x, int dtype, int n,
                               const float* z0, int m, float kappa,
-                              int max_iters, float* partial, int grid,
+                              int max_iters, float* partial, unsigned* arrived,
                               float* z, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = dtype == uoc::kBF16;
-  if (m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16 && misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = allow_smem(hill_partial, kF32Bytes);
+  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  HillPlan p;
+  cudaError_t err = plan_hill_for(dtype, n, m, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   err = cudaMemcpyAsync(z, z0, sizeof(float) * m * kD,
                         cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int it = 0; it < max_iters; ++it) {
-    if (bf16)
-      hill_partial_mma<<<grid, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), n, z, m, kappa, partial);
-    else
-      hill_partial<<<grid, kThreads, kF32Bytes, s>>>(
-          static_cast<const float*>(x), n, z, m, kappa, partial);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    hill_reduce<<<m, kThreads, 0, s>>>(partial, grid, m, z);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+  if ((err = cudaMemsetAsync(arrived, 0, sizeof(*arrived), s)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (dtype == uoc::kBF16)
+    err = uoc::launch_cooperative(
+        hill_bf16_kernel, p.grid, p.threads, p.smem, s,
+        static_cast<const __nv_bfloat16*>(x), n, m, kappa, max_iters, partial,
+        arrived, z);
+  else
+    err = uoc::launch_cooperative(hill_tf32_kernel, p.grid, p.threads, p.smem,
+                                  s, static_cast<const float*>(x), n, m, kappa,
+                                  max_iters, partial, arrived, z);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // z: [m, 64] float32; labels: [m] int32 out.  m <= 128.

@@ -9,28 +9,40 @@
 // the running min_dist_i, and the next seed is argmax_i min_dist_i, lowest
 // index on a tie.
 //
-// Bound on the H100: every step must read all of X once more, because X at
-// the parity shape ([307200, 64] fp32, 78.6 MB) does not fit the 50 MB L2;
-// 99 steps of that are HBM-bound.  At the fast shape ([38400, 64] bf16,
-// 4.9 MB) X stays in L2 and the per-step launch and grid-wide argmax
-// dominate.
+// Bound on the H100: one read of X and 2*(m-1)*n*d flops.  What costs is
+// the m-1 sequential steps: X at the parity shape ([307200, 64] fp32,
+// 78.6 MB) does not fit the 50 MB L2, so a kernel that reads X anew at
+// every step is bound by HBM, and one launch per step is bound by launches
+// at the fast shape ([38400, 64] bf16, 4.9 MB).
 //
-// Design: one launch per step (chosen over a cooperative kernel with a
-// grid sync per step: simpler, and the launch cost is small next to an
-// HBM pass at the parity shape).  X arrives transposed as [d, n] so the
-// threads of a warp read neighbouring pixels: coalesced loads, and each
-// thread's dot is a plain sequential FMA chain in exact fp32 (bf16 inputs
-// widen exactly; no tensor cores, so no TF32 truncation).  min_dist lives
-// in device memory.  The argmax packs (order-preserving float bits, ~index)
-// into one 64-bit key: a warp/block max, then one atomicMax per block into
-// keys[s + 1], which the next launch reads back as its new seed.
+// Design: one persistent cooperative launch (every block resident), one
+// grid-wide barrier per step.  Block b owns the pixels [b*len, b*len+len)
+// for all m-1 steps and holds as much of their X on chip as fits: the first
+// kThreads pixels in registers (one pixel's 64 values per thread, widened
+// to fp32), the next ones in shared memory (as [64][S], so the threads of a
+// warp read neighbouring words), and only the rest is read again each step,
+// from L2.  min_dist never leaves the chip (a register, or shared memory).
+// X arrives as rows (a strided view such as x[::8] is read in place); at
+// start-up each block transposes the pixels it re-reads into a [64, *]
+// scratch in device memory, so that the re-reads coalesce.  Each dot is the same sequential fp32 FMA chain over j = 0..63
+// as the plain version's reference arithmetic (bf16 widens exactly; no
+// tensor cores, so no TF32 truncation).  The argmax packs (order-preserving
+// float bits, ~index) into one 64-bit key: a warp/block max, then one
+// atomicMax per block into keys[s + 1] before the barrier; every block
+// reads the winner after it.
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kD = 64;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;  // pixels per step of the start-up transpose
+constexpr size_t kFixedBytes = kD * sizeof(float) + kWarps * sizeof(uint64_t);
 
 __device__ __forceinline__ unsigned int ordered_bits(float f) {
   const unsigned int u = __float_as_uint(f);
@@ -55,74 +67,223 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-seed_step(const T* __restrict__ xt, int n, int d, int step, int first,
-          float* __restrict__ min_dist, unsigned long long* __restrict__ keys) {
-  extern __shared__ float v[];  // [d] newest seed, widened to fp32
-  __shared__ unsigned long long warp_best[kThreads / 32];
-
-  const int sel = step == 0 ? first : key_index(keys[step]);
-  for (int j = threadIdx.x; j < d; j += blockDim.x)
-    v[j] = uoc::to_f32(xt[static_cast<size_t>(j) * n + sel]);
-  __syncthreads();
-
-  unsigned long long best = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    // unrolled so that many independent loads are in flight per thread:
-    // the step is bound by HBM, not by the FMA chain
-    float acc = 0.0f;
-#pragma unroll 16
-    for (int j = 0; j < d; ++j)
-      acc = fmaf(uoc::to_f32(xt[static_cast<size_t>(j) * n + i]), v[j], acc);
-    const float dist = 0.5f * (1.0f - acc);
-    const float md = step == 0 ? dist : fminf(min_dist[i], dist);
-    min_dist[i] = md;
-    const unsigned long long key = pack_key(md, i);
-    best = key > best ? key : best;
-  }
-
-  best = warp_max(best);
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    best = threadIdx.x < kThreads / 32 ? warp_best[threadIdx.x] : 0ull;
-    best = warp_max(best);
-    if (threadIdx.x == 0 && best != 0ull) atomicMax(&keys[step + 1], best);
-  }
+__host__ __device__ __forceinline__ size_t align16(size_t b) {
+  return (b + 15) & ~static_cast<size_t>(15);
 }
 
-__global__ void decode_seeds(const unsigned long long* __restrict__ keys,
-                             int num_seeds, int first, int* __restrict__ idx) {
-  for (int k = threadIdx.x; k < num_seeds; k += blockDim.x)
-    idx[k] = k == 0 ? first : key_index(keys[k]);
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
+                    int smem_px, int str_px, int num_seeds, int first,
+                    unsigned long long* __restrict__ keys,
+                    unsigned* __restrict__ arrived, int* __restrict__ idx,
+                    T* __restrict__ xs_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* v = reinterpret_cast<float*>(smem);  // [64] newest seed, fp32
+  unsigned long long* warp_best =
+      reinterpret_cast<unsigned long long*>(smem + kD * sizeof(float));
+  float* smd = reinterpret_cast<float*>(smem + kFixedBytes);  // min_dist
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * len;
+  const int count = max(0, min(n - p0, len));
+  const int reg_px = min(kThreads, count);
+  const int rest = count - reg_px;  // pixels past the register ones
+  const int s_px = min(smem_px, rest);
+  // [64][smem_px] X values of pixels p0 + reg_px + [0, s_px)
+  T* sx = reinterpret_cast<T*>(
+      smem + kFixedBytes + align16(sizeof(float) * max(0, len - kThreads)));
+  // the pixels past those, re-read every step: [64][gridDim.x * str_px]
+  // in device memory, this block's str_px columns from column c0
+  const size_t spitch = static_cast<size_t>(gridDim.x) * str_px;
+  const size_t c0 = static_cast<size_t>(blockIdx.x) * str_px;
+  auto row = [&](int p) { return x + static_cast<size_t>(p) * ld; };
+
+  // transpose the re-read pixels through shared memory (sx is free yet)
+  T* tile = sx;  // [kTile][kD + 1]
+  for (int q0 = s_px; q0 < rest; q0 += kTile) {
+    const int cnt = min(kTile, rest - q0);
+    for (int e = tid; e < cnt * kD; e += kThreads)
+      tile[(e / kD) * (kD + 1) + e % kD] = row(p0 + reg_px + q0 + e / kD)[e % kD];
+    __syncthreads();
+    for (int e = tid; e < cnt * kD; e += kThreads) {
+      const int j = e / cnt, q = e % cnt;
+      xs_t[j * spitch + c0 + q0 - s_px + q] = tile[q * (kD + 1) + j];
+    }
+    __syncthreads();
+  }
+  float xr[kD];
+  if (tid < reg_px) {
+#pragma unroll
+    for (int j = 0; j < kD; ++j) xr[j] = uoc::to_f32(row(p0 + tid)[j]);
+  }
+#pragma unroll 8
+  for (int e = tid; e < s_px * kD; e += kThreads)
+    sx[(e % kD) * smem_px + e / kD] = row(p0 + reg_px + e / kD)[e % kD];
+  __syncthreads();
+  float md_r = 0.0f;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+
+  for (int step = 0; step + 1 < num_seeds; ++step) {
+    const int sel = step == 0 ? first : key_index(__ldcg(&keys[step]));
+    if (tid < kD) v[tid] = uoc::to_f32(row(sel)[tid]);
+    __syncthreads();
+
+    unsigned long long best = 0;
+    if (tid < reg_px) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j4 = 0; j4 < kD / 4; ++j4) {
+        const float4 w = v4[j4];
+        acc = fmaf(xr[4 * j4], w.x, acc);
+        acc = fmaf(xr[4 * j4 + 1], w.y, acc);
+        acc = fmaf(xr[4 * j4 + 2], w.z, acc);
+        acc = fmaf(xr[4 * j4 + 3], w.w, acc);
+      }
+      const float dist = 0.5f * (1.0f - acc);
+      md_r = step == 0 ? dist : fminf(md_r, dist);
+      best = pack_key(md_r, p0 + tid);
+    }
+    for (int q = tid; q < s_px; q += kThreads) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j4 = 0; j4 < kD / 4; ++j4) {
+        const float4 w = v4[j4];
+        acc = fmaf(uoc::to_f32(sx[(4 * j4) * smem_px + q]), w.x, acc);
+        acc = fmaf(uoc::to_f32(sx[(4 * j4 + 1) * smem_px + q]), w.y, acc);
+        acc = fmaf(uoc::to_f32(sx[(4 * j4 + 2) * smem_px + q]), w.z, acc);
+        acc = fmaf(uoc::to_f32(sx[(4 * j4 + 3) * smem_px + q]), w.w, acc);
+      }
+      const float dist = 0.5f * (1.0f - acc);
+      const float md = step == 0 ? dist : fminf(smd[q], dist);
+      smd[q] = md;
+      const unsigned long long key = pack_key(md, p0 + reg_px + q);
+      best = key > best ? key : best;
+    }
+    for (int q = s_px + tid; q < rest; q += kThreads) {
+      const int i = p0 + reg_px + q;
+      const T* col = xs_t + c0 + q - s_px;
+      // unrolled so that many independent L2 loads are in flight
+      float acc = 0.0f;
+#pragma unroll 16
+      for (int j = 0; j < kD; ++j)
+        acc = fmaf(uoc::to_f32(col[j * spitch]), v[j], acc);
+      const float dist = 0.5f * (1.0f - acc);
+      const float md = step == 0 ? dist : fminf(smd[q], dist);
+      smd[q] = md;
+      const unsigned long long key = pack_key(md, i);
+      best = key > best ? key : best;
+    }
+
+    best = warp_max(best);
+    if ((tid & 31) == 0) warp_best[tid >> 5] = best;
+    __syncthreads();
+    if (tid < 32) {
+      best = tid < kWarps ? warp_best[tid] : 0ull;
+      best = warp_max(best);
+      if (tid == 0 && best != 0ull) atomicMax(&keys[step + 1], best);
+    }
+    uoc::grid_barrier(arrived, step + 1);
+  }
+
+  if (blockIdx.x == 0)
+    for (int k = tid; k < num_seeds; k += kThreads)
+      idx[k] = k == 0 ? first : key_index(__ldcg(&keys[k]));
+}
+
+// The launch shape for n pixels: one block of kThreads per SM (fewer when
+// n is small), `len` pixels per block, `smem_px` of them in shared memory.
+struct SeedPlan {
+  int grid, per_sm, len, smem_px, str_px;
+  size_t smem;
+};
+
+template <typename T>
+cudaError_t plan_seeds(int n, SeedPlan* p) {
+  int dev, sms, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  p->grid = std::max(1, std::min(sms, (n + kThreads - 1) / kThreads));
+  p->len = (n + p->grid - 1) / p->grid;
+  const int rest = std::max(0, p->len - kThreads);
+  const size_t base = kFixedBytes + align16(sizeof(float) * rest);
+  // min_dist of the pixels past the register ones must fit on chip
+  if (base > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  p->smem_px =
+      std::min(rest, static_cast<int>((optin - base) / (kD * sizeof(T))));
+  p->str_px = rest - p->smem_px;
+  // the start-up transpose stages kTile pixels in the shared-memory slice
+  if (p->str_px > 0 && p->smem_px * kD < kTile * (kD + 1))
+    return cudaErrorInvalidValue;
+  p->smem = base + sizeof(T) * kD * p->smem_px;
+  return uoc::blocks_per_sm<select_seeds_kernel<T>>(dev, kThreads, p->smem,
+                                                    optin, &p->per_sm);
+}
+
+cudaError_t plan_for(int dtype, int n, SeedPlan* p) {
+  return dtype == uoc::kF32 ? plan_seeds<float>(n, p)
+                            : plan_seeds<__nv_bfloat16>(n, p);
 }
 
 }  // namespace
 
-// xt: [d, n] (float32 or bfloat16, contiguous); min_dist: [n] float32
-// scratch; keys: [num_seeds] uint64, zero-filled by the caller; idx: [num_seeds]
-// int32 out.  Launches num_seeds - 1 step kernels and one decode kernel on
-// `stream`.  Returns the first CUDA error (0 on success).
-extern "C" int uoc_select_seeds(const void* xt, int dtype, int n, int d,
-                                int num_seeds, int first, float* min_dist,
-                                unsigned long long* keys, int* idx, int grid,
-                                void* stream) {
+// The launch configuration uoc_select_seeds uses for n pixels of width 64:
+// out = [grid, blocks per SM, threads per block, dynamic shared bytes,
+// bytes of X held on chip by the fullest block, pixels per block, pixels
+// per block re-read every step].
+extern "C" int uoc_select_seeds_plan(int dtype, int n, long long* out) {
+  SeedPlan p;
+  const cudaError_t err = plan_for(dtype, n, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int esize = dtype == uoc::kF32 ? 4 : 2;
+  out[0] = p.grid;
+  out[1] = p.per_sm;
+  out[2] = kThreads;
+  out[3] = static_cast<long long>(p.smem);
+  out[4] = static_cast<long long>(std::min(p.len, kThreads)) * kD * 4 +
+           static_cast<long long>(p.smem_px) * kD * esize;
+  out[5] = p.len;
+  out[6] = p.str_px;
+  return 0;
+}
+
+// x: [n, 64] rows (float32 or bfloat16, unit stride along a row) ld
+// elements apart; keys: [num_seeds + 1] uint64 scratch (the argmax keys,
+// then the grid barrier's counter), zero-filled here; idx: [num_seeds]
+// int32 out; xs_t: scratch of 64 * grid * (re-read pixels per block)
+// elements of x's type, from uoc_select_seeds_plan.  One cooperative
+// launch on `stream`.  Returns the first CUDA error (0 on success); a grid
+// that cannot be resident at once is refused by the launch.
+extern "C" int uoc_select_seeds(const void* x, int dtype, int n, long long ld,
+                                int num_seeds, int first,
+                                unsigned long long* keys, int* idx,
+                                void* xs_t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  for (int step = 0; step + 1 < num_seeds; ++step) {
-    if (dtype == uoc::kF32)
-      seed_step<float><<<grid, kThreads, smem, s>>>(
-          static_cast<const float*>(xt), n, d, step, first, min_dist, keys);
-    else
-      seed_step<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
-          static_cast<const __nv_bfloat16*>(xt), n, d, step, first, min_dist,
-          keys);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  decode_seeds<<<1, 128, 0, s>>>(keys, num_seeds, first, idx);
+  SeedPlan p;
+  cudaError_t err = plan_for(dtype, n, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  unsigned* arrived = reinterpret_cast<unsigned*>(keys + num_seeds);
+  err = cudaMemsetAsync(keys, 0, sizeof(*keys) * (num_seeds + 1), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == uoc::kF32)
+    err = uoc::launch_cooperative(
+        select_seeds_kernel<float>, p.grid, kThreads, p.smem, s,
+        static_cast<const float*>(x), ld, n, p.len, p.smem_px, p.str_px,
+        num_seeds, first, keys, arrived, idx, static_cast<float*>(xs_t));
+  else
+    err = uoc::launch_cooperative(
+        select_seeds_kernel<__nv_bfloat16>, p.grid, kThreads, p.smem, s,
+        static_cast<const __nv_bfloat16*>(x), ld, n, p.len, p.smem_px,
+        p.str_px, num_seeds, first, keys, arrived, idx,
+        static_cast<__nv_bfloat16*>(xs_t));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

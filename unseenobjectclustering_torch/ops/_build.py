@@ -12,6 +12,7 @@ rebuilt and an unchanged one is reused.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,8 +34,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "uoc_select_seeds": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "uoc_hill_climb": [_P, _I, _I, _P, _I, _F, _I, _P, _I, _P, _P],
+    "uoc_select_seeds": [_P, _I, _I, ctypes.c_longlong, _I, _I, _P, _P, _P,
+                         _P],
+    "uoc_select_seeds_plan": [_I, _I, _P],
+    "uoc_hill_climb": [_P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
+    "uoc_hill_climb_plan": [_I, _I, _I, _P],
     "uoc_connected_components": [_P, _I, _F, _P, _P],
     "uoc_assign_labels": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P],
 }
@@ -119,6 +123,22 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().uoc_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def plan(device: torch.device, entry: str, *args: int,
+         names: tuple[str, ...]) -> dict[str, int]:
+    """The launch configuration that a kernel's ``*_plan`` entry gives for
+    these arguments on `device` (an int64 per name), computed once."""
+    return dict(zip(names, _plan(device.index, entry, args, len(names))))
+
+
+@functools.lru_cache(maxsize=128)
+def _plan(device: int, entry: str, args: tuple[int, ...],
+          count: int) -> tuple[int, ...]:
+    out = (ctypes.c_longlong * count)()
+    with torch.cuda.device(device):
+        check(getattr(library(), entry)(*args, ctypes.addressof(out)), entry)
+    return tuple(int(v) for v in out)
 
 
 def dtype_code(x: torch.Tensor, what: str) -> int:

@@ -3,9 +3,13 @@
 Counterpart of ``unseenobjectclustering_tpu/ops/pallas_mean_shift.py``.  The
 kernels are in ``csrc/mean_shift.cu``:
 
-  * hill_climb: per-block partial sums of exp(kappa Z X^T) X over pixel
-    tiles, then a fixed-order reduction + row normalization, per iteration;
-    the [m, n] weights never reach device memory.
+  * hill_climb: one persistent cooperative launch for all iterations;
+    one block per SM sums exp(kappa Z X^T) X over its 128-pixel tiles
+    (loaded by cp.async into a ring, products on the tensor cores: split
+    TF32 on wgmma for float32, bf16 on mma.sync for bfloat16), then a
+    fixed-order reduction of the blocks' partials + row normalization
+    behind a grid-wide barrier; the [m, n] weights never reach device
+    memory.
   * connected_components: one block, adjacency and labels in shared memory,
     the m sequential steps inside the kernel.
   * assign_labels: nearest real seed per pixel, the label gathered directly,
@@ -13,9 +17,8 @@ kernels are in ``csrc/mean_shift.cu``:
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
 on a CUDA tensor (or raises).  The kernels take m <= 128 seeds of width
-d = 64, the NUM_UNITS of every recipe in experiments/cfgs; float32 runs on
-CUDA cores and bfloat16 on the tensor cores.  The plain versions take any
-width.
+d = 64, the NUM_UNITS of every recipe in experiments/cfgs.  The plain
+versions take any width.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ def _check_shapes(what: str, m: int, d: int) -> None:
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x as contiguous rows on a 16-byte boundary (the bf16 kernels load
-    16 bytes at a time)."""
+    """x as contiguous rows on a 16-byte boundary (the hill climb and the
+    bf16 assignment load 16 bytes at a time)."""
     xc = x.contiguous()
     return xc if xc.data_ptr() % 16 == 0 else xc.clone()
 
@@ -104,15 +107,28 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
     lib = _build.library()
     xc = _rows(x)
     z0c = z0.to(torch.float32).contiguous()
-    grid = _grid(x, n)
+    grid = hill_climb_config(xc, m)["grid"]
     partial = torch.empty((grid, m, d), dtype=torch.float32, device=x.device)
+    arrived = torch.empty(1, dtype=torch.int32, device=x.device)
     z = torch.empty((m, d), dtype=torch.float32, device=x.device)
     err = lib.uoc_hill_climb(xc.data_ptr(), code, n, z0c.data_ptr(), m,
                              float(kappa), int(max_iters), partial.data_ptr(),
-                             grid, z.data_ptr(), _build.stream(x))
+                             arrived.data_ptr(), z.data_ptr(),
+                             _build.stream(x))
     _build.check(err, "hill_climb")
     hill_climb_launches += 1
     return z
+
+
+def hill_climb_config(x: torch.Tensor, m: int) -> dict[str, int]:
+    """The hill-climb kernel's launch shape for x ([n, 64] on the card) and
+    m seeds: grid, blocks per SM, threads per block, dynamic shared-memory
+    bytes, bytes of X held on chip per block (its ring of tiles, and for
+    float32 the current tile's split-TF32 copies)."""
+    return _build.plan(x.device, "uoc_hill_climb_plan",
+                       _build.dtype_code(x, "hill_climb"), x.shape[0], m,
+                       names=("grid", "blocks_per_sm", "threads",
+                              "smem_bytes", "x_on_chip_bytes"))
 
 
 # -- connected components ---------------------------------------------------

@@ -1,8 +1,11 @@
 """Farthest-point seeding: the CUDA kernel's wrapper and its plain version.
 
 Counterpart of ``unseenobjectclustering_tpu/ops/pallas_seeding.py``.  The
-kernel is ``csrc/seeding.cu`` (one launch per step, exact fp32 dots, a
-packed 64-bit atomicMax argmax with the lowest index on a tie).
+kernel is ``csrc/seeding.cu``: one persistent cooperative launch that holds
+each block's slice of X on chip for all steps, exact fp32 dots, a packed
+64-bit atomicMax argmax with the lowest index on a tie and one grid-wide
+barrier per step.  It takes width 64 (the NUM_UNITS of every recipe); the
+plain version takes any width.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops.mean_shift import select_smart_seeds
 
 launches = 0  # calls that launched the kernel
+DIM = 64
 
 
 def select_seeds_reference(x: torch.Tensor, num_seeds: int,
@@ -40,22 +44,38 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
     global launches
     code = _build.dtype_code(x, "select_seeds")
     n, d = x.shape
+    if d != DIM:
+        raise ValueError(f"select_seeds: the kernel takes width {DIM}, got {d}")
     if not 0 <= int(first_index) < n:
         raise ValueError(f"first_index {first_index} out of range [0, {n})")
     if num_seeds < 1:
         raise ValueError("num_seeds must be >= 1")
     lib = _build.library()
-    # [d, n]: neighbouring threads read neighbouring pixels; the copy also
-    # materializes a strided x[::s] view
-    xt = x.t().contiguous()
-    min_dist = torch.empty(n, dtype=torch.float32, device=x.device)
-    keys = torch.zeros(num_seeds, dtype=torch.int64, device=x.device)
+    xr = x if x.stride(1) == 1 else x.contiguous()
+    plan = launch_config(xr)
+    # the argmax keys and, after them, the grid barrier's counter
+    scratch = torch.empty(num_seeds + 1, dtype=torch.int64, device=x.device)
     idx = torch.empty(num_seeds, dtype=torch.int32, device=x.device)
-    grid = max(1, min((n + 255) // 256, 8 * _build.num_sms(x)))
-    err = lib.uoc_select_seeds(xt.data_ptr(), code, n, d, num_seeds,
-                               int(first_index), min_dist.data_ptr(),
-                               keys.data_ptr(), idx.data_ptr(), grid,
+    # the pixels each block re-reads every step, transposed to [64, *]
+    xs_t = torch.empty(
+        max(1, d * plan["grid"] * plan["reread_pixels_per_block"]),
+        dtype=x.dtype, device=x.device)
+    err = lib.uoc_select_seeds(xr.data_ptr(), code, n, xr.stride(0),
+                               num_seeds, int(first_index), scratch.data_ptr(),
+                               idx.data_ptr(), xs_t.data_ptr(),
                                _build.stream(x))
     _build.check(err, "select_seeds")
     launches += 1
     return x[idx.long()], idx
+
+
+def launch_config(x: torch.Tensor) -> dict[str, int]:
+    """The kernel's launch shape for x ([n, 64] on the card): grid, blocks
+    per SM, threads per block, dynamic shared-memory bytes, bytes of X held
+    on chip by the fullest block (registers and shared memory), pixels per
+    block, and pixels per block re-read from L2 every step."""
+    return _build.plan(x.device, "uoc_select_seeds_plan",
+                       _build.dtype_code(x, "select_seeds"), x.shape[0],
+                       names=("grid", "blocks_per_sm", "threads",
+                              "smem_bytes", "x_on_chip_bytes",
+                              "pixels_per_block", "reread_pixels_per_block"))
