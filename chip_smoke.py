@@ -10,10 +10,12 @@ Phases (any failure exits non-zero; no exception is caught):
      stage-1 shapes (n = 480*640 pixels, d = 64, m = 100 seeds), on
      clustered unit embeddings made from a numpy seed, in parity mode
      (float32, stride-1 seeding) and fast mode (bfloat16, stride-8
-     seeding); the launch configuration of the two cooperative kernels
-     (seeding, hill climb); median CUDA-event times of kernel and plain
-     version beside the bound computed from the shapes.  Then the whole
-     clustering (mean_shift_smart_init with the 0.8 depth filter) on those
+     seeding); the launch configuration of the seeding, hill-climb and
+     assignment kernels; the pixels the assignment re-checked exactly;
+     median CUDA-event times of one wrapper call and of the plain version
+     (host latency included) beside the bound computed from the shapes,
+     and each kernel's own device time from torch.profiler.  Then the whole clustering
+     (mean_shift_smart_init with the 0.8 depth filter) on those
      embeddings, kernel route against plain route, timed.
   3. stage 1 through Segmentor.segment_sample: seg_resnet34_8s_embedding,
      RGB-D, add fusion, 64-D embeddings, 480x640, weights from a fixed-seed
@@ -24,7 +26,7 @@ Phases (any failure exits non-zero; no exception is caught):
      embeddings, and stage 1 on the card against stage 1 on the CPU on a
      60x90 window of the frame.
   4. one {"kernels": [...]} line: each kernel's launches in the parity and
-     in the fast run of the main path.
+     in the fast run of the main path, its times and bounds in both modes.
   5. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -40,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
 from unseenobjectclustering_torch.engine.pipeline import Segmentor
@@ -87,6 +90,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# a name that the profiler reports for each kernel's launches
+KERNEL_NAMES = {"select_seeds": "select_seeds_kernel", "hill_climb": "hill_",
+                "connected_components": "cc_kernel",
+                "assign_labels": "assign_"}
+
+
 def launch_counts() -> dict[str, int]:
     return {"select_seeds": cuda_seeding.launches,
             "hill_climb": cms.hill_climb_launches,
@@ -115,6 +124,23 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, name: str, reps: int) -> float:
+    """Device time per call of fn of the CUDA kernels whose name holds
+    `name` (torch.profiler), after one warm-up call: the kernel's own time,
+    without the host latency that time_ms includes."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if name in e.key)
+    if not us > 0:
+        raise AssertionError(f"the profiler saw no device time for {name}")
+    return us / reps / 1e3
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -168,11 +194,14 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
     first = 12345 % n_seed
     esize = x.element_size()
     out: dict[str, dict] = {}
+    calls = {}  # each kernel's wrapper call, for its timings
 
     print(f"[{mode}] select_seeds launch: "
           f"{json.dumps(cuda_seeding.launch_config(x_seed))}")
     print(f"[{mode}] hill_climb launch: "
           f"{json.dumps(cms.hill_climb_config(x, M))}")
+    print(f"[{mode}] assign_labels launch: "
+          f"{json.dumps(cms.assign_labels_config(x, M))}")
     got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
     want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
     step, gap = seed_gap(x_seed, got_i, want_i)
@@ -183,10 +212,12 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
                              f"(gap {gap:.3e})")
     ops = 2.0 * (M - 1) * n_seed * D
     nbytes = n_seed * D * esize + M * (D * esize + 4)
+    calls["select_seeds"] = lambda: cuda_seeding.select_seeds(x_seed, M,
+                                                              first)
     out["select_seeds"] = dict(
         max_abs_err=float((got_s.float() - want_s.float()).abs().max())
         if step < 0 else float(gap),
-        ms=time_ms(lambda: cuda_seeding.select_seeds(x_seed, M, first), 10),
+        ms=time_ms(calls["select_seeds"], 10),
         plain_ms=time_ms(
             lambda: cuda_seeding.select_seeds_reference(x_seed, M, first), 3),
         bound=bound(nbytes, ops, dtype),
@@ -202,10 +233,11 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
                              f"{Z_TOL[mode]}")
     ops = ITERS * 4.0 * M * N * D
     nbytes = N * D * esize + 2 * M * D * 4
+    calls["hill_climb"] = lambda: cms.hill_climb(x, z0, kappa=KAPPA,
+                                                 max_iters=ITERS)
     out["hill_climb"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: cms.hill_climb(x, z0, kappa=KAPPA,
-                                          max_iters=ITERS), 10),
+        ms=time_ms(calls["hill_climb"], 10),
         plain_ms=time_ms(lambda: cms.hill_climb_reference(
             x, z0, kappa=KAPPA, max_iters=ITERS), 3),
         bound=bound(nbytes, ops, dtype))
@@ -218,15 +250,17 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
           f"equal={bool(torch.equal(got_l, want_l))}")
     if not torch.equal(got_l, want_l):
         raise AssertionError(f"[{mode}] connected components differ")
+    calls["connected_components"] = lambda: cms.connected_components(z, EPS)
     out["connected_components"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: cms.connected_components(z, EPS), 20),
+        ms=time_ms(calls["connected_components"], 20),
         plain_ms=time_ms(lambda: cms.connected_components_reference(z, EPS),
                          3),
         bound=bound(M * D * 4 + M * 4, 2.0 * M * M * D, torch.float32))
 
     slab = want_l
     got_a = cms.assign_labels(x, z, slab, z_valid=z_valid)
+    rechecked = int(cms.assign_labels_rechecked)
     want_a = cms.assign_labels_reference(x, z, slab, z_valid=z_valid)
     for name, g, w in zip(("labels", "counts", "valid_counts"), got_a,
                           want_a):
@@ -234,20 +268,23 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
             raise AssertionError(
                 f"[{mode}] assign_labels {name} differ at "
                 f"{int((g != w).sum())} entries")
-    print(f"[{mode}] assign_labels: labels and both histograms equal")
+    print(f"[{mode}] assign_labels: labels and both histograms equal; "
+          f"{rechecked} pixels re-checked exactly")
     ops = 2.0 * M * N * D
     nbytes = N * D * esize + N * (1 + 4) + M * (D * 4 + 4 + 8)
+    calls["assign_labels"] = lambda: cms.assign_labels(x, z, slab,
+                                                       z_valid=z_valid)
     out["assign_labels"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: cms.assign_labels(x, z, slab, z_valid=z_valid),
-                   10),
+        ms=time_ms(calls["assign_labels"], 10),
         plain_ms=time_ms(lambda: cms.assign_labels_reference(
             x, z, slab, z_valid=z_valid), 3),
         bound=bound(nbytes, ops, dtype))
     for name, r in out.items():
-        print(f"[{mode}] {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]})"
+        r["device_ms"] = device_ms(calls[name], KERNEL_NAMES[name], 10)
+        print(f"[{mode}] {name}: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
               + (f", X re-read every step {r['rereads_ms']:.4f} ms"
                  if "rereads_ms" in r else ""))
     return out
@@ -266,11 +303,13 @@ def check_route(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
               compute_dtype="float32" if mode == "parity" else "bfloat16",
               z_valid=z_valid, filter_threshold=0.8)
     got = mean_shift_smart_init(x32, use_pallas=True, **kw)
+    rechecked = int(cms.assign_labels_rechecked)
     want = mean_shift_smart_init(x32, use_pallas=False, **kw)
     ids = torch.unique(want.labels)
     print(f"[{mode}] clustering, kernel route vs plain route: "
           f"{int(want.seed_labels.max()) + 1} seed clusters, {len(ids)} label "
-          f"ids after the depth filter, "
+          f"ids after the depth filter, {rechecked} pixels re-checked by the "
+          f"assignment, "
           f"{int((got.labels != want.labels).sum())} pixels differ, max |Z - "
           f"Z_plain| {float((got.seeds - want.seeds).abs().max()):.3e}")
     for name in ("seed_indices", "seed_labels", "labels"):
@@ -342,7 +381,9 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict
             else:
                 rows.append(res.timing)
         counts[mode] = launch_counts()
-        print(f"[{mode}] main-path launches: {counts[mode]}")
+        print(f"[{mode}] main-path launches: {counts[mode]}; the last "
+              f"frame's assignment re-checked "
+              f"{int(cms.assign_labels_rechecked)} pixels")
         missing = [k for k, v in counts[mode].items() if v <= 0]
         if missing:
             raise AssertionError(f"[{mode}] kernels not launched on the main "
@@ -440,6 +481,7 @@ def main() -> None:
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
+            device_ms=par["device_ms"], fast_device_ms=fast["device_ms"],
             fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
             fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
             fast_bound_by=fast["bound"][1]))

@@ -3,9 +3,11 @@
 chip_smoke.py holds each kernel to its plain version at the stage-1 shapes
 (n = 480*640, d = 64, m = 100).  These tests cover the other shapes each
 kernel takes: m from 1 to 128 (ragged against the hill climb's 16-row
-groups), a ragged last pixel tile, seeding over fewer pixels than a block
-has threads and over more than the blocks hold on chip, a strided seeding
-view, and rows that do not start on a 16-byte boundary.  They need a CUDA device and skip without one.  On the machine with the card:
+groups and the assignment's two 64-seed products), a ragged last pixel
+tile, fewer pixels than one tile or one block's threads and more than the
+blocks hold on chip, a strided seeding view, rows that do not start on a
+16-byte boundary, and the assignment's exact re-check of near-ties between
+labels.  They need a CUDA device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -105,7 +107,8 @@ def test_seeding_kernel_seed_counts(card, dtype, num_seeds):
 
 def test_launch_configs_fit_the_card(card):
     """Both cooperative kernels: every block resident at once, and the
-    seeding blocks hold their X on chip up to the shared-memory limit."""
+    seeding blocks hold their X on chip up to the shared-memory limit.  The
+    assignment: two warpgroups per block, every block resident at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     x = torch.zeros(480 * 640, 64, device=card)
     seed = cuda_seeding.launch_config(x)
@@ -117,6 +120,10 @@ def test_launch_configs_fit_the_card(card):
         hill = cms.hill_climb_config(x.to(dtype), 100)
         assert hill["threads"] == threads
         assert 1 <= hill["grid"] <= hill["blocks_per_sm"] * sms
+        assign = cms.assign_labels_config(x.to(dtype), 100)
+        assert assign["threads"] == 256 and assign["blocks_per_sm"] >= 1
+        assert assign["grid"] == assign["blocks_per_sm"] * sms
+        assert assign["x_on_chip_bytes"] < assign["smem_bytes"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -158,21 +165,72 @@ def test_connected_components_kernel_matches_plain(card, m):
         assert int(want.max()) > 0  # more than one cluster
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("with_valid", [True, False])
-@pytest.mark.parametrize("misaligned", [False, True])
-def test_assign_kernel_matches_plain(card, dtype, with_valid, misaligned):
-    xf, z_valid = clustered(5000, 64, seed=5)
-    x = on_card(card, xf, dtype, misaligned)
-    z = converged(card, x.float(), 30)
-    slab = cms.connected_components_reference(z, 0.04)
-    zv = torch.from_numpy(z_valid).to(card) if with_valid else None
+def assign_both(x, z, slab, zv=None):
+    """The kernel's and the plain version's (labels, counts, valid_counts),
+    and the kernel's count of re-checked pixels."""
     before = cms.assign_labels_launches
     got = cms.assign_labels(x, z, slab, z_valid=zv)
-    want = cms.assign_labels_reference(x, z, slab, z_valid=zv)
     assert cms.assign_labels_launches == before + 1
+    rechecked = int(cms.assign_labels_rechecked)
+    want = cms.assign_labels_reference(x, z, slab, z_valid=zv)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    return got, rechecked
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 20, 64, 65, 100, 113, 128])
+@pytest.mark.parametrize("with_valid", [True, False])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_assign_kernel_matches_plain(card, dtype, m, with_valid, misaligned):
+    xf, z_valid = clustered(5000, 64, seed=5)
+    x = on_card(card, xf, dtype, misaligned)
+    z = converged(card, x.float(), m)
+    slab = cms.connected_components_reference(z, 0.04)
+    zv = torch.from_numpy(z_valid).to(card) if with_valid else None
+    assign_both(x, z, slab, zv)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [
+    100,       # below one 128-pixel tile
+    5001,      # ragged against the tile
+    300001,    # many tiles per block, ragged
+])
+def test_assign_kernel_pixel_counts(card, dtype, n):
+    xf, z_valid = clustered(n, 64, seed=10)
+    x = on_card(card, xf, dtype)
+    z = converged(card, x.float(), 100)
+    slab = cms.connected_components_reference(z, 0.04)
+    assign_both(x, z, slab, torch.from_numpy(z_valid).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assign_kernel_exact_tie_between_labels(card, dtype):
+    """Seed 5 is an exact copy of seed 2 under another label: the pixels
+    nearest to them tie exactly, are re-checked, and take seed 2's label
+    (the lower index), as the plain version's argmax does."""
+    xf, _ = clustered(5000, 64, seed=11)
+    x = on_card(card, xf, dtype)
+    pick = np.random.RandomState(13).choice(5000, 20, replace=False)
+    z = x[torch.from_numpy(pick).to(card)].float()
+    z[5] = z[2]
+    slab = torch.arange(20, dtype=torch.int32, device=card)
+    (labels, _, _), rechecked = assign_both(x, z, slab)
+    assert rechecked > 0
+    assert int((labels == 2).sum()) > 0 and int((labels == 5).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assign_kernel_one_label_rechecks_nothing(card, dtype):
+    xf, z_valid = clustered(5000, 64, seed=12)
+    x = on_card(card, xf, dtype)
+    z = converged(card, x.float(), 100)
+    slab = torch.zeros(100, dtype=torch.int32, device=card)
+    (labels, counts, _), rechecked = assign_both(
+        x, z, slab, torch.from_numpy(z_valid).to(card))
+    assert rechecked == 0
+    assert int(labels.abs().sum()) == 0 and float(counts[0]) == 5000.0
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -3,9 +3,10 @@ kernel replaces, on the same numpy inputs (CPU, small shapes).
 
 On a CPU tensor every kernel wrapper runs its plain version, so these hold
 the plain versions (the references the kernels are held against on the
-card) to the JAX package's Pallas kernels in interpret mode.  One test
-emulates the float32 hill-climb kernel's split-TF32 arithmetic in torch and
-holds it to the float32 plain version.
+card) to the JAX package's Pallas kernels in interpret mode.  Two tests
+emulate the float32 kernels' split-TF32 arithmetic in torch: the hill
+climb's, held to the float32 plain version, and the assignment's, held to
+the margin below which the assignment kernel re-checks a pixel exactly.
 
 Tolerances:
   * seed indices, seed labels, pixel labels and counts: equal;
@@ -282,3 +283,30 @@ def test_split_tf32_hill_climb_meets_the_float32_tolerance():
     labels = cms.connected_components_reference(z, 0.04)
     assert torch.equal(labels, cms.connected_components_reference(want, 0.04))
     assert int(labels.max()) > 0  # more than one cluster
+
+
+@pytest.mark.parametrize("m", [100, 128])
+def test_split_tf32_assignment_margin_holds(m):
+    """The float32 assignment kernel's S, emulated: within half the re-check
+    margin of the float32 S, so every pixel whose best seed beats every
+    seed of another label by at least the margin gets the plain version's
+    label; the kernel re-checks the others exactly."""
+    n, d = 4096, 64
+    delta = cms.ASSIGN_RECHECK_MARGIN
+    x, _ = clustered(15, k=8, n=n, d=d)
+    xt = torch.from_numpy(x)
+    z0 = xt[torch.from_numpy(np.random.RandomState(16).choice(n, m,
+                                                              replace=False))]
+    z = cms.hill_climb_reference(xt, z0, kappa=20.0, max_iters=10)
+    slab = cms.connected_components_reference(z, 0.04)
+    assert int(slab.max()) > 0  # more than one label
+    s = _mm_3xtf32(xt, z.T)
+    assert float((s - xt @ z.T).abs().max()) <= delta / 2
+    b1, best = s.max(dim=1)
+    lab = slab[best]
+    other = slab[None, :] != lab[:, None]
+    b2 = torch.where(other, s, torch.full_like(s, -float("inf"))).max(dim=1)
+    clear = b1 - b2.values >= delta
+    assert int(clear.sum()) > 0.99 * n
+    want, _, _ = cms.assign_labels_reference(xt, z, slab)
+    assert torch.equal(lab[clear], want[clear])

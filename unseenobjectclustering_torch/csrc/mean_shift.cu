@@ -3,23 +3,18 @@
 //
 // Replace the TPU kernels in unseenobjectclustering_tpu/ops/pallas_mean_shift.py:
 //   hill_tf32_kernel,
-//   hill_bf16_kernel   <- _hill_climb_kernel / hill_climb_pallas
-//   cc_kernel          <- _cc_kernel / connected_components_pallas
-//   assign_kernel      <- _assign_kernel / assign_labels_pallas
+//   hill_bf16_kernel    <- _hill_climb_kernel / hill_climb_pallas
+//   cc_kernel           <- _cc_kernel / connected_components_pallas
+//   assign_tf32_kernel,
+//   assign_bf16_kernel  <- _assign_kernel / assign_labels_pallas
 //
 // The kernels take the embedding width d = 64 (NUM_UNITS of every recipe)
-// and m <= 128 seeds.  the hill climb runs on the tensor cores in both modes
-// (split TF32 on wgmma for float32 X, bf16 on mma.sync for bfloat16 X); see
-// its section.
-// The assignment's tiling: a block of 256 threads (16 x 16) walks tiles of
-// kTileN = 64 pixels.  float32 X runs on CUDA cores: each tile of X is
-// staged in shared memory as [64][kDP] (kDP = 65, padded against bank
-// conflicts), the seeds Z sit in shared memory as [128][kDP], and thread
-// (ty, tx) computes the similarity block S[ty + 16i][tx + 16jj] (i < 8,
-// jj < 4) as a sequential fp32 FMA chain over d: no tensor cores, so no
-// TF32 truncation.  bfloat16 X runs on the tensor cores
-// (assign_kernel_mma).  Seed rows past m are zero and are never written
-// out or selected.
+// and m <= 128 seeds.  The hill climb and the assignment stream X through a
+// cp.async ring of 128-pixel tiles and run their products on the tensor
+// cores in both modes: float32 as split TF32 on wgmma (about fp32
+// accuracy), bfloat16 on mma.sync (hill climb) or wgmma (assignment).  The
+// assignment re-checks the few pixels whose best two labels are nearly tied
+// with the exact fp32 FMA chain; see its section.
 #include <math.h>
 #include <stdint.h>
 
@@ -29,59 +24,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileN = 64;
 constexpr int kMaxSeeds = 128;
 constexpr int kD = 64;
 constexpr int kDP = kD + 1;
-constexpr int kWP = kTileN + 16;  // row pitch of the [128][kTileN] S/W block
-constexpr int kZF = kMaxSeeds * kDP;  // floats of Z
-constexpr int kXF = kTileN * kDP;     // floats of the X tile
-constexpr int kWF = kMaxSeeds * kWP;  // floats of S / W
-constexpr size_t kF32Bytes = sizeof(float) * (kZF + kXF + kWF);
 
-// Z [m, 64] float32 -> zs [128][kDP], zero-padded.
-__device__ void stage_seeds(const float* __restrict__ z, int m, float* zs) {
-  for (int e = threadIdx.x; e < kMaxSeeds * kD; e += blockDim.x) {
-    const int s = e / kD, j = e % kD;
-    zs[s * kDP + j] = s < m ? z[s * kD + j] : 0.0f;
-  }
-}
-
-// X rows [p0, p0 + 64) -> xs [64][kDP], zero past n.
-__device__ void stage_tile(const float* __restrict__ x, int n, int p0,
-                           float* xs) {
-  for (int e = threadIdx.x; e < kTileN * kD; e += blockDim.x) {
-    const int p = e / kD, j = e % kD;
-    const int gp = p0 + p;
-    xs[p * kDP + j] = gp < n ? x[static_cast<size_t>(gp) * kD + j] : 0.0f;
-  }
-}
-
-// s[i][jj] = Z[ty + 16i] . X[tx + 16jj] for this thread's 8 x 4 block.
-__device__ __forceinline__ void similarity_block(const float* zs,
-                                                 const float* xs,
-                                                 float (&s)[8][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
-  for (int j = 0; j < kD; ++j) {
-    float zr[8], xr[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) zr[i] = zs[(ty + 16 * i) * kDP + j];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) xr[jj] = xs[(tx + 16 * jj) * kDP + j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(zr[i], xr[jj], s[i][jj]);
-  }
-}
-
-// bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators), shared
-// by the bf16 hill climb and assign_kernel_mma: the products of bf16 values
+// bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
+// bf16 hill climb: the products of bf16 values
 // are exact and the sums fp32, in the tensor cores' order.  Warp w owns
 // seed rows [16w, 16w + 16) and keeps their Z fragments in registers.  X
 // tiles sit in shared memory as bf16 with a 144-byte row pitch, so every
@@ -119,29 +67,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Z [m, 64] float32 -> zs [128][kMmaPitch] bf16 (nearest even), zero-padded.
-__device__ void stage_seeds_bf16(const float* __restrict__ z, int m,
-                                 __nv_bfloat16* zs) {
-  for (int e = threadIdx.x; e < kMaxSeeds * kD; e += blockDim.x) {
-    const int s = e / kD, j = e % kD;
-    zs[s * kMmaPitch + j] = __float2bfloat16_rn(s < m ? z[s * kD + j] : 0.0f);
-  }
-}
-
-// X rows [p0, p0 + 64) -> xs [64][kMmaPitch] bf16, 16 bytes per load; rows
-// past n are zero.
-__device__ void stage_tile_bf16(const __nv_bfloat16* __restrict__ x, int n,
-                                int p0, __nv_bfloat16* xs) {
-  for (int e = threadIdx.x; e < kTileN * (kD / 8); e += blockDim.x) {
-    const int p = e / (kD / 8), c = e % (kD / 8);
-    const int gp = p0 + p;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gp < n)
-      v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(gp) * kD + 8 * c);
-    *reinterpret_cast<uint4*>(&xs[p * kMmaPitch + 8 * c]) = v;
-  }
 }
 
 // A fragments of Z rows [r0, r0 + 16), one per k-chunk of 16.
@@ -246,19 +171,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// X rows [p0, p0 + kHillTile) -> xs [kHillTile][kPitch], 16 bytes per
-// copy; rows past n are zero-filled.
+// X rows [p0, p0 + rows) -> xs [rows][kPitch], 16 bytes per copy, by
+// threads tid, tid + threads, ...; rows past n are zero-filled.
 template <typename T, int kPitch>
-__device__ __forceinline__ void issue_tile(const T* __restrict__ x, int n,
-                                           int p0, T* xs) {
+__device__ __forceinline__ void issue_rows(const T* __restrict__ x, int n,
+                                           int p0, int rows, int tid,
+                                           int threads, T* xs) {
   constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int kChunks = kD / kPer;
-  for (int e = threadIdx.x; e < kHillTile * kChunks; e += blockDim.x) {
+  for (int e = tid; e < rows * kChunks; e += threads) {
     const int p = e / kChunks, c = e % kChunks;
     const bool ok = p0 + p < n;
     cp_async16(xs + p * kPitch + c * kPer,
                ok ? x + static_cast<size_t>(p0 + p) * kD + c * kPer : x, ok);
   }
+}
+
+// The whole block: X rows [p0, p0 + kHillTile) -> xs [kHillTile][kPitch].
+template <typename T, int kPitch>
+__device__ __forceinline__ void issue_tile(const T* __restrict__ x, int n,
+                                           int p0, T* xs) {
+  issue_rows<T, kPitch>(x, n, p0, kHillTile, threadIdx.x, blockDim.x, xs);
 }
 
 // a = big + small: big = tf32(a) (the mantissa rounded to 10 bits,
@@ -327,6 +260,13 @@ template <typename T, int N>
 __device__ __forceinline__ void pin_registers(T (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) pin_registers(r[i]);
+}
+
+// A named barrier with an immediate id (0 is __syncthreads): waits until
+// `threads` threads have arrived.
+template <int kId>
+__device__ __forceinline__ void bar_sync(int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "r"(threads) : "memory");
 }
 
 // The descriptor of a K-major operand in shared memory without swizzle:
@@ -403,7 +343,6 @@ struct HillBF16 {
   __device__ __forceinline__ void tile(const __nv_bfloat16* xs, int half,
                                        int lane, float kappa,
                                        float (&acc)[8][4]) const {
-    static_assert(kHalfTile == kTileN, "a half tile is one S block");
     const int quad = lane >> 3;
     const __nv_bfloat16* xh = xs + half * kHalfTile * kMmaPitch;
     float s[8][4];
@@ -805,147 +744,533 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // pixels per label and valid-depth pixels per label (the fused depth
 // filter).
 //
-// Bound on the H100: 2*m*n*d flops (3.9 GFLOP at the parity shape) against
-// one read of X (78.6 MB fp32, 39.3 MB bf16); compute-bound at fp32 on CUDA
-// cores, bytes-bound at bf16.  Design: the shared S tile as above (from the
-// tensor cores for bf16 X), then 4 threads per pixel take the argmax over interleaved seeds and combine by
-// shuffle; the label is a direct gather from shared memory; the histograms
-// are int32 per block in shared memory, added to the global counts with
-// one atomicAdd per label per block.  Integer sums are exact, so the counts
-// do not depend on block order.
+// Replaces _assign_kernel / assign_labels_pallas.  Bound on the H100: one
+// read of X (78.6 MB fp32, 39.3 MB bf16 at n = 307200) against 2*m*n*d
+// flops (3.9 GFLOP at m = 100; three TF32 products each for fp32 accuracy):
+// bytes-bound in both modes, by a factor of about 1.3 at fp32.
+//
+// Design: one persistent launch (no grid barrier), as many blocks as fit
+// on the card.  A block of two warpgroups walks its 128-pixel tiles
+// through a cp.async ring of kAssignStages tiles (three in flight while one
+// is computed); warpgroup h loads and takes pixels [64h, 64h + 64) of each
+// tile, with its own barrier, so the warpgroups do not wait for each other.
+// S = X Z^T runs on wgmma with pixels on M and seeds on N (one m64n64
+// product per 64 seeds, the second only when m > 64): A is the warp's X
+// fragment read from the ring into registers, B is Z staged once per block
+// in the K-major core-matrix layout, seed rows past m zero.  float32: A and
+// Z are split into big + small TF32 parts (split_tf32), three products per
+// k-chunk in the hill climb's order; bfloat16: A by ldmatrix, Z rounded to
+// bf16 (nearest even), one product.  S never leaves registers: a thread
+// holds pixels 16w + g and 16w + g + 8 of its warpgroup's 64 and seeds
+// 8j + 2t, 8j + 2t + 1; per pixel it finds b1, the best score, with the
+// label l1 of a seed that attains it, then b2, the best score among seeds
+// of any other label (thread_best), and the quad merges the four by
+// shuffle.  Seeds of one label may tie freely; only a near-tie across
+// labels can change a pixel's label.
+//
+// The re-check margin.  X and Z rows are unit vectors.  Split TF32 drops,
+// per product a_i b_i, small * small (<= 2^-22 |a_i b_i|) and the
+// truncation of each small part as the tensor cores read it (< 2^-21
+// |a_i b_i| each): < 1.3 * 2^-20 over the dot, since sum |a_i b_i| <=
+// |a| |b| = 1.  The accumulator takes 24 wgmma steps (8 k-chunks x 3
+// products), each rounded once, at worst by truncation: < 24 * 2^-23.  The
+// float32 plain version's own sum of 64 products is within 64 * 2^-24 of
+// the exact dot.  So the kernel's S and the plain version's differ by less
+// than 8e-6 < 2^-16 = kRecheckMargin / 2.  Where b1 - b2 >= kRecheckMargin
+// the plain version's best seed carries label l1; the other pixels (b1 - b2
+// < kRecheckMargin, a tie at b1 between labels included) are re-checked
+// out of line (recheck): the quad recomputes the pixel's
+// similarity to every real seed as the sequential fp32 FMA chain over d
+// from 0 (Z = big + small, exact), each thread a quarter of the seeds,
+// lowest index on a tie.  bf16 products are exact and take 4 steps, so the
+// same margin holds there (the re-check then uses bf16 X and bf16(Z)
+// widened to fp32, as the plain version does).  When every seed carries one
+// label, b2 stays -inf and nothing is re-checked.
+//
+// Outputs: one thread per pixel writes its label; per-block int32
+// histograms in shared memory take warp-aggregated adds (__match_any_sync
+// on the label), and are flushed with one float atomicAdd per label per
+// block: sums of integers below 2^24 are exact in float32 and do not
+// depend on the order.  The kernel counts the pixels it re-checked.
 // ---------------------------------------------------------------------------
-// The argmax over the S tile ss [128][kWP] for the tile's 64 pixels (4
-// threads per pixel over interleaved seeds, combined by shuffle with the
-// lower seed index winning a tie), the label gather and the block's
-// histograms.  Every thread of the block takes part.
-__device__ __forceinline__ void assign_tile(const float* ss, const int* slab,
-                                            int m, int n, int p0,
-                                            const unsigned char* __restrict__ z_valid,
-                                            int* __restrict__ labels,
-                                            int (*hist)[kMaxSeeds]) {
-  const int px = threadIdx.x / 4, q = threadIdx.x % 4;
-  float best = -INFINITY;
-  int best_s = m;  // beyond every real seed: loses every tie
-  for (int r = q; r < m; r += 4) {
-    const float v = ss[r * kWP + px];
-    if (v > best) { best = v; best_s = r; }
+constexpr int kAssignThreads = 256;  // two warpgroups
+constexpr int kAssignStages = 4;     // X tiles in the ring
+constexpr float kRecheckMargin = 3.0517578125e-05f;  // 2^-15
+
+// d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 16 bf16 from
+// registers, the m16n8k16 A layout per warp) * b (16 x 64 bf16, K-major in
+// shared memory, described by desc).  Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Z in shared memory as the B operand: [dim / kPer][seed / 8] core matrices
+// (kPer = 4 fp32 or 8 bf16 dims per 16-byte row), row = seed % 8.  float32
+// keeps a big and a small copy, kMaxSeeds * kD words apart.
+__device__ __forceinline__ int seed_word(int s, int j, int per) {
+  return (((j / per) * (kMaxSeeds / 8) + s / 8) * 8 + s % 8) * per + j % per;
+}
+
+// Every thread: Z [m, 64] float32 (16-byte aligned) -> the split copies
+// (or bf16(Z)), zero past m.
+__device__ __forceinline__ void stage_assign(const float* __restrict__ z,
+                                             int m, unsigned* zs) {
+  for (int e = threadIdx.x; e < kMaxSeeds * kD / 4; e += blockDim.x) {
+    const int s = e / (kD / 4), j = 4 * (e % (kD / 4));
+    const float4 v = s < m ? reinterpret_cast<const float4*>(z)[e]
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint4 b, sm;
+    split_tf32(v.x, b.x, sm.x);
+    split_tf32(v.y, b.y, sm.y);
+    split_tf32(v.z, b.z, sm.z);
+    split_tf32(v.w, b.w, sm.w);
+    const int w = seed_word(s, j, 4);
+    *reinterpret_cast<uint4*>(zs + w) = b;
+    *reinterpret_cast<uint4*>(zs + kMaxSeeds * kD + w) = sm;
   }
+}
+
+__device__ __forceinline__ void stage_assign(const float* __restrict__ z,
+                                             int m, __nv_bfloat16* zs) {
+  for (int e = threadIdx.x; e < kMaxSeeds * kD / 4; e += blockDim.x) {
+    const int s = e / (kD / 4), j = 4 * (e % (kD / 4));
+    const float4 v = s < m ? reinterpret_cast<const float4*>(z)[e]
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<uint2*>(zs + seed_word(s, j, 8)) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+// Seed s, dim j, as the re-check reads it: big + small (exactly Z) or
+// bf16(Z) widened.
+__device__ __forceinline__ float seed_value(const unsigned* zs, int s, int j) {
+  const int w = seed_word(s, j, 4);
+  return __fadd_rn(__uint_as_float(zs[w]),
+                   __uint_as_float(zs[kMaxSeeds * kD + w]));
+}
+
+__device__ __forceinline__ float seed_value(const __nv_bfloat16* zs, int s,
+                                            int j) {
+  return __bfloat162float(zs[seed_word(s, j, 8)]);
+}
+
+// S of the warpgroup's 64 pixels (xs: their rows in the ring) against the
+// seeds: acc[nh] holds seeds [64 nh, 64 nh + 64).  Split TF32, the hill
+// climb's order: small * big, big * small, big * big per k-chunk of 8.
+__device__ __forceinline__ void assign_product(const float* xs,
+                                               const unsigned* zs, int m,
+                                               float (&acc)[2][32]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const float* xw = xs + (16 * (threadIdx.x / 32 % 4) + g) * kF32Pitch + t;
+  unsigned xb[8][4], xsm[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float a[4] = {xw[8 * kk], xw[8 * kF32Pitch + 8 * kk],
+                        xw[8 * kk + 4], xw[8 * kF32Pitch + 8 * kk + 4]};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(a[q], xb[kk][q], xsm[kk][q]);
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+  const unsigned* zb = zs;
+  const unsigned* zsm = zs + kMaxSeeds * kD;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+      if (nh == 1 && m <= 64) continue;  // uniform over the warpgroup
+      const int o = (2 * kk * (kMaxSeeds / 8) + 8 * nh) * (kCore / 4);
+      const uint64_t db = smem_desc(zb + o, (kMaxSeeds / 8) * kCore, kCore);
+      const uint64_t ds = smem_desc(zsm + o, (kMaxSeeds / 8) * kCore, kCore);
+      wgmma_tf32(acc[nh], xsm[kk], db);
+      wgmma_tf32(acc[nh], xb[kk], ds);
+      wgmma_tf32(acc[nh], xb[kk], db);
+    }
+  wgmma_commit();
+  wgmma_wait();
+  pin_registers(acc[0]);
+  pin_registers(acc[1]);
+  pin_registers(xb);
+  pin_registers(xsm);
+}
+
+// The same for bf16 X: one product per k-chunk of 16.
+__device__ __forceinline__ void assign_product(const __nv_bfloat16* xs,
+                                               const __nv_bfloat16* zs, int m,
+                                               float (&acc)[2][32]) {
+  const int lane = threadIdx.x % 32;
+  unsigned xa[4][4];
+  load_seed_fragments(xs, 16 * (threadIdx.x / 32 % 4), lane, xa);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+      if (nh == 1 && m <= 64) continue;
+      const int o = (2 * kk * (kMaxSeeds / 8) + 8 * nh) * (kCore / 2);
+      wgmma_bf16(acc[nh], xa[kk],
+                 smem_desc(zs + o, (kMaxSeeds / 8) * kCore, kCore));
+    }
+  wgmma_commit();
+  wgmma_wait();
+  pin_registers(acc[0]);
+  pin_registers(acc[1]);
+  pin_registers(xa);
+}
+
+// A pixel's best scores over a set of seeds: b1, the label l1 of a seed
+// that attains it, and b2, the best score among seeds whose label is not
+// l1.  When seeds of two labels both attain b1, b2 = b1 whichever label l1
+// is, so the pixel is re-checked; the index of the best seed is not needed.
+struct Best {
+  float b1, b2;
+  int l1;
+};
+
+// This thread's Best for both of its pixels, from the accumulators: its
+// seeds are 8 blk + 2 t + e (blk = 8 nh + j, e = 0, 1), ascending.  Blocks
+// of 8 seeds at or past m are skipped (uniform over the warp); seeds past m
+// in the block that straddles m are set to -inf.  b1 (with l1), then b2,
+// each as four interleaved running maxima, so that no step waits on the
+// one before it.
+__device__ __forceinline__ void thread_best(float (&acc)[2][32], int t, int m,
+                                            const int* slab, Best (&r)[2]) {
+  auto score = [&](int i, int blk, int e) -> float& {
+    return acc[blk / 8][4 * (blk % 8) + 2 * i + e];
+  };
+  // labels of seeds 8 blk + 2t and 8 blk + 2t + 1: lab2[4 blk]
+  const int2* lab2 = reinterpret_cast<const int2*>(slab + 2 * t);
+  float b[2][4];
+  int l[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      b[i][c] = -INFINITY;
+      l[i][c] = -1;
+    }
+#pragma unroll
+  for (int blk = 0; blk < 16; ++blk) {
+    if (8 * blk >= m) break;
+    if (8 * blk + 8 > m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * blk + 2 * t + e >= m) score(0, blk, e) = score(1, blk, e) = -INFINITY;
+    const int2 lb = lab2[4 * blk];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = (2 * blk + e) % 4;
+        if (score(i, blk, e) > b[i][c]) {
+          b[i][c] = score(i, blk, e);
+          l[i][c] = e ? lb.y : lb.x;
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int c = 1; c < 4; ++c)
+      if (b[i][c] > b[i][0]) {
+        b[i][0] = b[i][c];
+        l[i][0] = l[i][c];
+      }
+    r[i].b1 = b[i][0];
+    r[i].l1 = l[i][0];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[i][c] = -INFINITY;
+  }
+#pragma unroll
+  for (int blk = 0; blk < 16; ++blk) {
+    if (8 * blk >= m) break;
+    const int2 lb = lab2[4 * blk];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if ((e ? lb.y : lb.x) != r[i].l1) {
+          const int c = (2 * blk + e) % 4;
+          b[i][c] = fmaxf(b[i][c], score(i, blk, e));
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    r[i].b2 = fmaxf(fmaxf(b[i][0], b[i][1]), fmaxf(b[i][2], b[i][3]));
+}
+
+// The four threads of a quad (disjoint seed sets) merge: the larger b1
+// wins (either on a tie); b2 takes the loser's b2 when the labels agree and
+// the loser's b1 when they differ.  b1 and b2 come out the same on all four
+// threads, exact over the quad's seeds for the l1 each holds.
+__device__ __forceinline__ void merge_quad(Best& r) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float ob1 = __shfl_xor_sync(0xFFFFFFFFu, r.b1, off);
+    const float ob2 = __shfl_xor_sync(0xFFFFFFFFu, r.b2, off);
+    const int ol1 = __shfl_xor_sync(0xFFFFFFFFu, r.l1, off);
+    const bool other = ob1 > r.b1;
+    const float loser = ol1 == r.l1 ? (other ? r.b2 : ob2)
+                                    : (other ? r.b1 : ob1);
+    r.b2 = fmaxf(other ? ob2 : r.b2, loser);
+    if (other) {
+      r.b1 = ob1;
+      r.l1 = ol1;
+    }
+  }
+}
+
+// The exact argmax for one pixel (xrow: its row in the ring): thread t of
+// the quad takes seeds t, t + 4, ... < m, each the fp32 FMA chain over d
+// from 0; lowest index on a tie.  Every lane of the warp calls it; a quad
+// that passes active = false gets a meaningless seed.
+template <typename T, typename Z>
+__device__ __forceinline__ int exact_argmax(const T* xrow, const Z* zs, int m,
+                                            bool active, int t) {
+  float best = -INFINITY;
+  int best_s = kMaxSeeds;
+  if (active) {
+    for (int s = t; s < m; s += 4) {
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int j = 0; j < kD; ++j)
+        acc = fmaf(uoc::to_f32(xrow[j]), seed_value(zs, s, j), acc);
+      if (acc > best) {
+        best = acc;
+        best_s = s;
+      }
+    }
+  }
+#pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, off);
     const int os = __shfl_xor_sync(0xFFFFFFFFu, best_s, off);
-    if (ov > best || (ov == best && os < best_s)) { best = ov; best_s = os; }
-  }
-  const int p = p0 + px;
-  if (q == 0 && p < n) {
-    const int lab = slab[best_s < m ? best_s : 0];
-    labels[p] = lab;
-    if (lab >= 0 && lab < m) {
-      atomicAdd(&hist[0][lab], 1);
-      if (z_valid == nullptr || z_valid[p]) atomicAdd(&hist[1][lab], 1);
+    if (ov > best || (ov == best && os < best_s)) {
+      best = ov;
+      best_s = os;
     }
   }
+  return best_s;
 }
 
-__device__ __forceinline__ void init_assign(const int* __restrict__ seed_labels,
-                                            int m, int* slab,
-                                            int (*hist)[kMaxSeeds]) {
+// The labels l1 of a quad's two pixels (xrow: the first one's row), with
+// those of the near-tied ones (bit i of near: pixel i) replaced by the
+// exact argmax's; counts the re-checked pixels.  Out of line: it runs
+// rarely, and its registers stay out of the main loop.
+template <typename T, typename Z, int kPitch>
+__device__ __noinline__ int2 recheck(const T* xrow, const Z* zs, int m, int t,
+                                     int near, const int* slab,
+                                     float* rechecked, int2 l1) {
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i) {
+    const bool mine = (near >> i) & 1;
+    if (!__any_sync(0xFFFFFFFFu, mine)) continue;
+    const int s = exact_argmax(xrow + 8 * i * kPitch, zs, m, mine, t);
+    if (mine) {
+      (i ? l1.y : l1.x) = slab[s];
+      if (t == 0) atomicAdd(rechecked, 1.0f);
+    }
+  }
+  return l1;
+}
+
+// x: [n, 64] rows 16-byte aligned (float32 with kPitch = kF32Pitch, bf16
+// with kMmaPitch); z: [m, 64] float32; seed_labels: [m]; z_valid: [n] or
+// null; labels: [n] out; counts: [2 m] float32 (zeroed) += the block's
+// histograms; rechecked: += the pixels this block re-checked (float32, an
+// exact integer below 2^24).
+template <typename T, typename Z, int kPitch>
+__device__ __forceinline__ void assign_body(
+    const T* __restrict__ x, int n, const float* __restrict__ z,
+    const int* __restrict__ seed_labels, int m,
+    const unsigned char* __restrict__ z_valid, int* __restrict__ labels,
+    float* __restrict__ counts, float* __restrict__ rechecked, T* ring) {
+  constexpr int kStageElems = kHillTile * kPitch;
+  Z* zs = reinterpret_cast<Z*>(ring + kAssignStages * kStageElems);
+  __shared__ __align__(16) int slab[kMaxSeeds];
+  __shared__ int hist[2][kMaxSeeds];
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int half = threadIdx.x / 128;            // warpgroup
+  const int row = 16 * (threadIdx.x / 32 % 4) + g;  // first pixel of a thread
+  const int mine = tiles_of_block(n);
+  // warpgroup `half` loads rows [64 half, 64 half + 64) of tile q into
+  // ring stage q % kAssignStages
+  auto issue = [&](int q) {
+    if (q < mine)
+      issue_rows<T, kPitch>(
+          x, n,
+          (static_cast<int>(blockIdx.x) + q * gridDim.x) * kHillTile +
+              kHalfTile * half,
+          kHalfTile, threadIdx.x % 128, 128,
+          ring + (q % kAssignStages) * kStageElems + kHalfTile * half * kPitch);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int q = 0; q < kAssignStages - 1; ++q) issue(q);
+  stage_assign(z, m, zs);
   for (int s = threadIdx.x; s < kMaxSeeds; s += blockDim.x) {
     slab[s] = s < m ? seed_labels[s] : 0;
-    hist[0][s] = 0;
-    hist[1][s] = 0;
+    hist[0][s] = hist[1][s] = 0;
   }
-}
-
-__device__ __forceinline__ void flush_hist(int m, int (*hist)[kMaxSeeds],
-                                           int* __restrict__ counts) {
+  // Z is read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  for (int s = threadIdx.x; s < m; s += blockDim.x) {
-    if (hist[0][s]) atomicAdd(&counts[s], hist[0][s]);
-    if (hist[1][s]) atomicAdd(&counts[m + s], hist[1][s]);
-  }
-}
 
-__global__ void __launch_bounds__(kThreads)
-assign_kernel(const float* __restrict__ x, int n, const float* __restrict__ z,
-              const int* __restrict__ seed_labels, int m,
-              const unsigned char* __restrict__ z_valid,
-              int* __restrict__ labels, int* __restrict__ counts) {
-  extern __shared__ __align__(16) float smem[];
-  float* zs = smem;
-  float* xs = zs + kZF;
-  float* ss = xs + kXF;
-  __shared__ int slab[kMaxSeeds];
-  __shared__ int hist[2][kMaxSeeds];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  stage_seeds(z, m, zs);
-  init_assign(seed_labels, m, slab, hist);
-  const int num_tiles = (n + kTileN - 1) / kTileN;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    __syncthreads();
-    stage_tile(x, n, tile * kTileN, xs);
-    __syncthreads();
-    float s[8][4];
-    similarity_block(zs, xs, s);
+  for (int k = 0; k < mine; ++k) {
+    // this warpgroup's rows of tile k have landed for all its threads, and
+    // its rows of tile k - 1 are done with; the warpgroups do not wait for
+    // each other
+    cp_async_wait<kAssignStages - 2>();
+    if (half == 0)
+      bar_sync<1>(128);
+    else
+      bar_sync<2>(128);
+    issue(k + kAssignStages - 1);
+    const T* xs = ring + (k % kAssignStages) * kStageElems +
+                  kHalfTile * half * kPitch;
+    const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kHillTile +
+                   kHalfTile * half + row;
+    // thread t < 2 of the quad owns pixel p0 + 8t; its validity is loaded
+    // before the products, which hide the load
+    const int p = p0 + 8 * t;
+    const bool owner = t < 2 && p < n;
+    const bool valid = owner && (z_valid == nullptr || z_valid[p]);
+    float acc[2][32];
+    assign_product(xs, zs, m, acc);
+    Best r[2];
+    thread_best(acc, t, m, slab, r);
+    int near = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ss[(ty + 16 * i) * kWP + tx + 16 * jj] = s[i][jj];
-    __syncthreads();
-    assign_tile(ss, slab, m, n, tile * kTileN, z_valid, labels, hist);
-  }
-  flush_hist(m, hist, counts);
-}
+    for (int i = 0; i < 2; ++i) {
+      merge_quad(r[i]);
+      if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin)
+        near |= 1 << i;
+    }
+    int2 l1 = make_int2(r[0].l1, r[1].l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0))
+      l1 = recheck<T, Z, kPitch>(xs + row * kPitch, zs, m, t, near, slab,
+                                 rechecked, l1);
 
-// The assignment for bf16 X: the S tile from the tensor cores
-// (as in hill_partial_mma), then the same argmax and histograms.
-constexpr size_t kAssignMmaBytes =
-    sizeof(float) * kMaxSeeds * kWP +
-    sizeof(__nv_bfloat16) * (kMaxSeeds + kTileN) * kMmaPitch;
-
-__global__ void __launch_bounds__(kThreads)
-assign_kernel_mma(const __nv_bfloat16* __restrict__ x, int n,
-                  const float* __restrict__ z,
-                  const int* __restrict__ seed_labels, int m,
-                  const unsigned char* __restrict__ z_valid,
-                  int* __restrict__ labels, int* __restrict__ counts) {
-  extern __shared__ __align__(16) float smem[];
-  float* ss = smem;
-  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(ss + kMaxSeeds * kWP);
-  __nv_bfloat16* xs = zs + kMaxSeeds * kMmaPitch;
-  __shared__ int slab[kMaxSeeds];
-  __shared__ int hist[2][kMaxSeeds];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = 16 * warp;
-  const bool active = r0 < m;
-
-  stage_seeds_bf16(z, m, zs);
-  init_assign(seed_labels, m, slab, hist);
-  __syncthreads();
-  unsigned za[4][4];
-  load_seed_fragments(zs, r0, lane, za);
-  const int row = r0 + lane / 4, col = 2 * (lane % 4);
-  const int num_tiles = (n + kTileN - 1) / kTileN;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    __syncthreads();
-    stage_tile_bf16(x, n, tile * kTileN, xs);
-    __syncthreads();
-    if (active) {
-      float s[8][4];
-      mma_similarity(za, xs, lane, s);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        ss[row * kWP + 8 * t + col] = s[t][0];
-        ss[row * kWP + 8 * t + col + 1] = s[t][1];
-        ss[(row + 8) * kWP + 8 * t + col] = s[t][2];
-        ss[(row + 8) * kWP + 8 * t + col + 1] = s[t][3];
+    // the owner writes its pixel's label and adds the pixel to the
+    // histograms, aggregated over the warp's lanes of equal label
+    int key = -1, vkey = -1;
+    if (owner) {
+      const int lab = t == 0 ? l1.x : l1.y;
+      labels[p] = lab;
+      if (lab >= 0 && lab < m) {
+        key = lab;
+        if (valid) vkey = lab;
       }
     }
-    __syncthreads();
-    assign_tile(ss, slab, m, n, tile * kTileN, z_valid, labels, hist);
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, key);
+    if (key >= 0 && lane == __ffs(same) - 1)
+      atomicAdd(&hist[0][key], __popc(same));
+    const unsigned vsame = __match_any_sync(0xFFFFFFFFu, vkey);
+    if (vkey >= 0 && lane == __ffs(vsame) - 1)
+      atomicAdd(&hist[1][vkey], __popc(vsame));
   }
-  flush_hist(m, hist, counts);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int s = threadIdx.x; s < m; s += blockDim.x) {
+    if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
+    if (hist[1][s])
+      atomicAdd(&counts[m + s], static_cast<float>(hist[1][s]));
+  }
+}
+
+__global__ void __launch_bounds__(kAssignThreads, 1)
+assign_tf32_kernel(const float* __restrict__ x, int n,
+                   const float* __restrict__ z,
+                   const int* __restrict__ seed_labels, int m,
+                   const unsigned char* __restrict__ z_valid,
+                   int* __restrict__ labels, float* __restrict__ counts,
+                   float* __restrict__ rechecked) {
+  extern __shared__ __align__(128) float assign_f32_smem[];
+  assign_body<float, unsigned, kF32Pitch>(x, n, z, seed_labels, m, z_valid,
+                                          labels, counts, rechecked,
+                                          assign_f32_smem);
+}
+
+__global__ void __launch_bounds__(kAssignThreads, 2)
+assign_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n,
+                   const float* __restrict__ z,
+                   const int* __restrict__ seed_labels, int m,
+                   const unsigned char* __restrict__ z_valid,
+                   int* __restrict__ labels, float* __restrict__ counts,
+                   float* __restrict__ rechecked) {
+  extern __shared__ __align__(128) __nv_bfloat16 assign_bf16_smem[];
+  assign_body<__nv_bfloat16, __nv_bfloat16, kMmaPitch>(
+      x, n, z, seed_labels, m, z_valid, labels, counts, rechecked,
+      assign_bf16_smem);
+}
+
+// The ring of X tiles and Z (float32: its two split copies).
+size_t assign_smem_bytes(int dtype) {
+  return dtype == uoc::kBF16
+             ? sizeof(__nv_bfloat16) *
+                   (kAssignStages * kHillTile * kMmaPitch + kMaxSeeds * kD)
+             : sizeof(float) *
+                   (kAssignStages * kHillTile * kF32Pitch + 2 * kMaxSeeds * kD);
+}
+
+// The launch shape: 256 threads, as many blocks as fit on the card at once
+// (at most one per X tile).
+struct AssignPlan {
+  int grid, per_sm;
+  size_t smem;
+};
+
+cudaError_t plan_assign_for(int dtype, int n, AssignPlan* p) {
+  // {blocks per SM, SMs} per device and dtype, found at the first call (0:
+  // not yet): the launch asks for its plan on every call
+  constexpr int kDevices = 64;
+  static int cached[kDevices][2][2] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  const bool bf16 = dtype == uoc::kBF16;
+  int* c = cached[dev][bf16];
+  p->smem = assign_smem_bytes(dtype);
+  if (c[1] == 0) {
+    int per_sm, sms;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    err = bf16 ? uoc::blocks_per_sm<assign_bf16_kernel>(
+                     dev, kAssignThreads, p->smem, p->smem, &per_sm)
+               : uoc::blocks_per_sm<assign_tf32_kernel>(
+                     dev, kAssignThreads, p->smem, p->smem, &per_sm);
+    if (err != cudaSuccess) return err;
+    c[0] = per_sm;
+    c[1] = sms;
+  }
+  p->per_sm = c[0];
+  const int num_tiles = (n + kHillTile - 1) / kHillTile;
+  p->grid = std::max(1, std::min(c[0] * c[1], num_tiles));
+  return cudaSuccess;
 }
 
 template <typename Kernel>
@@ -1026,33 +1351,51 @@ extern "C" int uoc_connected_components(const float* z, int m, float epsilon,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: [n, 64] row-major float32 or bfloat16 (bf16 rows 16-byte aligned); z:
-// [m, 64] float32; seed_labels: [m] int32; z_valid: [n] uint8 or null
-// (every pixel valid); labels: [n] int32 out; counts: [2, m] int32 out
-// (pixels per label, valid pixels per label).  m <= 128.
+// The launch configuration uoc_assign_labels uses for n pixels and m seeds:
+// out = [grid, blocks per SM, threads per block, dynamic shared bytes,
+// bytes of X held on chip per block (its ring of tiles)].
+extern "C" int uoc_assign_labels_plan(int dtype, int n, int m,
+                                      long long* out) {
+  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  AssignPlan p;
+  const cudaError_t err = plan_assign_for(dtype, n, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = p.grid;
+  out[1] = p.per_sm;
+  out[2] = kAssignThreads;
+  out[3] = static_cast<long long>(p.smem);
+  out[4] = (dtype == uoc::kBF16 ? 2LL : 4LL) * kAssignStages * kHillTile * kD;
+  return 0;
+}
+
+// x: [n, 64] row-major float32 or bfloat16, rows 16-byte aligned; z:
+// [m, 64] float32; seed_labels: [m] int32; z_valid: [n] bytes (0 or 1) or
+// null (every pixel valid); labels: [n] int32 out; counts: [2 m + 1]
+// float32 out, zero-filled here: pixels per label, valid pixels per label,
+// then the count of re-checked pixels.  m <= 128, n < 2^24 (the float
+// counts stay exact).  One launch on `stream`.
 extern "C" int uoc_assign_labels(const void* x, int dtype, int n,
                                  const float* z, const int* seed_labels,
                                  int m, const unsigned char* z_valid,
-                                 int* labels, int* counts, int grid,
-                                 void* stream) {
+                                 int* labels, float* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = dtype == uoc::kBF16;
-  if (m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16 && misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * m, s);
+  if (m < 1 || m > kMaxSeeds || n >= (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  AssignPlan p;
+  cudaError_t err = plan_assign_for(dtype, n, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bf16) {
-    err = allow_smem(assign_kernel_mma, kAssignMmaBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    assign_kernel_mma<<<grid, kThreads, kAssignMmaBytes, s>>>(
+  if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  float* rechecked = counts + 2 * m;
+  if (dtype == uoc::kBF16)
+    assign_bf16_kernel<<<p.grid, kAssignThreads, p.smem, s>>>(
         static_cast<const __nv_bfloat16*>(x), n, z, seed_labels, m, z_valid,
-        labels, counts);
-  } else {
-    err = allow_smem(assign_kernel, kF32Bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    assign_kernel<<<grid, kThreads, kF32Bytes, s>>>(
+        labels, counts, rechecked);
+  else
+    assign_tf32_kernel<<<p.grid, kAssignThreads, p.smem, s>>>(
         static_cast<const float*>(x), n, z, seed_labels, m, z_valid, labels,
-        counts);
-  }
+        counts, rechecked);
   return static_cast<int>(cudaGetLastError());
 }

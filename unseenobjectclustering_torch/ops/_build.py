@@ -40,7 +40,8 @@ _SIGNATURES = {
     "uoc_hill_climb": [_P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
     "uoc_hill_climb_plan": [_I, _I, _I, _P],
     "uoc_connected_components": [_P, _I, _F, _P, _P],
-    "uoc_assign_labels": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P],
+    "uoc_assign_labels": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    "uoc_assign_labels_plan": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -152,9 +153,7 @@ def dtype_code(x: torch.Tensor, what: str) -> int:
 
 
 def stream(x: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on x's device."""
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def num_sms(x: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(x.device).multi_processor_count
+    """Handle of PyTorch's current stream on x's device (the raw handle:
+    ``torch.cuda.current_stream`` builds a Stream object, which costs more
+    host time than a small kernel's launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())

@@ -12,8 +12,12 @@ kernels are in ``csrc/mean_shift.cu``:
     memory.
   * connected_components: one block, adjacency and labels in shared memory,
     the m sequential steps inside the kernel.
-  * assign_labels: nearest real seed per pixel, the label gathered directly,
-    and per-label pixel / valid-depth histograms in the same X sweep.
+  * assign_labels: one persistent launch; each block streams its 128-pixel
+    tiles through a cp.async ring, S = X Z^T on wgmma (split TF32 for
+    float32, bf16 for bfloat16) stays in registers for the argmax, pixels
+    whose best two labels are within ASSIGN_RECHECK_MARGIN are re-checked
+    with the exact fp32 FMA chain, and per-label pixel / valid-depth
+    histograms come out of the same X sweep.
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
 on a CUDA tensor (or raises).  The kernels take m <= 128 seeds of width
@@ -33,11 +37,17 @@ from unseenobjectclustering_torch.ops.mean_shift import (
 
 MAX_SEEDS = 128
 DIM = 64
+# the assignment kernel re-checks a pixel exactly where its best score beats
+# every seed of another label by less than this (kRecheckMargin in
+# csrc/mean_shift.cu, where it is derived): 2^-15
+ASSIGN_RECHECK_MARGIN = 2.0 ** -15
 
 # calls that launched each kernel
 hill_climb_launches = 0
 connected_components_launches = 0
 assign_labels_launches = 0
+# [1] float32 on the card: pixels the last assign_labels launch re-checked
+assign_labels_rechecked: Optional[torch.Tensor] = None
 
 
 def _check_shapes(what: str, m: int, d: int) -> None:
@@ -48,9 +58,17 @@ def _check_shapes(what: str, m: int, d: int) -> None:
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x as contiguous rows on a 16-byte boundary (the hill climb and the
-    bf16 assignment load 16 bytes at a time)."""
+    assignment load X, and the assignment Z, 16 bytes at a time)."""
     xc = x.contiguous()
     return xc if xc.data_ptr() % 16 == 0 else xc.clone()
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t as a contiguous tensor of dtype, itself when it already is one
+    (no dispatch: each tensor op costs microseconds of host time)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
 
 
 def _on_device(what: str, x: torch.Tensor, *others: Optional[torch.Tensor]
@@ -58,10 +76,6 @@ def _on_device(what: str, x: torch.Tensor, *others: Optional[torch.Tensor]
     for t in others:
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
-
-
-def _grid(x: torch.Tensor, n: int) -> int:
-    return max(1, min((n + 63) // 64, 2 * _build.num_sms(x)))
 
 
 # -- hill climbing ----------------------------------------------------------
@@ -200,26 +214,40 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     """
     if not x.is_cuda:
         return assign_labels_reference(x, seeds, seed_labels, z_valid)
-    global assign_labels_launches
+    global assign_labels_launches, assign_labels_rechecked
     _on_device("assign_labels", x, seeds, seed_labels, z_valid)
     code = _build.dtype_code(x, "assign_labels")
     n, d = x.shape
     m = seeds.shape[0]
     _check_shapes("assign_labels", m, d)
+    if n >= 2 ** 24:
+        raise ValueError(f"assign_labels: the kernel's float32 counts are "
+                         f"exact below 2^24 pixels, got n={n}")
     lib = _build.library()
     xc = _rows(x)
-    zc = seeds.to(torch.float32).contiguous()
-    slab = seed_labels.to(torch.int32).contiguous()
-    zv = (None if z_valid is None
-          else z_valid.to(torch.bool).to(torch.uint8).contiguous())
+    zc = _rows(_as(seeds, torch.float32))
+    slab = _as(seed_labels, torch.int32)
+    # a bool tensor's bytes are 0 or 1, as the kernel reads them
+    zv = None if z_valid is None else _as(z_valid, torch.bool)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
-    counts = torch.empty((2, m), dtype=torch.int32, device=x.device)
+    # pixels per label, valid pixels per label, re-checked pixels
+    out = torch.empty(2 * m + 1, dtype=torch.float32, device=x.device)
     err = lib.uoc_assign_labels(xc.data_ptr(), code, n, zc.data_ptr(),
                                 slab.data_ptr(), m,
                                 None if zv is None else zv.data_ptr(),
-                                labels.data_ptr(), counts.data_ptr(),
-                                _grid(x, n), _build.stream(x))
+                                labels.data_ptr(), out.data_ptr(),
+                                _build.stream(x))
     _build.check(err, "assign_labels")
     assign_labels_launches += 1
-    counts = counts.to(torch.float32)
-    return labels, counts[0], counts[1]
+    counts, valid_counts, assign_labels_rechecked = out.split((m, m, 1))
+    return labels, counts, valid_counts
+
+
+def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int]:
+    """The assignment kernel's launch shape for x ([n, 64] on the card) and
+    m seeds: grid, blocks per SM, threads per block, dynamic shared-memory
+    bytes, bytes of X held on chip per block (its ring of tiles)."""
+    return _build.plan(x.device, "uoc_assign_labels_plan",
+                       _build.dtype_code(x, "assign_labels"), x.shape[0], m,
+                       names=("grid", "blocks_per_sm", "threads",
+                              "smem_bytes", "x_on_chip_bytes"))
