@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; no exception is caught):
      stage-1 shapes (n = 480*640 pixels, d = 64, m = 100 seeds), on
      clustered unit embeddings made from a numpy seed, in parity mode
      (float32, stride-1 seeding) and fast mode (bfloat16, stride-8
-     seeding); the launch configuration of the seeding, hill-climb and
-     assignment kernels; the pixels the assignment re-checked exactly;
+     seeding); the connected components also on pairwise-far seeds (each
+     its own cluster: the most merge steps); the launch configuration of
+     the seeding, hill-climb and assignment kernels; the merge steps of
+     the connected components; the pixels the assignment re-checked exactly;
      median CUDA-event times of one wrapper call and of the plain version
      (host latency included) beside the bound computed from the shapes,
      and each kernel's own device time from torch.profiler.  Then the whole clustering
@@ -35,6 +37,7 @@ outside a checkout of the repository, it exits non-zero with no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -167,6 +170,21 @@ def clustered_embeddings(seed: int = 0, k: int = 12
             torch.from_numpy(z_valid).cuda())
 
 
+def pairwise_far_seeds(seed: int = 1) -> torch.Tensor:
+    """[M, D] random unit seeds, every pair far outside EPS (cosine
+    distance about 0.5): each seed is its own cluster."""
+    z = np.random.RandomState(seed).randn(M, D)
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    return torch.from_numpy(z.astype(np.float32)).cuda()
+
+
+def merge_steps() -> int | None:
+    """Merge steps of the last connected_components launch, where the
+    kernel reports them."""
+    steps = getattr(cms, "connected_components_steps", None)
+    return None if steps is None else int(steps)
+
+
 def seed_gap(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor
              ) -> tuple[int, float]:
     """First step where two seed sequences differ, and the plain route's
@@ -242,23 +260,35 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
             x, z0, kappa=KAPPA, max_iters=ITERS), 3),
         bound=bound(nbytes, ops, dtype))
 
-    z = want_z
-    got_l = cms.connected_components(z, EPS)
-    want_l = cms.connected_components_reference(z, EPS)
-    n_labels = int(want_l.max()) + 1
-    print(f"[{mode}] connected_components: {n_labels} clusters, "
-          f"equal={bool(torch.equal(got_l, want_l))}")
-    if not torch.equal(got_l, want_l):
-        raise AssertionError(f"[{mode}] connected components differ")
+    z, far = want_z, pairwise_far_seeds()
+    cc = {}  # input -> (plain labels, merge steps)
+    for name, zin in (("clustered", z), ("pairwise-far", far)):
+        got_l = cms.connected_components(zin, EPS)
+        steps = merge_steps()
+        want_l = cms.connected_components_reference(zin, EPS)
+        cc[name] = (want_l, steps)
+        print(f"[{mode}] connected_components, {name} input: "
+              f"{int(want_l.max()) + 1} clusters in {steps} merge steps, "
+              f"equal={bool(torch.equal(got_l, want_l))}")
+        if not torch.equal(got_l, want_l):
+            raise AssertionError(f"[{mode}] connected components differ on "
+                                 f"the {name} input")
+    if int(cc["pairwise-far"][0].max()) + 1 != M:
+        raise AssertionError(f"[{mode}] pairwise-far seeds were merged")
     calls["connected_components"] = lambda: cms.connected_components(z, EPS)
+    far_call = functools.partial(cms.connected_components, far, EPS)
     out["connected_components"] = dict(
         max_abs_err=0.0,
         ms=time_ms(calls["connected_components"], 20),
         plain_ms=time_ms(lambda: cms.connected_components_reference(z, EPS),
                          3),
-        bound=bound(M * D * 4 + M * 4, 2.0 * M * M * D, torch.float32))
+        bound=bound(M * D * 4 + M * 4, 2.0 * M * M * D, torch.float32),
+        merge_steps=cc["clustered"][1], far_merge_steps=cc["pairwise-far"][1],
+        far_ms=time_ms(far_call, 20),
+        far_device_ms=device_ms(far_call, KERNEL_NAMES["connected_components"],
+                                10))
 
-    slab = want_l
+    slab = cc["clustered"][0]
     got_a = cms.assign_labels(x, z, slab, z_valid=z_valid)
     rechecked = int(cms.assign_labels_rechecked)
     want_a = cms.assign_labels_reference(x, z, slab, z_valid=z_valid)
@@ -286,7 +316,9 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
               f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
               + (f", X re-read every step {r['rereads_ms']:.4f} ms"
-                 if "rereads_ms" in r else ""))
+                 if "rereads_ms" in r else "")
+              + (f"; pairwise-far input {r['far_ms']:.4f} ms (device "
+                 f"{r['far_device_ms']:.4f} ms)" if "far_ms" in r else ""))
     return out
 
 
@@ -485,6 +517,15 @@ def main() -> None:
             fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
             fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
             fast_bound_by=fast["bound"][1]))
+        if name == "connected_components":
+            kernels[-1].update(
+                merge_steps=par["merge_steps"],
+                fast_merge_steps=fast["merge_steps"],
+                pairwise_far_ms=par["far_ms"],
+                pairwise_far_device_ms=par["far_device_ms"],
+                fast_pairwise_far_ms=fast["far_ms"],
+                fast_pairwise_far_device_ms=fast["far_device_ms"],
+                pairwise_far_merge_steps=par["far_merge_steps"])
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
                       routes}))
     print(card)

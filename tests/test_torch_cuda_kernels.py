@@ -6,8 +6,11 @@ kernel takes: m from 1 to 128 (ragged against the hill climb's 16-row
 groups and the assignment's two 64-seed products), a ragged last pixel
 tile, fewer pixels than one tile or one block's threads and more than the
 blocks hold on chip, a strided seeding view, rows that do not start on a
-16-byte boundary, and the assignment's exact re-check of near-ties between
-labels.  They need a CUDA device and skip without one.  On the machine with the card:
+16-byte boundary, the assignment's exact re-check of near-ties between
+labels, and hand-built seeds for the connected components (every seed its
+own cluster, one ball, an overwrite of labeled neighbours, a mode tie, pairs
+just inside and outside epsilon).  They need a CUDA device and skip without
+one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -153,16 +156,108 @@ def test_hill_climb_kernel_many_tiles(card, dtype):
     assert float((got - want).abs().max()) <= Z_ATOL[dtype]
 
 
-@pytest.mark.parametrize("m", [1, 20, 100, 128])
+def cc_both(z, eps=0.04):
+    """The kernel's labels, held equal to the plain version's, and its count
+    of merge steps."""
+    before = cms.connected_components_launches
+    got = cms.connected_components(z, eps)
+    assert cms.connected_components_launches == before + 1
+    steps = int(cms.connected_components_steps)
+    want = cms.connected_components_reference(z, eps)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got.tolist(), steps
+
+
+def unit(card, z):
+    z = z / np.linalg.norm(z, axis=1, keepdims=True)
+    return torch.from_numpy(z.astype(np.float32)).to(card)
+
+
+def on_arc(degrees, d=64):
+    """Points at these angles on the great circle through e0 and e1: two
+    are in each other's 0.04-ball below 23.07 degrees apart."""
+    t = np.radians(np.asarray(degrees, np.float64))
+    z = np.zeros((len(t), d))
+    z[:, 0], z[:, 1] = np.cos(t), np.sin(t)
+    return z
+
+
+def off_arc(count, seed, d=64):
+    """Random directions orthogonal to e0 and e1, each far from the arc and
+    from each other."""
+    z = np.random.RandomState(seed).randn(count, d)
+    z[:, :2] = 0.0
+    return z
+
+
+# m across the kernel's 32-seed words: 1, 31/32/33, 64/65, 127/128
+@pytest.mark.parametrize("m", [1, 20, 31, 32, 33, 64, 65, 100, 127, 128])
 def test_connected_components_kernel_matches_plain(card, m):
     x = on_card(card, clustered(4000, 64, seed=4)[0], torch.float32)
-    z = converged(card, x, m)
-    got = cms.connected_components(z, 0.04)
-    want = cms.connected_components_reference(z, 0.04)
-    assert got.dtype == torch.int32
-    assert torch.equal(got, want)
+    labels, _ = cc_both(converged(card, x, m))
     if m >= 20:
-        assert int(want.max()) > 0  # more than one cluster
+        assert max(labels) > 0  # more than one cluster
+
+
+@pytest.mark.parametrize("m", [33, 65, 100, 127, 128])
+def test_connected_components_kernel_pairwise_far(card, m):
+    """Every seed its own cluster: a merge step per seed, the most."""
+    z = unit(card, np.random.RandomState(m).randn(m, 64))
+    labels, steps = cc_both(z)
+    assert labels == list(range(m)) and steps == m
+
+
+@pytest.mark.parametrize("m", [1, 31, 33, 65, 100, 128])
+def test_connected_components_kernel_one_ball(card, m):
+    """Every pair in one epsilon-ball: every bit of the adjacency set, one
+    step."""
+    rng = np.random.RandomState(m)
+    z = unit(card, rng.randn(64) + 0.05 * rng.randn(m, 64) / 8.0)
+    labels, steps = cc_both(z)
+    assert labels == [0] * m and steps == 1
+
+
+def test_connected_components_kernel_overwrites_labeled_neighbours(card):
+    """Seed 0 (0 deg) labels 15 deg with 0; seed 1 (60 deg) labels 40 and
+    45 deg with 1; seed 2 (30 deg) is unlabeled, sees label 0 once and
+    label 1 twice, and moves 15 deg to label 1.  34 far seeds follow."""
+    z = unit(card, np.concatenate([on_arc([0, 60, 30, 15, 40, 45]),
+                                   off_arc(34, seed=3)]))
+    labels, steps = cc_both(z)
+    assert labels[:6] == [0, 1, 1, 1, 1, 1]
+    assert labels[6:] == list(range(2, 36)) and steps == 3 + 34
+
+
+@pytest.mark.parametrize("degrees", [[0, 60, 30, 10, 50], [60, 0, 30, 50, 10]])
+def test_connected_components_kernel_mode_tie_takes_smallest(card, degrees):
+    """Seed 2 (30 deg) sees labels 0 and 1 once each: it and all its
+    neighbours take 0, the smaller, whichever side label 0 is on."""
+    z = unit(card, np.concatenate([on_arc(degrees), off_arc(20, seed=5)]))
+    labels, steps = cc_both(z)
+    assert labels[:5] == [0, 1, 0, 0, 0] and steps == 3 + 20
+
+
+def test_connected_components_kernel_at_epsilon(card):
+    """16 pairs, each in a plane of its own, at a distance eps (1 -/+
+    2.5e-4): within their ball (one label) or just outside it (two).  A
+    random rotation makes every dot a full 64-term chain; its rounding
+    (about 1e-7) is far below the 1e-5 margin."""
+    eps, d = 0.04, 64
+    pairs = []
+    for k in range(16):
+        dist = eps * (1.0 + (-2.5e-4 if k % 2 == 0 else 2.5e-4))
+        c = 1.0 - 2.0 * dist
+        a, b = np.zeros(d), np.zeros(d)
+        a[2 * k] = 1.0
+        b[2 * k], b[2 * k + 1] = c, np.sqrt(1.0 - c * c)
+        pairs += [a, b]
+    rot, _ = np.linalg.qr(np.random.RandomState(6).randn(d, d))
+    labels, steps = cc_both(unit(card, np.stack(pairs) @ rot), eps)
+    for k in range(16):
+        same = labels[2 * k] == labels[2 * k + 1]
+        assert same == (k % 2 == 0), k
+    assert steps == 8 * 1 + 8 * 2
 
 
 def assign_both(x, z, slab, zv=None):

@@ -7,6 +7,8 @@ card) to the JAX package's Pallas kernels in interpret mode.  Two tests
 emulate the float32 kernels' split-TF32 arithmetic in torch: the hill
 climb's, held to the float32 plain version, and the assignment's, held to
 the margin below which the assignment kernel re-checks a pixel exactly.
+A torch model of the connected-components kernel's bitmask merge is held to
+the plain version and to the reference loop.
 
 Tolerances:
   * seed indices, seed labels, pixel labels and counts: equal;
@@ -117,6 +119,144 @@ def test_connected_components_overwrites_labeled_neighbours():
     want = np.asarray(jms.connected_components(jnp.asarray(z), 0.04))
     got = cms.connected_components(torch.from_numpy(z), 0.04)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _words(bits):
+    """[..., 128] bool -> [..., 4] int64 holding uint32 words: bit b of word
+    w is entry 32 w + b, as the connected-components kernel stores a row."""
+    shifts = torch.arange(32, dtype=torch.int64)
+    return (bits.reshape(*bits.shape[:-1], 4, 32).long() << shifts).sum(-1)
+
+
+def _popcount(v):
+    """Set bits of each uint32 word held in an int64 tensor."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _lowest(words):
+    """The lowest entry whose bit is set, or -1 (__ffs over the words)."""
+    for w in range(4):
+        v = int(words[w]) & 0xFFFFFFFF
+        if v:
+            return 32 * w + (v & -v).bit_length() - 1
+    return -1
+
+
+def bitmask_merge(adj):
+    """The connected-components kernel's merge, modelled in torch on the
+    [m, m] bool adjacency: rows and per-label memberships as bitmasks, a
+    set of the seeds neither labeled nor visited whose lowest seed is the
+    next step, each label's count among the neighbours by popcount, and the
+    mode by the maximum of the keys (count << 8) | (255 - label).  Returns
+    (labels [m] int32, steps)."""
+    m = adj.shape[0]
+    bits = torch.zeros(m, 128, dtype=torch.bool)
+    bits[:, :m] = adj
+    rows = _words(bits)                                  # [m, 4]
+    member = torch.zeros(128, 4, dtype=torch.int64)      # label l's seeds
+    pending = _words(torch.arange(128) < m)
+    labeled = torch.zeros(4, dtype=torch.int64)
+    tie = 255 - torch.arange(128)
+    num_labels = steps = 0
+    i = _lowest(pending)
+    while i >= 0:
+        a = rows[i]
+        pending = pending & ~a & ~_words(torch.arange(128) == i)
+        seen = bool((a & labeled).any())
+        labeled = labeled | a
+        key = int(((_popcount(member & a).sum(1) << 8) | tie).max())
+        # the kernel's fast path: no labeled neighbour <=> every count is 0
+        assert seen == bool(key >> 8)
+        if seen:
+            label = 255 - (key & 255)
+        else:
+            label, num_labels = num_labels, num_labels + 1
+        member = member & ~a
+        member[label] |= a
+        steps += 1
+        i = _lowest(pending)
+    # read out bit by bit of the label (the masks are disjoint, so a sum
+    # over labels is their OR, and their union is `labeled`)
+    assert torch.equal(member.sum(0), labeled)
+    seed = torch.arange(m)
+
+    def bit(words):
+        return (words[seed // 32] >> (seed % 32)) & 1
+
+    ids = torch.arange(128)
+    label = sum(bit(member[(ids >> p) & 1 == 1].sum(0)) << p
+                for p in range(7))
+    return torch.where(bit(labeled) == 1, label, -1).int(), steps
+
+
+def reference_loop(adj):
+    """A literal transcription of the reference loop (mean_shift.py:41-76,
+    JAX ops.mean_shift.connected_components) over a bool adjacency (nested
+    lists): (labels, the number of seeds unlabeled when their turn came)."""
+    m = len(adj)
+    labels = [-1] * m
+    k = steps = 0
+    for i in range(m):
+        if labels[i] != -1:
+            continue
+        steps += 1
+        neigh = [j for j in range(m) if adj[i][j]]
+        counts = {}
+        for j in neigh:
+            if labels[j] >= 0:
+                counts[labels[j]] = counts.get(labels[j], 0) + 1
+        if counts:
+            best = max(counts.values())
+            label = min(lab for lab, c in counts.items() if c == best)
+        else:
+            label, k = k, k + 1
+        for j in neigh:
+            labels[j] = label
+    return labels, steps
+
+
+MERGE_SIZES = [1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128]
+
+
+@pytest.mark.parametrize("m", MERGE_SIZES)
+def test_bitmask_merge_matches_plain_on_converged_seeds(m):
+    """Seeds spread around a few modes as after the hill climb, some balls
+    chaining into others: the kernel's merge, modelled, gives the plain
+    connected_components' labels."""
+    rng = np.random.RandomState(100 + m)
+    d, eps = 64, 0.04
+    centers = rng.randn(rng.randint(1, 12), d)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    spread = rng.uniform(0.15, 0.35)
+    z = (centers[rng.randint(len(centers), size=m)]
+         + spread * rng.randn(m, d) / np.sqrt(d))
+    z = torch.from_numpy((z / np.linalg.norm(z, axis=1,
+                                             keepdims=True)).astype(np.float32))
+    adj = 0.5 * (1.0 - z @ z.T) <= eps      # the plain version's adjacency
+    got, steps = bitmask_merge(adj)
+    want = tms.connected_components(z, eps)
+    assert torch.equal(got, want)
+    assert steps == reference_loop(adj.tolist())[1]
+
+
+@pytest.mark.parametrize("m", MERGE_SIZES)
+def test_bitmask_merge_matches_reference_loop(m):
+    """Random symmetric adjacencies, dense and sparse, with some seeds
+    outside their own ball (a diagonal entry off, as for a seed of norm
+    below 1): the modelled merge equals the reference loop, labels and
+    steps."""
+    rng = np.random.RandomState(m)
+    for density in (0.03, 0.15, 0.5):
+        a = rng.rand(m, m) < density
+        a = np.triu(a, 1)
+        a = a | a.T
+        a[np.diag_indices(m)] = rng.rand(m) < 0.9
+        got, steps = bitmask_merge(torch.from_numpy(a))
+        want, want_steps = reference_loop(a.tolist())
+        assert got.tolist() == want and steps == want_steps
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

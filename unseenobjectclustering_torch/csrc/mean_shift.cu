@@ -26,7 +26,6 @@ namespace {
 
 constexpr int kMaxSeeds = 128;
 constexpr int kD = 64;
-constexpr int kDP = kD + 1;
 
 // bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
 // bf16 hill climb: the products of bf16 values
@@ -676,66 +675,235 @@ cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
 // Connected components over the m converged seeds (reference
 // lib/utils/mean_shift.py:41-76).
 //
-// Bound on the H100: about 2*m*m*d flops (1.3 MFLOP at m=100, d=64) and a
-// few KB of traffic, so launch latency bounds it; the m sequential steps are
-// the real cost.  Design: one block.  Z is staged in shared memory (odd row
-// pitch: neighbouring threads read neighbouring banks), the [m, m]
-// epsilon-ball adjacency (dist = 0.5 * (1 - z_i . z_j) <= eps, fp32 FMA
-// chains) lives in shared memory as bytes, the labels too, and the m steps
-// run inside the kernel: an unlabeled seed i counts its labeled neighbours'
-// labels with shared-memory atomics, takes the mode (smallest label on a
-// tie) or opens a new label, and every neighbour of i takes that label.
+// Replaces _cc_kernel / connected_components_pallas.  Bound on the H100: a
+// few KB of Z in and m labels out, and m (m + 1) / 2 dot products of width
+// 64 (0.65 MFLOP at m = 100), nanoseconds of bytes and flops; what bounds it
+// is latency: one launch, the 64-long dependent FMA chains of the
+// adjacency, and one dependent merge step for each seed that is still
+// unlabeled when its turn comes (about one per cluster).
+//
+// Design: one block of 16 warps, static shared memory only (36 KB).
+//   Adjacency as bitmasks, each pair computed once.  Row i is four uint32
+//   words: bit b of adj[i][w] is set when 0.5 * (1 - z_i . z_j) <= eps for
+//   j = 32 w + b < m; bits at or past m stay 0.  Of the 32 x 32 tiles of the
+//   matrix only those on or above the diagonal are computed, each in the
+//   orientation whose row block holds fewer seeds.  A lane owns one column
+//   seed j and keeps its 64 floats in registers; it runs kCCRows rows'
+//   chains at once, reading the rows' values as shared-memory broadcasts.
+//   A row's word is one __ballot_sync; the lane's own bits over the rows
+//   are column j's word of the row block (the mirror, OR-ed in shared
+//   memory).  The mirror is exact: every dot is the sequential fp32 fmaf
+//   chain over k = 0..63, and fmaf(a, b, c) == fmaf(b, a, c) bit for bit,
+//   so (i, j) and (j, i) agree.  The diagonal is computed like any pair.
+//   The merge on one warp, with no block barrier.  Labels are membership
+//   bitmasks of four words; lane l % 32 holds labels l, l + 32, l + 64 and
+//   l + 96 in registers.  A 128-bit set of the seeds still unlabeled and
+//   not yet visited, the same in every lane, drives the loop: the next step
+//   is its lowest set bit, which lies above the seed last visited, so the
+//   steps visit, in index order, the seeds that are unlabeled when their
+//   turn comes, and a seed outside its own ball (a z_i of norm below 1) is
+//   not visited twice.  A step counts each label among i's neighbours as
+//   popc(adj[i] & member[l]), takes the mode (the smallest label on a tie)
+//   with one __reduce_max_sync over the keys (count << 8) | (255 - l), and
+//   moves all of i's neighbours to that label; when no neighbour is labeled
+//   (a uniform test against the union of the masks) every count is 0, and
+//   the step opens label num_labels without the counts.  The next step's
+//   row is loaded while this one runs.  At the end each seed's label is
+//   read from the masks one bit of the label at a time (one
+//   __reduce_or_sync per label bit and word); a seed in no mask is -1.
 // ---------------------------------------------------------------------------
 constexpr int kCCThreads = 512;
+constexpr int kCCWarps = kCCThreads / 32;
+constexpr int kCCWords = kMaxSeeds / 32;
+// Z's row pitch in shared memory, in floats: rows stay 16-byte aligned, and
+// the 8 lanes of one 16-byte load phase, each reading its own row, hit 8
+// disjoint groups of 4 banks.
+constexpr int kCCPitch = kD + 4;
+constexpr int kCCRows = 8;  // rows of one work item, run as independent chains
+
+// Rows [r0, r0 + kCCRows) of row block rb (which holds `rows` seeds)
+// against the 32 seeds of column block cb: the rows' words of block cb, by
+// ballot, and when `mirror` is set each lane's bits over these rows, OR-ed
+// into its column's word of block rb.
+__device__ __forceinline__ void cc_rows(const float* zs,
+                                        unsigned (*adj)[kCCWords], int m,
+                                        float eps, int rb, int rows, int r0,
+                                        int cb, bool mirror) {
+  const int lane = threadIdx.x & 31;
+  const int j = 32 * cb + lane;
+  const float* zj = zs + min(j, m - 1) * kCCPitch;
+  float col[kD];
+#pragma unroll
+  for (int k = 0; k < kD; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(zj + k);
+    col[k] = v.x;
+    col[k + 1] = v.y;
+    col[k + 2] = v.z;
+    col[k + 3] = v.w;
+  }
+  const float* zi[kCCRows];
+  float acc[kCCRows];
+#pragma unroll
+  for (int r = 0; r < kCCRows; ++r) {
+    zi[r] = zs + (32 * rb + min(r0 + r, rows - 1)) * kCCPitch;
+    acc[r] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kD; k += 4) {
+#pragma unroll
+    for (int r = 0; r < kCCRows; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(zi[r] + k);
+      acc[r] = fmaf(v.x, col[k], acc[r]);
+      acc[r] = fmaf(v.y, col[k + 1], acc[r]);
+      acc[r] = fmaf(v.z, col[k + 2], acc[r]);
+      acc[r] = fmaf(v.w, col[k + 3], acc[r]);
+    }
+  }
+  unsigned own = 0;  // column j's bits over these rows
+#pragma unroll
+  for (int r = 0; r < kCCRows; ++r) {
+    const bool in = r0 + r < rows && j < m && 0.5f * (1.0f - acc[r]) <= eps;
+    const unsigned word = __ballot_sync(0xffffffffu, in);
+    if (lane == 0 && r0 + r < rows) adj[32 * rb + r0 + r][cb] = word;
+    own |= static_cast<unsigned>(in) << (r0 + r);
+  }
+  if (mirror && own) atomicOr(&adj[j][rb], own);
+}
+
+// The lowest seed whose bit is set in s, or -1; the four __ffs are
+// independent, so there is no branch.
+__device__ __forceinline__ int cc_first(const unsigned (&s)[kCCWords]) {
+  int first = -1;
+#pragma unroll
+  for (int w = kCCWords - 1; w >= 0; --w) {
+    const int f = __ffs(s[w]);
+    first = f ? 32 * w + f - 1 : first;
+  }
+  return first;
+}
 
 __global__ void __launch_bounds__(kCCThreads)
 cc_kernel(const float* __restrict__ z, int m, float eps,
-          int* __restrict__ out) {
-  extern __shared__ __align__(16) float zs[];  // [m][kDP]
-  __shared__ unsigned char adj[kMaxSeeds][kMaxSeeds];
-  __shared__ int labels[kMaxSeeds];
-  __shared__ int counts[kMaxSeeds];
-  __shared__ int new_label, num_labels;
-  const int t = threadIdx.x;
+          int* __restrict__ labels, int* __restrict__ steps) {
+  __shared__ __align__(16) float zs[kMaxSeeds * kCCPitch];
+  __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-  for (int e = t; e < m * kD; e += blockDim.x)
-    zs[(e / kD) * kDP + e % kD] = z[e];
-  __syncthreads();
-  for (int e = t; e < m * m; e += blockDim.x) {
-    const int i = e / m, j = e % m;
-    float acc = 0.0f;
-    for (int k = 0; k < kD; ++k)
-      acc = fmaf(zs[i * kDP + k], zs[j * kDP + k], acc);
-    adj[i][j] = 0.5f * (1.0f - acc) <= eps;
-  }
-  if (t < m) labels[t] = -1;
-  if (t == 0) num_labels = 0;
+  for (int e = t; e < kMaxSeeds * kCCWords; e += kCCThreads)
+    adj[e / kCCWords][e % kCCWords] = 0u;
+  for (int e = t; e < m * (kD / 4); e += kCCThreads)
+    *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kCCPitch +
+                               4 * (e % (kD / 4))) =
+        reinterpret_cast<const float4*>(z)[e];
   __syncthreads();
 
-  for (int i = 0; i < m; ++i) {
-    if (labels[i] != -1) continue;  // uniform: every thread reads the same
-    if (t < m) counts[t] = 0;
-    __syncthreads();
-    if (t < m && adj[i][t] && labels[t] >= 0) atomicAdd(&counts[labels[t]], 1);
-    __syncthreads();
-    if (t == 0) {
-      // labels in use are < num_labels; strict '>' keeps the smallest
-      // label on a tie
-      int best = -1, best_count = 0;
-      for (int l = 0; l < num_labels; ++l)
-        if (counts[l] > best_count) { best_count = counts[l]; best = l; }
-      if (best >= 0) {
-        new_label = best;
-      } else {
-        new_label = num_labels;
-        num_labels += 1;
-      }
+  // Work items of kCCRows rows of one tile, dealt to the warps in turn.
+  // Only the last block can hold fewer than 32 seeds; off the diagonal it
+  // gives the rows.
+  const int blocks = (m + 31) / 32;
+  const bool short_last = m % 32 != 0;
+  int item = 0;
+  for (int a = 0; a < blocks; ++a)
+    for (int c = a; c < blocks; ++c) {
+      const bool swap = short_last && c == blocks - 1;
+      const int rb = swap ? c : a, cb = swap ? a : c;
+      const int rows = min(32, m - 32 * rb);
+      for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item)
+        if (item % kCCWarps == warp)
+          cc_rows(zs, adj, m, eps, rb, rows, r0, cb, a != c);
     }
-    __syncthreads();
-    if (t < m && adj[i][t]) labels[t] = new_label;
-    __syncthreads();
+  __syncthreads();
+  if (warp != 0) return;
+
+  // The merge, on warp 0.  pending: the seeds neither labeled nor visited;
+  // labeled: the union of the label masks (both the same in every lane).
+  unsigned pending[kCCWords], labeled[kCCWords];
+  unsigned member[kCCWords][kCCWords];  // [q][w]: label lane + 32 q's seeds
+#pragma unroll
+  for (int w = 0; w < kCCWords; ++w) {
+    const int left = m - 32 * w;
+    pending[w] = left >= 32 ? 0xffffffffu : left > 0 ? (1u << left) - 1u : 0u;
+    labeled[w] = 0u;
+#pragma unroll
+    for (int q = 0; q < kCCWords; ++q) member[q][w] = 0u;
   }
-  if (t < m) out[t] = labels[t];
+  const uint4* balls = reinterpret_cast<const uint4*>(&adj[0][0]);
+  int num_labels = 0, n_steps = 0;
+  int i = 0;  // m >= 1: seed 0 is the first step
+  uint4 row = balls[0];
+  while (true) {
+    const unsigned ball[kCCWords] = {row.x, row.y, row.z, row.w};
+    // i and its neighbours leave the pending set, whose lowest seed is the
+    // next step (every seed below it is labeled or visited); its row is
+    // loaded while this step runs
+#pragma unroll
+    for (int w = 0; w < kCCWords; ++w)
+      pending[w] &= ~(ball[w] | (w == i >> 5 ? 1u << (i & 31) : 0u));
+    const int next = cc_first(pending);
+    const uint4 next_row = balls[next & (kMaxSeeds - 1)];
+    bool seen = false;  // some neighbour of i is labeled
+#pragma unroll
+    for (int w = 0; w < kCCWords; ++w) {
+      seen |= (ball[w] & labeled[w]) != 0u;
+      labeled[w] |= ball[w];
+    }
+    int label = num_labels;
+    if (seen) {
+      // the mode of the neighbours' labels, the smallest on a tie (the
+      // best count is at least 1); the neighbours leave their labels
+      unsigned key = 0;
+#pragma unroll
+      for (int q = 0; q < kCCWords; ++q) {
+        int count = 0;
+#pragma unroll
+        for (int w = 0; w < kCCWords; ++w)
+          count += __popc(ball[w] & member[q][w]);
+        key = max(key, static_cast<unsigned>(count) << 8 |
+                           static_cast<unsigned>(255 - lane - 32 * q));
+      }
+      key = __reduce_max_sync(0xffffffffu, key);
+      label = 255 - static_cast<int>(key & 255u);
+#pragma unroll
+      for (int q = 0; q < kCCWords; ++q)
+#pragma unroll
+        for (int w = 0; w < kCCWords; ++w) member[q][w] &= ~ball[w];
+    } else {
+      ++num_labels;  // every count is 0: a new label
+    }
+    const bool mine = (label & 31) == lane;
+#pragma unroll
+    for (int q = 0; q < kCCWords; ++q) {
+      const unsigned take = mine && label >> 5 == q ? 0xffffffffu : 0u;
+#pragma unroll
+      for (int w = 0; w < kCCWords; ++w) member[q][w] |= ball[w] & take;
+    }
+    ++n_steps;
+    if (next < 0) break;
+    i = next;
+    row = next_row;
+  }
+
+  // Seed 32 w + lane's label, bit by bit: bits 0-4 of a label are its
+  // owner's lane, bits 5-6 its slot q.  A seed outside `labeled` is in no
+  // label's mask.
+#pragma unroll
+  for (int w = 0; w < kCCWords; ++w) {
+    if (32 * w >= m) break;
+    const unsigned held =
+        member[0][w] | member[1][w] | member[2][w] | member[3][w];
+    int label = 0;
+#pragma unroll
+    for (int p = 0; p < 5; ++p)
+      label |= ((__reduce_or_sync(0xffffffffu, lane >> p & 1 ? held : 0u) >>
+                 lane) & 1) << p;
+    label |= ((__reduce_or_sync(0xffffffffu, member[1][w] | member[3][w]) >>
+               lane) & 1) << 5;
+    label |= ((__reduce_or_sync(0xffffffffu, member[2][w] | member[3][w]) >>
+               lane) & 1) << 6;
+    if (32 * w + lane < m)
+      labels[32 * w + lane] = labeled[w] >> lane & 1 ? label : -1;
+  }
+  if (lane == 0) *steps = n_steps;
 }
 
 // ---------------------------------------------------------------------------
@@ -1273,13 +1441,6 @@ cudaError_t plan_assign_for(int dtype, int n, AssignPlan* p) {
   return cudaSuccess;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
@@ -1339,15 +1500,17 @@ extern "C" int uoc_hill_climb(const void* x, int dtype, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: [m, 64] float32; labels: [m] int32 out.  m <= 128.
+// z: [m, 64] float32, rows 16-byte aligned; labels: [m] int32 out; steps:
+// one int32 out, the merge steps taken (the seeds still unlabeled when their
+// turn came).  1 <= m <= 128.  One launch on `stream`, with static shared
+// memory only.
 extern "C" int uoc_connected_components(const float* z, int m, float epsilon,
-                                        int* labels, void* stream) {
-  if (m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = sizeof(float) * m * kDP;
-  const cudaError_t err = allow_smem(cc_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cc_kernel<<<1, kCCThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      z, m, epsilon, labels);
+                                        int* labels, int* steps,
+                                        void* stream) {
+  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(z)) return static_cast<int>(cudaErrorMisalignedAddress);
+  cc_kernel<<<1, kCCThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      z, m, epsilon, labels, steps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "uoc_select_seeds_plan": [_I, _I, _P],
     "uoc_hill_climb": [_P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
     "uoc_hill_climb_plan": [_I, _I, _I, _P],
-    "uoc_connected_components": [_P, _I, _F, _P, _P],
+    "uoc_connected_components": [_P, _I, _F, _P, _P, _P],
     "uoc_assign_labels": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     "uoc_assign_labels_plan": [_I, _I, _I, _P],
 }

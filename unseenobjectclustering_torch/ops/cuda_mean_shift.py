@@ -10,8 +10,10 @@ kernels are in ``csrc/mean_shift.cu``:
     fixed-order reduction of the blocks' partials + row normalization
     behind a grid-wide barrier; the [m, n] weights never reach device
     memory.
-  * connected_components: one block, adjacency and labels in shared memory,
-    the m sequential steps inside the kernel.
+  * connected_components: one block; the epsilon-ball adjacency as
+    bitmasks (each pair's exact fp32 FMA chain once, a ballot per row), then
+    one warp merges with the labels as membership bitmasks in registers,
+    stepping only through the seeds still unlabeled when their turn comes.
   * assign_labels: one persistent launch; each block streams its 128-pixel
     tiles through a cp.async ring, S = X Z^T on wgmma (split TF32 for
     float32, bf16 for bfloat16) stays in registers for the argmax, pixels
@@ -46,6 +48,9 @@ ASSIGN_RECHECK_MARGIN = 2.0 ** -15
 hill_climb_launches = 0
 connected_components_launches = 0
 assign_labels_launches = 0
+# [1] int32 on the card: merge steps of the last connected_components
+# launch (the seeds still unlabeled when their turn came)
+connected_components_steps: Optional[torch.Tensor] = None
 # [1] float32 on the card: pixels the last assign_labels launch re-checked
 assign_labels_rechecked: Optional[torch.Tensor] = None
 
@@ -73,6 +78,11 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _on_device(what: str, x: torch.Tensor, *others: Optional[torch.Tensor]
                ) -> None:
+    """Raise unless x lies on the current device, where the kernel launches,
+    and every other tensor given lies with it."""
+    if x.get_device() != torch.cuda.current_device():
+        raise ValueError(f"{what}: tensor on {x.device}, current device "
+                         f"cuda:{torch.cuda.current_device()}")
     for t in others:
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
@@ -158,16 +168,20 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
     Returns [m] int32 labels."""
     if not z.is_cuda:
         return connected_components_reference(z, epsilon)
-    global connected_components_launches
+    global connected_components_launches, connected_components_steps
+    _on_device("connected_components", z)
     m, d = z.shape
     _check_shapes("connected_components", m, d)
     lib = _build.library()
-    zc = z.to(torch.float32).contiguous()
-    labels = torch.empty(m, dtype=torch.int32, device=z.device)
-    err = lib.uoc_connected_components(zc.data_ptr(), m, float(epsilon),
-                                       labels.data_ptr(), _build.stream(z))
+    zc = _rows(_as(z, torch.float32))
+    # the labels, then the count of merge steps
+    out = torch.empty(m + 1, dtype=torch.int32, device=z.device)
+    ptr = out.data_ptr()
+    err = lib.uoc_connected_components(zc.data_ptr(), m, float(epsilon), ptr,
+                                       ptr + 4 * m, _build.stream(z))
     _build.check(err, "connected_components")
     connected_components_launches += 1
+    labels, connected_components_steps = out.split((m, 1))
     return labels
 
 
