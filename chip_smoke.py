@@ -7,18 +7,19 @@ Phases (any failure exits non-zero; no exception is caught):
   1. the card's name and power limit; build the CUDA kernels from
      unseenobjectclustering_torch/csrc and report the build time.
   2. each kernel against its plain PyTorch version on the card, at the
-     stage-1 shapes (n = 480*640 pixels, d = 64, m = 100 seeds), on
-     clustered unit embeddings made from a numpy seed, in parity mode
-     (float32, stride-1 seeding) and fast mode (bfloat16, stride-8
-     seeding); the connected components also on pairwise-far seeds (each
-     its own cluster: the most merge steps); the launch configuration of
-     the seeding, hill-climb and assignment kernels; the merge steps of
-     the connected components; the pixels the assignment re-checked exactly;
-     median CUDA-event times of one wrapper call and of the plain version
-     (host latency included) beside the bound computed from the shapes,
-     and each kernel's own device time from torch.profiler.  Then the whole clustering
-     (mean_shift_smart_init with the 0.8 depth filter) on those
-     embeddings, kernel route against plain route, timed.
+     stage-1 shapes (n = 480*640 pixels, d = 64, m = 100 seeds) and at
+     stage 2's crop shape (n = 224*224), on clustered unit embeddings made
+     from a numpy seed, in parity mode (float32, stride-1 seeding) and fast
+     mode (bfloat16, stride-8 seeding); the connected components also on
+     pairwise-far seeds (each its own cluster: the most merge steps); the
+     launch configuration of the seeding, hill-climb and assignment kernels
+     at each shape; the merge steps of the connected components; the pixels
+     the assignment re-checked exactly; median CUDA-event times of one
+     wrapper call and of the plain version (host latency included) beside
+     the bound computed from the shapes, and each kernel's own device time
+     from torch.profiler.  Then the whole clustering (mean_shift_smart_init
+     with the 0.8 depth filter) on the stage-1 embeddings, kernel route
+     against plain route, timed.
   3. stage 1 through Segmentor.segment_sample: seg_resnet34_8s_embedding,
      RGB-D, add fusion, 64-D embeddings, 480x640, weights from a fixed-seed
      init; a few frames in each mode, every launch counter reset just
@@ -27,9 +28,21 @@ Phases (any failure exits non-zero; no exception is caught):
      route's labels held against the plain route's on the same
      embeddings, and stage 1 on the card against stage 1 on the CPU on a
      60x90 window of the frame.
-  4. one {"kernels": [...]} line: each kernel's launches in the parity and
-     in the fast run of the main path, its times and bounds in both modes.
-  5. the last line: {"ok": true, "device": {...}}.
+  4. stage 2 (zoom-in refinement) with a ResNet-34-8s RGB-D crop network
+     at 224x224, MAX_INSTANCES 32: frames with 8, 16 and 32 boxes (one per
+     crop bucket) whose boxes are the stage-1 labels, refined in each mode
+     with the counters reset before the mode's frames: every kernel must
+     launch exactly once per valid crop; the stage-2 ms per bucket (RoI
+     crops, crop network, clustering, veto, fetch, paste) and peak memory;
+     a torch.profiler trace of the 32-instance frame per mode (the
+     device's busy ms and idle share, the top kernels and host ops);
+     in parity the kernel route's refined labels equal to the plain
+     route's, one crop's embeddings on the card within 1e-4 of the CPU's;
+     segment_sample(refine=True) once through the public path per mode.
+  5. one {"kernels": [...]} line: each kernel's launches in the parity and
+     fast runs of stage 1 and of stage 2, its times and bounds in both
+     modes at the frame and the crop shape.
+  6. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero with no result.
@@ -45,6 +58,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
@@ -55,11 +69,15 @@ from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
 from unseenobjectclustering_torch.ops.mean_shift import mean_shift_smart_init
 from unseenobjectclustering_torch.ops.preprocess import preprocess_rgbd
+from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
 
 H, W, D, M = 480, 640, 64, 100
 N = H * W
 KAPPA, ITERS, EPS = 20.0, 10, 0.04
 FRAMES = 3  # timed frames per mode, after one warm-up frame
+CROP = 224  # stage 2's crop side (TRAIN.SYN_CROP_SIZE)
+STAGE2_INSTANCES = (8, 16, 32)  # one frame per crop bucket
+STAGE2_FRAMES = 2  # timed stage-2 frames per bucket, after one warm-up
 # H100 SXM published peaks (dense): the bound of each kernel is the larger
 # of its bytes over HBM bandwidth and its operations over the peak rate of
 # its input type.  float32 work to fp32 accuracy runs fastest on the tensor
@@ -152,19 +170,19 @@ def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def clustered_embeddings(seed: int = 0, k: int = 12
+def clustered_embeddings(seed: int = 0, k: int = 12, n: int = N
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[N, D] unit embeddings around k centers (one large background
-    cluster), and a [N] validity mask with one mostly-invalid cluster."""
+    """[n, D] unit embeddings around k centers (one large background
+    cluster), and a [n] validity mask with one mostly-invalid cluster."""
     rng = np.random.RandomState(seed)
     centers = rng.randn(k, D)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
     prob = np.full(k, 1.0)
     prob[0] = 6.0
-    assign = rng.choice(k, size=N, p=prob / prob.sum())
-    x = centers[assign] + 0.3 * rng.randn(N, D) / np.sqrt(D)
+    assign = rng.choice(k, size=n, p=prob / prob.sum())
+    x = centers[assign] + 0.3 * rng.randn(n, D) / np.sqrt(D)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
-    z_valid = rng.rand(N) > 0.05
+    z_valid = rng.rand(n) > 0.05
     z_valid[assign == 3] = rng.rand(int((assign == 3).sum())) > 0.7
     return (torch.from_numpy(x.astype(np.float32)).cuda(),
             torch.from_numpy(z_valid).cuda())
@@ -201,32 +219,37 @@ def seed_gap(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor
     return k, float(md[want[k].long()] - md[got[k].long()])
 
 
-def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
+def check_kernels(mode: str, x32: torch.Tensor,
+                  z_valid: torch.Tensor | None, where: str = ""
                   ) -> dict[str, dict]:
-    """Phase 2 for one mode: every kernel against its plain version."""
+    """Phase 2 for one mode at x32's shape ([n, D]): every kernel against
+    its plain version.  z_valid (the stage-1 depth mask) goes to the
+    assignment when given; stage 2 has none."""
     dtype = torch.float32 if mode == "parity" else torch.bfloat16
     sub = 1 if mode == "parity" else int(FAST_CLUSTER["SEED_SUBSAMPLE"])
     x = x32.to(dtype)
+    n = x.shape[0]
     x_seed = x[::sub]
     n_seed = x_seed.shape[0]
     first = 12345 % n_seed
     esize = x.element_size()
     out: dict[str, dict] = {}
     calls = {}  # each kernel's wrapper call, for its timings
+    tag = mode + where  # the tag of this check's lines
 
-    print(f"[{mode}] select_seeds launch: "
+    print(f"[{tag}] select_seeds launch (n = {n_seed}): "
           f"{json.dumps(cuda_seeding.launch_config(x_seed))}")
-    print(f"[{mode}] hill_climb launch: "
+    print(f"[{tag}] hill_climb launch (n = {n}): "
           f"{json.dumps(cms.hill_climb_config(x, M))}")
-    print(f"[{mode}] assign_labels launch: "
+    print(f"[{tag}] assign_labels launch (n = {n}): "
           f"{json.dumps(cms.assign_labels_config(x, M))}")
     got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
     want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
     step, gap = seed_gap(x_seed, got_i, want_i)
-    print(f"[{mode}] select_seeds: first differing step {step}, "
+    print(f"[{tag}] select_seeds: first differing step {step}, "
           f"min-distance gap there {gap:.3e}")
     if step >= 0 and not (mode == "fast" and gap < SEED_GAP):
-        raise AssertionError(f"[{mode}] seeding differs at step {step} "
+        raise AssertionError(f"[{tag}] seeding differs at step {step} "
                              f"(gap {gap:.3e})")
     ops = 2.0 * (M - 1) * n_seed * D
     nbytes = n_seed * D * esize + M * (D * esize + 4)
@@ -245,12 +268,12 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
     got_z = cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS)
     want_z = cms.hill_climb_reference(x, z0, kappa=KAPPA, max_iters=ITERS)
     err = float((got_z - want_z).abs().max())
-    print(f"[{mode}] hill_climb: max |Z - Z_plain| = {err:.3e}")
+    print(f"[{tag}] hill_climb: max |Z - Z_plain| = {err:.3e}")
     if not err <= Z_TOL[mode]:
-        raise AssertionError(f"[{mode}] hill_climb error {err:.3e} > "
+        raise AssertionError(f"[{tag}] hill_climb error {err:.3e} > "
                              f"{Z_TOL[mode]}")
-    ops = ITERS * 4.0 * M * N * D
-    nbytes = N * D * esize + 2 * M * D * 4
+    ops = ITERS * 4.0 * M * n * D
+    nbytes = n * D * esize + 2 * M * D * 4
     calls["hill_climb"] = lambda: cms.hill_climb(x, z0, kappa=KAPPA,
                                                  max_iters=ITERS)
     out["hill_climb"] = dict(
@@ -267,14 +290,14 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
         steps = merge_steps()
         want_l = cms.connected_components_reference(zin, EPS)
         cc[name] = (want_l, steps)
-        print(f"[{mode}] connected_components, {name} input: "
+        print(f"[{tag}] connected_components, {name} input: "
               f"{int(want_l.max()) + 1} clusters in {steps} merge steps, "
               f"equal={bool(torch.equal(got_l, want_l))}")
         if not torch.equal(got_l, want_l):
-            raise AssertionError(f"[{mode}] connected components differ on "
+            raise AssertionError(f"[{tag}] connected components differ on "
                                  f"the {name} input")
     if int(cc["pairwise-far"][0].max()) + 1 != M:
-        raise AssertionError(f"[{mode}] pairwise-far seeds were merged")
+        raise AssertionError(f"[{tag}] pairwise-far seeds were merged")
     calls["connected_components"] = lambda: cms.connected_components(z, EPS)
     far_call = functools.partial(cms.connected_components, far, EPS)
     out["connected_components"] = dict(
@@ -296,12 +319,13 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
                           want_a):
         if not torch.equal(g, w):
             raise AssertionError(
-                f"[{mode}] assign_labels {name} differ at "
+                f"[{tag}] assign_labels {name} differ at "
                 f"{int((g != w).sum())} entries")
-    print(f"[{mode}] assign_labels: labels and both histograms equal; "
+    print(f"[{tag}] assign_labels: labels and both histograms equal; "
           f"{rechecked} pixels re-checked exactly")
-    ops = 2.0 * M * N * D
-    nbytes = N * D * esize + N * (1 + 4) + M * (D * 4 + 4 + 8)
+    ops = 2.0 * M * n * D
+    nbytes = (n * D * esize + n * (4 + (z_valid is not None))
+              + M * (D * 4 + 4 + 8))
     calls["assign_labels"] = lambda: cms.assign_labels(x, z, slab,
                                                        z_valid=z_valid)
     out["assign_labels"] = dict(
@@ -312,7 +336,7 @@ def check_kernels(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
         bound=bound(nbytes, ops, dtype))
     for name, r in out.items():
         r["device_ms"] = device_ms(calls[name], KERNEL_NAMES[name], 10)
-        print(f"[{mode}] {name}: kernel {r['ms']:.4f} ms (device "
+        print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms (device "
               f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
               + (f", X re-read every step {r['rereads_ms']:.4f} ms"
@@ -446,6 +470,190 @@ def check_against_cpu(cfg: Config, state_dict: dict, frame: dict) -> None:
         raise AssertionError("stage 1 on the card differs from the CPU")
 
 
+def instance_frame(k: int, seed: int
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A 480x640 table with k boxes, one in each of k cells of a grid (no
+    two overlap): BGR uint8, depth in meters (0 where the sensor saw
+    nothing) and the boxes' label map (ids 1..k, 0 elsewhere)."""
+    rng = np.random.RandomState(seed)
+    cols = int(np.ceil(np.sqrt(k * W / H)))
+    rows = -(-k // cols)
+    ch, cw = H // rows, W // cols
+    bgr = np.empty((H, W, 3), np.float64)
+    bgr[:] = (70, 95, 120)
+    depth = np.tile(np.linspace(1.6, 0.9, H, dtype=np.float32)[:, None],
+                    (1, W))
+    labels = np.zeros((H, W), np.int32)
+    for i, cell in enumerate(rng.permutation(rows * cols)[:k]):
+        h, w = rng.randint(ch // 3, ch - 4), rng.randint(cw // 3, cw - 4)
+        y = (cell // cols) * ch + rng.randint(2, ch - h - 1)
+        x = (cell % cols) * cw + rng.randint(2, cw - w - 1)
+        bgr[y:y + h, x:x + w] = rng.randint(0, 256, size=3)
+        depth[y:y + h, x:x + w] = depth[y + h - 1, x] - rng.uniform(0.05, 0.3)
+        labels[y:y + h, x:x + w] = i + 1
+    bgr += rng.randn(H, W, 3) * 6.0
+    depth[rng.rand(H, W) < 0.02] = 0.0
+    return np.clip(bgr, 0, 255).astype(np.uint8), depth, labels
+
+
+def stage2_frames(cfg: Config) -> dict[int, tuple]:
+    """Per instance count: (image, XYZ, labels) on the card and the labels
+    on the host."""
+    frames = {}
+    for k in STAGE2_INSTANCES:
+        bgr, depth, labels = instance_frame(k, seed=k)
+        if len(np.unique(labels)) != k + 1:
+            raise AssertionError(f"the {k}-box frame shows "
+                                 f"{len(np.unique(labels)) - 1} boxes")
+        img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
+                                   torch.from_numpy(depth).cuda(),
+                                   cfg.pixel_means, 615.0, 615.0, W / 2.0,
+                                   H / 2.0)
+        frames[k] = (img, xyz, torch.from_numpy(labels).cuda(), labels)
+    return frames
+
+
+def refine(seg: Segmentor, frame: tuple, seed: int,
+           timing: dict | None = None) -> np.ndarray:
+    """Stage 2 of one frame (_stage2_impl, the fetch and the paste), with
+    the frame's boxes as its stage-1 labels; checks the refined labels."""
+    img, xyz, labels, labels_np = frame
+    t0 = time.perf_counter()
+    refined = seg._refine(img, labels, xyz, labels_np,
+                          torch.Generator().manual_seed(seed),
+                          has_depth=True, timing=timing)
+    if timing is not None:
+        timing["stage2"] = time.perf_counter() - t0
+    if (refined.shape != (H, W) or refined.dtype != np.int32
+            or refined.min() < 0):
+        raise AssertionError(f"refined labels {refined.shape} "
+                             f"{refined.dtype}")
+    return refined
+
+
+def profile_stage2(mode: str, seg: Segmentor, frame: tuple,
+                   wall_ms: float) -> dict[str, float]:
+    """One stage-2 frame under torch.profiler: the device's busy ms (the
+    kernels' own times summed: one stream, so they do not overlap), its idle
+    share against wall_ms (the median of the unprofiled frames: the
+    profiler slows the host), and the kernels and host ops that take the
+    most time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        refine(seg, frame, seed=0)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    idle = 1.0 - busy / wall_ms
+    print(f"[{mode}] stage 2 profile, {len(np.unique(frame[3])) - 1} "
+          f"instances: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall, "
+          f"idle share {idle:.3f}")
+    for key, label, rows in (("self_device_time_total", "device", kernels),
+                             ("self_cpu_time_total", "host", events)):
+        top = sorted(rows, key=lambda e: -getattr(e, key))[:8]
+        print(f"[{mode}]   top {label}: " + "; ".join(
+            f"{e.key[:48]} x{e.count} {getattr(e, key) / 1e3:.3f} ms"
+            for e in top))
+    return dict(device_busy_ms=busy, idle_share=idle)
+
+
+def run_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple]
+               ) -> tuple[dict, dict, dict]:
+    """Phase 4: stage 2 at full width in both modes, a frame per crop
+    bucket.  Random-init stage-1 embeddings form one cluster, which the
+    background swap turns into no instance, so the public path alone crops
+    nothing: each frame's boxes are its stage-1 label map.  The counters
+    are set to 0 before each mode's frames and read after; every kernel
+    must launch exactly once per valid crop."""
+    counts: dict[str, dict] = {}
+    timings: dict[str, dict] = {}
+    memory: dict[str, dict] = {}
+    for mode, seg in segs.items():
+        reset_counts()
+        crops = 0
+        timings[mode], memory[mode] = {}, {}
+        for k, frame in frames.items():
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for i in range(1 + STAGE2_FRAMES):
+                timing: dict[str, float] = {}
+                refine(seg, frame, seed=i, timing=timing)
+                crops += k  # every box is a valid crop
+                if i:
+                    rows.append(timing)
+            ms = {key[len("stage2_"):] if key != "stage2" else "total":
+                  1e3 * float(np.median([r[key] for r in rows]))
+                  for key in rows[0]}
+            timings[mode][k] = ms
+            memory[mode][k] = torch.cuda.max_memory_allocated() / 2 ** 30
+            bucket = next(b for b in seg._buckets if b >= k)
+            print(f"[{mode}] stage 2, {k} instances (bucket {bucket}) ms "
+                  f"(median of {STAGE2_FRAMES}): "
+                  + ", ".join(f"{key} {v:.3f}" for key, v in ms.items())
+                  + f"; peak device memory {memory[mode][k]:.2f} GiB")
+        counts[mode] = launch_counts()
+        print(f"[{mode}] stage-2 launches for {crops} valid crops: "
+              f"{counts[mode]}")
+        wrong = {name: v for name, v in counts[mode].items() if v != crops}
+        if wrong:
+            raise AssertionError(f"[{mode}] stage 2 launched {wrong}, not "
+                                 f"once per valid crop ({crops})")
+        k = max(frames)
+        timings[mode]["profile"] = profile_stage2(
+            mode, seg, frames[k], timings[mode][k]["total"])
+    return counts, timings, memory
+
+
+def check_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple],
+                 state_dict_crop: dict, cfg: Config, frame: dict) -> None:
+    """Phase 4 checks: in parity the kernel route's refined labels equal
+    the plain route's on the same crops; one crop's embeddings on the card
+    are within 1e-4 of the CPU's; segment_sample(refine=True) runs through
+    the public path in both modes."""
+    seg = segs["parity"]
+    kernel_kw = seg._ms_kw
+    for k, fr in frames.items():
+        got = refine(seg, fr, seed=7)
+        seg._ms_kw = dict(kernel_kw, use_pallas=False)
+        want = refine(seg, fr, seed=7)
+        seg._ms_kw = kernel_kw
+        n_diff = int((got != want).sum())
+        print(f"[parity] stage 2, {k} instances, kernel route vs plain "
+              f"route: {len(np.unique(want)) - 1} refined instances, "
+              f"{n_diff} pixels differ")
+        if n_diff:
+            raise AssertionError("stage 2's kernel route differs from its "
+                                 "plain route")
+
+    img, xyz, labels, _ = frames[STAGE2_INSTANCES[0]]
+    crops = crop_rois(img, _dense_relabel(labels, max_id=M), xyz,
+                      max_instances=STAGE2_INSTANCES[0], crop_size=CROP)
+    rgb, dep = crops.rgb_crops[:1], crops.depth_crops[:1]
+    cpu = get_network("seg_resnet34_8s_embedding", cfg)
+    cpu.load_state_dict(state_dict_crop, strict=True)
+    with torch.inference_mode():
+        on_card = seg.model_crop(rgb, dep).cpu()
+        on_cpu = cpu.eval()(rgb.cpu(), dep.cpu())
+    err = float((on_card - on_cpu).abs().max())
+    print(f"[parity] one {CROP}x{CROP} crop's embeddings, card vs CPU: "
+          f"max |diff| {err:.3e}")
+    if not err <= 1e-4:
+        raise AssertionError("the crop network on the card differs from the "
+                             "CPU")
+
+    for mode, seg in segs.items():
+        res = seg.segment_sample(frame, refine=True)
+        refined = res.labels_refined
+        if (refined is None or refined.shape != (1, H, W)
+                or refined.dtype != np.int32 or "stage2" not in res.timing):
+            raise AssertionError(f"[{mode}] segment_sample(refine=True)")
+        print(f"[{mode}] segment_sample(refine=True): "
+              f"{len(np.unique(res.labels)) - 1} stage-1 instances, "
+              f"{len(np.unique(refined)) - 1} refined; stage 2 "
+              f"{1e3 * res.timing['stage2']:.3f} ms")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -468,6 +676,10 @@ def main() -> None:
     routes = {mode: check_route(mode, x32, z_valid)
               for mode in ("parity", "fast")}
     del x32, z_valid
+    x_crop, _ = clustered_embeddings(seed=2, n=CROP * CROP)
+    crop_checks = {mode: check_kernels(mode, x_crop, None, where=", crop")
+                   for mode in ("parity", "fast")}
+    del x_crop
 
     # phase 3
     cfg = Config.inference_default(INPUT="RGBD")
@@ -502,7 +714,20 @@ def main() -> None:
                              "route on the slice's embeddings")
     check_against_cpu(cfg, state_dict, frame)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; wall {time.perf_counter() - t_start:.1f} s")
+          f" GiB")
+
+    # phase 4
+    torch.manual_seed(1)
+    state_dict_crop = get_network("seg_resnet34_8s_embedding",
+                                  cfg).state_dict()
+    segs = {"parity": Segmentor(cfg, state_dict, state_dict_crop),
+            "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
+                              state_dict, state_dict_crop,
+                              model_dtype=torch.bfloat16)}
+    frames = stage2_frames(cfg)
+    s2_counts, s2_timings, s2_memory = run_stage2(segs, frames)
+    check_stage2(segs, frames, state_dict_crop, cfg, frame)
+    print(f"wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -510,6 +735,8 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts["parity"][name], fast_launches=counts["fast"][name],
+            stage2_launches=s2_counts["parity"][name],
+            fast_stage2_launches=s2_counts["fast"][name],
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -517,6 +744,14 @@ def main() -> None:
             fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
             fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
             fast_bound_by=fast["bound"][1]))
+        for mode, prefix in (("parity", "crop_"), ("fast", "fast_crop_")):
+            r = crop_checks[mode][name]
+            kernels[-1].update({
+                prefix + "max_abs_err": r["max_abs_err"],
+                prefix + "ms": r["ms"], prefix + "device_ms": r["device_ms"],
+                prefix + "plain_ms": r["plain_ms"],
+                prefix + "bound_ms": r["bound"][0],
+                prefix + "bound_by": r["bound"][1]})
         if name == "connected_components":
             kernels[-1].update(
                 merge_steps=par["merge_steps"],
@@ -527,7 +762,8 @@ def main() -> None:
                 fast_pairwise_far_device_ms=fast["far_device_ms"],
                 pairwise_far_merge_steps=par["far_merge_steps"])
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
-                      routes}))
+                      routes, "stage2_ms": s2_timings,
+                      "stage2_peak_gib": s2_memory}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ one.  On the machine with the card:
 (``--noconftest``: tests/conftest.py imports JAX, which the port does not
 need.)  Inputs are clustered unit embeddings made with numpy from a seed.
 
-Tolerances: seed indices, seed labels, pixel labels and counts equal;
+Tolerances: seed indices (up to a near-tie at the crop shape:
+assert_same_seeds), seed labels, pixel labels and counts equal;
 converged seeds Z within 1e-5 at float32 and 1e-3 at bfloat16 (summation
 order; at bf16 a sum that lands on the other side of a bf16 rounding
 boundary moves one weight by one bf16 step).
@@ -300,6 +301,49 @@ def test_assign_kernel_pixel_counts(card, dtype, n):
     assign_both(x, z, slab, torch.from_numpy(z_valid).to(card))
 
 
+def assert_same_seeds(x, got, want, gap=1e-6):
+    """The kernel's seed indices equal the plain version's up to a near-tie.
+    The kernel sums each dot product as one sequential float32 FMA chain,
+    the plain version on the card through cuBLAS, so two pixels whose
+    min-distances lie within a float32 rounding of a 64-term sum may come
+    out in either order: at the first step where the two differ (if any),
+    their picks' min-distances to the seeds before them (in float64) are
+    within `gap`, and every earlier step is equal."""
+    diff = (got != want).nonzero()
+    if diff.numel() == 0:
+        return
+    k = int(diff[0, 0])
+    xd = x.double()
+    md = torch.full((x.shape[0],), float("inf"), dtype=torch.float64,
+                    device=x.device)
+    for j in want[:k].long():
+        md = torch.minimum(md, 0.5 * (1.0 - xd @ xd[j]))
+    assert abs(float(md[want[k].long()] - md[got[k].long()])) <= gap, k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride", [1, 8])
+def test_kernels_at_the_crop_shape(card, dtype, stride):
+    """Stage 2 runs all four kernels once per valid 224x224 crop: n =
+    50,176 pixels, seeded at stride 1 (6,272 pixels at stride 8), m = 100;
+    each kernel against its plain version on the plain version's inputs
+    (the seeds up to a near-tie, which this input has at stride 1)."""
+    x = on_card(card, clustered(224 * 224, 64, seed=14)[0], dtype)
+    x_seed = x[::stride]
+    _, idx = cuda_seeding.select_seeds(x_seed, 100, 17)
+    want_seeds, want_idx = cuda_seeding.select_seeds_reference(x_seed, 100,
+                                                               17)
+    assert_same_seeds(x_seed, idx, want_idx)
+    z0 = want_seeds.float()
+    got_z = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    want_z = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
+    assert float((got_z - want_z).abs().max()) <= Z_ATOL[dtype]
+    labels, _ = cc_both(want_z)
+    assert max(labels) > 0
+    slab = torch.tensor(labels, dtype=torch.int32, device=card)
+    assign_both(x, want_z, slab)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_assign_kernel_exact_tie_between_labels(card, dtype):
     """Seed 5 is an exact copy of seed 2 under another label: the pixels
@@ -347,8 +391,19 @@ def test_kernel_route_on_card_matches_it_on_cpu(card, compute_dtype,
     assert len(torch.unique(want.labels)) > 2
 
 
-def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+def test_wrappers_raise_on_what_the_kernels_do_not_take(card, monkeypatch):
     x = torch.randn(256, 64, device=card)
+    slab = torch.zeros(4, dtype=torch.int32, device=card)
+    with monkeypatch.context() as patch:
+        # x as if it lay on a device other than the current one
+        patch.setattr(torch.cuda, "current_device",
+                      lambda: x.get_device() + 1)
+        for call in (lambda: cuda_seeding.select_seeds(x, 4, 0),
+                     lambda: cms.hill_climb(x, x[:4]),
+                     lambda: cms.connected_components(x[:4], 0.04),
+                     lambda: cms.assign_labels(x, x[:4], slab)):
+            with pytest.raises(ValueError, match="current device"):
+                call()
     with pytest.raises(TypeError):
         cuda_seeding.select_seeds(x.half(), 4, 0)
     with pytest.raises(ValueError):

@@ -10,11 +10,15 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+from torch import nn
+
 from unseenobjectclustering_torch.config import Config
 from unseenobjectclustering_torch.models.resnet import ResNetFCN
 from unseenobjectclustering_torch.models.segnet import SEGNET
 
-__all__ = ["SEGNET", "ResNetFCN", "get_network", "NETWORK_FACTORIES"]
+__all__ = ["SEGNET", "ResNetFCN", "cast_convs", "get_network",
+           "NETWORK_FACTORIES"]
 
 
 def _segnet(network_name: str, cfg: Config, num_units: int,
@@ -62,3 +66,15 @@ def get_network(name: str, cfg: Config,
                        f"{sorted(NETWORK_FACTORIES)}")
     units = num_units if num_units is not None else int(cfg.TRAIN.NUM_UNITS)
     return NETWORK_FACTORIES[name](cfg, units)
+
+
+def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run the model's convolutions in dtype, in place.  BatchNorm's
+    parameters and statistics stay float32 and normalize in float32, as the
+    JAX package's flax BatchNorm does (param_dtype=float32): rounding them
+    to bfloat16 as well moves the embeddings about twice as far from the
+    JAX bf16 network's."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            mod.to(dtype)
+    return model

@@ -152,6 +152,18 @@ def dtype_code(x: torch.Tensor, what: str) -> int:
                     f"got {x.dtype}")
 
 
+def on_device(what: str, x: torch.Tensor, *others: torch.Tensor | None
+              ) -> None:
+    """Raise unless x lies on the current device, where the kernels launch,
+    and every other tensor given lies with it."""
+    if x.get_device() != torch.cuda.current_device():
+        raise ValueError(f"{what}: tensor on {x.device}, current device "
+                         f"cuda:{torch.cuda.current_device()}")
+    for t in others:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
+
+
 def stream(x: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on x's device (the raw handle:
     ``torch.cuda.current_stream`` builds a Stream object, which costs more

@@ -76,18 +76,6 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def _on_device(what: str, x: torch.Tensor, *others: Optional[torch.Tensor]
-               ) -> None:
-    """Raise unless x lies on the current device, where the kernel launches,
-    and every other tensor given lies with it."""
-    if x.get_device() != torch.cuda.current_device():
-        raise ValueError(f"{what}: tensor on {x.device}, current device "
-                         f"cuda:{torch.cuda.current_device()}")
-    for t in others:
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
-
-
 # -- hill climbing ----------------------------------------------------------
 
 def hill_climb_reference(x: torch.Tensor, z0: torch.Tensor, *,
@@ -123,7 +111,7 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
     if not x.is_cuda:
         return hill_climb_reference(x, z0, kappa=kappa, max_iters=max_iters)
     global hill_climb_launches
-    _on_device("hill_climb", x, z0)
+    _build.on_device("hill_climb", x, z0)
     code = _build.dtype_code(x, "hill_climb")
     n, d = x.shape
     m = z0.shape[0]
@@ -169,7 +157,7 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
     if not z.is_cuda:
         return connected_components_reference(z, epsilon)
     global connected_components_launches, connected_components_steps
-    _on_device("connected_components", z)
+    _build.on_device("connected_components", z)
     m, d = z.shape
     _check_shapes("connected_components", m, d)
     lib = _build.library()
@@ -229,7 +217,7 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     if not x.is_cuda:
         return assign_labels_reference(x, seeds, seed_labels, z_valid)
     global assign_labels_launches, assign_labels_rechecked
-    _on_device("assign_labels", x, seeds, seed_labels, z_valid)
+    _build.on_device("assign_labels", x, seeds, seed_labels, z_valid)
     code = _build.dtype_code(x, "assign_labels")
     n, d = x.shape
     m = seeds.shape[0]

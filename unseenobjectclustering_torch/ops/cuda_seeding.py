@@ -42,6 +42,7 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
     if not x.is_cuda:
         return select_seeds_reference(x, num_seeds, first_index)
     global launches
+    _build.on_device("select_seeds", x)
     code = _build.dtype_code(x, "select_seeds")
     n, d = x.shape
     if d != DIM:

@@ -1,6 +1,7 @@
-"""Bilinear align_corners=True upsampling.
+"""Bilinear align_corners=True upsampling and the legacy nearest index.
 
-Port of ``unseenobjectclustering_tpu/ops/resize.upsample_bilinear``.  The
+Port of ``unseenobjectclustering_tpu/ops/resize.upsample_bilinear`` and
+``_nearest_index_legacy`` (which stage 2's paste-back uses).  The
 reference upsamples logits with ``nn.functional.upsample_bilinear``
 (bilinear, align_corners=True; lib/networks/resnet_dilated.py:325).  The
 interpolation is two dense matmuls (out = W_h @ x @ W_w^T) with the same
@@ -36,6 +37,14 @@ def _bilinear_matrix_align_corners(in_size: int, out_size: int) -> np.ndarray:
     w[np.arange(out_size), lo] = (1.0 - frac).astype(np.float32)
     w[np.arange(out_size), lo + 1] = frac.astype(np.float32)
     return w
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_index_legacy(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size] source indices with legacy torch nearest semantics:
+    src = floor(dst * in/out)."""
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * in_size / out_size)
+    return np.clip(idx.astype(np.int64), 0, in_size - 1)
 
 
 def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
