@@ -39,10 +39,28 @@ Phases (any failure exits non-zero; no exception is caught):
      in parity the kernel route's refined labels equal to the plain
      route's, one crop's embeddings on the card within 1e-4 of the CPU's;
      segment_sample(refine=True) once through the public path per mode.
-  5. one {"kernels": [...]} line: each kernel's launches in the parity and
-     fast runs of stage 1 and of stage 2, its times and bounds in both
-     modes at the frame and the crop shape.
-  6. the last line: {"ok": true, "device": {...}}.
+  5. serving and evaluation at full width: phase 3's and phase 4's
+     networks saved as reference-layout .pth files ({'model': ...} with
+     'module.' prefixes) and loaded back through engine.builder.
+     build_segmentor in both modes (every loaded tensor equal to the saved
+     one); one frame through StreamSegmentor.submit + process_latest per
+     mode, its device preprocessing bit-equal to the host numpy path and
+     its labels equal to Segmentor.segment's on the host-preprocessed
+     frame; then a producer thread submitting 480x640 frames at 30 Hz while
+     run_forever serves them (refine on), counters set to 0 before and read
+     after: frames submitted, served and dropped, latency median and p90,
+     every kernel launched at least once per served frame;
+     evaluate_dataset over the 8/16/32-box frames in both modes (the .mat
+     files re-read equal to the labels returned; random-init stage 1 finds
+     no instance, so the table is the reference's empty-prediction edge
+     case) and multilabel_metrics on phase 4's refined box frames (parity:
+     kernel route's dicts equal to the plain route's; fast against parity,
+     no gate); tools.test_npy.main() on a plain and a debug_info .npy dump,
+     its labels equal to Segmentor.segment's.  One {"serving": {...}} line.
+  6. one {"kernels": [...]} line: each kernel's launches in the parity and
+     fast runs of stage 1, of stage 2 and of the stream, its times and
+     bounds in both modes at the frame and the crop shape.
+  7. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero with no result.
@@ -52,24 +70,36 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
+import scipy.io
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
+from unseenobjectclustering_torch.engine.builder import build_segmentor
+from unseenobjectclustering_torch.engine.evaluate import evaluate_dataset
 from unseenobjectclustering_torch.engine.pipeline import Segmentor
+from unseenobjectclustering_torch.engine.stream import StreamSegmentor
 from unseenobjectclustering_torch.models import get_network
 from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
 from unseenobjectclustering_torch.ops.mean_shift import mean_shift_smart_init
-from unseenobjectclustering_torch.ops.preprocess import preprocess_rgbd
+from unseenobjectclustering_torch.ops.preprocess import (compute_xyz,
+                                                         compute_xyz_np,
+                                                         normalize_bgr,
+                                                         preprocess_rgbd)
 from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
+from unseenobjectclustering_torch.tools import test_npy
+from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
 H, W, D, M = 480, 640, 64, 100
 N = H * W
@@ -89,6 +119,10 @@ PEAK_OPS = {torch.float32: TF32_PEAK_OPS / 3, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 Z_TOL = {"parity": 1e-5, "fast": 1e-3}
 SEED_GAP = 1e-6  # fast mode: a seed flip is allowed below this gap
+NET = "seg_resnet34_8s_embedding"
+INTR = (615.0, 615.0, W / 2.0, H / 2.0)  # the frames' pinhole camera
+STREAM_FRAMES = 12  # frames submitted per mode by the 30 Hz producer
+STREAM_HZ = 30.0
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -147,21 +181,29 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, name: str, reps: int) -> float:
+def device_ms(fn, name: str, reps: int, tries: int = 3) -> float:
     """Device time per call of fn of the CUDA kernels whose name holds
     `name` (torch.profiler), after one warm-up call: the kernel's own time,
-    without the host latency that time_ms includes."""
+    without the host latency that time_ms includes.  Now and then the
+    profiler returns a window without the kernel's device events (twice in
+    seven runs of this script on the H100, both at the 0.01 ms
+    connected-components kernel), so a window that shows none is profiled
+    again, up to `tries` windows in all."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if name in e.key)
-    if not us > 0:
-        raise AssertionError(f"the profiler saw no device time for {name}")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if name in e.key)
+        if us > 0:
+            return us / reps / 1e3
+        print(f"device_ms: a profiler window without {name}'s device "
+              "events; profiling again")
+    raise AssertionError(f"the profiler saw no device time for {name} in "
+                         f"{tries} windows")
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -507,8 +549,7 @@ def stage2_frames(cfg: Config) -> dict[int, tuple]:
                                  f"{len(np.unique(labels)) - 1} boxes")
         img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
                                    torch.from_numpy(depth).cuda(),
-                                   cfg.pixel_means, 615.0, 615.0, W / 2.0,
-                                   H / 2.0)
+                                   cfg.pixel_means, *INTR)
         frames[k] = (img, xyz, torch.from_numpy(labels).cuda(), labels)
     return frames
 
@@ -606,13 +647,16 @@ def run_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple]
 
 
 def check_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple],
-                 state_dict_crop: dict, cfg: Config, frame: dict) -> None:
+                 state_dict_crop: dict, cfg: Config, frame: dict
+                 ) -> dict[int, tuple[np.ndarray, np.ndarray]]:
     """Phase 4 checks: in parity the kernel route's refined labels equal
     the plain route's on the same crops; one crop's embeddings on the card
     are within 1e-4 of the CPU's; segment_sample(refine=True) runs through
-    the public path in both modes."""
+    the public path in both modes.  Returns each box frame's parity refined
+    labels of the kernel and the plain route."""
     seg = segs["parity"]
     kernel_kw = seg._ms_kw
+    routes = {}
     for k, fr in frames.items():
         got = refine(seg, fr, seed=7)
         seg._ms_kw = dict(kernel_kw, use_pallas=False)
@@ -625,6 +669,7 @@ def check_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple],
         if n_diff:
             raise AssertionError("stage 2's kernel route differs from its "
                                  "plain route")
+        routes[k] = (got, want)
 
     img, xyz, labels, _ = frames[STAGE2_INSTANCES[0]]
     crops = crop_rois(img, _dense_relabel(labels, max_id=M), xyz,
@@ -652,6 +697,233 @@ def check_stage2(segs: dict[str, Segmentor], frames: dict[int, tuple],
               f"{len(np.unique(res.labels)) - 1} stage-1 instances, "
               f"{len(np.unique(refined)) - 1} refined; stage 2 "
               f"{1e3 * res.timing['stage2']:.3f} ms")
+    return routes
+
+
+def host_frame(cfg: Config, bgr: np.ndarray, depth: np.ndarray,
+               intr: tuple | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """[H, W, 3] normalized image and XYZ (camera intr, else INTR) built on
+    the host in numpy, as a dataset and the CLIs build them."""
+    return (bgr.astype(np.float32) / 255.0 - cfg.pixel_means / 255.0,
+            compute_xyz_np(depth, *(intr or INTR)))
+
+
+def load_segmentors(cfg: Config, tmp: str, states: dict[str, dict]
+                    ) -> tuple[dict[str, Segmentor], dict[str, str]]:
+    """Phase 5: the main and crop networks' state dicts saved as
+    reference-layout .pth files wrapped as a DataParallel training snapshot
+    ({'model': {'module.' + key: ...}}), then both modes' Segmentors built
+    from the files by build_segmentor on the card; every loaded tensor must
+    equal the saved one (the fast mode's convolutions: its bfloat16
+    rounding)."""
+    paths = {}
+    for name, state in states.items():
+        paths[name] = os.path.join(tmp, f"{name}.pth")
+        torch.save({"model": {"module." + k: v for k, v in state.items()}},
+                   paths[name])
+    segs = {"parity": build_segmentor(cfg, NET, pretrained=paths["main"],
+                                      pretrained_crop=paths["crop"]),
+            "fast": build_segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
+                                    NET, pretrained=paths["main"],
+                                    pretrained_crop=paths["crop"],
+                                    model_dtype=torch.bfloat16)}
+    for mode, seg in segs.items():
+        for model, name in ((seg.model, "main"), (seg.model_crop, "crop")):
+            got, want = model.state_dict(), states[name]
+            bad = [k for k in want if k not in got or not torch.equal(
+                got[k].cpu(), want[k].to(got[k].dtype))]
+            if bad or len(got) != len(want):
+                raise AssertionError(f"[{mode}] {name} network loaded from "
+                                     f".pth differs at {bad[:3]}")
+        print(f"[{mode}] build_segmentor from {os.path.basename(paths['main'])}"
+              f" and {os.path.basename(paths['crop'])} on "
+              f"{seg.device}: {len(states['main'])} tensors per network "
+              f"equal to the saved ones")
+    return segs, paths
+
+
+def check_stream_frame(mode: str, seg: Segmentor) -> None:
+    """Phase 5: one frame through StreamSegmentor.submit + process_latest:
+    its preprocessing on the card gives the host numpy path's bits, and its
+    labels equal Segmentor.segment's on the host-preprocessed frame, the
+    Segmentor's generator seeded alike."""
+    bgr, depth = tabletop_frame(seed=5)
+    image, xyz = host_frame(seg.cfg, bgr, depth)
+    on_card = (normalize_bgr(torch.from_numpy(bgr).cuda(),
+                             seg.cfg.pixel_means).cpu().numpy(),
+               compute_xyz(torch.from_numpy(depth).cuda(), *INTR).cpu().numpy())
+    if not (np.array_equal(on_card[0], image)
+            and np.array_equal(on_card[1], xyz)):
+        raise AssertionError("preprocessing on the card differs from the "
+                             "host's: max |diff| image "
+                             f"{np.abs(on_card[0] - image).max():.3e}, xyz "
+                             f"{np.abs(on_card[1] - xyz).max():.3e}")
+    stream = StreamSegmentor(seg.cfg, seg)
+    seg._generator.manual_seed(11)
+    stream.submit(bgr, depth, INTR, stamp="parity-check")
+    got = stream.process_latest(refine=True)
+    seg._generator.manual_seed(11)
+    want = seg.segment(image[None], xyz[None], refine=True)
+    if (got.stamp != "parity-check"
+            or not np.array_equal(got.labels, want.labels[0])
+            or not np.array_equal(got.labels_refined,
+                                  want.labels_refined[0])):
+        raise AssertionError(f"[{mode}] the stream's labels differ from "
+                             "segment's on the host-preprocessed frame")
+    print(f"[{mode}] stream frame: preprocessing on "
+          f"the card bit-equal to the host's; labels equal to segment's "
+          f"({len(np.unique(got.labels)) - 1} stage-1 instances)")
+
+
+def run_stream(mode: str, seg: Segmentor) -> dict:
+    """Phase 5: a producer thread submits STREAM_FRAMES 480x640 frames at
+    STREAM_HZ while run_forever serves them with refine on, until the
+    producer is done and the buffer is empty.  The counters are set to 0
+    just before and read just after; every kernel must launch at least
+    once per served frame."""
+    frames = [tabletop_frame(seed=100 + i) for i in range(STREAM_FRAMES)]
+    stream = StreamSegmentor(seg.cfg, seg)
+    done = threading.Event()
+    served: list = []
+
+    def produce() -> None:
+        try:
+            t0 = time.perf_counter()
+            for i, (bgr, depth) in enumerate(frames):
+                time.sleep(max(0.0, t0 + i / STREAM_HZ - time.perf_counter()))
+                stream.submit(bgr, depth, INTR, stamp=i)
+        finally:
+            done.set()
+
+    producer = threading.Thread(target=produce)
+    reset_counts()
+    t0 = time.perf_counter()
+    producer.start()
+    stream.run_forever(served.append, refine=True,
+                       should_stop=lambda: done.is_set() and not stream.pending)
+    wall = time.perf_counter() - t0
+    producer.join()
+    counts = launch_counts()
+    stamps = [r.stamp for r in served]
+    if (not served or stamps != sorted(set(stamps))
+            or stamps[-1] != STREAM_FRAMES - 1
+            or any(r.labels.shape != (H, W) or r.labels_refined is None
+                   for r in served)):
+        raise AssertionError(f"[{mode}] the stream served {stamps}")
+    short = {k: v for k, v in counts.items() if v < len(served)}
+    if short:
+        raise AssertionError(f"[{mode}] kernels launched fewer times than "
+                             f"the {len(served)} served frames: {short}")
+    lat = np.array([1e3 * r.latency_s for r in served])
+    out = dict(submitted=STREAM_FRAMES, served=len(served),
+               dropped=STREAM_FRAMES - len(served),
+               latency_ms_median=float(np.median(lat)),
+               latency_ms_p90=float(np.percentile(lat, 90)),
+               wall_s=wall, launches=counts)
+    print(f"[{mode}] stream at {STREAM_HZ:g} Hz, refine on: "
+          f"{out['submitted']} submitted, {out['served']} served, "
+          f"{out['dropped']} dropped in {wall:.2f} s; latency median "
+          f"{out['latency_ms_median']:.3f} ms, p90 "
+          f"{out['latency_ms_p90']:.3f} ms; launches {counts}")
+    return out
+
+
+class Recorder:
+    """A Segmentor's segment, keeping what it returned."""
+
+    def __init__(self, seg: Segmentor):
+        self.seg, self.cfg, self.results = seg, seg.cfg, []
+
+    def segment(self, *args, **kwargs):
+        self.results.append(self.seg.segment(*args, **kwargs))
+        return self.results[-1]
+
+
+def run_evaluation(mode: str, seg: Segmentor, tmp: str) -> dict:
+    """Phase 5: evaluate_dataset over the 8/16/32-box frames (GT = the
+    boxes), the .mat files re-read equal to the labels segment returned."""
+    samples = []
+    for k in STAGE2_INSTANCES:
+        bgr, depth, labels = instance_frame(k, seed=k)
+        image, xyz = host_frame(seg.cfg, bgr, depth)
+        samples.append({"image_color": image, "depth": xyz, "label": labels,
+                        "filename": f"boxes{k}"})
+    rec = Recorder(seg)
+    out = os.path.join(tmp, f"eval_{mode}")
+    print(f"[{mode}] evaluate_dataset over the {STAGE2_INSTANCES}-box frames:")
+    stage1, refined = evaluate_dataset(samples, rec, output_dir=out)
+    for i, res in enumerate(rec.results):
+        mat = scipy.io.loadmat(os.path.join(out, "%06d.mat" % i))
+        want_ref = (res.labels if res.labels_refined is None
+                    else res.labels_refined)
+        if not (np.array_equal(mat["labels"], res.labels[0])
+                and np.array_equal(mat["labels_refined"], want_ref[0])):
+            raise AssertionError(f"[{mode}] {i:06d}.mat differs from the "
+                                 "returned labels")
+    found = [len(np.unique(r.labels)) - 1 for r in rec.results]
+    print(f"[{mode}] the .mat files equal the returned labels; stage-1 "
+          f"instances per frame {found}"
+          + ("; random-init stage 1 embeds each frame as one cluster, so "
+             "the tables are the reference's empty-prediction edge case "
+             "(F 0, P 1, R 0)" if not any(found) else ""))
+    return {"stage1": stage1, "refined": refined, "stage1_instances": found}
+
+
+def box_frame_metrics(routes: dict, segs: dict[str, Segmentor],
+                      frames: dict[int, tuple]) -> dict:
+    """Phase 5: multilabel_metrics on phase 4's refined labels of the box
+    frames against their boxes: in parity the kernel route's dicts equal
+    the plain route's; the fast route's F beside parity's (no gate: there
+    are no trained weights)."""
+    out = {}
+    for k, (got, want) in routes.items():
+        gt = frames[k][3]
+        metrics = multilabel_metrics(got, gt)
+        if metrics != multilabel_metrics(want, gt):
+            raise AssertionError("the kernel route's metrics differ from the "
+                                 "plain route's")
+        fast = multilabel_metrics(refine(segs["fast"], frames[k], seed=7), gt)
+        out[k] = {mode: {key: m[key] for key in (
+            "Objects F-measure", "Boundary F-measure", "obj_detected")}
+            for mode, m in (("parity", metrics), ("fast", fast))}
+        print(f"[box frames] {k} boxes, refined: parity Objects F "
+              f"{metrics['Objects F-measure']:.6f}, Boundary F "
+              f"{metrics['Boundary F-measure']:.6f} (kernel route = plain "
+              f"route); fast {fast['Objects F-measure']:.6f} / "
+              f"{fast['Boundary F-measure']:.6f}")
+    return out
+
+
+def run_cli(tmp: str, pretrained: str, seg: Segmentor) -> dict:
+    """Phase 5: tools.test_npy.main() on a plain (uint16 mm) and a
+    debug_info (meters, 3x3 intrinsics) dump; its -label.npy files must be
+    480x640 and equal Segmentor.segment's labels on the same inputs from a
+    Segmentor built from the same file with its generator at the seed a new
+    one starts from."""
+    d = os.path.join(tmp, "npy")
+    os.makedirs(d)
+    bgr, depth = tabletop_frame(seed=7)
+    np.save(os.path.join(d, "a_plain.npy"),
+            {"rgb": bgr, "depth": np.round(depth * 1000).astype(np.uint16)})
+    bgr, depth, _ = instance_frame(16, seed=3)
+    k = np.array([[INTR[0], 0, INTR[2]], [0, INTR[1], INTR[3]], [0, 0, 1]])
+    np.save(os.path.join(d, "b_debug.npy"), {"debug_info": {
+        "rgb": bgr, "depth_image": depth, "intrinsics": k}})
+    test_npy.main(["--imgdir", d, "--pretrained", pretrained])
+    seg._generator.manual_seed(3)  # Segmentor's default seed
+    out = {}
+    for name in ("a_plain", "b_debug"):
+        rgb, depth_m, intr = test_npy.read_npy_sample(
+            os.path.join(d, name + ".npy"))
+        image, xyz = host_frame(seg.cfg, rgb, depth_m, intr)
+        want = seg.segment(image[None], xyz[None], refine=False).labels[0]
+        got = np.load(os.path.join(d, name + "-label.npy"))
+        if got.shape != (H, W) or not np.array_equal(got, want):
+            raise AssertionError(f"tools.test_npy's {name} labels differ")
+        out[name] = int(len(np.unique(got)) - 1)
+    print(f"tools.test_npy: -label.npy of both dump flavours equal "
+          f"segment's; objects {out}")
+    return out
 
 
 def main() -> None:
@@ -673,8 +945,8 @@ def main() -> None:
     x32, z_valid = clustered_embeddings()
     checks = {mode: check_kernels(mode, x32, z_valid)
               for mode in ("parity", "fast")}
-    routes = {mode: check_route(mode, x32, z_valid)
-              for mode in ("parity", "fast")}
+    routes_ms = {mode: check_route(mode, x32, z_valid)
+                 for mode in ("parity", "fast")}
     del x32, z_valid
     x_crop, _ = clustered_embeddings(seed=2, n=CROP * CROP)
     crop_checks = {mode: check_kernels(mode, x_crop, None, where=", crop")
@@ -688,8 +960,7 @@ def main() -> None:
     bgr, depth = tabletop_frame()
     img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
                                torch.from_numpy(depth).cuda(),
-                               cfg.pixel_means, 615.0, 615.0, W / 2.0,
-                               H / 2.0)
+                               cfg.pixel_means, *INTR)
     frame = {"image_color": img, "depth": xyz}
     counts, timings, features = run_slice(cfg, state_dict, frame)
 
@@ -726,8 +997,24 @@ def main() -> None:
                               model_dtype=torch.bfloat16)}
     frames = stage2_frames(cfg)
     s2_counts, s2_timings, s2_memory = run_stage2(segs, frames)
-    check_stage2(segs, frames, state_dict_crop, cfg, frame)
-    print(f"wall {time.perf_counter() - t_start:.1f} s")
+    routes = check_stage2(segs, frames, state_dict_crop, cfg, frame)
+    print(f"wall after phase 4 {time.perf_counter() - t_start:.1f} s")
+
+    # phase 5
+    t5 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        served, paths = load_segmentors(
+            cfg, tmp, {"main": state_dict, "crop": state_dict_crop})
+        for mode, seg in served.items():
+            check_stream_frame(mode, seg)
+        stream = {mode: run_stream(mode, seg) for mode, seg in served.items()}
+        evaluation = {mode: run_evaluation(mode, seg, tmp)
+                      for mode, seg in served.items()}
+        boxes = box_frame_metrics(routes, segs, frames)
+        cli = run_cli(tmp, paths["main"], served["parity"])
+    serving_s = time.perf_counter() - t5
+    print(f"phase 5 {serving_s:.1f} s; wall {time.perf_counter() - t_start:.1f}"
+          " s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -737,6 +1024,8 @@ def main() -> None:
             launches=counts["parity"][name], fast_launches=counts["fast"][name],
             stage2_launches=s2_counts["parity"][name],
             fast_stage2_launches=s2_counts["fast"][name],
+            serving_launches=stream["parity"]["launches"][name],
+            fast_serving_launches=stream["fast"]["launches"][name],
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -762,8 +1051,12 @@ def main() -> None:
                 fast_pairwise_far_device_ms=fast["far_device_ms"],
                 pairwise_far_merge_steps=par["far_merge_steps"])
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
-                      routes, "stage2_ms": s2_timings,
+                      routes_ms, "stage2_ms": s2_timings,
                       "stage2_peak_gib": s2_memory}))
+    print(json.dumps({"serving": {
+        "stream": stream, "evaluation": evaluation,
+        "box_frames_refined": boxes, "test_npy_objects": cli,
+        "phase_s": serving_s}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

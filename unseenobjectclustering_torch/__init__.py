@@ -7,8 +7,15 @@ Subpackages:
   models    — SEGNET embedding networks (dilated-ResNet FCN)
   ops       — preprocessing, resizes, mean-shift clustering and the
               hand-written CUDA kernels' wrappers (csrc/ holds the sources)
-  engine    — the stage-1 inference pipeline (Segmentor)
-  utils     — the weight carry from flax variables
+  engine    — the two-stage inference pipeline (Segmentor: stage 1 and
+              zoom-in refinement), the builder, dataset evaluation and the
+              stream server (StreamSegmentor)
+  utils     — the metrics (Overlap/Boundary P/R/F), masks and result
+              grids, the reference .pth checkpoint loader and the weight
+              carry from flax variables
+  tools     — the entry points: .npy and image CLIs, the demo evaluation
+              and overlay artifact, the ROS adapter
+              (python -m unseenobjectclustering_torch.tools.<name>)
 
 Entry points run on the CUDA device unless the caller passes device="cpu".
 """

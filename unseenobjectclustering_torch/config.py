@@ -569,3 +569,15 @@ class Config:
 
     def __repr__(self) -> str:
         return f"Config(INPUT={self._tree['INPUT']!r}, EXP_DIR={self._tree['EXP_DIR']!r})"
+
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def get_output_dir(cfg: Config, dataset_name: str, root: str | None = None) -> str:
+    """<repo>/output/<EXP_DIR>/<dataset>/ — parity with
+    lib/fcn/config.py:395-405, which anchors at the fixed ROOT_DIR rather
+    than the cwd (runs from different directories must find each other's
+    snapshots)."""
+    root = root or _REPO_ROOT
+    return os.path.join(root, "output", cfg.EXP_DIR, dataset_name)

@@ -1,6 +1,15 @@
-"""Engine: the stage-1 inference pipeline."""
+"""Engine: the two-stage inference pipeline (stage 1 and zoom-in
+refinement), the builder that loads reference .pth checkpoints into it,
+dataset evaluation and the latest-frame stream server."""
 
+from unseenobjectclustering_torch.engine.builder import (build_segmentor,
+                                                         init_state_dict,
+                                                         load_network_state)
+from unseenobjectclustering_torch.engine.evaluate import evaluate_dataset
 from unseenobjectclustering_torch.engine.pipeline import (SegmentationResult,
                                                           Segmentor)
+from unseenobjectclustering_torch.engine.stream import StreamSegmentor
 
-__all__ = ["Segmentor", "SegmentationResult"]
+__all__ = ["Segmentor", "SegmentationResult", "build_segmentor",
+           "init_state_dict", "load_network_state", "evaluate_dataset",
+           "StreamSegmentor"]

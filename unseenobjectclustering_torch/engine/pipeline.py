@@ -43,14 +43,13 @@ class SegmentationResult(NamedTuple):
 
 def resolve_device(device: Any = None) -> torch.device:
     """The explicit device, or the CUDA device when none is given.  Without
-    a CUDA device and without an explicit one this raises: nothing moves to
-    the CPU silently."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    a CUDA device this raises, unless the caller names another device:
+    nothing moves to the CPU silently."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 @contextlib.contextmanager

@@ -7,6 +7,11 @@ runs on whatever device the input tensors live on.
 
 Layout: NHWC at the public surface, like the JAX package, so the two are
 compared like with like; the network permutes to NCHW inside.
+
+Every division is a true float32 division on every device, so the device
+path gives the bits of the host numpy one (``compute_xyz_np`` and
+x/255 - mean/255): CUDA would otherwise divide by a Python number as a
+product with its float32 reciprocal.
 """
 
 from __future__ import annotations
@@ -30,6 +35,23 @@ def focal_from_fov(img_width: int, img_height: int, fov_deg: float,
     return float(near * alpha)
 
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b rounded once, on any device: b as a 0-d tensor on a's device
+    (on CUDA a host scalar divisor becomes a product with its reciprocal)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def compute_xyz_np(depth_m: np.ndarray, fx: float, fy: float, px: float,
+                   py: float) -> np.ndarray:
+    """Host-side backprojection (tabletop_object.py:57-93), a copy of the
+    JAX package's data/datasets.compute_xyz_np; compute_xyz is the device
+    path and gives the same bits."""
+    h, w = depth_m.shape
+    ys, xs = np.indices((h, w), dtype=np.float32)
+    z = depth_m.astype(np.float32)
+    return np.stack([(xs - px) * z / fx, (ys - py) * z / fy, z], axis=-1)
+
+
 def compute_xyz(depth_m: torch.Tensor, fx: float, fy: float, px: float,
                 py: float) -> torch.Tensor:
     """Backproject a depth map (meters) to an ordered XYZ point cloud.
@@ -47,8 +69,8 @@ def compute_xyz(depth_m: torch.Tensor, fx: float, fy: float, px: float,
     v = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
     u = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     z = depth_m.to(torch.float32)
-    x = (u - px) * z / fx
-    y = (v - py) * z / fy
+    x = _div((u - px) * z, fx)
+    y = _div((v - py) * z, fy)
     return torch.stack([x, y, z], dim=-1)
 
 
@@ -66,8 +88,8 @@ def normalize_bgr(image_bgr_u8: torch.Tensor,
     """
     means = torch.as_tensor(pixel_means, dtype=torch.float32,
                             device=image_bgr_u8.device)
-    img = image_bgr_u8.to(torch.float32) / 255.0
-    return img - means / 255.0
+    img = _div(image_bgr_u8.to(torch.float32), 255.0)
+    return img - _div(means, 255.0)
 
 
 def preprocess_rgbd(image_bgr_u8: torch.Tensor, depth_m: torch.Tensor,

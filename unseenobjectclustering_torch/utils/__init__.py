@@ -1,1 +1,2 @@
-"""Utilities: the weight carry from flax variables."""
+"""Utilities: metrics, masks and result grids, checkpoints and the weight
+carry from flax variables."""
