@@ -57,10 +57,33 @@ Phases (any failure exits non-zero; no exception is caught):
      kernel route's dicts equal to the plain route's; fast against parity,
      no gate); tools.test_npy.main() on a plain and a debug_info .npy dump,
      its labels equal to Segmentor.segment's.  One {"serving": {...}} line.
-  6. one {"kernels": [...]} line: each kernel's launches in the parity and
+  6. training on the card: 16 scenes rendered at 480x640 by the port's
+     tools.render_dataset (a process of its own with a pool of spawned
+     workers, one per CPU core, numpy only) into a temporary cache; the
+     stage-1
+     recipe (seg_resnet34_8s_embedding, RGB-D add, Adam, batch 16, the
+     rgbd_add yml) through tools.train_net.main() with --device-resident:
+     2 epochs, then --resume for a third, loss/intra/inter per step, and 3
+     epochs straight, the two held bitwise equal (parameters, BatchNorm
+     buffers, Adam moments, step) under deterministic cuDNN; --bf16 for 2
+     epochs; the zoom-in crop recipe (224x224, batch 16) for 2 epochs; for
+     each recipe the s/step (median after the first of a few steps,
+     CUDA events), its split into gather+augmentation, forward+backward
+     and optimizer, the peak device memory and the device's idle share
+     over one step (torch.profiler); no clustering kernel launches while
+     training; one float32 step at 128x160, batch 2, on the card against
+     the same step on the CPU with pinned augmentation draws (loss,
+     gradients as one vector and per tensor, updated parameters, BatchNorm
+     statistics), which must also catch two planted faults (the card's
+     step with TF32 on; one tensor's gradient zeroed), every gradient
+     also against a float64 step's; a Segmentor
+     built by build_segmentor from the snapshot directory, its tensors
+     equal to the trainer's, segmenting one cached scene.  One
+     {"training": {...}} line.
+  7. one {"kernels": [...]} line: each kernel's launches in the parity and
      fast runs of stage 1, of stage 2 and of the stream, its times and
      bounds in both modes at the frame and the crop shape.
-  7. the last line: {"ok": true, "device": {...}}.
+  8. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero with no result.
@@ -68,14 +91,19 @@ outside a checkout of the repository, it exits non-zero with no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import scipy.io
@@ -84,10 +112,17 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
+from unseenobjectclustering_torch.data.resident import load_resident_scenes
+from unseenobjectclustering_torch.data.synthetic import (
+    SyntheticTabletopDataset)
 from unseenobjectclustering_torch.engine.builder import build_segmentor
 from unseenobjectclustering_torch.engine.evaluate import evaluate_dataset
 from unseenobjectclustering_torch.engine.pipeline import Segmentor
+from unseenobjectclustering_torch.engine import train as train_engine
 from unseenobjectclustering_torch.engine.stream import StreamSegmentor
+from unseenobjectclustering_torch.engine.train import (
+    create_train_state, make_train_step, make_train_step_raw,
+    make_train_step_resident, step_seed)
 from unseenobjectclustering_torch.models import get_network
 from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
@@ -98,7 +133,9 @@ from unseenobjectclustering_torch.ops.preprocess import (compute_xyz,
                                                          normalize_bgr,
                                                          preprocess_rgbd)
 from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
-from unseenobjectclustering_torch.tools import test_npy
+from unseenobjectclustering_torch.ops.train_pipeline import (
+    make_device_augment)
+from unseenobjectclustering_torch.tools import test_npy, train_net
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
 H, W, D, M = 480, 640, 64, 100
@@ -123,6 +160,28 @@ NET = "seg_resnet34_8s_embedding"
 INTR = (615.0, 615.0, W / 2.0, H / 2.0)  # the frames' pinhole camera
 STREAM_FRAMES = 12  # frames submitted per mode by the 30 Hz producer
 STREAM_HZ = 30.0
+TRAIN_YML = ("experiments/cfgs/"
+             "seg_resnet34_8s_embedding_cosine_rgbd_add_tabletop.yml")
+CROP_YML = ("experiments/cfgs/"
+            "seg_resnet34_8s_embedding_cosine_rgbd_add_crop_tabletop.yml")
+TRAIN_SCENES = 16  # one batch of the recipe's IMS_PER_BATCH
+DEV = "cuda"  # phase 6's training device
+TIMED_STEPS = 3  # timed train steps per recipe, after one warm-up step
+SMALL_HW = (128, 160)  # the card-vs-CPU train step's scenes (batch 2)
+# card vs CPU, one float32 SGD step with TF32 off (convolutions sum in
+# another order on the two devices): the loss; the gradient of all
+# parameters as one vector and of each tensor, by relative L2 error (the
+# median tensor's and the largest); the updated parameters (lr 1e-5 times
+# the gradient's error) and the BatchNorm statistics.  The gradient limits
+# lie about 4x above the sound step's readings and below those of two
+# planted faults, TF32 left on and FAULT_TENSOR's gradient zeroed, on the
+# H100 over three draw seeds (PERF.md, training findings): sound at most
+# 9.6e-3 / 8.9e-3 / 1.8e-2 (vector / median tensor / largest tensor),
+# TF32 at least 0.19 / 0.17 / 0.25, zeroed 0.19 / - / 1.0
+STEP_TOL = {"loss_rtol": 1e-4, "grad_rel_l2": 4e-2,
+            "grad_median_rel_l2": 4e-2, "grad_max_rel_l2": 0.15,
+            "param_atol": 1e-6, "stat_atol": 1e-4, "stat_rtol": 1e-4}
+FAULT_TENSOR = "fcn_depth.resnet34_8s.conv1.weight"
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -926,6 +985,381 @@ def run_cli(tmp: str, pretrained: str, seg: Segmentor) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+_RENDER_RE = re.compile(r"done: (\d+) rendered, \d+ already cached, "
+                        r"([\d.]+) s on (\d+) processes, ([\d.]+) s/scene")
+
+
+def render_scenes(cache: str) -> dict:
+    """The training scenes, rendered by tools.render_dataset in a process
+    of its own (numpy only) on a pool of spawned processes, one per CPU
+    core."""
+    out = subprocess.run(
+        [sys.executable, "-m", "unseenobjectclustering_torch.tools."
+         "render_dataset", "--cache-dir", cache, "--height", str(H),
+         "--width", str(W), "--num", str(TRAIN_SCENES)],
+        capture_output=True, text=True, check=True,
+        timeout=600)
+    m = _RENDER_RE.search(out.stdout)
+    if m is None or int(m.group(1)) != TRAIN_SCENES:
+        raise AssertionError(f"render_dataset: {out.stdout[-500:]}")
+    wall, workers, per = (float(m.group(2)), int(m.group(3)),
+                          float(m.group(4)))
+    res = dict(scenes=TRAIN_SCENES, processes=workers, wall_s=wall,
+               s_per_scene=per, wall_s_per_scene=wall / TRAIN_SCENES)
+    print(f"[train] rendered {TRAIN_SCENES} scenes at {H}x{W} in "
+          f"{wall:.2f} s with {workers} processes: {per:.3f} s/scene in "
+          f"one process, {res['wall_s_per_scene']:.3f} s/scene of wall")
+    return res
+
+
+_LOG_RE = re.compile(r"loss ([-\d.]+), loss intra: ([-\d.]+), loss_inter "
+                     r"([-\d.]+)")
+
+
+def run_train_net(tag: str, args: list[str]) -> tuple[object, list[dict]]:
+    """tools.train_net.main(args): its final train state, and each step's
+    loss, intra and inter (each epoch is one step, so every step is
+    logged: read back as the user sees them and, unrounded, from the step
+    callback)."""
+    steps: list[dict] = []
+
+    def callback(epoch, i, metrics):
+        steps.append({"epoch": epoch, "i": i, **{
+            k: float(v) for k, v in metrics.items()}})
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train_net.main(args, callback=callback)
+    logged = _LOG_RE.findall(buf.getvalue())
+    if len(logged) != len(steps):
+        raise AssertionError(f"[{tag}] {len(logged)} log lines for "
+                             f"{len(steps)} steps")
+    for row in steps:
+        print(f"[{tag}] epoch {row['epoch']} step {row['i']}: loss "
+              f"{row['loss']:.6f}, intra {row['intra']:.6f}, inter "
+              f"{row['inter']:.6f}")
+        if not all(np.isfinite(row[k]) for k in ("loss", "intra", "inter")):
+            raise AssertionError(f"[{tag}] a non-finite loss")
+    return state, steps
+
+
+def train_args(cache: str, out: str, *extra: str, yml: str | None = None
+               ) -> list[str]:
+    return ["--cfg", yml or TRAIN_YML, "--network", NET, "--solver", "adam",
+            "--device-resident", "--render-cache", cache, "--resident-limit",
+            str(TRAIN_SCENES), "--batch_size", str(TRAIN_SCENES),
+            "--output-dir", out, "--workers", "0", "--device", DEV
+            ] + list(extra)
+
+
+def same_state(a, b) -> list[str]:
+    """Names of the tensors (parameters, buffers, optimizer state) in which
+    two train states differ."""
+    bad = [k for k, v in a.model.state_dict().items()
+           if not torch.equal(v, b.model.state_dict()[k])]
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    for i, per in sa["state"].items():
+        bad += [f"optimizer {i} {n}" for n, v in per.items()
+                if not torch.equal(v, sb["state"][i][n])]
+    if a.step != b.step:
+        bad.append("step")
+    return bad
+
+
+def time_recipe(tag: str, yml: str, scenes, model_dtype=None) -> dict:
+    """A recipe's train step, resident, outside the CLI: TIMED_STEPS steps
+    after a warm-up, each split by CUDA events into gather+augmentation,
+    forward+backward and optimizer; the peak device memory over them; one
+    more step under torch.profiler for the device's busy time and idle
+    share (against the median unprofiled step)."""
+    cfg = Config.from_yaml(yml).replace(MODE="TRAIN")
+    crop = bool(cfg.TRAIN.SYN_CROP)
+    state = create_train_state(cfg, network_name=NET, solver="adam",
+                               model_dtype=model_dtype, device=DEV)
+    f = 0.5 * W
+    step = make_train_step_resident(cfg, fx=f, fy=f, px=W / 2.0, py=H / 2.0)
+    idx = torch.arange(TRAIN_SCENES, device=DEV)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(1 + TIMED_STEPS):
+        events = {"start": torch.cuda.Event(enable_timing=True)}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        gen = torch.Generator(device=DEV).manual_seed(step_seed(3, 0, i))
+        events["start"].record()
+        _, metrics = step(state, *scenes, idx, gen=gen, mark=mark)
+        torch.cuda.synchronize()
+        if not torch.isfinite(metrics["loss"]):
+            raise AssertionError(f"[{tag}] non-finite loss")
+        ms = {"augment": events["start"].elapsed_time(events["augment"]),
+              "forward_backward": events["augment"].elapsed_time(
+                  events["forward_backward"]),
+              "optimizer": events["forward_backward"].elapsed_time(
+                  events["optimizer"])}
+        ms["step"] = sum(ms.values())
+        rows.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = rows[1:]
+    split = {k: float(np.median([r[k] for r in timed])) for k in rows[0]}
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, *scenes, idx, gen=gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError(f"[{tag}] the profiler saw no device time")
+    idle = 1.0 - busy / split["step"]
+    n_img = TRAIN_SCENES
+    out = dict(s_per_step=split["step"] / 1e3,
+               scenes_per_s=n_img / (split["step"] / 1e3),
+               step_ms=[r["step"] for r in rows], split_ms=split,
+               peak_gib=peak, resident_and_model_gib=base / 2 ** 30,
+               device_busy_ms=busy, idle_share=idle,
+               shape=[n_img] + ([int(cfg.TRAIN.SYN_CROP_SIZE)] * 2 if crop
+                                else [H, W]))
+    print(f"[{tag}] train step (median of {TIMED_STEPS} after a warm-up): "
+          f"{split['step']:.1f} ms = gather+augmentation "
+          f"{split['augment']:.1f} + forward+backward "
+          f"{split['forward_backward']:.1f} + optimizer "
+          f"{split['optimizer']:.1f}; {out['scenes_per_s']:.1f} scenes/s; "
+          f"peak {peak:.2f} GiB; profiled step: device busy {busy:.1f} ms, "
+          f"idle share {idle:.3f}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[{tag}]   top device: " + "; ".join(
+        f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+        for e in top))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_errors(g: dict, ref: dict) -> dict:
+    """Gradients `g` against `ref` (name -> tensor): the relative L2 error
+    of all of them as one vector, and each tensor's own relative L2 error
+    (the median over the tensors, the largest and its tensor)."""
+    diff = {k: float((g[k].double() - ref[k].double()).norm()) for k in ref}
+    norm = {k: float(ref[k].double().norm()) for k in ref}
+    per = {k: diff[k] / max(norm[k], 1e-300) for k in ref}
+    worst = max(per, key=per.get)
+    return dict(rel_l2=math.hypot(*diff.values()) / math.hypot(*norm.values()),
+                median_rel_l2=float(np.median(list(per.values()))),
+                max_rel_l2=per[worst], worst=worst)
+
+
+def step_against(run: tuple, ref: tuple, g64: dict) -> dict:
+    """A card step `run` (loss, gradients, state after the update) against
+    the CPU's `ref`: its errors and the STEP_TOL limits it breaks."""
+    loss, grads, state = run
+    l_ref, g_ref, s_ref = ref
+    row = dict(loss=loss, loss_rel=abs(loss - l_ref) / abs(l_ref),
+               vs_cpu=grad_errors(grads, g_ref),
+               vs_fp64=grad_errors(grads, g64),
+               param_max_abs=max(float((state[k] - s_ref[k]).abs().max())
+                                 for k in s_ref if "running_" not in k
+                                 and "num_batches" not in k),
+               stat_max_abs=max(float((state[k] - s_ref[k]).abs().max())
+                                for k in s_ref if "running_" in k))
+    value = {"loss_rtol": row["loss_rel"],
+             "grad_rel_l2": row["vs_cpu"]["rel_l2"],
+             "grad_median_rel_l2": row["vs_cpu"]["median_rel_l2"],
+             "grad_max_rel_l2": row["vs_cpu"]["max_rel_l2"],
+             "param_atol": row["param_max_abs"]}
+    row["breaks"] = [k for k, v in value.items() if v > STEP_TOL[k]]
+    if not all(torch.allclose(state[k], s_ref[k], rtol=STEP_TOL["stat_rtol"],
+                              atol=STEP_TOL["stat_atol"])
+               for k in s_ref if "running_" in k):
+        row["breaks"].append("stat")
+    return row
+
+
+def _grad_line(e: dict) -> str:
+    return (f"gradient relative L2 {e['rel_l2']:.2e}, per tensor median "
+            f"{e['median_rel_l2']:.2e}, largest {e['max_rel_l2']:.2e} "
+            f"({e['worst']})")
+
+
+def check_step_against_cpu(draw_seed: int = 7) -> dict:
+    """One float32 SGD step of the stage-1 recipe at 128x160, batch 2, on
+    the card and on the CPU, from the same weights and the same pinned
+    augmentation draws (drawn on the CPU): loss, gradients (as one vector
+    and tensor by tensor), updated parameters and BatchNorm statistics
+    within STEP_TOL.  Two faults must break it: the card's step with TF32
+    left on, and the card's gradients with one tensor's zeroed.  For
+    scale, every gradient against the same step's in float64."""
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TRAIN")
+    h, w = SMALL_HW
+    ds = SyntheticTabletopDataset(
+        "train", Config.from_dict({"INPUT": "RGBD", "MODE": "TRAIN"}),
+        height=h, width=w, size=2)
+    bgr, depth, label = (torch.from_numpy(np.stack(a)) for a in zip(
+        *[ds.get_scene(i) for i in range(2)]))
+    depth = depth.to(torch.int32)
+    torch.manual_seed(3)
+    init = get_network(NET, cfg).state_dict()
+    step = make_train_step_raw(cfg, fx=ds.f, fy=ds.f, px=ds.cx, py=ds.cy)
+    draws = step.draw(torch.Generator().manual_seed(draw_seed), bgr)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    def run(dev):
+        state = create_train_state(cfg, network_name=NET, solver="sgd",
+                                   state_dict=init, device=dev)
+        _, metrics = step(state, bgr.to(dev), depth.to(dev), label.to(dev),
+                          draws=to(draws, dev))
+        return (float(metrics["loss"]),
+                {k: p.grad.detach().cpu() for k, p in
+                 state.model.named_parameters()},
+                {k: v.detach().cpu() for k, v in
+                 state.model.state_dict().items()})
+
+    cpu = run("cpu")
+    card = run(DEV)
+    # fault 1: the step without the _full_fp32 rule, TF32 on
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        with mock.patch.object(train_engine, "_full_fp32",
+                               contextlib.nullcontext):
+            tf32 = run(DEV)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    # fault 2: one small tensor's gradient lost (the depth tower's conv1)
+    zeroed = dict(card[1])
+    zeroed[FAULT_TENSOR] = torch.zeros_like(zeroed[FAULT_TENSOR])
+
+    state64 = create_train_state(cfg, network_name=NET, solver="sgd",
+                                 state_dict=init, device="cpu")
+    state64.model.double()
+    _, apply = make_device_augment(cfg, fx=ds.f, fy=ds.f, px=ds.cx,
+                                   py=ds.cy)
+    img, xyz, lab = apply(bgr, depth, label, draws)
+    _, m64 = make_train_step(cfg)(state64, img.double(), xyz.double(), lab)
+    if m64["loss"].dtype != torch.float64:
+        raise AssertionError("the float64 witness left float64")
+    g64 = {k: p.grad for k, p in state64.model.named_parameters()}
+
+    res = dict(draw_seed=draw_seed, loss_cpu=cpu[0],
+               loss_fp64=float(m64["loss"]), tol=STEP_TOL,
+               fault_tensor=FAULT_TENSOR,
+               cpu_vs_fp64=grad_errors(cpu[1], g64))
+    head = f"[train] step at {h}x{w}, batch 2, draws {draw_seed}:"
+    print(f"{head} the CPU's float32 step vs a float64 step: "
+          f"{_grad_line(res['cpu_vs_fp64'])}")
+    runs = {"card": card, "card_tf32": tf32,
+            "card_zeroed_grad": (card[0], zeroed, card[2])}
+    for name, run_ in runs.items():
+        row = res[name] = step_against(run_, cpu, g64)
+        print(f"{head} {name} vs the CPU: {_grad_line(row['vs_cpu'])}; "
+              f"loss {row['loss']:.7f} vs {cpu[0]:.7f}; vs float64 "
+              f"{row['vs_fp64']['rel_l2']:.2e} / "
+              f"{row['vs_fp64']['median_rel_l2']:.2e}; parameters "
+              f"{row['param_max_abs']:.2e}; BatchNorm statistics "
+              f"{row['stat_max_abs']:.2e}; breaks {row['breaks']}")
+    if res["card"]["breaks"]:
+        raise AssertionError(f"the card's train step differs from the "
+                             f"CPU's beyond {STEP_TOL}: "
+                             f"{res['card']['breaks']}")
+    if not res["card_tf32"]["breaks"] or not res["card_zeroed_grad"][
+            "breaks"]:
+        raise AssertionError("the card-vs-CPU step check misses a planted "
+                             "fault (TF32 on, or a zeroed gradient)")
+    return res
+
+
+def serve_snapshot(snapshot_dir: str, state, scenes) -> dict:
+    """A Segmentor built by build_segmentor from the trainer's snapshot
+    directory: every tensor equal to the trainer's; one cached scene
+    segmented."""
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TEST")
+    seg = build_segmentor(cfg, NET, pretrained=snapshot_dir, device=DEV)
+    want = state.model.state_dict()
+    got = seg.model.state_dict()
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"the served network differs from the "
+                             f"trainer's at {bad[:3]}")
+    f = 0.5 * W
+    img, xyz = preprocess_rgbd(scenes[0][0], scenes[1][0].float() / 1000.0,
+                               cfg.pixel_means, f, f, W / 2.0, H / 2.0)
+    res = seg.segment(img[None], xyz[None], return_features=True)
+    if (res.labels.shape != (1, H, W)
+            or not np.isfinite(res.features).all()):
+        raise AssertionError("bad segmentation from the snapshot")
+    k = len(np.unique(res.labels)) - 1
+    print(f"[train] Segmentor from {snapshot_dir}: {len(want)} tensors "
+          f"equal to the trainer's; one cached scene segmented into {k} "
+          f"instances")
+    return dict(tensors=len(want), instances=k)
+
+
+def run_training(tmp: str) -> dict:
+    """Phase 6."""
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "render_cache")
+    render = render_scenes(cache)
+    reset_counts()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        resumed_dir = os.path.join(tmp, "resumed")
+        _, steps = run_train_net("fp32", train_args(cache, resumed_dir,
+                                                    "--epochs", "2"))
+        resumed, more = run_train_net("fp32 resume", train_args(
+            cache, resumed_dir, "--epochs", "3", "--resume", resumed_dir))
+        steps += more
+        straight_dir = os.path.join(tmp, "straight")
+        straight, _ = run_train_net("fp32 straight", train_args(
+            cache, straight_dir, "--epochs", "3"))
+    finally:
+        cudnn.deterministic = saved
+    bad = same_state(straight, resumed)
+    print(f"[train] 2 epochs + --resume vs 3 epochs straight (deterministic "
+          f"cuDNN): {'bitwise equal' if not bad else f'differ at {bad[:3]}'}"
+          f" ({len(straight.model.state_dict())} tensors, Adam moments, "
+          f"step {straight.step})")
+    if bad:
+        raise AssertionError("the resumed run differs from the straight run")
+    _, bf16_steps = run_train_net("bf16", train_args(
+        cache, os.path.join(tmp, "bf16"), "--epochs", "2", "--bf16"))
+    _, crop_steps = run_train_net("crop", train_args(
+        cache, os.path.join(tmp, "crop"), "--epochs", "2", yml=CROP_YML))
+    scenes = load_resident_scenes(
+        os.path.join(cache, f"synthetic_tabletop_train_{H}x{W}_v4"),
+        limit=TRAIN_SCENES, device=DEV)
+    timing = {"fp32": time_recipe("fp32", TRAIN_YML, scenes),
+              "bf16": time_recipe("bf16", TRAIN_YML, scenes, torch.bfloat16),
+              "crop": time_recipe("crop", CROP_YML, scenes)}
+    launched = launch_counts()
+    print(f"[train] clustering kernel launches while training: {launched}")
+    if any(launched.values()):
+        raise AssertionError("training launched a clustering kernel")
+    card_cpu = check_step_against_cpu()
+    served = serve_snapshot(straight_dir, straight, scenes)
+    out = dict(render=render, steps={"fp32": steps, "bf16": bf16_steps,
+                                     "crop": crop_steps},
+               resume_exact=True, timing=timing, card_vs_cpu=card_cpu,
+               served=served, phase_s=time.perf_counter() - t0)
+    print(f"phase 6 {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1015,6 +1449,13 @@ def main() -> None:
     serving_s = time.perf_counter() - t5
     print(f"phase 5 {serving_s:.1f} s; wall {time.perf_counter() - t_start:.1f}"
           " s")
+    del segs, served, routes
+    torch.cuda.empty_cache()
+
+    # phase 6
+    with tempfile.TemporaryDirectory() as tmp:
+        training = run_training(tmp)
+    print(f"wall after phase 6 {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1057,6 +1498,7 @@ def main() -> None:
         "stream": stream, "evaluation": evaluation,
         "box_frames_refined": boxes, "test_npy_objects": cli,
         "phase_s": serving_s}}))
+    print(json.dumps({"training": training}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -172,18 +172,24 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke, imports with jax, flax and
-    the JAX package blocked."""
+    """Every module of the port, and chip_smoke, imports with jax, flax,
+    the JAX package and OpenCV blocked; the training slice's modules are
+    among them."""
     code = """
 import pkgutil, sys, importlib
-for name in ("jax", "jaxlib", "flax", "unseenobjectclustering_tpu"):
+for name in ("jax", "jaxlib", "flax", "unseenobjectclustering_tpu", "cv2"):
     sys.modules[name] = None
 import unseenobjectclustering_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 15, names
+training = {pkg.__name__ + "." + m for m in (
+    "engine.train", "ops.augment", "ops.train_pipeline", "data.synthetic",
+    "data.resident", "data.loader", "data.factory", "data.datasets",
+    "tools.train_net", "tools.render_dataset")}
+assert training <= set(names), training - set(names)
+assert len(names) >= 25, names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -218,7 +218,10 @@ def test_checkpoint_shape_mismatch_keeps_init(files, tmp_path):
 
 
 def test_checkpoint_directory_raises(tmp_path):
-    with pytest.raises(ValueError, match="directory"):
+    """A directory is read as the trainer's snapshot directory; one that
+    holds no committed snapshot raises (loading a snapshot:
+    tests/test_torch_train_net.py)."""
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         tbuilder.build_segmentor(port_cfg(), NET, pretrained=str(tmp_path),
                                  device="cpu")
 

@@ -4,17 +4,22 @@ package on the same inputs.
 
 Subpackages:
   config    — frozen config objects, YAML-compatible with the reference cfgs
-  models    — SEGNET embedding networks (dilated-ResNet FCN)
-  ops       — preprocessing, resizes, mean-shift clustering and the
+  models    — SEGNET embedding networks (dilated-ResNet FCN) and the
+              embedding loss
+  ops       — preprocessing, resizes, mean-shift clustering, the
               hand-written CUDA kernels' wrappers (csrc/ holds the sources)
+              and the training augmentation on the device
+  data      — the procedural synthetic renderer, the dataset registry,
+              the threaded loader and the device-resident scene cache
   engine    — the two-stage inference pipeline (Segmentor: stage 1 and
-              zoom-in refinement), the builder, dataset evaluation and the
-              stream server (StreamSegmentor)
+              zoom-in refinement), the builder, dataset evaluation, the
+              stream server (StreamSegmentor) and the trainer
   utils     — the metrics (Overlap/Boundary P/R/F), masks and result
-              grids, the reference .pth checkpoint loader and the weight
-              carry from flax variables
+              grids, the .pth and ImageNet checkpoint loaders, training
+              snapshots and the weight carry from flax variables
   tools     — the entry points: .npy and image CLIs, the demo evaluation
-              and overlay artifact, the ROS adapter
+              and overlay artifact, the ROS adapter, the trainer and the
+              scene renderer
               (python -m unseenobjectclustering_torch.tools.<name>)
 
 Entry points run on the CUDA device unless the caller passes device="cpu".

@@ -1,6 +1,7 @@
 """Engine: the two-stage inference pipeline (stage 1 and zoom-in
-refinement), the builder that loads reference .pth checkpoints into it,
-dataset evaluation and the latest-frame stream server."""
+refinement), the builder that loads checkpoints into it, dataset
+evaluation, the latest-frame stream server and the trainer
+(engine.train)."""
 
 from unseenobjectclustering_torch.engine.builder import (build_segmentor,
                                                          init_state_dict,

@@ -6,10 +6,11 @@ wrappers call, equivalent to the model-preparation blocks of the
 reference's entry points (tools/test_net.py:109-128,
 tools/test_images.py:189-209).
 
-Checkpoints are reference-layout ``.pth`` files
-(``utils/checkpoint.load_state_dict_file``).  The JAX package's orbax
-snapshot directories have no counterpart in the port yet: a directory
-raises.
+A checkpoint is a reference-layout ``.pth`` file or a raw torchvision
+ImageNet resnet ``.pth`` (``utils/checkpoint.load_state_dict_file``), or a
+training snapshot of the port's trainer: a snapshots' directory (its
+newest snapshot) or one snapshot ``<dir>/<epoch>``
+(``utils/checkpoint.load_snapshot_model``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from unseenobjectclustering_torch.config import Config
 from unseenobjectclustering_torch.engine.pipeline import (Segmentor,
                                                           resolve_device)
 from unseenobjectclustering_torch.models import get_network
-from unseenobjectclustering_torch.utils.checkpoint import load_state_dict_file
+from unseenobjectclustering_torch.utils.checkpoint import (
+    load_snapshot_model, load_state_dict_file)
 
 
 def init_state_dict(cfg: Config, network_name: str, seed: int = 3
@@ -45,16 +47,16 @@ def init_state_dict(cfg: Config, network_name: str, seed: int = 3
 def load_network_state(cfg: Config, network_name: str,
                        pretrained: Optional[str], seed: int = 3
                        ) -> dict[str, torch.Tensor]:
-    """The init state_dict with a reference-layout `.pth` file put over it
-    when one is given."""
+    """The init state_dict with a checkpoint put over it when one is
+    given: a training snapshot directory or a `.pth` file."""
     state = init_state_dict(cfg, network_name, seed)
     if not pretrained:
         return state
     if os.path.isdir(pretrained):
-        raise ValueError(
-            f"{pretrained} is a directory: the port loads reference-layout "
-            ".pth files only (orbax snapshots of the JAX package have no "
-            "counterpart in the port yet)")
+        state, step = load_snapshot_model(pretrained, state)
+        print(f"=> restored training snapshot {step} from {pretrained}",
+              file=sys.stderr)
+        return state
     state = load_state_dict_file(pretrained, state)
     print(f"=> loaded torch checkpoint {pretrained}", file=sys.stderr)
     return state

@@ -14,11 +14,11 @@ import torch
 from torch import nn
 
 from unseenobjectclustering_torch.config import Config
-from unseenobjectclustering_torch.models.resnet import ResNetFCN
+from unseenobjectclustering_torch.models.resnet import Conv2d, ResNetFCN
 from unseenobjectclustering_torch.models.segnet import SEGNET
 
-__all__ = ["SEGNET", "ResNetFCN", "cast_convs", "get_network",
-           "NETWORK_FACTORIES"]
+__all__ = ["SEGNET", "ResNetFCN", "cast_convs", "compute_convs_in",
+           "get_network", "NETWORK_FACTORIES"]
 
 
 def _segnet(network_name: str, cfg: Config, num_units: int,
@@ -77,4 +77,16 @@ def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             mod.to(dtype)
+    return model
+
+
+def compute_convs_in(model: nn.Module, dtype: Optional[torch.dtype]
+                     ) -> nn.Module:
+    """Mixed precision for training, in place: the convolutions compute in
+    dtype while their parameters stay float32 (the JAX package's
+    ``model_dtype=bfloat16`` under ``param_dtype=float32``).  BatchNorm,
+    the upsample and the normalize stay float32.  None undoes it."""
+    for mod in model.modules():
+        if isinstance(mod, Conv2d):
+            mod.compute_dtype = dtype
     return model

@@ -17,11 +17,17 @@ re-implementation of the reference's modified torchvision ResNet
 Submodule names follow the reference key layout (``conv1``, ``bn1``,
 ``layer2.1.conv1``, ``layer2.0.downsample.0``/``.1``, ``fc``), so a
 reference-layout state_dict loads with ``strict=True``.
+
+In train mode BatchNorm updates its running statistics as flax's
+``nn.BatchNorm(momentum=0.9)`` does, with the biased batch variance
+(``BatchNorm2d``), and a convolution may compute in bfloat16 over float32
+parameters (``Conv2d.compute_dtype``, the JAX package's
+``dtype=bfloat16, param_dtype=float32``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -30,21 +36,61 @@ import torch.nn.functional as F
 from unseenobjectclustering_torch.ops.resize import upsample_bilinear
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in `compute_dtype` when it is set: input,
+    weight and bias are cast for the product, the parameters (and so the
+    gradients and the optimizer state) keep their own dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None or dt == self.weight.dtype:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode update of the running statistics is
+    flax's: running = 0.9 * running + 0.1 * batch statistic, with the
+    BIASED batch variance (torch writes the unbiased one; the two differ by
+    n/(n-1)).  Normalization, eval mode and the state_dict keys are
+    torch's.  One pass over the activation: torch's own update, then its
+    batch term rescaled by (n-1)/n."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        m = self.momentum
+        n = x.numel() // x.shape[1]
+        # torch's update goes to a copy (the backward may read the tensor
+        # it was given): var = kept + m * unbiased
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, m, self.eps)
+        with torch.no_grad():
+            kept = self.running_var.mul(1.0 - m)
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _conv(inplanes: int, planes: int, kernel: int, stride: int = 1,
           dilation: int = 1, padding: int | None = None,
-          bias: bool = False) -> nn.Conv2d:
+          bias: bool = False) -> Conv2d:
     """Conv2d with torch-style symmetric padding (default: 'full padding'
     for the dilated kernel, i.e. pad = dilation for a 3x3)."""
     if padding is None:
         k_up = (kernel - 1) * (dilation - 1) + kernel
         padding = (k_up - 1) // 2
-    return nn.Conv2d(inplanes, planes, kernel, stride, padding,
-                     dilation=dilation, bias=bias)
+    return Conv2d(inplanes, planes, kernel, stride, padding,
+                  dilation=dilation, bias=bias)
 
 
 def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:
     return nn.Sequential(_conv(inplanes, planes, 1, stride, padding=0),
-                         nn.BatchNorm2d(planes))
+                         BatchNorm2d(planes))
 
 
 class BasicBlock(nn.Module):
@@ -56,9 +102,9 @@ class BasicBlock(nn.Module):
                  dilation: int = 1, has_downsample: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, 1, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = (_downsample(inplanes, planes, stride)
                            if has_downsample else None)
 
@@ -78,11 +124,11 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, has_downsample: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1, padding=0)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1, padding=0)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = (_downsample(inplanes, planes * 4, stride)
                            if has_downsample else None)
 
@@ -132,7 +178,8 @@ class ResNetFCN(nn.Module):
 
     forward takes NCHW and returns NHWC float32 [B, H, W, num_classes]: the
     1x1 head's output is cast to float32 before the upsample, whatever the
-    dtype of the conv stack (resnet.py:202 in the JAX package).
+    dtype of the conv stack (resnet.py:202 in the JAX package); a float64
+    network stays float64.
     """
 
     def __init__(self, block: str, layers: Sequence[int],
@@ -141,7 +188,7 @@ class ResNetFCN(nn.Module):
         super().__init__()
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.conv1 = _conv(in_channels, 64, 7, 2, padding=3)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         plan = _plan_layers(block_cls.expansion, layers, output_stride)
         for layer_idx, specs in enumerate(plan):
@@ -154,9 +201,11 @@ class ResNetFCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_hw = (x.shape[-2], x.shape[-1])
-        x = x.to(self.conv1.weight.dtype)
+        x = x.to(self.conv1.compute_dtype or self.conv1.weight.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        x = self.fc(x).to(torch.float32).permute(0, 2, 3, 1)
+        x = self.fc(x)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        x = x.permute(0, 2, 3, 1)
         return upsample_bilinear(x, in_hw)

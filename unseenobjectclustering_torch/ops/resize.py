@@ -1,7 +1,8 @@
-"""Bilinear align_corners=True upsampling and the legacy nearest index.
+"""Bilinear align_corners=True upsampling and the legacy nearest resize.
 
-Port of ``unseenobjectclustering_tpu/ops/resize.upsample_bilinear`` and
-``_nearest_index_legacy`` (which stage 2's paste-back uses).  The
+Port of ``unseenobjectclustering_tpu/ops/resize.upsample_bilinear``,
+``resize_nearest_legacy`` and ``_nearest_index_legacy`` (which stage 2's
+paste-back uses).  The
 reference upsamples logits with ``nn.functional.upsample_bilinear``
 (bilinear, align_corners=True; lib/networks/resnet_dilated.py:325).  The
 interpolation is two dense matmuls (out = W_h @ x @ W_w^T) with the same
@@ -48,7 +49,8 @@ def _nearest_index_legacy(in_size: int, out_size: int) -> np.ndarray:
 
 
 def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear align_corners=True upsample via two matmuls in float32.
+    """Bilinear align_corners=True upsample via two matmuls in float32 (in
+    float64 for float64 input).
 
     Args:
       x: [..., H, W, C] (NHWC; leading batch dims allowed).
@@ -60,10 +62,25 @@ def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     h_out, w_out = out_hw
     if (h_in, w_in) == (h_out, w_out):
         return x
+    ft = torch.promote_types(x.dtype, torch.float32)
     wh = torch.from_numpy(_bilinear_matrix_align_corners(h_in, h_out)).to(
-        x.device)
+        x.device, ft)
     ww = torch.from_numpy(_bilinear_matrix_align_corners(w_in, w_out)).to(
-        x.device)
-    y = torch.einsum("oh,...hwc->...owc", wh, x.to(torch.float32))
+        x.device, ft)
+    y = torch.einsum("oh,...hwc->...owc", wh, x.to(ft))
     y = torch.einsum("pw,...owc->...opc", ww, y)
     return y.to(x.dtype)
+
+
+def resize_nearest_legacy(x: torch.Tensor, out_hw: tuple[int, int]
+                          ) -> torch.Tensor:
+    """Nearest-neighbour resize of the last two axes with the legacy torch
+    index (src = floor(dst * in/out)); used for label masks.
+
+    Args:
+      x: [..., H, W].
+    """
+    iy = torch.from_numpy(_nearest_index_legacy(x.shape[-2], out_hw[0]))
+    ix = torch.from_numpy(_nearest_index_legacy(x.shape[-1], out_hw[1]))
+    y = torch.index_select(x, -2, iy.to(x.device))
+    return torch.index_select(y, -1, ix.to(x.device))

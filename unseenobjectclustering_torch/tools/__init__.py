@@ -7,7 +7,11 @@
   eval_demo_gt   — per-frame and mean F-measures against hand-annotated GT
   demo_artifact  — one overlay grid of the demo frames
   ros_node       — the rospy adapter around engine.stream.StreamSegmentor
+  train_net      — train a network on synthetic scenes augmented on the
+                   device, with full-state snapshots and exact resume
+  render_dataset — pre-render the procedural scenes to a cache (numpy)
 
-Each runs on cuda:<--gpu> unless given --device cpu; --fast selects the
-FAST_CLUSTER preset and bfloat16 convolutions.
+Each runs on cuda:<--gpu> unless given --device cpu (render_dataset runs
+on the host); --fast selects the FAST_CLUSTER preset and bfloat16
+convolutions, train_net's --bf16 mixed precision.
 """

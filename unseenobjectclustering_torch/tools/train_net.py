@@ -1,0 +1,179 @@
+"""Train an unseen-object embedding network (CLI parity with the reference
+tools/train_net.py:30-160 and the JAX package's tools/train_net.py).
+
+The port trains on raw synthetic scenes augmented on the device:
+--device-augment streams them from the loader, --device-resident reads
+the whole render cache onto the device first.  One device: cuda:<--gpu>,
+or --device cpu.
+
+Example:
+  python -m unseenobjectclustering_torch.tools.render_dataset \\
+      --cache-dir output/render_cache --num 64
+  python -m unseenobjectclustering_torch.tools.train_net \\
+      --network seg_resnet34_8s_embedding --dataset synthetic_tabletop_train \\
+      --cfg experiments/cfgs/seg_resnet34_8s_embedding_cosine_rgbd_add_tabletop.yml \\
+      --solver adam --epochs 16 --device-resident \\
+      --render-cache output/render_cache --resident-limit 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pprint
+import sys
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from unseenobjectclustering_torch.config import Config, get_output_dir
+from unseenobjectclustering_torch.data.factory import get_dataset
+from unseenobjectclustering_torch.data.loader import DataLoader
+from unseenobjectclustering_torch.data.resident import load_resident_scenes
+from unseenobjectclustering_torch.engine.builder import load_network_state
+from unseenobjectclustering_torch.engine.pipeline import resolve_device
+from unseenobjectclustering_torch.engine.train import (TrainState,
+                                                       create_train_state,
+                                                       train_epochs,
+                                                       train_epochs_resident)
+from unseenobjectclustering_torch.utils.checkpoint import restore_checkpoint
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Train an unseen-object clustering network (PyTorch)")
+    parser.add_argument("--epochs", type=int, default=16)
+    parser.add_argument("--startepoch", type=int, default=0)
+    parser.add_argument("--pretrained", type=str, default=None,
+                        help="initial weights: a reference .pth, a "
+                             "torchvision ImageNet resnet .pth, or a "
+                             "snapshot directory")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="snapshot directory: restore the full train "
+                             "state (params, BatchNorm statistics, "
+                             "optimizer, step) for an exact resume")
+    parser.add_argument("--cfg", dest="cfg_file", type=str, default=None)
+    parser.add_argument("--solver", type=str, default="sgd",
+                        choices=("adam", "sgd"))
+    parser.add_argument("--dataset", dest="dataset_name", type=str,
+                        default="synthetic_tabletop_train")
+    parser.add_argument("--dataset_root", type=str, default=None)
+    parser.add_argument("--rand", dest="randomize", action="store_true")
+    parser.add_argument("--network", dest="network_name", type=str,
+                        default="seg_resnet34_8s_embedding")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="override cfg.TRAIN.IMS_PER_BATCH")
+    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--max_k", type=int, default=32,
+                        help="static bound on GT instances per image")
+    parser.add_argument("--bf16", action="store_true",
+                        help="mixed precision: bfloat16 convolutions, "
+                             "float32 params/optimizer/BatchNorm/loss")
+    parser.add_argument("--device-augment", action="store_true",
+                        help="stream raw cached scenes and augment them on "
+                             "the device")
+    parser.add_argument("--device-resident", action="store_true",
+                        help="read the whole render cache onto the device "
+                             "once (implies --device-augment)")
+    parser.add_argument("--resident-limit", type=int, default=None,
+                        help="cap on resident scenes")
+    parser.add_argument("--render-cache", type=str, default=None,
+                        help="scene cache directory of the procedural "
+                             "renderer (tools.render_dataset)")
+    parser.add_argument("--keep", type=int, default=4,
+                        help="snapshots to retain")
+    parser.add_argument("--output-dir", type=str, default=None,
+                        help="snapshot directory (default: "
+                             "output/<EXP_DIR>/<dataset>)")
+    parser.add_argument("--gpu", dest="gpu_id", type=int, default=0,
+                        help="train on cuda:<gpu>")
+    parser.add_argument("--device", type=str, default=None,
+                        help="another device than cuda:<gpu> (cpu for the "
+                             "tests)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv:
+        parser.print_help()
+        sys.exit(1)
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         callback: Optional[Callable] = None) -> TrainState:
+    """Run the CLI; returns the final train state.  callback(epoch, i,
+    metrics) follows every step."""
+    args = parse_args(argv)
+    print("Called with args:")
+    print(args)
+    device = resolve_device(args.device or f"cuda:{args.gpu_id}")
+
+    cfg = (Config.from_yaml(args.cfg_file) if args.cfg_file
+           else Config.default())
+    cfg = cfg.replace(MODE="TRAIN")
+    print("Using config:")
+    pprint.pprint(cfg.to_dict())
+    if not args.randomize:
+        np.random.seed(cfg.RNG_SEED)
+
+    dataset = get_dataset(args.dataset_name, cfg, path=args.dataset_root)
+    if args.render_cache is not None:
+        dataset.cache_dir = args.render_cache
+    if args.device_resident:
+        args.device_augment = True
+    if not args.device_augment:
+        raise SystemExit("the port trains on raw scenes augmented on the "
+                         "device: pass --device-augment or "
+                         "--device-resident (the host augmentation waits "
+                         "for the data slice)")
+    dataset.raw = True
+    output_dir = args.output_dir or get_output_dir(cfg, dataset.name)
+    print(f"Output will be saved to `{output_dir}`")
+
+    batch = args.batch_size or int(cfg.TRAIN.IMS_PER_BATCH)
+    loader = DataLoader(dataset, batch_size=batch, shuffle=True,
+                        num_workers=args.workers, seed=int(cfg.RNG_SEED))
+    state_dict = load_network_state(cfg, args.network_name, args.pretrained)
+    if args.device_resident:
+        n_res = args.resident_limit or len(dataset)
+        steps_per_epoch = max(n_res // batch, 1)
+    else:
+        steps_per_epoch = len(loader)
+    # --startepoch alone restarts from bare weights with a fresh optimizer
+    # count: milestones relative to it (the reference's convention);
+    # --resume restores the absolute optimizer step: milestones absolute
+    schedule_start = 0 if args.resume else args.startepoch
+    state = create_train_state(
+        cfg, network_name=args.network_name, solver=args.solver,
+        steps_per_epoch=steps_per_epoch, start_epoch=schedule_start,
+        state_dict=state_dict,
+        model_dtype=torch.bfloat16 if args.bf16 else None, device=device)
+    if args.resume:
+        payload, ck_step = restore_checkpoint(args.resume)
+        state.load_state_dict(payload)
+        args.startepoch = max(args.startepoch, ck_step)
+        print(f"=> resumed full train state at epoch {ck_step}")
+
+    intrinsics = (dataset.f, dataset.f, dataset.cx, dataset.cy)
+    common = dict(epochs=args.epochs, start_epoch=args.startepoch,
+                  output_dir=output_dir, max_k=args.max_k,
+                  intrinsics=intrinsics,
+                  seed=int(cfg.RNG_SEED), keep=args.keep, callback=callback)
+    print(f"=> training on {device}")
+    if args.device_resident:
+        if not getattr(dataset, "cache_dir", None):
+            raise SystemExit("--device-resident needs an on-disk scene "
+                             "cache: pass --render-cache DIR")
+        dataset.check_cache_manifest()
+        scenes = load_resident_scenes(
+            os.path.dirname(dataset._scene_path(0)),
+            limit=args.resident_limit or len(dataset), device=device)
+        gib = sum(x.numel() * x.element_size() for x in scenes) / 2 ** 30
+        print(f"=> device-resident: {int(scenes[0].shape[0])} scenes "
+              f"({gib:.2f} GiB) on {device}")
+        return train_epochs_resident(cfg, state, scenes, batch_size=batch,
+                                     **common)
+    return train_epochs(cfg, state, loader, **common)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Checkpoints: reference-layout ``.pth`` files, and the weight carry from
-flax variables.
+"""Checkpoints: reference-layout ``.pth`` files, torchvision ImageNet
+weights, full-state training snapshots, and the weight carry from flax
+variables.
 
 ``load_state_dict_file`` reads a reference ``.pth`` (a raw state_dict, a
 ``{'model': ...}`` wrapper, DataParallel ``module.`` prefixes, legacy
@@ -26,14 +27,30 @@ initialized in the JAX package load into the port without importing it:
 plus a zero ``num_batches_tracked`` per BatchNorm, so the result loads with
 ``strict=True``.  Flax BatchNorm(momentum=0.9, epsilon=1e-5) is torch's
 BatchNorm2d(momentum=0.1, eps=1e-5), the port's default.
+
+``convert_imagenet_checkpoint`` is the EMBEDDING_PRETRAIN partial load
+(the reference's lib/networks/resnet.py:293-317): a raw torchvision
+resnet state_dict (``conv1.weight``, ``layer1.0.conv1.weight``, ...) goes
+into every backbone tower, key by key where name and shape match.
+
+Training snapshots are the port's counterpart of the JAX package's orbax
+snapshots (``save_checkpoint``/``restore_checkpoint``/``resolve_step_dir``):
+one directory per epoch, ``<dir>/<epoch>/state.pt`` (a ``torch.save`` of
+the optimizer step, the model's state_dict -- parameters and BatchNorm
+buffers -- and the optimizer's state_dict), committed by a
+``_CHECKPOINT_METADATA`` marker written last, with the newest ``keep``
+committed directories kept.  ``<dir>/<epoch>`` addresses one snapshot,
+``<dir>`` the newest.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
 import warnings
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -101,14 +118,51 @@ def normalize_torch_keys(state_dict: Mapping[str, Any]) -> dict[str, Any]:
     return out
 
 
-def load_state_dict_file(path: str | os.PathLike,
-                         expected: Mapping[str, torch.Tensor]
-                         ) -> dict[str, torch.Tensor]:
-    """`expected` (a model's init state_dict) with the tensors of a
-    reference-layout `.pth` file put over it, by the lenient partial load
-    of the module docstring.  The file is read on the CPU."""
-    given = normalize_torch_keys(
-        torch.load(path, map_location="cpu", weights_only=True))
+def _looks_like_torchvision(state_dict: Mapping[str, Any]) -> bool:
+    """A raw torchvision resnet dict has a bare trunk and no tower prefix."""
+    return ("conv1.weight" in state_dict
+            and not any(_TOWER_RE.match(k) for k in state_dict))
+
+
+def convert_imagenet_checkpoint(state_dict: Mapping[str, Any],
+                                expected: Mapping[str, torch.Tensor]
+                                ) -> dict[str, torch.Tensor]:
+    """`expected` (a SEGNET's init state_dict) with a raw torchvision
+    resnet18/34/50 ImageNet state_dict put into every backbone tower,
+    where name and shape match: the trunk (conv1, bn1, layer1..4) loads,
+    the torchvision `fc` (a Linear) never matches the 1x1 scoring conv,
+    and the 6-channel conv1 of early fusion is skipped by its shape.
+    BatchNorm's `num_batches_tracked` keeps its init value.  Raises when
+    nothing matched."""
+    state_dict = normalize_torch_keys(state_dict)
+    towers = sorted({m.group(0) for m in map(_TOWER_RE.match, expected)
+                     if m})
+    if not towers:
+        raise KeyError("expected state_dict holds no backbone towers")
+    out = dict(expected)
+    loaded, skipped = 0, []
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        value = torch.as_tensor(value)
+        for tower in towers:
+            full = tower + key
+            init = expected.get(full)
+            if init is None or tuple(init.shape) != tuple(value.shape):
+                skipped.append(full)
+                continue
+            out[full] = value.to(init.dtype).clone()
+            loaded += 1
+    if loaded == 0:
+        raise KeyError("no ImageNet parameters matched the model "
+                       f"(first skips: {skipped[:5]})")
+    return out
+
+
+def _overlay(given: Mapping[str, torch.Tensor],
+             expected: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """`expected` with `given`'s tensors put over it, by the lenient partial
+    load of the module docstring."""
     out: dict[str, torch.Tensor] = {}
     missing = []
     for key, init in expected.items():
@@ -132,3 +186,98 @@ def load_state_dict_file(path: str | os.PathLike,
         warnings.warn(f"checkpoint has {len(extra)} unused backbone keys, "
                       f"e.g. {extra[:3]}")
     return out
+
+
+def load_state_dict_file(path: str | os.PathLike,
+                         expected: Mapping[str, torch.Tensor]
+                         ) -> dict[str, torch.Tensor]:
+    """`expected` (a model's init state_dict) with the tensors of a `.pth`
+    file put over it: a reference-layout file by the lenient partial load
+    of the module docstring, a raw torchvision ImageNet resnet by
+    convert_imagenet_checkpoint.  The file is read on the CPU."""
+    given = normalize_torch_keys(
+        torch.load(path, map_location="cpu", weights_only=True))
+    if _looks_like_torchvision(given):
+        return convert_imagenet_checkpoint(given, expected)
+    return _overlay(given, expected)
+
+
+# ---------------------------------------------------------------------------
+# training snapshots
+# ---------------------------------------------------------------------------
+
+_MARKER = "_CHECKPOINT_METADATA"
+_STATE_FILE = "state.pt"
+
+
+def _committed_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory)
+                  if d.isdigit() and os.path.exists(
+                      os.path.join(directory, d, _MARKER)))
+
+
+def save_checkpoint(directory: str | os.PathLike, step: int,
+                    payload: Mapping[str, Any], keep: int = 16) -> str:
+    """Write `payload` (engine.train.TrainState.state_dict(): optimizer
+    step, model state_dict, optimizer state_dict) as ``<dir>/<step>``,
+    then keep the newest `keep` snapshots.
+    Returns the snapshot's directory."""
+    directory = os.path.abspath(os.fspath(directory))
+    final = os.path.join(directory, str(int(step)))
+    tmp = final + f".tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(dict(payload), os.path.join(tmp, _STATE_FILE))
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+    with open(os.path.join(final, _MARKER), "w") as fh:
+        json.dump({"step": int(step)}, fh)
+    for old in _committed_steps(directory)[:-max(int(keep), 1)]:
+        shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    return final
+
+
+def resolve_step_dir(directory: str | os.PathLike
+                     ) -> tuple[str, Optional[int]]:
+    """Split a snapshot directory ``<dir>/N`` into (<dir>, N).  A
+    digit-named directory is a snapshot only when it carries the commit
+    marker; otherwise (a run named "16", or one with no snapshot yet) it
+    stays the snapshots' directory."""
+    directory = os.path.abspath(os.fspath(directory))
+    base = os.path.basename(os.path.normpath(directory))
+    if base.isdigit() and os.path.exists(os.path.join(directory, _MARKER)):
+        return os.path.dirname(os.path.normpath(directory)), int(base)
+    return directory, None
+
+
+def restore_checkpoint(directory: str | os.PathLike,
+                       step: Optional[int] = None
+                       ) -> tuple[dict[str, Any], int]:
+    """(payload, step) of the newest snapshot under `directory`, or of
+    `step`; `directory` may itself be a snapshot ``<dir>/N``.  Tensors are
+    read onto the CPU."""
+    directory = os.path.abspath(os.fspath(directory))
+    if step is None:
+        directory, step = resolve_step_dir(directory)
+    steps = _committed_steps(directory)
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        step = steps[-1]
+    elif step not in steps:
+        raise FileNotFoundError(f"no checkpoint {step} under {directory} "
+                                f"(found {steps})")
+    payload = torch.load(os.path.join(directory, str(step), _STATE_FILE),
+                         map_location="cpu", weights_only=True)
+    return payload, int(step)
+
+
+def load_snapshot_model(directory: str | os.PathLike,
+                        expected: Mapping[str, torch.Tensor]
+                        ) -> tuple[dict[str, torch.Tensor], int]:
+    """The model tensors of a training snapshot put over `expected` (the
+    network's init state_dict), and the snapshot's step."""
+    payload, step = restore_checkpoint(directory)
+    return _overlay(payload["model"], expected), step
