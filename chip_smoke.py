@@ -80,10 +80,33 @@ Phases (any failure exits non-zero; no exception is caught):
      built by build_segmentor from the snapshot directory, its tensors
      equal to the trainer's, segmenting one cached scene.  One
      {"training": {...}} line.
-  7. one {"kernels": [...]} line: each kernel's launches in the parity and
-     fast runs of stage 1, of stage 2 and of the stream, its times and
-     bounds in both modes at the frame and the crop shape.
-  8. the last line: {"ok": true, "device": {...}}.
+  7. data: the native IO library built from native/ucio.cpp with g++ (its
+     build seconds), its LZF and strided gather equal to the plain Python
+     versions on a 480x640 cloud, and each PCD load's ms native and plain;
+     4 scenes rendered at 480x640 by tools.render_dataset (test split)
+     written by tools.make_real_fixtures as an OCID tree (a floor and a
+     table sequence, binary_compressed PCDs) and an OSD tree (binary
+     PCDs), with neither PIL nor OpenCV; both read back through
+     get_dataset: labels by OCID's plane ids, BGR and XYZ bit-equal to the
+     rendered scenes; data/demo_gt's labels through the port's PNG reader
+     (ids and pixel counts); the PNG decode ms per frame;
+     tools.test_net.main() with phase 5's .pth files (--pretrained and
+     --pretrained_crop) on each tree and on synthetic_tabletop_test, in
+     parity and with --fast, the counters set to 0 before each run and
+     read after (every kernel at least once per frame), the .mat files
+     equal to the labels segment returned, the s per frame.  One
+     {"data": {...}} line.
+  8. the alternate backbones: seg_unet_embedding and seg_vgg_embedding
+     (BatchNorm), RGB-D add, fixed-seed inits, through
+     Segmentor.segment_sample in parity on phase 3's 480x640 frame (every
+     kernel launched in each of 2 frames; the network ms), and each
+     network on the card against the CPU on a 64x96 window within 1e-4.
+     One {"alternates": {...}} line.
+  9. one {"kernels": [...]} line: each kernel's launches in the parity and
+     fast runs of stage 1, of stage 2, of the stream, of each test_net
+     run and of the alternate networks, its times and bounds in both
+     modes at the frame and the crop shape.
+ 10. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero with no result.
@@ -93,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import io
 import json
 import math
@@ -112,6 +136,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
+from unseenobjectclustering_torch.data import native as data_native
+from unseenobjectclustering_torch.data import pcd
+from unseenobjectclustering_torch.data.datasets import process_label
+from unseenobjectclustering_torch.data.factory import get_dataset
 from unseenobjectclustering_torch.data.resident import load_resident_scenes
 from unseenobjectclustering_torch.data.synthetic import (
     SyntheticTabletopDataset)
@@ -135,9 +163,13 @@ from unseenobjectclustering_torch.ops.preprocess import (compute_xyz,
 from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
 from unseenobjectclustering_torch.ops.train_pipeline import (
     make_device_augment)
-from unseenobjectclustering_torch.tools import test_npy, train_net
+from unseenobjectclustering_torch.tools import (make_real_fixtures,
+                                                test_net, test_npy,
+                                                train_net)
+from unseenobjectclustering_torch.utils import png
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 H, W, D, M = 480, 640, 64, 100
 N = H * W
 KAPPA, ITERS, EPS = 20.0, 10, 0.04
@@ -182,6 +214,11 @@ STEP_TOL = {"loss_rtol": 1e-4, "grad_rel_l2": 4e-2,
             "grad_median_rel_l2": 4e-2, "grad_max_rel_l2": 0.15,
             "param_atol": 1e-6, "stat_atol": 1e-4, "stat_rtol": 1e-4}
 FAULT_TENSOR = "fcn_depth.resnet34_8s.conv1.weight"
+DATA_SCENES = 4  # phase 7: rendered scenes in each fixture tree
+SYN_FRAMES = 2  # phase 7: synthetic_tabletop_test frames per mode
+ALT_NETS = (("seg_unet_embedding", False), ("seg_vgg_embedding", True))
+ALT_WINDOW = (64, 96)  # phase 8's card-vs-CPU frame (VGG pools 5 times)
+ALT_TOL = 1e-4  # embeddings, card vs CPU (the CPU tests' flax tolerance)
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -993,24 +1030,25 @@ _RENDER_RE = re.compile(r"done: (\d+) rendered, \d+ already cached, "
                         r"([\d.]+) s on (\d+) processes, ([\d.]+) s/scene")
 
 
-def render_scenes(cache: str) -> dict:
-    """The training scenes, rendered by tools.render_dataset in a process
-    of its own (numpy only) on a pool of spawned processes, one per CPU
-    core."""
+def render_scenes(cache: str, split: str = "train",
+                  num: int = TRAIN_SCENES) -> dict:
+    """`num` scenes of `split`, rendered by tools.render_dataset in a
+    process of its own (numpy only) on a pool of spawned processes, one per
+    CPU core."""
     out = subprocess.run(
         [sys.executable, "-m", "unseenobjectclustering_torch.tools."
-         "render_dataset", "--cache-dir", cache, "--height", str(H),
-         "--width", str(W), "--num", str(TRAIN_SCENES)],
+         "render_dataset", "--cache-dir", cache, "--split", split,
+         "--height", str(H), "--width", str(W), "--num", str(num)],
         capture_output=True, text=True, check=True,
         timeout=600)
     m = _RENDER_RE.search(out.stdout)
-    if m is None or int(m.group(1)) != TRAIN_SCENES:
+    if m is None or int(m.group(1)) != num:
         raise AssertionError(f"render_dataset: {out.stdout[-500:]}")
     wall, workers, per = (float(m.group(2)), int(m.group(3)),
                           float(m.group(4)))
-    res = dict(scenes=TRAIN_SCENES, processes=workers, wall_s=wall,
-               s_per_scene=per, wall_s_per_scene=wall / TRAIN_SCENES)
-    print(f"[train] rendered {TRAIN_SCENES} scenes at {H}x{W} in "
+    res = dict(scenes=num, processes=workers, wall_s=wall,
+               s_per_scene=per, wall_s_per_scene=wall / num)
+    print(f"[{split}] rendered {num} scenes at {H}x{W} in "
           f"{wall:.2f} s with {workers} processes: {per:.3f} s/scene in "
           f"one process, {res['wall_s_per_scene']:.3f} s/scene of wall")
     return res
@@ -1360,6 +1398,282 @@ def run_training(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: data
+# ---------------------------------------------------------------------------
+
+class TimedRecorder(Recorder):
+    """Recorder that also keeps each segment call's seconds (device
+    synchronized)."""
+
+    def __init__(self, seg: Segmentor):
+        super().__init__(seg)
+        self.seconds: list[float] = []
+
+    def segment(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = super().segment(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def check_native(cloud_path: str, binary_path: str) -> dict:
+    """The native library's LZF and strided gather equal to the plain
+    Python versions on one 480x640 cloud of each encoding, and each PCD
+    load's ms, native and plain."""
+    with open(cloud_path, "rb") as f:
+        data = f.read()
+    start = data.index(b"DATA binary_compressed\n") + 23
+    comp_size, size = (int(v) for v in np.frombuffer(data[start:start + 8],
+                                                     "<u4"))
+    stream = data[start + 8:start + 8 + comp_size]
+    t0 = time.perf_counter()
+    fast = pcd.lzf_decompress(stream, size)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = pcd.lzf_decompress_py(stream, size)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if fast != plain or len(fast) != N * 12:
+        raise AssertionError("native LZF differs from the plain version")
+    with open(binary_path, "rb") as f:
+        raw = f.read()
+    raw = raw[raw.index(b"DATA binary\n") + 12:]
+    for off in (0, 4, 8):
+        got = data_native.extract_strided_f32(raw, N, 12, off)
+        want = pcd.extract_strided_py(raw, N, 12, off, np.dtype("<f4"))
+        if got.tobytes() != np.ascontiguousarray(want).tobytes():
+            raise AssertionError("native strided gather differs")
+    loads = {}
+    for name, path in (("binary_compressed", cloud_path),
+                       ("binary", binary_path)):
+        for native in (True, False):
+            t0 = time.perf_counter()
+            xyz = pcd.load_pcd_xyz(path, native=native)
+            loads[f"{name}_{'native' if native else 'plain'}_ms"] = (
+                1e3 * (time.perf_counter() - t0))
+            if xyz.shape != (N, 3):
+                raise AssertionError(f"{path}: cloud {xyz.shape}")
+    print(f"[data] native LZF = plain on a {H}x{W} cloud ({comp_size} -> "
+          f"{size} bytes: native {native_ms:.2f} ms, plain {plain_ms:.1f} "
+          f"ms); strided gather = plain; PCD load ms: "
+          + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in loads.items()))
+    return dict(lzf_native_ms=native_ms, lzf_plain_ms=plain_ms, **loads)
+
+
+def check_trees(ds: SyntheticTabletopDataset, cfg: Config) -> dict:
+    """The trees read back through get_dataset: labels follow OCID's plane
+    ids (1, and 2 on table paths, are background; the raw label files hold
+    them), BGR and XYZ bit-equal to the rendered scenes (NaN -> 0)."""
+    out = {}
+    for name, sub in (("ocid_object_test", "OCID"),
+                      ("osd_object_test", "OSD")):
+        dataset = get_dataset(name, cfg, path=sub)
+        if len(dataset) != DATA_SCENES:
+            raise AssertionError(f"{name}: {len(dataset)} frames")
+        paths = (dataset.image_paths if sub == "OCID"
+                 else dataset.image_files)
+        strips = 0  # table frames whose id-2 plane the reader erased
+        for k, path in enumerate(paths):
+            i = int(re.search(r"(\d+)\.png$", str(path)).group(1))
+            bgr, depth_mm, gt = ds.get_scene(i)
+            sample = dataset[k]
+            xyz = compute_xyz_np(depth_mm.astype(np.float32) / 1000.0, ds.f,
+                                 ds.f, ds.cx, ds.cy)
+            xyz[depth_mm == 0] = 0
+            if not (np.array_equal(sample["label"],
+                                   process_label(gt.astype(np.int32)))
+                    and np.array_equal(sample["image_color_bgr"],
+                                       bgr.astype(np.float32) / 255.0)
+                    and np.array_equal(sample["depth"], xyz)):
+                raise AssertionError(f"{name}: {path} differs from the "
+                                     "rendered scene")
+            if sub == "OCID":
+                raw = png.read_indexed(str(path).replace("rgb", "label"))
+                table = "table" in str(path)
+                plane = (raw == 1) | ((raw == 2) & table)
+                if ((sample["label"][plane] != 0).any()
+                        or (sample["label"][~plane] == 0).any()):
+                    raise AssertionError(f"{path}: labels break OCID's "
+                                         "plane ids")
+                strips += int(table and (raw == 2).any())
+        if sub == "OCID" and not strips:
+            raise AssertionError("no table frame holds the id-2 plane")
+        out[name] = len(dataset)
+    print(f"[data] read back through get_dataset: {out}; labels follow "
+          "OCID's plane ids, BGR and XYZ bit-equal to the rendered scenes")
+    return out
+
+
+def run_test_net(tag: str, args: list[str], frames: int) -> dict:
+    """tools.test_net.main on the card, its Segmentor recorded; the counters
+    set to 0 before and read after: every kernel launched at least once per
+    frame; the .mat files equal the labels segment returned."""
+    recorders = []
+    build = test_net.builder.build_segmentor
+
+    def recording(*a, **k):
+        recorders.append(TimedRecorder(build(*a, **k)))
+        return recorders[-1]
+
+    out_dir = args[args.index("--output-dir") + 1]
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(test_net.builder, "build_segmentor", recording):
+        stage1, refined = test_net.main(args)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rec = recorders[0]
+    if len(rec.results) != frames:
+        raise AssertionError(f"[{tag}] {len(rec.results)} frames")
+    short = {k: v for k, v in counts.items() if v < frames}
+    if short:
+        raise AssertionError(f"[{tag}] kernels launched fewer times than "
+                             f"the {frames} frames: {short}")
+    for i, res in enumerate(rec.results):
+        mat = scipy.io.loadmat(os.path.join(out_dir, "%06d.mat" % i))
+        if not (np.array_equal(mat["labels"], res.labels[0])
+                and np.array_equal(mat["labels_refined"],
+                                   res.labels_refined[0])):
+            raise AssertionError(f"[{tag}] {i:06d}.mat differs from the "
+                                 "returned labels")
+    found = [len(np.unique(r.labels)) - 1 for r in rec.results]
+    res = dict(frames=frames, wall_s=wall, s_per_frame=wall / frames,
+               segment_s=float(np.median(rec.seconds)), launches=counts,
+               stage1_instances=found,
+               objects_f=stage1["Objects F-measure"],
+               objects_f_refined=refined["Objects F-measure"])
+    print(f"[{tag}] test_net: {frames} frames in {wall:.2f} s "
+          f"({res['s_per_frame']:.3f} s/frame, segment median "
+          f"{res['segment_s']:.3f} s); launches {counts}; stage-1 "
+          f"instances {found}; the .mat files equal the returned labels")
+    return res
+
+
+def run_data(work: str, paths: dict[str, str]) -> dict:
+    """Phase 7."""
+    t0 = time.perf_counter()
+    data_native.library()
+    built = data_native.build_seconds
+    print(f"[data] native IO library from {data_native.SOURCE}: "
+          f"{'reused' if built is None else f'built in {built:.2f} s'}")
+    cache = os.path.join(work, "scenes")
+    render = render_scenes(cache, "test", DATA_SCENES)
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TEST")
+    ds = SyntheticTabletopDataset("test", cfg, height=H, width=W,
+                                  size=DATA_SCENES, cache_dir=cache)
+    idx = list(range(DATA_SCENES))
+    # the readers replace "rgb", "png" and "image_color" anywhere in a path
+    # and look for "table", "OCID" and "OSD" in it, as the reference does:
+    # the trees are read through paths relative to their root
+    root = os.path.join(work, "fixtures")
+    os.makedirs(root)
+    with contextlib.chdir(root):
+        t1 = time.perf_counter()
+        make_real_fixtures.write_ocid("OCID", ds, idx, compressed=True)
+        make_real_fixtures.write_osd("OSD", ds, idx, compressed=False)
+        write_s = time.perf_counter() - t1
+        print(f"[data] OCID (binary_compressed) and OSD (binary) trees of "
+              f"the {DATA_SCENES} scenes written in {write_s:.2f} s")
+        rgb = sorted(glob.glob("OCID/*/*/*/rgb/*.png"))
+        native = check_native(rgb[0].replace("rgb", "pcd").replace(
+            "png", "pcd"), sorted(glob.glob("OSD/pcd/*.pcd"))[0])
+        t1 = time.perf_counter()
+        for p in rgb:
+            png.read_bgr(p)
+            png.read_indexed(p.replace("rgb", "label"))
+        png_ms = 1e3 * (time.perf_counter() - t1) / len(rgb)
+        trees = check_trees(ds, cfg)
+        demo = {}
+        for p in sorted(glob.glob(os.path.join(REPO, "data", "demo_gt",
+                                               "*-label.png"))):
+            ids, counts = np.unique(png.read_indexed(p), return_counts=True)
+            demo[os.path.basename(p)] = {int(i): int(c)
+                                         for i, c in zip(ids, counts)}
+        print(f"[data] demo_gt label ids and pixel counts: {demo}")
+        runs = {}
+        for name, sub, frames in (("ocid_object_test", "OCID", DATA_SCENES),
+                                  ("osd_object_test", "OSD", DATA_SCENES),
+                                  ("synthetic_tabletop_test", cache,
+                                   SYN_FRAMES)):
+            for mode in ("parity", "fast"):
+                tag = f"{mode}, {name}"
+                out_dir = os.path.join(work, "test_net", mode, name)
+                runs[f"{mode}/{name}"] = run_test_net(tag, [
+                    "--dataset", name, "--dataset_root", sub,
+                    "--cfg", os.path.join(REPO, TRAIN_YML), "--network", NET,
+                    "--pretrained", paths["main"],
+                    "--pretrained_crop", paths["crop"],
+                    "--max_images", str(frames), "--output-dir", out_dir]
+                    + (["--fast"] if mode == "fast" else []), frames)
+    out = dict(native_build_s=built, render=render, write_trees_s=write_s,
+               png_decode_ms_per_frame=png_ms, pcd=native, trees=trees,
+               demo_gt_ids=demo, test_net=runs,
+               phase_s=time.perf_counter() - t0)
+    print(f"[data] PNG decode {png_ms:.1f} ms per frame (BGR + labels); "
+          f"phase 7 {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the alternate backbones
+# ---------------------------------------------------------------------------
+
+def run_alternates(frame: dict) -> dict:
+    """Phase 8: the U-Net and the VGG (BatchNorm) RGB-D add networks from
+    fixed-seed inits through Segmentor.segment_sample in parity on phase
+    3's 480x640 frame (a warm-up and a timed frame; the counters set to 0
+    before and read after: every kernel launched in each frame); each
+    network on the card against the CPU on a window of the frame."""
+    out = {}
+    for i, (net, bn) in enumerate(ALT_NETS):
+        cfg = Config.inference_default(INPUT="RGBD",
+                                       TRAIN={"VGG_BATCH_NORM": bn})
+        torch.manual_seed(20 + i)
+        state = get_network(net, cfg).state_dict()
+        seg = Segmentor(cfg, state, network_name=net)
+        reset_counts()
+        results = [seg.segment_sample(frame, return_features=True)
+                   for _ in range(2)]
+        counts = launch_counts()
+        short = {k: v for k, v in counts.items() if v < 2}
+        if short:
+            raise AssertionError(f"[{net}] kernels launched fewer times "
+                                 f"than the 2 frames: {short}")
+        f = results[-1].features
+        if (f.shape != (1, H, W, D) or not np.isfinite(f).all()
+                or np.abs(np.linalg.norm(f, axis=-1) - 1.0).max() > 1e-3
+                or results[-1].labels.shape != (1, H, W)):
+            raise AssertionError(f"[{net}] bad embeddings or labels")
+        h, w = ALT_WINDOW
+        window = {k: v[None, H // 2 - h // 2:H // 2 + h // 2,
+                       W // 2 - w // 2:W // 2 + w // 2]
+                  for k, v in frame.items()}
+        cpu = get_network(net, cfg)
+        cpu.load_state_dict(state)
+        cpu.eval()
+        with torch.no_grad():
+            card = seg.model(window["image_color"], window["depth"]).cpu()
+            want = cpu(window["image_color"].cpu(), window["depth"].cpu())
+        err = float((card - want).abs().max())
+        timing = results[-1].timing
+        out[net] = dict(batch_norm=bn, network_ms=1e3 * timing["network"],
+                        cluster_ms=1e3 * timing["cluster"],
+                        stage1_ms=1e3 * timing["stage1"], launches=counts,
+                        card_vs_cpu_max_abs=err,
+                        instances=len(np.unique(results[-1].labels)) - 1)
+        print(f"[{net}{' batch_norm' if bn else ''}] parity stage 1 at "
+              f"{H}x{W}: network {out[net]['network_ms']:.3f} ms, cluster "
+              f"{out[net]['cluster_ms']:.3f} ms; launches {counts}; card vs "
+              f"CPU on a {h}x{w} window: max |embedding diff| {err:.3e}")
+        if not err <= ALT_TOL:
+            raise AssertionError(f"[{net}] the card's embeddings differ from "
+                                 f"the CPU's by {err:.3e}")
+        del seg, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1436,26 +1750,34 @@ def main() -> None:
 
     # phase 5
     t5 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as work:
         served, paths = load_segmentors(
-            cfg, tmp, {"main": state_dict, "crop": state_dict_crop})
+            cfg, work, {"main": state_dict, "crop": state_dict_crop})
         for mode, seg in served.items():
             check_stream_frame(mode, seg)
         stream = {mode: run_stream(mode, seg) for mode, seg in served.items()}
-        evaluation = {mode: run_evaluation(mode, seg, tmp)
+        evaluation = {mode: run_evaluation(mode, seg, work)
                       for mode, seg in served.items()}
         boxes = box_frame_metrics(routes, segs, frames)
-        cli = run_cli(tmp, paths["main"], served["parity"])
-    serving_s = time.perf_counter() - t5
-    print(f"phase 5 {serving_s:.1f} s; wall {time.perf_counter() - t_start:.1f}"
-          " s")
-    del segs, served, routes
-    torch.cuda.empty_cache()
+        cli = run_cli(work, paths["main"], served["parity"])
+        serving_s = time.perf_counter() - t5
+        print(f"phase 5 {serving_s:.1f} s; wall "
+              f"{time.perf_counter() - t_start:.1f} s")
+        del segs, served, routes
+        torch.cuda.empty_cache()
 
-    # phase 6
-    with tempfile.TemporaryDirectory() as tmp:
-        training = run_training(tmp)
-    print(f"wall after phase 6 {time.perf_counter() - t_start:.1f} s")
+        # phase 6
+        with tempfile.TemporaryDirectory() as tmp:
+            training = run_training(tmp)
+        print(f"wall after phase 6 {time.perf_counter() - t_start:.1f} s")
+
+        # phase 7: phase 5's .pth files through tools.test_net
+        data = run_data(work, paths)
+        print(f"wall after phase 7 {time.perf_counter() - t_start:.1f} s")
+
+    # phase 8
+    alternates = run_alternates(frame)
+    print(f"wall after phase 8 {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1467,6 +1789,14 @@ def main() -> None:
             fast_stage2_launches=s2_counts["fast"][name],
             serving_launches=stream["parity"]["launches"][name],
             fast_serving_launches=stream["fast"]["launches"][name],
+            data_launches={k.split("/", 1)[1]: v["launches"][name]
+                           for k, v in data["test_net"].items()
+                           if k.startswith("parity/")},
+            fast_data_launches={k.split("/", 1)[1]: v["launches"][name]
+                                for k, v in data["test_net"].items()
+                                if k.startswith("fast/")},
+            alternates_launches={net: r["launches"][name]
+                                 for net, r in alternates.items()},
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -1499,6 +1829,17 @@ def main() -> None:
         "box_frames_refined": boxes, "test_npy_objects": cli,
         "phase_s": serving_s}}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"data": {
+        "png_decode_ms_per_frame": data["png_decode_ms_per_frame"],
+        "pcd_load_ms": data["pcd"],
+        "test_net_s_per_frame": {k: v["s_per_frame"]
+                                 for k, v in data["test_net"].items()},
+        "test_net": data["test_net"], "trees": data["trees"],
+        "native_build_s": data["native_build_s"],
+        "render_wall_s": data["render"]["wall_s"],
+        "write_trees_s": data["write_trees_s"],
+        "demo_gt_ids": data["demo_gt_ids"], "phase_s": data["phase_s"]}}))
+    print(json.dumps({"alternates": alternates}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

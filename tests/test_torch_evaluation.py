@@ -204,30 +204,47 @@ def test_segmentation_grid_has_the_jax_panels():
         plt.close(fig)
 
 
-def test_serving_modules_import_without_optional_packages():
+def test_serving_modules_import_without_optional_packages(tmp_path):
     """What chip_smoke.py imports loads with OpenCV, PIL, matplotlib, rospy,
-    JAX and the JAX package blocked (the GPU machine has none of them)."""
+    JAX and the JAX package blocked (the GPU machine has none of them),
+    the data slice's modules included, and a palette PNG written by PIL
+    reads back."""
+    from PIL import Image
+
+    labels = np.random.RandomState(1).randint(0, 200, (9, 11)).astype(
+        np.uint8)
+    im = Image.fromarray(labels, mode="P")
+    im.putpalette(list(range(256)) * 3)
+    im.save(tmp_path / "labels.png")
+    np.save(tmp_path / "labels.npy", labels)
     code = """
 import sys, importlib
 for name in ("cv2", "PIL", "matplotlib", "rospy", "jax", "jaxlib", "flax",
              "unseenobjectclustering_tpu"):
     sys.modules[name] = None
 for name in ("utils.evaluation", "utils.masks", "utils.visualization",
-             "engine.evaluate", "engine.stream", "engine.builder",
-             "tools.test_npy", "tools.ros_node"):
+             "utils.png", "engine.evaluate", "engine.stream",
+             "engine.builder", "tools.test_npy", "tools.ros_node",
+             "tools.test_net", "tools.make_real_fixtures", "data.pcd",
+             "data.native", "data.datasets", "data.augmentation",
+             "models.unets"):
     importlib.import_module("unseenobjectclustering_torch." + name)
 import chip_smoke
 import numpy as np
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
+from unseenobjectclustering_torch.utils.masks import imread_indexed
 gt = np.zeros((32, 48), np.int32)
 gt[4:12, 5:20] = 1
 gt[15:30, 22:40] = 2
 m = multilabel_metrics(np.roll(gt, 3, 0), gt)
 assert 0.0 < m["Boundary F-measure"] < 1.0, m
+got = imread_indexed(sys.argv[1] + "/labels.png")
+assert (got == np.load(sys.argv[1] + "/labels.npy")).all()
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

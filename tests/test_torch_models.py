@@ -119,7 +119,8 @@ def test_factories_build_the_reference_key_layout():
     cfg = tcfg.Config.inference_default(INPUT="RGBD")
     assert sorted(NETWORK_FACTORIES) == [
         "seg_resnet18_8s_embedding", "seg_resnet34_8s_embedding",
-        "seg_resnet34_8s_embedding_early", "seg_resnet50_8s_embedding"]
+        "seg_resnet34_8s_embedding_early", "seg_resnet50_8s_embedding",
+        "seg_unet_embedding", "seg_vgg_embedding"]
     keys = get_network("seg_resnet34_8s_embedding", cfg).state_dict()
     for k in ("fcn.resnet34_8s.layer2.1.conv1.weight",
               "fcn.resnet34_8s.layer2.0.downsample.0.weight",

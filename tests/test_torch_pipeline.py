@@ -171,13 +171,23 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
                   network_name=NET)
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax(tmp_path):
     """Every module of the port, and chip_smoke, imports with jax, flax,
-    the JAX package and OpenCV blocked; the training slice's modules are
-    among them."""
+    the JAX package, OpenCV and PIL blocked; the training and data slices'
+    modules are among them, and a palette PNG written by PIL reads back
+    (utils/masks through utils/png)."""
+    from PIL import Image
+
+    labels = np.random.RandomState(0).randint(0, 9, (13, 17)).astype(
+        np.uint8)
+    im = Image.fromarray(labels, mode="P")
+    im.putpalette(list(range(27)))
+    im.save(tmp_path / "labels.png")
+    np.save(tmp_path / "labels.npy", labels)
     code = """
 import pkgutil, sys, importlib
-for name in ("jax", "jaxlib", "flax", "unseenobjectclustering_tpu", "cv2"):
+for name in ("jax", "jaxlib", "flax", "unseenobjectclustering_tpu", "cv2",
+             "PIL"):
     sys.modules[name] = None
 import unseenobjectclustering_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -188,12 +198,22 @@ training = {pkg.__name__ + "." + m for m in (
     "engine.train", "ops.augment", "ops.train_pipeline", "data.synthetic",
     "data.resident", "data.loader", "data.factory", "data.datasets",
     "tools.train_net", "tools.render_dataset")}
-assert training <= set(names), training - set(names)
-assert len(names) >= 25, names
+data = {pkg.__name__ + "." + m for m in (
+    "data.pcd", "data.native", "data.augmentation", "utils.png",
+    "utils.se3", "utils.profiling", "models.unets", "models.utils",
+    "tools.test_net", "tools.make_real_fixtures")}
+assert training | data <= set(names), (training | data) - set(names)
+assert len(names) >= 35, names
+import numpy as np
+from unseenobjectclustering_torch.utils.masks import imread_indexed
+got = imread_indexed(sys.argv[1] + "/labels.png")
+assert got.dtype == np.uint8
+assert (got == np.load(sys.argv[1] + "/labels.npy")).all()
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")

@@ -154,8 +154,10 @@ def test_train_net_needs_a_card_or_cpu(setup):
         train_net.main(["--cfg", yml, "--network", NET, "--render-cache",
                         cache, "--device-resident", "--output-dir",
                         str(root / "nocard")])
-    with pytest.raises(SystemExit, match="device-augment"):
-        run(setup, "host", "--epochs", "1")
+    # the host-augmented route as well
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_net.main(["--cfg", yml, "--network", NET, "--epochs", "1",
+                        "--output-dir", str(root / "nocard_host")])
 
 
 def torchvision_state_dict(seed=0):

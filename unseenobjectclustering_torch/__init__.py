@@ -4,22 +4,26 @@ package on the same inputs.
 
 Subpackages:
   config    — frozen config objects, YAML-compatible with the reference cfgs
-  models    — SEGNET embedding networks (dilated-ResNet FCN) and the
-              embedding loss
+  models    — SEGNET embedding networks (dilated-ResNet FCN, the U-Net and
+              VGG alternates) and the embedding loss
   ops       — preprocessing, resizes, mean-shift clustering, the
               hand-written CUDA kernels' wrappers (csrc/ holds the sources)
               and the training augmentation on the device
-  data      — the procedural synthetic renderer, the dataset registry,
-              the threaded loader and the device-resident scene cache
+  data      — the TableTop/OCID/OSD readers, PCD IO and the native IO
+              library, the host augmentation, the procedural synthetic
+              renderer, the dataset registry, the threaded loader and the
+              device-resident scene cache
   engine    — the two-stage inference pipeline (Segmentor: stage 1 and
               zoom-in refinement), the builder, dataset evaluation, the
               stream server (StreamSegmentor) and the trainer
-  utils     — the metrics (Overlap/Boundary P/R/F), masks and result
-              grids, the .pth and ImageNet checkpoint loaders, training
-              snapshots and the weight carry from flax variables
-  tools     — the entry points: .npy and image CLIs, the demo evaluation
-              and overlay artifact, the ROS adapter, the trainer and the
-              scene renderer
+  utils     — the metrics (Overlap/Boundary P/R/F), masks, the PNG codec
+              and result grids, the .pth and ImageNet checkpoint loaders,
+              training snapshots, the weight carry from flax variables,
+              SE(3) helpers and timers
+  tools     — the entry points: the dataset evaluation, .npy and image
+              CLIs, the demo evaluation and overlay artifact, the ROS
+              adapter, the trainer, the scene renderer and the OCID/OSD
+              fixture writer
               (python -m unseenobjectclustering_torch.tools.<name>)
 
 Entry points run on the CUDA device unless the caller passes device="cpu".

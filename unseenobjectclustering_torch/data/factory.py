@@ -1,35 +1,35 @@
-"""Dataset registry (parity with lib/datasets/factory.py:14-39).
-
-The port registers the procedural ``synthetic_tabletop_{train,test}``
-datasets.  The reference's TableTop, OCID and OSD names are known but
-raise: their loaders wait for the data slice.
-"""
+"""Dataset registry (parity with lib/datasets/factory.py:14-39 and the JAX
+package's data/factory.py): the TableTop splits, OSD and OCID test sets and
+the procedural synthetic_tabletop_{train,test}."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 from unseenobjectclustering_torch.config import Config
+from unseenobjectclustering_torch.data.datasets import (OCIDObject, OSDObject,
+                                                        TableTopObject)
 from unseenobjectclustering_torch.data.synthetic import (
     SyntheticTabletopDataset)
 
-DATASETS: dict[str, Callable] = {
-    f"synthetic_tabletop_{split}":
-        (lambda cfg, path=None, _s=split:
-         SyntheticTabletopDataset(_s, cfg, path=path))
-    for split in ("train", "test")}
+DATASETS: dict[str, Callable] = {}
 
-NOT_PORTED = tuple([f"tabletop_object_{s}" for s in ("train", "test", "all")]
-                   + ["osd_object_test", "ocid_object_test"])
+
+def _register(name: str, ctor: Callable, image_set: str) -> None:
+    DATASETS[name] = lambda cfg, path=None: ctor(image_set, cfg, path=path)
+
+
+for _split in ("train", "test", "all"):
+    _register(f"tabletop_object_{_split}", TableTopObject, _split)
+_register("osd_object_test", OSDObject, "test")
+_register("ocid_object_test", OCIDObject, "test")
+for _split in ("train", "test"):
+    _register(f"synthetic_tabletop_{_split}", SyntheticTabletopDataset,
+              _split)
 
 
 def get_dataset(name: str, cfg: Config, path: Optional[str] = None):
     """Build a dataset by its reference-compatible registry name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not in the port yet: the TableTop/OCID/OSD "
-            "loaders wait for the data slice; the port trains on "
-            "synthetic_tabletop_train")
     if name not in DATASETS:
         raise KeyError(
             f"unknown dataset {name!r}; available: {sorted(DATASETS)}")

@@ -13,11 +13,11 @@ oriented boxes, capped cylinders, bowls; stacks, mugs, bottles, lidded
 containers, lying cans, plates, pens) with procedural textures, contact
 shadows and coloured lighting, ray cast per pixel with a z-buffer.
 
-The port trains on raw scenes (``raw=True``: uint8 BGR, uint16 depth in
-mm, uint8 labels), augmented on the device (ops/train_pipeline.py).  The
-host-augmented sample of the JAX package's ``__getitem__`` (cv2
-throughout) waits for the data slice.  Registered as
-``synthetic_tabletop_{train,test}``.
+The device trainer reads raw scenes (``raw=True``: uint8 BGR, uint16
+depth in mm, uint8 labels), augmented on the device
+(ops/train_pipeline.py); otherwise ``__getitem__`` builds the JAX
+package's host-augmented sample (data/augmentation.py: OpenCV in TRAIN
+mode).  Registered as ``synthetic_tabletop_{train,test}``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,10 @@ from typing import Optional
 import numpy as np
 
 from unseenobjectclustering_torch.config import Config
-from unseenobjectclustering_torch.data.datasets import (_DatasetBase,
+from unseenobjectclustering_torch.data import augmentation
+from unseenobjectclustering_torch.data.datasets import (TableTopObject,
+                                                        _compute_xyz_np,
+                                                        _DatasetBase,
                                                         process_label)
 
 
@@ -845,13 +848,53 @@ class SyntheticTabletopDataset(_DatasetBase):
     # -- sample contract --------------------------------------------------------
 
     def __getitem__(self, idx: int) -> dict:
-        """The raw scene of `idx` (raw mode); the host-augmented sample
-        waits for the data slice."""
-        if not self.raw:
-            raise NotImplementedError(
-                "the port's synthetic dataset serves raw scenes only "
-                "(raw=True, augmented on the device); the host augmentation "
-                "path waits for the data slice")
+        """The raw scene of `idx` (raw mode), or the sample the JAX
+        package's host pipeline builds from it: depth noise, ellipse
+        dropout and GP noise in TRAIN mode, the object-centric crop with
+        SYN_CROP, pixel sampling, the chromatic and noise jitter, the
+        normalization.  TEST mode without SYN_CROP needs numpy only; the
+        TRAIN-mode augmentations and the crop need OpenCV."""
+        cfg = self.cfg
+        rng = self._rng(idx)  # augmentation stream: (epoch, index)
         bgr, depth_mm, labels8 = self.get_scene(idx)
-        return {"bgr": bgr, "depth_mm": depth_mm, "label_raw": labels8,
-                "filename": f"synthetic/{idx:08d}"}
+        if self.raw:
+            return {"bgr": bgr, "depth_mm": depth_mm, "label_raw": labels8,
+                    "filename": f"synthetic/{idx:08d}"}
+        bgr = bgr.copy()
+        depth = depth_mm.astype(np.float32) / 1000.0
+        labels = labels8.astype(np.int32)
+
+        xyz = None
+        if cfg.INPUT in ("DEPTH", "RGBD"):
+            if cfg.MODE == "TRAIN":
+                depth = augmentation.add_noise_to_depth(
+                    depth, augmentation.DEFAULT_NOISE_PARAMS, rng)
+                depth = augmentation.dropout_random_ellipses(
+                    depth, augmentation.DEFAULT_NOISE_PARAMS, rng)
+                if cfg.TRAIN.DEPTH_ARTIFACTS:
+                    depth = augmentation.add_realsense_artifacts(depth, rng)
+            xyz = _compute_xyz_np(depth, self.f, self.f, self.cx, self.cy)
+            if cfg.MODE == "TRAIN":
+                xyz = augmentation.add_noise_to_xyz(
+                    xyz, depth, augmentation.DEFAULT_NOISE_PARAMS, rng)
+
+        if cfg.TRAIN.SYN_CROP:
+            # the object-centric square crop of the TOD loader
+            # (tabletop_object.py:175-237)
+            bgr, labels, xyz = TableTopObject.pad_crop_resize(
+                self, bgr, labels, xyz, rng)
+            labels = process_label(labels)
+
+        if cfg.TRAIN.EMBEDDING_SAMPLING and cfg.MODE == "TRAIN":
+            labels = TableTopObject.sample_pixels(
+                self, labels, int(cfg.TRAIN.EMBEDDING_SAMPLING_NUM), rng)
+
+        bgr = self._maybe_augment_rgb(bgr, rng)
+        sample = {
+            "label": labels.astype(np.int32),
+            "image_color": self._normalize_bgr(bgr),
+            "filename": f"synthetic/{idx:08d}",
+        }
+        if xyz is not None:
+            sample["depth"] = xyz.astype(np.float32)
+        return sample

@@ -140,14 +140,20 @@ def create_train_state(cfg: Config, *, network_name: str,
                        device: Any = None) -> TrainState:
     """The network (from `state_dict`, or torch's init seeded with `seed`)
     on `device` (default: the CUDA device; raises without one) in train
-    mode, and its optimizer.  model_dtype=bfloat16 computes the
+    mode, and its optimizer.  A dropout layer's generator is seeded with
+    `seed` on the device.  model_dtype=bfloat16 computes the
     convolutions in bfloat16 (mixed precision)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = get_network(network_name, cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict)
-    model.to(resolve_device(device))
+    device = resolve_device(device)
+    model.to(device)
+    for mod in model.modules():  # VGG's dropout draws from its own
+        if hasattr(mod, "dropout_generator"):
+            mod.dropout_generator = torch.Generator(
+                device=device).manual_seed(seed)
     compute_convs_in(model, model_dtype)
     model.train()
     opt, schedule = make_optimizer(cfg, model.parameters(), solver,

@@ -1,9 +1,9 @@
 """Model factory registry (PyTorch).
 
-Port of ``unseenobjectclustering_tpu/models/__init__.py`` for the ResNet
-names: the reference's ``networks.__dict__[name](num_classes, num_units,
-data)`` surface (lib/networks/SEG.py:163-186).  The vgg/unet names wait for
-their backbones.
+Port of ``unseenobjectclustering_tpu/models/__init__.py``: the
+reference's ``networks.__dict__[name](num_classes, num_units, data)``
+surface (lib/networks/SEG.py:163-186), ResNet names and the vgg/unet
+alternates (models/unets.py).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 from unseenobjectclustering_torch.config import Config
 from unseenobjectclustering_torch.models.resnet import Conv2d, ResNetFCN
 from unseenobjectclustering_torch.models.segnet import SEGNET
+from unseenobjectclustering_torch.models.unets import ConvTranspose2d
 
 __all__ = ["SEGNET", "ResNetFCN", "cast_convs", "compute_convs_in",
            "get_network", "NETWORK_FACTORIES"]
@@ -26,7 +27,8 @@ def _segnet(network_name: str, cfg: Config, num_units: int,
     return SEGNET(network_name=network_name, input_type=cfg.INPUT,
                   fusion_type=fusion_override or cfg.TRAIN.FUSION_TYPE,
                   num_units=num_units,
-                  normalize=bool(cfg.TRAIN.EMBEDDING_NORMALIZATION))
+                  normalize=bool(cfg.TRAIN.EMBEDDING_NORMALIZATION),
+                  batch_norm=bool(cfg.TRAIN.VGG_BATCH_NORM))
 
 
 def seg_resnet18_8s_embedding(cfg: Config, num_units: int = 64) -> SEGNET:
@@ -50,11 +52,24 @@ def seg_resnet50_8s_embedding(cfg: Config, num_units: int = 64) -> SEGNET:
     return _segnet("resnet50_8s", cfg, num_units)
 
 
+def seg_vgg_embedding(cfg: Config, num_units: int = 64) -> SEGNET:
+    """SEG.py:163-166 (cfg.TRAIN.VGG_BATCH_NORM: BatchNorm after each
+    hidden conv)."""
+    return _segnet("vgg", cfg, num_units)
+
+
+def seg_unet_embedding(cfg: Config, num_units: int = 64) -> SEGNET:
+    """SEG.py:168-171."""
+    return _segnet("unet", cfg, num_units)
+
+
 NETWORK_FACTORIES = {
     "seg_resnet18_8s_embedding": seg_resnet18_8s_embedding,
     "seg_resnet34_8s_embedding": seg_resnet34_8s_embedding,
     "seg_resnet34_8s_embedding_early": seg_resnet34_8s_embedding_early,
     "seg_resnet50_8s_embedding": seg_resnet50_8s_embedding,
+    "seg_vgg_embedding": seg_vgg_embedding,
+    "seg_unet_embedding": seg_unet_embedding,
 }
 
 
@@ -75,7 +90,7 @@ def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     to bfloat16 as well moves the embeddings about twice as far from the
     JAX bf16 network's."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             mod.to(dtype)
     return model
 
@@ -87,6 +102,6 @@ def compute_convs_in(model: nn.Module, dtype: Optional[torch.dtype]
     ``model_dtype=bfloat16`` under ``param_dtype=float32``).  BatchNorm,
     the upsample and the normalize stay float32.  None undoes it."""
     for mod in model.modules():
-        if isinstance(mod, Conv2d):
+        if isinstance(mod, (Conv2d, ConvTranspose2d)):
             mod.compute_dtype = dtype
     return model

@@ -3,8 +3,9 @@
 Port of ``unseenobjectclustering_tpu/models/segnet.py`` (reference
 lib/networks/SEG.py:26-119):
 
-  * backbone by network name (resnet18_8s / resnet34_8s / resnet50_8s; the
-    unet/vgg backbones are not ported yet),
+  * backbone by network name (resnet18_8s / resnet34_8s / resnet50_8s,
+    and the alternates unet / vgg of models/unets.py; vgg with the
+    ``batch_norm`` flag of the reference's DSL, SEG.py:28),
   * input modality (COLOR / DEPTH / RGBD) and fusion type:
       - 'early': channel-concat RGB+XYZ into one 6-channel tower
       - 'add':   two towers, features summed
@@ -24,25 +25,35 @@ from torch import nn
 
 from unseenobjectclustering_torch.models.losses import l2_normalize
 from unseenobjectclustering_torch.models.resnet import ResNetFCN
+from unseenobjectclustering_torch.models.unets import (UNetEmbedding,
+                                                       VGGEmbedding)
 
-_BACKBONES = {
+_RESNETS = {
     "resnet18_8s": ("basic", (2, 2, 2, 2)),
     "resnet34_8s": ("basic", (3, 4, 6, 3)),
     "resnet50_8s": ("bottleneck", (3, 4, 6, 3)),
 }
+_BACKBONES = tuple(_RESNETS) + ("unet", "vgg")
 
 
 class _Tower(nn.Module):
     """One backbone under its reference attribute name, so state_dict keys
-    read ``fcn.resnet34_8s.layer2.1.conv1.weight`` (resnet_dilated.py)."""
+    read ``fcn.resnet34_8s.layer2.1.conv1.weight`` (resnet_dilated.py) or
+    ``fcn.vgg.enc_conv0.weight``."""
 
-    def __init__(self, network_name: str, num_units: int, in_channels: int):
+    def __init__(self, network_name: str, num_units: int, in_channels: int,
+                 batch_norm: bool = False):
         super().__init__()
         self.arch = network_name
-        block, layers = _BACKBONES[network_name]
-        setattr(self, network_name,
-                ResNetFCN(block, layers, num_classes=num_units,
-                          output_stride=8, in_channels=in_channels))
+        if network_name == "unet":
+            net = UNetEmbedding(num_units, in_channels)
+        elif network_name == "vgg":
+            net = VGGEmbedding(num_units, batch_norm, in_channels)
+        else:
+            block, layers = _RESNETS[network_name]
+            net = ResNetFCN(block, layers, num_classes=num_units,
+                            output_stride=8, in_channels=in_channels)
+        setattr(self, network_name, net)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, self.arch)(x)
@@ -58,7 +69,8 @@ class SEGNET(nn.Module):
 
     def __init__(self, network_name: str = "resnet34_8s",
                  input_type: str = "RGBD", fusion_type: str = "add",
-                 num_units: int = 64, normalize: bool = True):
+                 num_units: int = 64, normalize: bool = True,
+                 batch_norm: bool = False):
         super().__init__()
         if network_name not in _BACKBONES:
             raise ValueError(f"unknown network_name: {network_name}")
@@ -68,9 +80,10 @@ class SEGNET(nn.Module):
         self.num_units = num_units
         self.normalize = normalize
         early = input_type == "RGBD" and fusion_type == "early"
-        self.fcn = _Tower(network_name, num_units, 6 if early else 3)
+        self.fcn = _Tower(network_name, num_units, 6 if early else 3,
+                          batch_norm)
         if input_type == "RGBD" and not early:
-            self.fcn_depth = _Tower(network_name, num_units, 3)
+            self.fcn_depth = _Tower(network_name, num_units, 3, batch_norm)
 
     @property
     def embedding_dim(self) -> int:

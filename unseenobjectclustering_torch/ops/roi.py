@@ -10,7 +10,7 @@ instance id i+1, and ``valid`` marks the slots whose id is present.
 Boxes, crops, veto and order keys are plain PyTorch on the tensors' device,
 with no host sync and no atomic adds onto a few hot addresses where a
 reduction does (boxes, the dense relabel's presence); the order-dependent
-paste-back is numpy on the host.
+paste-back runs on the host (the native library, numpy as its plain version).
 
   * The crops compute the JAX package's coordinates in the same float32
     order, as XLA compiles them: a division by the constant S - 1 or S is
@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from unseenobjectclustering_torch.data import native as _native
 from unseenobjectclustering_torch.ops.resize import _nearest_index_legacy
 
 
@@ -312,7 +313,8 @@ def veto_and_order(labels_crop: torch.Tensor, mask_crops: torch.Tensor,
 def paste_back(initial_labels: np.ndarray, labels_veto: np.ndarray,
                order_key: np.ndarray, rois: np.ndarray,
                valid: np.ndarray,
-               fallback_labels: Optional[np.ndarray] = None) -> np.ndarray:
+               fallback_labels: Optional[np.ndarray] = None,
+               native: bool = True) -> np.ndarray:
     """Final paste (test_dataset.py:150-179): crops by key descending
     (farther first), surviving clusters relabeled sequentially, each crop
     nearest-resized back into its RoI; later (closer) crops overwrite.
@@ -321,7 +323,12 @@ def paste_back(initial_labels: np.ndarray, labels_veto: np.ndarray,
     labels where crop slot i holds instance id i+1.  When given and every
     zoom-in cluster of a crop was vetoed, the stage-1 instance mask is
     pasted unchanged (at its depth-order position) instead of the instance
-    being deleted.  None = the reference's semantics."""
+    being deleted.  None = the reference's semantics.
+
+    Each crop's resize and overwrite runs in the native library
+    (``data/native.nearest_paste_nonzero``, as the JAX package's
+    ``ops/roi.py`` does) for int32 labels; native=False, or other label
+    dtypes, take the numpy paste, its plain version."""
     order = np.argsort(-order_key, kind="stable")
     refined = np.zeros_like(initial_labels)
     count = 0
@@ -341,6 +348,9 @@ def paste_back(initial_labels: np.ndarray, labels_veto: np.ndarray,
             relabeled[labels_veto[i] == mask_id] = count
         x0, y0, x1, y1 = (int(v) for v in rois[i])
         region = refined[y0:y1 + 1, x0:x1 + 1]
+        if native and refined.dtype == np.int32:
+            _native.nearest_paste_nonzero(relabeled, region)
+            continue
         resized = _nearest_resize_np(relabeled, (y1 - y0 + 1, x1 - x0 + 1))
         nz = resized > 0
         region[nz] = resized[nz]

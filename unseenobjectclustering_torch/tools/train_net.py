@@ -1,10 +1,12 @@
 """Train an unseen-object embedding network (CLI parity with the reference
 tools/train_net.py:30-160 and the JAX package's tools/train_net.py).
 
-The port trains on raw synthetic scenes augmented on the device:
---device-augment streams them from the loader, --device-resident reads
-the whole render cache onto the device first.  One device: cuda:<--gpu>,
-or --device cpu.
+By default the loader serves host-augmented samples
+(data/augmentation.py, as the JAX package's tool does; OpenCV in TRAIN
+mode).  --device-augment streams raw synthetic scenes and augments them on
+the device, --device-resident reads the whole render cache onto the device
+first (both numpy and PyTorch only).  One device: cuda:<--gpu>, or --device
+cpu.
 
 Example:
   python -m unseenobjectclustering_torch.tools.render_dataset \\
@@ -120,12 +122,11 @@ def main(argv: Optional[Sequence[str]] = None,
         dataset.cache_dir = args.render_cache
     if args.device_resident:
         args.device_augment = True
-    if not args.device_augment:
-        raise SystemExit("the port trains on raw scenes augmented on the "
-                         "device: pass --device-augment or "
-                         "--device-resident (the host augmentation waits "
-                         "for the data slice)")
-    dataset.raw = True
+    if args.device_augment:
+        if not hasattr(dataset, "raw"):
+            raise SystemExit(f"{args.dataset_name} has no raw scenes: "
+                             "--device-augment takes the synthetic datasets")
+        dataset.raw = True
     output_dir = args.output_dir or get_output_dir(cfg, dataset.name)
     print(f"Output will be saved to `{output_dir}`")
 
@@ -153,7 +154,8 @@ def main(argv: Optional[Sequence[str]] = None,
         args.startepoch = max(args.startepoch, ck_step)
         print(f"=> resumed full train state at epoch {ck_step}")
 
-    intrinsics = (dataset.f, dataset.f, dataset.cx, dataset.cy)
+    intrinsics = ((dataset.f, dataset.f, dataset.cx, dataset.cy)
+                  if args.device_augment else None)
     common = dict(epochs=args.epochs, start_epoch=args.startepoch,
                   output_dir=output_dir, max_k=args.max_k,
                   intrinsics=intrinsics,

@@ -26,7 +26,11 @@ initialized in the JAX package load into the port without importing it:
 
 plus a zero ``num_batches_tracked`` per BatchNorm, so the result loads with
 ``strict=True``.  Flax BatchNorm(momentum=0.9, epsilon=1e-5) is torch's
-BatchNorm2d(momentum=0.1, eps=1e-5), the port's default.
+BatchNorm2d(momentum=0.1, eps=1e-5), the port's default.  The alternate
+backbones carry the same way under ``<tower>.unet.`` / ``<tower>.vgg.``
+with their flax module names; VGG's transposed convolutions
+(``dec_tconv*``) flip their kernel, since flax applies it unflipped and
+torch flipped: w[i,o,a,b] = k[K-1-a,K-1-b,i,o].
 
 ``convert_imagenet_checkpoint`` is the EMBEDDING_PRETRAIN partial load
 (the reference's lib/networks/resnet.py:293-317): a raw torchvision
@@ -92,6 +96,13 @@ def state_dict_from_flax(variables: Mapping[str, Any],
                 (), dtype=torch.long)
         elif leaf_name == "scale":
             out[f"{prefix}.weight"] = torch.from_numpy(arr.copy())
+        elif (leaf_name == "kernel" and sub
+              and sub[-1].startswith("dec_tconv")):
+            # flax ConvTranspose [kh,kw,in,out], applied unflipped ->
+            # torch ConvTranspose2d [in,out,kh,kw], applied flipped
+            w = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            out[f"{prefix}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(w))
         elif leaf_name == "kernel":
             # [kh,kw,in,out] -> [out,in,kh,kw]
             w = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T

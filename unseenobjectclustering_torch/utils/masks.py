@@ -1,12 +1,13 @@
-"""Mask utilities: indexed-PNG IO, color overlays.
+"""Mask utilities: indexed-PNG IO, tight boxes, color overlays.
 
 Port of ``unseenobjectclustering_tpu/utils/masks.py`` (the reference's
 lib/utils/mask.py): imread_indexed/imwrite_indexed (:152-169),
-build_matrix_of_indices (:41-46), get_color_mask (:17-39),
-visualize_segmentation (:49-147, a cv2 overlay).
+mask_to_tight_box (:171-195), build_matrix_of_indices (:41-46),
+get_color_mask (:17-39), visualize_segmentation (:49-147, a cv2 overlay).
 
-numpy only at import: PIL and cv2 are imported inside the functions that
-need them, since the GPU machine may have neither.
+The indexed PNGs go through ``utils/png.py`` (zlib and numpy), whose arrays
+are PIL's: the GPU machine has neither PIL nor OpenCV.  cv2 is imported
+inside the one function that draws contours.
 """
 
 from __future__ import annotations
@@ -15,29 +16,28 @@ from typing import Optional
 
 import numpy as np
 
+from unseenobjectclustering_torch.utils import png
+
 
 def imread_indexed(filename: str) -> np.ndarray:
     """Load a palette-indexed segmentation PNG as its raw index array
-    (mask.py:152-156)."""
-    from PIL import Image
-
-    return np.array(Image.open(filename))
+    (mask.py:152-156): the array PIL's ``np.array(Image.open(...))``
+    gives."""
+    return png.read_indexed(filename)
 
 
 def imwrite_indexed(filename: str, array: np.ndarray,
                     palette: Optional[np.ndarray] = None) -> None:
     """Save a [H, W] label array as an indexed PNG (mask.py:158-169; the
     reference hardcodes a palette file path — here a deterministic palette is
-    generated when none is given)."""
-    from PIL import Image
-
+    generated when none is given).  PIL reads back the index array and the
+    palette that PIL's own writer would store."""
     if array.ndim != 2:
         raise ValueError("Saving indexed PNGs requires a 2D array")
     if palette is None:
         palette = default_palette()
-    im = Image.fromarray(array.astype(np.uint8))
-    im.putpalette(palette.astype(np.uint8).ravel())
-    im.save(filename, format="PNG")
+    png.write_png(filename, array.astype(np.uint8),
+                  palette=np.asarray(palette).astype(np.uint8).reshape(-1, 3))
 
 
 def default_palette(n: int = 256) -> np.ndarray:
@@ -51,6 +51,12 @@ def default_palette(n: int = 256) -> np.ndarray:
 def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
     """[H, W, 2] array of (y, x) indices (mask.py:41-46)."""
     return np.indices((height, width), dtype=np.float32).transpose(1, 2, 0)
+
+
+def mask_to_tight_box(mask: np.ndarray) -> tuple[int, int, int, int]:
+    """(x_min, y_min, x_max, y_max) of the nonzero extent (mask.py:171-178)."""
+    ys, xs = np.nonzero(mask)
+    return int(xs.min()), int(ys.min()), int(xs.max()), int(ys.max())
 
 
 def get_color_mask(labels: np.ndarray) -> np.ndarray:
