@@ -102,11 +102,45 @@ Phases (any failure exits non-zero; no exception is caught):
      kernel launched in each of 2 frames; the network ms), and each
      network on the card against the CPU on a 64x96 window within 1e-4.
      One {"alternates": {...}} line.
-  9. one {"kernels": [...]} line: each kernel's launches in the parity and
-     fast runs of stage 1, of stage 2, of the stream, of each test_net
-     run and of the alternate networks, its times and bounds in both
-     modes at the frame and the crop shape.
- 10. the last line: {"ok": true, "device": {...}}.
+  9. data parallelism (unseenobjectclustering_torch.parallel), what one
+     card can show of it: (a) world size 1 on NCCL (an all-reduce and an
+     all-gather checked): Segmentor.segment_sharded on 4 frames at
+     480x640 in both modes, the counters set to 0 before each call and
+     read after, every call's labels equal per frame to one
+     segment(refine=False) call on the same 4 frames of a Segmentor with
+     the same seed and each kernel launched exactly once per frame: with
+     phase 3's network in 3 calls per mode (frames/s and ms per frame
+     beside phase 3's batch-1 stage 1), and with phase 8's U-Net, which
+     must find an instance in every frame (the random-init ResNet finds
+     none, so its equality is between empty label maps); against each
+     frame segmented alone, the pixels that differ and the embeddings
+     (within 1e-4 in parity; cuDNN runs other kernels at batch 1);
+     evaluate_dataset_sharded on phase 7's OCID tree (batch 4) with the
+     U-Net built from a .pth file equal to the metrics of
+     segment(refine=False) on the same batches, with objects detected,
+     beside evaluate_dataset(refine=False)'s; (b) two gloo processes
+     sharing the card (NCCL
+     refuses two ranks on one device): one float32 SGD step at 128x160 on
+     2 + 2 frames (pinned draws of the global batch) within STEP_TOL of
+     one process's step on the 4 frames on the card (loss, gradients,
+     parameters, BatchNorm statistics), a gate that per-replica BatchNorm
+     statistics and per-rank loss scalars must each break; then the
+     full-width resident step of the recipe (Adam, float32), 8 + 8 of
+     phase 6's scenes at 480x640, its s/step beside phase 6's one-process
+     step; (c) while the ranks start and take their small steps,
+     tools.train_net under torchrun --nproc_per_node 1 (NCCL, world size
+     1, cuda:<LOCAL_RANK>) on phase 6's cache for one epoch,
+     --device-resident: exactly one snapshot directory, from which
+     build_segmentor builds a Segmentor that segments a cached scene (the
+     ranks time their full-width step after torchrun has ended).  One
+     {"data_parallel": ...} line.  Several cards (NCCL across them) are
+     not checked here.
+ 10. one {"kernels": [...]} line: each kernel's launches in the parity
+     and fast runs of stage 1, of stage 2, of the stream, of each
+     test_net run, of the alternate networks and of phase 9's sharded
+     stage 1 and evaluation, its times and bounds in both modes at the
+     frame and the crop shape.
+ 11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero with no result.
@@ -129,9 +163,12 @@ import threading
 import time
 from unittest import mock
 
+import multiprocessing
+
 import numpy as np
 import scipy.io
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -140,18 +177,21 @@ from unseenobjectclustering_torch.data import native as data_native
 from unseenobjectclustering_torch.data import pcd
 from unseenobjectclustering_torch.data.datasets import process_label
 from unseenobjectclustering_torch.data.factory import get_dataset
+from unseenobjectclustering_torch.data.loader import DataLoader
 from unseenobjectclustering_torch.data.resident import load_resident_scenes
 from unseenobjectclustering_torch.data.synthetic import (
     SyntheticTabletopDataset)
 from unseenobjectclustering_torch.engine.builder import build_segmentor
-from unseenobjectclustering_torch.engine.evaluate import evaluate_dataset
+from unseenobjectclustering_torch.engine.evaluate import (
+    average_metrics, evaluate_dataset, evaluate_dataset_sharded)
 from unseenobjectclustering_torch.engine.pipeline import Segmentor
 from unseenobjectclustering_torch.engine import train as train_engine
 from unseenobjectclustering_torch.engine.stream import StreamSegmentor
 from unseenobjectclustering_torch.engine.train import (
     create_train_state, make_train_step, make_train_step_raw,
     make_train_step_resident, step_seed)
-from unseenobjectclustering_torch.models import get_network
+from unseenobjectclustering_torch import parallel
+from unseenobjectclustering_torch.models import get_network, losses, resnet
 from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
@@ -219,6 +259,10 @@ SYN_FRAMES = 2  # phase 7: synthetic_tabletop_test frames per mode
 ALT_NETS = (("seg_unet_embedding", False), ("seg_vgg_embedding", True))
 ALT_WINDOW = (64, 96)  # phase 8's card-vs-CPU frame (VGG pools 5 times)
 ALT_TOL = 1e-4  # embeddings, card vs CPU (the CPU tests' flax tolerance)
+DP_FRAMES = 4  # phase 9: frames of each segment_sharded call
+DP_CALLS = 3  # phase 9: segment_sharded calls per mode (the first warms up)
+DP_SMALL_BATCH = 4  # phase 9: the two-rank step at SMALL_HW, 2 + 2 frames
+DP_TIMED_STEPS = 1  # phase 9: timed full-width DP steps, after a warm-up
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -1196,14 +1240,15 @@ def grad_errors(g: dict, ref: dict) -> dict:
                 max_rel_l2=per[worst], worst=worst)
 
 
-def step_against(run: tuple, ref: tuple, g64: dict) -> dict:
+def step_against(run: tuple, ref: tuple, g64: dict | None = None) -> dict:
     """A card step `run` (loss, gradients, state after the update) against
-    the CPU's `ref`: its errors and the STEP_TOL limits it breaks."""
+    the reference step `ref` (the CPU's; phase 9: one process's): its
+    errors (vs_cpu: against ref) and the STEP_TOL limits it breaks."""
     loss, grads, state = run
     l_ref, g_ref, s_ref = ref
     row = dict(loss=loss, loss_rel=abs(loss - l_ref) / abs(l_ref),
                vs_cpu=grad_errors(grads, g_ref),
-               vs_fp64=grad_errors(grads, g64),
+               vs_fp64=None if g64 is None else grad_errors(grads, g64),
                param_max_abs=max(float((state[k] - s_ref[k]).abs().max())
                                  for k in s_ref if "running_" not in k
                                  and "num_batches" not in k),
@@ -1228,6 +1273,48 @@ def _grad_line(e: dict) -> str:
             f"({e['worst']})")
 
 
+def small_step_inputs(n: int, draw_seed: int = 7) -> tuple:
+    """The inputs of one float32 SGD step of the stage-1 recipe at
+    SMALL_HW: the config, the dataset, n rendered scenes (CPU tensors),
+    the initial weights (a fixed-seed init), the raw step and the batch's
+    augmentation draws (drawn on the CPU)."""
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TRAIN")
+    h, w = SMALL_HW
+    ds = SyntheticTabletopDataset(
+        "train", Config.from_dict({"INPUT": "RGBD", "MODE": "TRAIN"}),
+        height=h, width=w, size=n)
+    bgr, depth, label = (torch.from_numpy(np.stack(a)) for a in zip(
+        *[ds.get_scene(i) for i in range(n)]))
+    depth = depth.to(torch.int32)
+    torch.manual_seed(3)
+    init = get_network(NET, cfg).state_dict()
+    step = make_train_step_raw(cfg, fx=ds.f, fy=ds.f, px=ds.cx, py=ds.cy)
+    draws = step.draw(torch.Generator().manual_seed(draw_seed), bgr)
+    return cfg, ds, bgr, depth, label, init, step, draws
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def small_step(cfg, init, step, scenes, draws, dev, mesh=None) -> tuple:
+    """One SGD step from `init` on `dev` (with a mesh: this rank's rows of
+    the scenes, the global batch's draws): (loss, gradients, state), on
+    the host."""
+    rows = slice(None) if mesh is None else mesh.batch_slice(len(scenes[0]))
+    state = create_train_state(cfg, network_name=NET, solver="sgd",
+                               state_dict=init, device=dev)
+    _, metrics = step(state, *(t[rows].to(dev) for t in scenes),
+                      draws=_to(draws, dev), mesh=mesh)
+    return (float(metrics["loss"]),
+            {k: p.grad.detach().cpu() for k, p in
+             state.model.named_parameters()},
+            {k: v.detach().cpu() for k, v in
+             state.model.state_dict().items()})
+
+
 def check_step_against_cpu(draw_seed: int = 7) -> dict:
     """One float32 SGD step of the stage-1 recipe at 128x160, batch 2, on
     the card and on the CPU, from the same weights and the same pinned
@@ -1236,34 +1323,12 @@ def check_step_against_cpu(draw_seed: int = 7) -> dict:
     within STEP_TOL.  Two faults must break it: the card's step with TF32
     left on, and the card's gradients with one tensor's zeroed.  For
     scale, every gradient against the same step's in float64."""
-    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TRAIN")
+    cfg, ds, bgr, depth, label, init, step, draws = small_step_inputs(
+        2, draw_seed)
     h, w = SMALL_HW
-    ds = SyntheticTabletopDataset(
-        "train", Config.from_dict({"INPUT": "RGBD", "MODE": "TRAIN"}),
-        height=h, width=w, size=2)
-    bgr, depth, label = (torch.from_numpy(np.stack(a)) for a in zip(
-        *[ds.get_scene(i) for i in range(2)]))
-    depth = depth.to(torch.int32)
-    torch.manual_seed(3)
-    init = get_network(NET, cfg).state_dict()
-    step = make_train_step_raw(cfg, fx=ds.f, fy=ds.f, px=ds.cx, py=ds.cy)
-    draws = step.draw(torch.Generator().manual_seed(draw_seed), bgr)
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        return tree.to(dev)
 
     def run(dev):
-        state = create_train_state(cfg, network_name=NET, solver="sgd",
-                                   state_dict=init, device=dev)
-        _, metrics = step(state, bgr.to(dev), depth.to(dev), label.to(dev),
-                          draws=to(draws, dev))
-        return (float(metrics["loss"]),
-                {k: p.grad.detach().cpu() for k, p in
-                 state.model.named_parameters()},
-                {k: v.detach().cpu() for k, v in
-                 state.model.state_dict().items()})
+        return small_step(cfg, init, step, (bgr, depth, label), draws, dev)
 
     cpu = run("cpu")
     card = run(DEV)
@@ -1540,7 +1605,7 @@ def run_test_net(tag: str, args: list[str], frames: int) -> dict:
     found = [len(np.unique(r.labels)) - 1 for r in rec.results]
     res = dict(frames=frames, wall_s=wall, s_per_frame=wall / frames,
                segment_s=float(np.median(rec.seconds)), launches=counts,
-               stage1_instances=found,
+               stage1_instances=found, stage1_metrics=stage1,
                objects_f=stage1["Objects F-measure"],
                objects_f_refined=refined["Objects F-measure"])
     print(f"[{tag}] test_net: {frames} frames in {wall:.2f} s "
@@ -1619,6 +1684,15 @@ def run_data(work: str, paths: dict[str, str]) -> dict:
 # phase 8: the alternate backbones
 # ---------------------------------------------------------------------------
 
+def alt_network(i: int) -> tuple[Config, dict]:
+    """Phase 8's i-th alternate network (ALT_NETS): its config and its
+    fixed-seed init."""
+    net, bn = ALT_NETS[i]
+    cfg = Config.inference_default(INPUT="RGBD", TRAIN={"VGG_BATCH_NORM": bn})
+    torch.manual_seed(20 + i)
+    return cfg, get_network(net, cfg).state_dict()
+
+
 def run_alternates(frame: dict) -> dict:
     """Phase 8: the U-Net and the VGG (BatchNorm) RGB-D add networks from
     fixed-seed inits through Segmentor.segment_sample in parity on phase
@@ -1627,10 +1701,7 @@ def run_alternates(frame: dict) -> dict:
     network on the card against the CPU on a window of the frame."""
     out = {}
     for i, (net, bn) in enumerate(ALT_NETS):
-        cfg = Config.inference_default(INPUT="RGBD",
-                                       TRAIN={"VGG_BATCH_NORM": bn})
-        torch.manual_seed(20 + i)
-        state = get_network(net, cfg).state_dict()
+        cfg, state = alt_network(i)
         seg = Segmentor(cfg, state, network_name=net)
         reset_counts()
         results = [seg.segment_sample(frame, return_features=True)
@@ -1671,6 +1742,412 @@ def run_alternates(frame: dict) -> dict:
                                  f"the CPU's by {err:.3e}")
         del seg, cpu
         torch.cuda.empty_cache()
+    return out
+
+
+# phase 9: data parallelism
+# ---------------------------------------------------------------------------
+
+def dp_frames() -> tuple[torch.Tensor, torch.Tensor]:
+    """DP_FRAMES tabletop frames preprocessed on the card: [B, H, W, 3]."""
+    cfg = Config.inference_default(INPUT="RGBD")
+    pairs = [preprocess_rgbd(*(torch.from_numpy(a).cuda()
+                               for a in tabletop_frame(10 + i)),
+                             cfg.pixel_means, *INTR)
+             for i in range(DP_FRAMES)]
+    return tuple(torch.stack(t) for t in zip(*pairs))
+
+
+def check_nccl(mesh) -> None:
+    """The world-size-1 NCCL group moves data: an all-reduce and an
+    all-gather of a label-sized int32 tensor."""
+    t = torch.arange(N, dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t)
+    parts = [torch.empty_like(t)]
+    dist.all_gather(parts, t)
+    if not (torch.equal(t, parts[0]) and int(t[-1]) == N - 1):
+        raise AssertionError("the NCCL group of one rank altered its data")
+
+
+def sharded_call(mesh, seg: Segmentor, ref: Segmentor, img: torch.Tensor,
+                 xyz: torch.Tensor, tag: str, features: bool = False
+                 ) -> tuple[float, np.ndarray, dict, np.ndarray | None]:
+    """One segment_sharded call on the frames, the counters set to 0 just
+    before and read just after: its wall seconds, its labels, the
+    launches, and (with `features`) the embeddings of `ref`'s call.  The
+    labels must equal, frame by frame, those of one segment(refine=False)
+    call of `ref` (a Segmentor built alike, so drawing the same keys) on
+    the same DP_FRAMES frames, and each kernel must launch once per
+    frame."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = seg.segment_sharded(mesh, img, xyz)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if any(v != DP_FRAMES for v in counts.values()):
+        raise AssertionError(f"[dp {tag}] launches {counts}, not one per "
+                             f"frame of {DP_FRAMES}")
+    if labels.shape != (DP_FRAMES, H, W) or labels.dtype != np.int32:
+        raise AssertionError(f"[dp {tag}] labels {labels.shape} "
+                             f"{labels.dtype}")
+    want = ref.segment(img, xyz, refine=False, return_features=features)
+    differ = [i for i in range(DP_FRAMES)
+              if not np.array_equal(labels[i], want.labels[i])]
+    if differ:
+        raise AssertionError(f"[dp {tag}] frames {differ} differ from "
+                             "segment(refine=False)")
+    return seconds, labels, counts, want.features
+
+
+def batch1_gap(one: Segmentor, img: torch.Tensor, xyz: torch.Tensor,
+               labels: np.ndarray, feats: np.ndarray) -> dict:
+    """Each frame segmented alone (DP_FRAMES segment(refine=False) calls of
+    `one`, a Segmentor built alike) against the batch's labels and
+    embeddings: the pixels whose label differs and the largest embedding
+    difference.  cuDNN may run other kernels at batch 1 than at batch
+    DP_FRAMES."""
+    rows = [one.segment(img[i:i + 1], xyz[i:i + 1], refine=False,
+                        return_features=True) for i in range(DP_FRAMES)]
+    return dict(pixels=[int((labels[i] != r.labels[0]).sum())
+                        for i, r in enumerate(rows)],
+                instances=[len(np.unique(r.labels)) - 1 for r in rows],
+                feature_max_abs=max(float(np.abs(feats[i] - r.features[0])
+                                          .max())
+                                    for i, r in enumerate(rows)))
+
+
+def batch_metrics(ds, seg: Segmentor) -> dict:
+    """The averaged multilabel_metrics of segment(refine=False) on the
+    dataset read in batches of DP_FRAMES frames, as
+    evaluate_dataset_sharded batches it."""
+    rows = []
+    for batch in DataLoader(ds, batch_size=DP_FRAMES, shuffle=False,
+                            num_workers=0, drop_last=False):
+        labels = seg.segment(batch["image_color"], batch["depth"],
+                             refine=False).labels
+        rows += [multilabel_metrics(labels[i], batch["label"][i])
+                 for i in range(len(labels))]
+    return average_metrics(rows)
+
+
+def run_sharded(cfg: Config, state_dict: dict, work: str,
+                timings: dict) -> dict:
+    """Phase 9, world size 1 on NCCL: segment_sharded on DP_FRAMES frames
+    at 480x640 in each mode, each call's labels equal per frame to one
+    segment(refine=False) call on the same frames, each kernel launched
+    once per frame: phase 3's ResNet in DP_CALLS calls, timed (frames/s
+    and ms per frame beside phase 3's batch-1 stage 1); phase 8's U-Net in
+    one call, which must find an instance in every frame (the random-init
+    ResNet finds none, so its equality holds between empty label maps).
+    Against the frames segmented one at a time: the pixels that differ and
+    the embeddings, within ALT_TOL in parity (cuDNN runs other kernels at
+    batch 1).  evaluate_dataset_sharded on phase 7's OCID tree (batch
+    DP_FRAMES) with the U-Net loaded from a reference-layout .pth: equal
+    to the metrics of segment(refine=False) on the same batches, with
+    objects detected, beside evaluate_dataset(refine=False)'s (frames one
+    at a time)."""
+    parallel.initialize("file://" + os.path.join(work, "nccl_rdzv"), 1, 0,
+                        backend="nccl")
+    try:
+        return sharded_checks(cfg, state_dict, work, timings,
+                              parallel.make_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
+                   mesh) -> dict:
+    """run_sharded's checks in its process group."""
+    print(f"[dp] process group: backend {dist.get_backend()}, world "
+          f"{mesh.world}, device {mesh.device}")
+    check_nccl(mesh)
+    img, xyz = dp_frames()
+    unet = ALT_NETS[0][0]
+    ucfg, ustate = alt_network(0)
+    out: dict = {}
+    for net, ncfg, state, calls in ((NET, cfg, state_dict, DP_CALLS),
+                                    (unet, ucfg, ustate, 1)):
+        for mode, mcfg, dtype in (
+                ("parity", ncfg, None),
+                ("fast", ncfg.replace(CLUSTER=dict(FAST_CLUSTER)),
+                 torch.bfloat16)):
+            tag = mode if net == NET else f"{unet} {mode}"
+            seg, ref, one = (Segmentor(mcfg, state, network_name=net,
+                                       model_dtype=dtype) for _ in range(3))
+            runs = [sharded_call(mesh, seg, ref, img, xyz, tag,
+                                 features=i == 0) for i in range(calls)]
+            labels, feats = runs[0][1], runs[0][3]
+            alone = batch1_gap(one, img, xyz, labels, feats)
+            del seg, ref, one, feats
+            found = [len(np.unique(f)) - 1 for f in labels]
+            launches = {k: sum(r[2][k] for r in runs) for k in KERNELS}
+            row = dict(frames=DP_FRAMES, calls=calls, launches=launches,
+                       instances=found, batch1=alone)
+            line = (f"[dp {tag}] segment_sharded, world 1: {DP_FRAMES} "
+                    f"frames at {H}x{W} per call, labels equal per frame to "
+                    f"segment(refine=False) on the same frames in all "
+                    f"{calls} calls; instances {found}; launches "
+                    f"{launches}; each frame alone (batch 1): "
+                    f"{alone['pixels']} pixels differ, instances "
+                    f"{alone['instances']}, embeddings within "
+                    f"{alone['feature_max_abs']:.3e}")
+            if net == NET:
+                seconds = [r[0] for r in runs]
+                t = float(np.median(seconds[1:]))
+                row.update(call_s=seconds, frames_per_s=DP_FRAMES / t,
+                           ms_per_frame=1e3 * t / DP_FRAMES,
+                           batch1_stage1_ms=timings[mode]["stage1"])
+                line += (f"; {row['frames_per_s']:.2f} frames/s, "
+                         f"{row['ms_per_frame']:.3f} ms/frame (median of "
+                         f"{calls - 1} calls after a warm-up), phase 3's "
+                         f"batch-1 stage 1 {timings[mode]['stage1']:.3f} "
+                         f"ms/frame")
+            out[mode if net == NET else f"{unet}/{mode}"] = row
+            print(line)
+            if net != NET and min(found) < 1:
+                raise AssertionError(f"[dp {tag}] a frame without an "
+                                     f"instance: {found}")
+            if mode == "parity" and not alone["feature_max_abs"] <= ALT_TOL:
+                raise AssertionError(f"[dp {tag}] batch-1 embeddings differ "
+                                     f"by {alone['feature_max_abs']:.3e}")
+    tcfg = Config.from_yaml(os.path.join(REPO, TRAIN_YML)).replace(
+        MODE="TEST")
+    upath = os.path.join(work, f"{unet}.pth")
+    torch.save({"model": {"module." + k: v for k, v in ustate.items()}},
+               upath)
+
+    def built():
+        return build_segmentor(tcfg, unet, pretrained=upath,
+                               depth_threshold=0.5)
+
+    with contextlib.chdir(os.path.join(work, "fixtures")):
+        ds = get_dataset("ocid_object_test", tcfg, path="OCID")
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = evaluate_dataset_sharded(ds, built(), mesh,
+                                           batch_size=DP_FRAMES,
+                                           num_workers=0)
+        counts = launch_counts()
+        want = batch_metrics(ds, built())
+        alone, _ = evaluate_dataset(ds, built(), refine=False,
+                                    save_results=False, verbose=False)
+    if got != want or any(v != len(ds) for v in counts.values()):
+        raise AssertionError(f"[dp] evaluate_dataset_sharded {got} vs "
+                             f"{want}; launches {counts}")
+    out["ocid"] = dict(network=unet, frames=len(ds), metrics=got,
+                       launches=counts, evaluate_dataset=alone,
+                       equals_evaluate_dataset=got == alone)
+    print(f"[dp] evaluate_dataset_sharded, {unet} from {unet}.pth, on the "
+          f"OCID tree ({len(ds)} frames, batch {DP_FRAMES}): equal to "
+          f"segment(refine=False)'s metrics on the same batches; Objects F "
+          f"{got['Objects F-measure']:.6f}, {got['obj_detected']} objects "
+          f"detected per frame; evaluate_dataset(refine=False) (frames one "
+          f"at a time) Objects F {alone['Objects F-measure']:.6f}, "
+          f"{alone['obj_detected']} (equal: {got == alone}); launches "
+          f"{counts}")
+    if not got["obj_detected"] > 0:
+        raise AssertionError("[dp] the OCID frames gave no instance")
+    return out
+
+
+def dp_rank(rank: int, tmp: str, go) -> None:
+    """Phase 9's two gloo ranks, each a process on the one card: the small
+    DP step (and with per-replica BatchNorm statistics, and with per-rank
+    loss scalars), then, once `go` is set, DP_TIMED_STEPS full-width
+    resident steps after a warm-up; rank 0 saves its results in tmp."""
+    parallel.initialize("file://" + os.path.join(tmp, "gloo_rdzv"), 2, rank,
+                        backend="gloo")
+    try:
+        dp_rank_steps(rank, tmp, go, parallel.make_mesh(DEV + ":0"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank_steps(rank: int, tmp: str, go, mesh) -> None:
+    """dp_rank's work in its process group."""
+    inputs = small_step_inputs(DP_SMALL_BATCH)
+    cfg, _, bgr, depth, label, init, step, draws = inputs
+
+    def small():
+        return small_step(cfg, init, step, (bgr, depth, label), draws,
+                          mesh.device, mesh)
+
+    out = {"small": small()}
+    with mock.patch.object(resnet, "data_parallel_group", lambda: None):
+        out["bn_local"] = small()
+    with mock.patch.object(losses, "data_parallel_group", lambda: None):
+        out["loss_local"] = small()
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TRAIN")
+    scenes = load_resident_scenes(
+        os.path.join(tmp, "render_cache",
+                     f"synthetic_tabletop_train_{H}x{W}_v4"),
+        limit=TRAIN_SCENES, mesh=mesh)
+    state = create_train_state(cfg, network_name=NET, solver="adam",
+                               device=mesh.device)
+    f = 0.5 * W
+    step = make_train_step_resident(cfg, fx=f, fy=f, px=W / 2.0, py=H / 2.0)
+    idx = torch.arange(TRAIN_SCENES)[mesh.batch_slice(TRAIN_SCENES)]
+    if not go.wait(900):
+        raise RuntimeError("no go for the timed steps")
+    seconds, loss = [], []
+    for i in range(1 + DP_TIMED_STEPS):
+        gen = torch.Generator(device=mesh.device).manual_seed(
+            step_seed(3, 0, i))
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, *scenes, idx.to(mesh.device), gen=gen,
+                          mesh=mesh)
+        loss.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    out["full"] = dict(step_s=seconds, loss=loss,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "dp_rank0.pt"))
+
+
+def train_torchrun(tmp: str) -> tuple[str, str, float]:
+    """tools.train_net under torchrun --nproc_per_node 1 (its process
+    group, NCCL, world size 1) on phase 6's render cache, one epoch,
+    --device-resident, on cuda:<LOCAL_RANK>: the snapshot directory, the
+    standard output and the wall seconds, process start included.  The
+    launcher and its worker are one process group of their own, killed
+    whole if they outlive the time limit."""
+    cache = os.path.join(tmp, "render_cache")
+    out_dir = os.path.join(tmp, "torchrun")
+    args = train_args(cache, out_dir, "--epochs", "1")
+    args = args[:args.index("--device")] + args[args.index("--device") + 2:]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m",
+         "unseenobjectclustering_torch.tools.train_net"] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(stdout[-3000:])
+        print(stderr[-3000:])
+        raise AssertionError(f"torchrun train_net exited {proc.returncode}")
+    return out_dir, stdout, wall
+
+
+def check_torchrun(tmp: str, out_dir: str, stdout: str, wall: float
+                   ) -> dict:
+    """Phase 9: the torchrun run wrote exactly one snapshot directory and
+    logged its one step; the snapshot builds a Segmentor that segments a
+    cached scene."""
+    logged = _LOG_RE.findall(stdout)
+    written = sorted(os.listdir(out_dir))
+    if written != ["1"] or len(logged) != 1:
+        raise AssertionError(f"torchrun train_net wrote {written}, logged "
+                             f"{len(logged)} steps")
+    cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TEST")
+    seg = build_segmentor(cfg, NET, pretrained=out_dir, device=DEV)
+    scenes = load_resident_scenes(
+        os.path.join(tmp, "render_cache",
+                     f"synthetic_tabletop_train_{H}x{W}_v4"),
+        limit=1, device=DEV)
+    f = 0.5 * W
+    img, xyz = preprocess_rgbd(scenes[0][0], scenes[1][0].float() / 1000.0,
+                               cfg.pixel_means, f, f, W / 2.0, H / 2.0)
+    labels = seg.segment(img[None], xyz[None], refine=False).labels
+    if labels.shape != (1, H, W):
+        raise AssertionError("bad segmentation from the torchrun snapshot")
+    res = dict(wall_s=wall, snapshots=written, loss=float(logged[0][0]),
+               instances=len(np.unique(labels)) - 1)
+    print(f"[dp] torchrun --nproc_per_node 1 train_net: 1 epoch in "
+          f"{wall:.1f} s (process start included, beside the gloo ranks' "
+          f"start-up and small steps), loss {res['loss']}, snapshots "
+          f"{written}; a Segmentor from it segmented a cached scene into "
+          f"{res['instances']} instances")
+    return res
+
+
+def run_processes(tmp: str, training: dict) -> tuple[dict, dict]:
+    """Phase 9's processes on the card, the ranks' and torchrun's results.
+    Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device): the small DP step (2 + 2 frames at SMALL_HW) within STEP_TOL
+    of one process's step on the 4 frames on the card, a gate that
+    per-replica BatchNorm statistics and per-rank loss scalars must each
+    break; the full-width DP step (8 + 8 frames at 480x640) timed beside
+    phase 6's one-process step.  tools.train_net under torchrun runs while
+    the ranks start and take their small steps; the ranks time the
+    full-width step only after it has ended."""
+    cfg, _, bgr, depth, label, init, step, draws = small_step_inputs(
+        DP_SMALL_BATCH)
+    one = small_step(cfg, init, step, (bgr, depth, label), draws, DEV)
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    go = ctx.Event()
+    procs = [ctx.Process(target=dp_rank, args=(r, tmp, go))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        trained = train_torchrun(tmp)
+    finally:
+        go.set()
+        for p in procs:
+            p.join(600)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0, 0]:
+        raise AssertionError(f"[dp] gloo ranks: exit codes {codes}")
+    wall = time.perf_counter() - t0
+    res = torch.load(os.path.join(tmp, "dp_rank0.pt"), weights_only=False)
+    out = {"ranks_wall_s": wall}
+    for name in ("small", "bn_local", "loss_local"):
+        row = out[name] = step_against(res[name], one)
+        print(f"[dp] {name}: two gloo ranks (2 + 2 frames at "
+              f"{SMALL_HW[0]}x{SMALL_HW[1]}) vs one process on the card: "
+              f"{_grad_line(row['vs_cpu'])}; loss {row['loss']:.7f} vs "
+              f"{one[0]:.7f}; parameters {row['param_max_abs']:.2e}; "
+              f"BatchNorm statistics {row['stat_max_abs']:.2e}; breaks "
+              f"{row['breaks']}")
+    if out["small"]["breaks"]:
+        raise AssertionError(f"the DP step differs from one process's "
+                             f"beyond {STEP_TOL}: {out['small']['breaks']}")
+    if not out["bn_local"]["breaks"] or not out["loss_local"]["breaks"]:
+        raise AssertionError("the DP check misses a planted fault "
+                             "(per-replica statistics or per-rank loss)")
+    full = res["full"]
+    if not np.isfinite(full["loss"]).all():
+        raise AssertionError("[dp] a non-finite full-width loss")
+    s_step = float(np.median(full["step_s"][1:]))
+    one_s = training["timing"]["fp32"]["s_per_step"]
+    out["full"] = dict(full, s_per_step=s_step, batch=TRAIN_SCENES,
+                       one_process_s_per_step=one_s)
+    print(f"[dp] full-width DP step, two gloo ranks on one card, "
+          f"{TRAIN_SCENES // 2} + {TRAIN_SCENES // 2} frames at {H}x{W}, "
+          f"fp32 Adam: {s_step:.3f} s/step (median of {DP_TIMED_STEPS} "
+          f"after a warm-up; rank 0's wall with a barrier before each "
+          f"step), "
+          f"phase 6's one-process batch-{TRAIN_SCENES} step "
+          f"{one_s:.3f} s; losses {full['loss']}; rank 0 peak "
+          f"{full['peak_gib']:.2f} GiB; ranks and torchrun in {wall:.1f} s")
+    return out, check_torchrun(tmp, *trained)
+
+
+def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
+                      training: dict, timings: dict) -> dict:
+    """Phase 9."""
+    t0 = time.perf_counter()
+    out = dict(sharded=run_sharded(cfg, state_dict, work, timings))
+    out["ranks"], out["torchrun"] = run_processes(tmp, training)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 9 {out['phase_s']:.1f} s")
     return out
 
 
@@ -1766,18 +2243,28 @@ def main() -> None:
         del segs, served, routes
         torch.cuda.empty_cache()
 
-        # phase 6
         with tempfile.TemporaryDirectory() as tmp:
+            # phase 6
             training = run_training(tmp)
-        print(f"wall after phase 6 {time.perf_counter() - t_start:.1f} s")
+            print(f"wall after phase 6 {time.perf_counter() - t_start:.1f}"
+                  " s")
 
-        # phase 7: phase 5's .pth files through tools.test_net
-        data = run_data(work, paths)
-        print(f"wall after phase 7 {time.perf_counter() - t_start:.1f} s")
+            # phase 7: phase 5's .pth files through tools.test_net
+            data = run_data(work, paths)
+            print(f"wall after phase 7 {time.perf_counter() - t_start:.1f}"
+                  " s")
 
-    # phase 8
-    alternates = run_alternates(frame)
-    print(f"wall after phase 8 {time.perf_counter() - t_start:.1f} s")
+            # phase 8
+            alternates = run_alternates(frame)
+            print(f"wall after phase 8 {time.perf_counter() - t_start:.1f}"
+                  " s")
+
+            # phase 9: phase 3's weights and timings, phase 8's U-Net,
+            # phase 6's render cache and phase 7's OCID tree
+            data_parallel = run_data_parallel(cfg, state_dict, work, tmp,
+                                              training, timings)
+            print(f"wall after phase 9 {time.perf_counter() - t_start:.1f}"
+                  " s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1797,6 +2284,15 @@ def main() -> None:
                                 if k.startswith("fast/")},
             alternates_launches={net: r["launches"][name]
                                  for net, r in alternates.items()},
+            dp_launches=data_parallel["sharded"]["parity"]["launches"][name],
+            fast_dp_launches=data_parallel["sharded"]["fast"]["launches"][
+                name],
+            dp_ocid_launches=data_parallel["sharded"]["ocid"]["launches"][
+                name],
+            dp_unet_launches=data_parallel["sharded"][
+                f"{ALT_NETS[0][0]}/parity"]["launches"][name],
+            fast_dp_unet_launches=data_parallel["sharded"][
+                f"{ALT_NETS[0][0]}/fast"]["launches"][name],
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -1840,6 +2336,7 @@ def main() -> None:
         "write_trees_s": data["write_trees_s"],
         "demo_gt_ids": data["demo_gt_ids"], "phase_s": data["phase_s"]}}))
     print(json.dumps({"alternates": alternates}))
+    print(json.dumps({"data_parallel": data_parallel}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ Subpackages:
               renderer, the dataset registry, the threaded loader and the
               device-resident scene cache
   engine    — the two-stage inference pipeline (Segmentor: stage 1 and
-              zoom-in refinement), the builder, dataset evaluation, the
-              stream server (StreamSegmentor) and the trainer
+              zoom-in refinement, stage 1 sharded across processes), the
+              builder, dataset evaluation, the stream server
+              (StreamSegmentor) and the trainer
+  parallel  — multi-GPU data parallelism: the process group (one process
+              per card, torchrun), the mesh, batch sharding and
+              replication
   utils     — the metrics (Overlap/Boundary P/R/F), masks, the PNG codec
               and result grids, the .pth and ImageNet checkpoint loaders,
               training snapshots, the weight carry from flax variables,
@@ -33,4 +37,15 @@ __version__ = "0.1.0"
 
 from unseenobjectclustering_torch.config import Config
 
-__all__ = ["Config", "__version__"]
+_PARALLEL = ("initialize", "local_batch_slice", "make_mesh", "replicate",
+             "shard_batch")
+__all__ = ["Config", "__version__", *_PARALLEL]
+
+
+def __getattr__(name: str):
+    # the parallel names import torch on first use only: the renderer's
+    # worker processes import this package and stay numpy-only
+    if name in _PARALLEL:
+        from unseenobjectclustering_torch import parallel
+        return getattr(parallel, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

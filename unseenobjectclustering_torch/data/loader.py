@@ -6,6 +6,10 @@ num_workers=4) (the reference's tools/train_net.py:96-99).  Item assembly
 is numpy (GIL-releasing); batches are stacked into contiguous numpy
 arrays.  The shuffle is RandomState(seed + epoch), the same order as the
 device-resident path, so a run can switch between the two on resume.
+Under data parallelism (mesh=) each process reads only its rows of each
+global batch, in that same order; a sample's augmentation draws belong to
+the sample, not to the process, so the ranks' rows together are the one
+process's batch.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ class DataLoader:
       drop_last: drop the trailing partial batch (required for static-shape
         jit and even mesh sharding; default True when shuffle).
       prefetch: number of batches assembled ahead.
+      mesh: a parallel.Mesh: batch_size is the global batch (a multiple of
+        the world size) and each batch holds this rank's rows of it.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, drop_last: Optional[bool] = None,
-                 seed: int = 3, prefetch: int = 2):
+                 seed: int = 3, prefetch: int = 2, mesh=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -54,6 +60,12 @@ class DataLoader:
         self.seed = seed
         self.prefetch = max(int(prefetch), 1)
         self.epoch = 0
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.batch_slice(self.batch_size)  # raises unless it divides
+            if not self.drop_last:
+                raise ValueError("a sharded loader drops the trailing "
+                                 "partial batch (drop_last=True)")
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle/augmentation epoch (resume support).
@@ -78,7 +90,9 @@ class DataLoader:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
         nb = len(self)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size]
+        rows = (slice(None) if self.mesh is None
+                else self.mesh.batch_slice(self.batch_size))
+        return [idx[i * self.batch_size:(i + 1) * self.batch_size][rows]
                 for i in range(nb)]
 
     def __iter__(self) -> Iterator[dict]:

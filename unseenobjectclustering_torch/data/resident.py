@@ -23,10 +23,12 @@ from unseenobjectclustering_torch.engine.pipeline import resolve_device
 
 
 def load_resident_scenes(cache_dir: str, limit: Optional[int] = None,
-                         device: Any = None
+                         device: Any = None, mesh=None
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Read every cached scene into three tensors on `device` (default:
-    the CUDA device; raises without one).
+    the CUDA device; raises without one), or on the device of each rank of
+    a parallel.Mesh: every rank holds all the scenes, as the JAX package
+    replicates them over its mesh.
 
     With `limit`, scenes are addressed by index (`000000.npz` ..
     `{limit-1:06d}.npz`) and every file must exist: a partly rendered
@@ -39,7 +41,7 @@ def load_resident_scenes(cache_dir: str, limit: Optional[int] = None,
     uint8).  Depth is widened to int32 (torch has no uint16 arithmetic on
     every device); its values are the cache's.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if limit is not None:
         files = [os.path.join(cache_dir, f"{i:06d}.npz")
                  for i in range(limit)]

@@ -8,6 +8,9 @@ averaged metric table as the reference (lib/fcn/test_dataset.py:271-381).
 Depth-filter thresholds follow the reference: 0.5 for OCID, 0.8 for OSD
 (test_dataset.py:299-305); anything else keeps the Segmentor's configured
 threshold.
+
+evaluate_dataset_sharded is the throughput route: stage 1 only, batches
+segmented across the ranks of a parallel.Mesh (Segmentor.segment_sharded).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from unseenobjectclustering_torch.data.loader import DataLoader
 from unseenobjectclustering_torch.engine.pipeline import Segmentor
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
@@ -54,6 +58,61 @@ def print_metric_table(result: dict, header: str = "") -> None:
         if k in result:
             print("%.6f" % result[k])
     print("========================================================")
+
+
+def evaluate_dataset_sharded(dataset: Sequence[dict], segmentor: Segmentor,
+                             mesh, batch_size: Optional[int] = None,
+                             max_images: Optional[int] = None,
+                             num_workers: int = 4,
+                             verbose: bool = True) -> dict:
+    """Stage-1 evaluation with batches segmented across the ranks of a
+    parallel.Mesh (no zoom-in refinement: evaluate_dataset runs both
+    stages).  batch_size (default: the world size) must be a multiple of
+    the world size; the trailing batch is padded with its last frame.
+    Every rank reads each batch, segments its frames and receives all the
+    labels; the metrics of each frame are multilabel_metrics of its
+    segment(refine=False) labels on the same (padded) batch, which may
+    differ from those of the frame segmented alone
+    (Segmentor.make_sharded_stage1).  Returns the averaged stage-1 metrics
+    (on every rank); rank 0 prints."""
+    batch_size = batch_size or mesh.world
+    if batch_size % mesh.world:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                         f"the world size {mesh.world}")
+    n = len(dataset) if max_images is None else min(len(dataset), max_images)
+    verbose = verbose and mesh.rank == 0
+
+    class _View:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return dataset[i]
+
+    loader = DataLoader(_View(), batch_size=batch_size, shuffle=False,
+                        num_workers=num_workers, drop_last=False)
+    metrics_all: list[dict] = []
+    t0 = time.time()
+    done = 0
+    for batch in loader:
+        img, xyz = batch.get("image_color"), batch.get("depth")
+        gt = batch["label"]
+        b = gt.shape[0]
+        pad = -b % mesh.world
+        if pad:  # the trailing batch, padded to a multiple of the world
+            img, xyz = (None if a is None
+                        else np.concatenate([a] + [a[-1:]] * pad)
+                        for a in (img, xyz))
+        labels = segmentor.segment_sharded(mesh, img, xyz)
+        metrics_all += [multilabel_metrics(labels[i], gt[i])
+                        for i in range(b)]
+        done += b
+        if verbose:
+            print(f"[{done}/{n}] {done / (time.time() - t0):.2f} img/s")
+    result = average_metrics(metrics_all)
+    if verbose:
+        print_metric_table(result, f"{n} images (sharded stage-1)")
+    return result
 
 
 def _save_grid(segmentor: Segmentor, sample: dict, prediction: np.ndarray,

@@ -15,6 +15,10 @@ de-facto public API is ``test_sample`` (lib/fcn/test_dataset.py:232-267):
 
   paste-back (host, numpy): order-dependent overwrite by depth
     (ops/roi.paste_back; test_dataset.py:116-179).
+
+  data-parallel stage 1 (segment_sharded): each process of a
+    parallel.Mesh segments its frames of a batch on its card, and the
+    labels are all-gathered.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unseenobjectclustering_torch.config import Config
 from unseenobjectclustering_torch.models import cast_convs, get_network
@@ -295,6 +300,31 @@ class Segmentor:
         self._lap(timing, "stage2_paste", t0)
         return refined
 
+    def _threshold(self) -> float:
+        return (-1.0 if self.depth_threshold is None
+                else float(self.depth_threshold))
+
+    def _upload(self, image, xyz):
+        """image/xyz [B, H, W, 3] (numpy or tensors, either may be None) on
+        the device as float32, zero-padded bottom/right to multiples of 16;
+        returns (img, xyz, (H, W))."""
+        def to_device(a):
+            if a is None:
+                return None
+            return torch.as_tensor(a, dtype=torch.float32).to(self.device)
+
+        img_d, xyz_d = to_device(image), to_device(xyz)
+        ref = img_d if img_d is not None else xyz_d
+        orig_hw = (int(ref.shape[1]), int(ref.shape[2]))
+        ph, pw = (-orig_hw[0]) % 16, (-orig_hw[1]) % 16
+        if ph or pw:
+            pad = (0, 0, 0, pw, 0, ph)  # C, W, H from the last dim back
+            img_d = (torch.nn.functional.pad(img_d, pad)
+                     if img_d is not None else None)
+            xyz_d = (torch.nn.functional.pad(xyz_d, pad)
+                     if xyz_d is not None else None)
+        return img_d, xyz_d, orig_hw
+
     # -- public API -----------------------------------------------------------
 
     def next_key(self) -> torch.Generator:
@@ -336,28 +366,11 @@ class Segmentor:
         """
         timing: dict[str, float] = {}
         t0 = time.perf_counter()
-
-        def to_device(a):
-            if a is None:
-                return None
-            return torch.as_tensor(a, dtype=torch.float32).to(self.device)
-
-        img_d, xyz_d = to_device(image), to_device(xyz)
-        ref = img_d if img_d is not None else xyz_d
-        orig_hw = (int(ref.shape[1]), int(ref.shape[2]))
-        ph, pw = (-orig_hw[0]) % 16, (-orig_hw[1]) % 16
-        if ph or pw:
-            pad = (0, 0, 0, pw, 0, ph)  # C, W, H from the last dim back
-            img_d = (torch.nn.functional.pad(img_d, pad)
-                     if img_d is not None else None)
-            xyz_d = (torch.nn.functional.pad(xyz_d, pad)
-                     if xyz_d is not None else None)
-        b = ref.shape[0]
-        threshold = (-1.0 if self.depth_threshold is None
-                     else float(self.depth_threshold))
+        img_d, xyz_d, orig_hw = self._upload(image, xyz)
+        b = (img_d if img_d is not None else xyz_d).shape[0]
         features, labels = self._stage1_impl(
             img_d, xyz_d, [self.next_key() for _ in range(b)],
-            threshold=threshold, timing=timing)
+            threshold=self._threshold(), timing=timing)
         labels_np = labels.cpu().numpy().astype(np.int32)
         timing["stage1"] = time.perf_counter() - t0
 
@@ -387,3 +400,58 @@ class Segmentor:
         return SegmentationResult(labels=labels_np,
                                   labels_refined=labels_refined,
                                   features=feats_np, timing=timing)
+
+    def make_sharded_stage1(self, mesh):
+        """Data-parallel stage 1 over a parallel.Mesh: each rank runs the
+        per-frame program on its frames of the batch (eval BatchNorm is
+        per frame, so the ranks exchange nothing but the labels) and the
+        labels are all-gathered.
+
+        Returns fn(image, xyz, generators) -> labels [B, H, W] int32 on
+        the Segmentor's device, the same on every rank: image/xyz are the
+        global batch [B, H, W, 3] (numpy or tensors, on any device; a rank
+        uploads only its frames), generators one per frame.  Rank r takes
+        frames [r * ceil(B/W), (r + 1) * ceil(B/W)) of B, so B need not
+        divide over the W ranks.  Each frame's labels are those stage 1
+        gives it with its generator in Segmentor.segment on the rank's
+        frames.  The network's kernels may differ with the batch size
+        (cuDNN and oneDNN choose by shape), so a frame's embeddings in
+        another batch can differ in the last bits (float32) or by ~1e-2
+        (bfloat16), and labels at near-tie pixels with them.
+        """
+        def fn(image, xyz, generators):
+            ref = image if image is not None else xyz
+            b, h, w = (int(n) for n in ref.shape[:3])
+            per = -(-b // mesh.world)
+            lo, hi = min(b, mesh.rank * per), min(b, (mesh.rank + 1) * per)
+            labels = torch.zeros((per, h, w), dtype=torch.int32,
+                                 device=self.device)
+            if hi > lo:
+                img_d, xyz_d, _ = self._upload(
+                    None if image is None else image[lo:hi],
+                    None if xyz is None else xyz[lo:hi])
+                _, local = self._stage1_impl(img_d, xyz_d,
+                                             generators[lo:hi],
+                                             threshold=self._threshold())
+                labels[:hi - lo] = local[:, :h, :w]
+            if mesh.world > 1:
+                parts = [torch.empty_like(labels) for _ in range(mesh.world)]
+                dist.all_gather(parts, labels)
+                labels = torch.cat(parts)
+            return labels[:b]
+
+        return fn
+
+    def segment_sharded(self, mesh, image, xyz=None) -> np.ndarray:
+        """Stage-1 labels of a batch segmented across the ranks of a
+        parallel.Mesh (throughput-oriented dataset evaluation; no stage 2).
+        Every rank passes the same global batch and draws its B generators
+        in segment's order, so each frame's labels equal those of
+        segment(refine=False) from a Segmentor with the same seed on the
+        same frames (at world size 1, the whole batch; see
+        make_sharded_stage1 on other batch sizes).  Returns [B, H, W]
+        int32 on every rank."""
+        b = (image if image is not None else xyz).shape[0]
+        generators = [self.next_key() for _ in range(b)]
+        labels = self.make_sharded_stage1(mesh)(image, xyz, generators)
+        return labels.cpu().numpy()

@@ -20,6 +20,15 @@ K = max(label) + 1 enters only the weights and the normalizations.
 
 Everything computes in float32, or in float64 for float64 embeddings
 (_wide).
+
+The loss couples the frames of a batch only through three scalars: the
+dynamic K (the batch's largest label + 1), whether any pixel of the batch
+is hard, and the batch size B in both divisions.  Under data parallelism
+(a process group of more than one rank) these are the global batch's
+(an all-reduce MAX and two SUMs), and each rank returns its share of the
+global loss: the shares of the ranks sum to the loss of one process on
+the whole batch.  The cluster means and hard-pixel weights are per frame
+and stay local.
 """
 
 from __future__ import annotations
@@ -27,6 +36,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from unseenobjectclustering_torch.parallel.distributed import (
+    data_parallel_group)
 
 
 class EmbeddingLossOut(NamedTuple):
@@ -88,14 +101,19 @@ def embedding_loss(x: torch.Tensor, labels: torch.Tensor, *, alpha: float,
                    max_k: int = 32, metric: str = "cosine",
                    normalize: bool = True) -> EmbeddingLossOut:
     """Total = intra + inter loss of embeddings x [B, H, W, C] (unit-norm
-    when normalize=True upstream) against labels [B, H, W]."""
+    when normalize=True upstream) against labels [B, H, W].  Under a
+    process group of more than one rank, this rank's share of the global
+    batch's loss (see the module docstring)."""
     b, h, w, c = x.shape
     ft = _wide(x.dtype)
     xf = x.to(ft)
     lab = labels.to(torch.int64)
     lab = torch.where(lab >= max_k, torch.full_like(lab, -1), lab)
+    group = data_parallel_group()
 
     k_dyn = lab.max() + 1                      # dynamic K (embedding.py:76)
+    if group is not None:
+        dist.all_reduce(k_dyn, op=dist.ReduceOp.MAX, group=group)
     k_f = k_dyn.to(ft)
     means, _ = compute_cluster_means(xf, lab, max_k, normalize)
 
@@ -110,14 +128,22 @@ def embedding_loss(x: torch.Tensor, labels: torch.Tensor, *, alpha: float,
         d_intra = labeled * _safe_norm(xf - mean_per_pixel, dim=-1)
     d_flat = d_intra.reshape(b, h * w)
     with torch.no_grad():
-        any_hard = (d_intra - alpha > 0).any()
+        hard = d_intra - alpha > 0
+        if group is None:
+            any_hard, b_all = hard.any(), b
+        else:  # the global batch's hard-pixel count and size
+            counts = torch.stack([hard.sum(),
+                                  torch.tensor(b, device=x.device)])
+            dist.all_reduce(counts, group=group)
+            any_hard, b_all = counts[0] > 0, counts[1].to(ft)
         over = (d_intra > alpha).to(ft) * labeled
         n_k = torch.einsum("bpk,bp->bk", onehot, over.reshape(b, h * w))
         w_pix = torch.einsum("bpk,bk->bp", onehot, n_k)
         w_pix = torch.clamp(w_pix * labeled.reshape(b, h * w), min=50.0) * k_f
     # w_pix is 0 only when the batch holds no label (k_f = 0): 0 / eps keeps
     # the gradient finite there
-    intra_sum = ((d_flat ** 2) / torch.clamp(w_pix, min=1e-12)).sum() / b
+    intra_sum = ((d_flat ** 2)
+                 / torch.clamp(w_pix, min=1e-12)).sum() / b_all
     intra = torch.where(any_hard, intra_sum, torch.zeros_like(intra_sum))
     intra = intra * lambda_intra
 
@@ -132,7 +158,7 @@ def embedding_loss(x: torch.Tensor, labels: torch.Tensor, *, alpha: float,
                   & (ks[:, None] != ks[None, :]))[None]
     hinge = torch.clamp(delta - d_inter, min=0.0) * valid_pair.to(ft)
     inter_sum = (hinge ** 2).sum() / torch.clamp(
-        k_f * (k_f - 1.0) / 2.0 * b, min=1.0)
+        k_f * (k_f - 1.0) / 2.0 * b_all, min=1.0)
     inter = torch.where(k_dyn > 1, inter_sum, torch.zeros_like(inter_sum))
     inter = inter * lambda_inter
     return EmbeddingLossOut(loss=intra + inter, intra=intra, inter=inter)

@@ -22,7 +22,10 @@ In train mode BatchNorm updates its running statistics as flax's
 ``nn.BatchNorm(momentum=0.9)`` does, with the biased batch variance
 (``BatchNorm2d``), and a convolution may compute in bfloat16 over float32
 parameters (``Conv2d.compute_dtype``, the JAX package's
-``dtype=bfloat16, param_dtype=float32``).
+``dtype=bfloat16, param_dtype=float32``).  Under data parallelism
+(a process group of more than one rank) train-mode BatchNorm normalizes
+with the statistics of the global batch, as flax's does over a sharded
+batch (``_GlobalBatchNorm``).
 """
 
 from __future__ import annotations
@@ -30,10 +33,13 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
 from unseenobjectclustering_torch.ops.resize import upsample_bilinear
+from unseenobjectclustering_torch.parallel.distributed import (
+    data_parallel_group)
 
 
 class Conv2d(nn.Conv2d):
@@ -51,18 +57,90 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization over the global batch of a process
+    group: each rank holds [N_r, C, H, W] of it.
+
+    Forward: each rank's per-channel mean and biased variance (in float32,
+    or float64 for float64 input) become sums n_r * mean_r and n_r *
+    (var_r + mean_r^2) in float64, all-reduced with the counts in one
+    call; the global variance is S2 / n - mean^2 in float64, so the
+    cancellation loses no float32 digits.  Backward: the per-channel sums
+    of dy and of dy * x_hat are all-reduced (the global batch's terms of
+    dx); the weight and bias gradients stay this rank's share, summed with
+    the other ranks' by the train step's gradient all-reduce.  Returns
+    (y, mean, var) with mean and var (biased) for the running update.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        ft = torch.promote_types(x.dtype, torch.float32)
+        var_r, mean_r = torch.var_mean(x.to(ft), dim=(0, 2, 3),
+                                       unbiased=False)
+        n_r = x.numel() // c
+        m64 = mean_r.double()
+        stats = torch.cat([m64 * n_r, (var_r.double() + m64 * m64) * n_r,
+                           m64.new_full((1,), float(n_r))])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * c:]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        mean, var = mean.to(ft), var.to(ft)
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd, n.to(ft))
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+
+        def per_channel(v):
+            return v[None, :, None, None]
+
+        dyf = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - per_channel(mean)) * per_channel(invstd)
+        sum_dy = dyf.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (dyf * xhat).sum(dim=(0, 2, 3))
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        sums = sums / n
+        dx = (dyf - per_channel(sums[:c]) - xhat * per_channel(sums[c:])
+              ) * per_channel(weight * invstd)
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode update of the running statistics is
     flax's: running = 0.9 * running + 0.1 * batch statistic, with the
     BIASED batch variance (torch writes the unbiased one; the two differ by
     n/(n-1)).  Normalization, eval mode and the state_dict keys are
     torch's.  One pass over the activation: torch's own update, then its
-    batch term rescaled by (n-1)/n."""
+    batch term rescaled by (n-1)/n.
+
+    In train mode under a process group of more than one rank
+    (parallel.data_parallel_group), the batch statistics are the global
+    batch's, forward and backward (_GlobalBatchNorm), and the running
+    statistics take the global biased variance, as flax's BatchNorm under
+    a sharded jit does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         m = self.momentum
+        group = data_parallel_group()
+        if group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                  self.eps, group)
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+            return y
         n = x.numel() // x.shape[1]
         # torch's update goes to a copy (the backward may read the tensor
         # it was given): var = kept + m * unbiased

@@ -26,7 +26,8 @@ BatchNorm is the port's flax-style ``BatchNorm2d`` (momentum 0.9 in flax
 terms, biased variance); GroupNorm normalizes in float32 with eps 1e-5
 whatever the convolutions' dtype.  VGG's Dropout(0.2) draws from the
 module's ``dropout_generator`` (a torch.Generator on the input's device),
-which must be set before a train-mode forward.
+which must be set before a train-mode forward; under data parallelism
+each rank draws the global batch's mask and keeps its own rows of it.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from unseenobjectclustering_torch.models.resnet import BatchNorm2d, Conv2d
+from unseenobjectclustering_torch.parallel.distributed import (
+    data_parallel_group, local_batch_slice, process_count)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -259,8 +262,13 @@ class VGGEmbedding(nn.Module):
             raise ValueError("VGGEmbedding in train mode draws its dropout "
                              "from dropout_generator: set a torch.Generator "
                              f"on {x.device}")
-        keep = torch.rand(x.shape, generator=self.dropout_generator,
-                          device=x.device) >= rate
+        shape, rows = x.shape, slice(None)
+        if data_parallel_group() is not None:
+            # the global batch's draws, this rank's rows of them
+            shape = (x.shape[0] * process_count(),) + tuple(x.shape[1:])
+            rows = local_batch_slice(shape[0])
+        keep = torch.rand(shape, generator=self.dropout_generator,
+                          device=x.device)[rows] >= rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

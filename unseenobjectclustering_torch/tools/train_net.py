@@ -5,8 +5,16 @@ By default the loader serves host-augmented samples
 (data/augmentation.py, as the JAX package's tool does; OpenCV in TRAIN
 mode).  --device-augment streams raw synthetic scenes and augments them on
 the device, --device-resident reads the whole render cache onto the device
-first (both numpy and PyTorch only).  One device: cuda:<--gpu>, or --device
-cpu.
+first (both numpy and PyTorch only).
+
+One process trains on cuda:<--gpu> (or --device, e.g. cpu).  Data
+parallelism runs one process per card under torchrun: each process trains
+on cuda:<LOCAL_RANK> with its rows of every global batch (--batch_size is
+the global batch, rounded up to a multiple of the process count), the
+state replicated from rank 0, BatchNorm statistics and the loss taken over
+the global batch and the gradients summed over the processes; rank 0
+alone prints and writes snapshots.  parallel.initialize also reads the
+JAX package's COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID.
 
 Example:
   python -m unseenobjectclustering_torch.tools.render_dataset \\
@@ -16,6 +24,8 @@ Example:
       --cfg experiments/cfgs/seg_resnet34_8s_embedding_cosine_rgbd_add_tabletop.yml \\
       --solver adam --epochs 16 --device-resident \\
       --render-cache output/render_cache --resident-limit 64
+  torchrun --standalone --nproc_per_node 8 \
+      -m unseenobjectclustering_torch.tools.train_net <the same arguments>
 """
 
 from __future__ import annotations
@@ -28,17 +38,20 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unseenobjectclustering_torch.config import Config, get_output_dir
 from unseenobjectclustering_torch.data.factory import get_dataset
 from unseenobjectclustering_torch.data.loader import DataLoader
 from unseenobjectclustering_torch.data.resident import load_resident_scenes
 from unseenobjectclustering_torch.engine.builder import load_network_state
-from unseenobjectclustering_torch.engine.pipeline import resolve_device
 from unseenobjectclustering_torch.engine.train import (TrainState,
                                                        create_train_state,
                                                        train_epochs,
                                                        train_epochs_resident)
+from unseenobjectclustering_torch.parallel import (initialize, make_mesh,
+                                                   replicate)
+from unseenobjectclustering_torch.parallel.distributed import process_count
 from unseenobjectclustering_torch.utils.checkpoint import restore_checkpoint
 
 
@@ -89,7 +102,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="snapshot directory (default: "
                              "output/<EXP_DIR>/<dataset>)")
     parser.add_argument("--gpu", dest="gpu_id", type=int, default=0,
-                        help="train on cuda:<gpu>")
+                        help="train on cuda:<gpu> (one process; under "
+                             "torchrun each process takes "
+                             "cuda:<LOCAL_RANK>)")
     parser.add_argument("--device", type=str, default=None,
                         help="another device than cuda:<gpu> (cpu for the "
                              "tests)")
@@ -105,15 +120,19 @@ def main(argv: Optional[Sequence[str]] = None,
     """Run the CLI; returns the final train state.  callback(epoch, i,
     metrics) follows every step."""
     args = parse_args(argv)
-    print("Called with args:")
-    print(args)
-    device = resolve_device(args.device or f"cuda:{args.gpu_id}")
+    initialize()
+    mesh = make_mesh(args.device or (f"cuda:{args.gpu_id}"
+                                     if process_count() == 1 else None))
+    device = mesh.device
+    log = print if mesh.rank == 0 else (lambda *a, **k: None)
+    log("Called with args:")
+    log(args)
 
     cfg = (Config.from_yaml(args.cfg_file) if args.cfg_file
            else Config.default())
     cfg = cfg.replace(MODE="TRAIN")
-    print("Using config:")
-    pprint.pprint(cfg.to_dict())
+    log("Using config:")
+    log(pprint.pformat(cfg.to_dict()))
     if not args.randomize:
         np.random.seed(cfg.RNG_SEED)
 
@@ -128,11 +147,15 @@ def main(argv: Optional[Sequence[str]] = None,
                              "--device-augment takes the synthetic datasets")
         dataset.raw = True
     output_dir = args.output_dir or get_output_dir(cfg, dataset.name)
-    print(f"Output will be saved to `{output_dir}`")
+    log(f"Output will be saved to `{output_dir}`")
 
     batch = args.batch_size or int(cfg.TRAIN.IMS_PER_BATCH)
+    if batch % mesh.world:
+        batch = -(-batch // mesh.world) * mesh.world
+        log(f"rounded batch to {batch} for {mesh.world} processes")
     loader = DataLoader(dataset, batch_size=batch, shuffle=True,
-                        num_workers=args.workers, seed=int(cfg.RNG_SEED))
+                        num_workers=args.workers, seed=int(cfg.RNG_SEED),
+                        mesh=mesh)
     state_dict = load_network_state(cfg, args.network_name, args.pretrained)
     if args.device_resident:
         n_res = args.resident_limit or len(dataset)
@@ -152,15 +175,17 @@ def main(argv: Optional[Sequence[str]] = None,
         payload, ck_step = restore_checkpoint(args.resume)
         state.load_state_dict(payload)
         args.startepoch = max(args.startepoch, ck_step)
-        print(f"=> resumed full train state at epoch {ck_step}")
+        log(f"=> resumed full train state at epoch {ck_step}")
+    replicate(state, mesh)
 
     intrinsics = ((dataset.f, dataset.f, dataset.cx, dataset.cy)
                   if args.device_augment else None)
     common = dict(epochs=args.epochs, start_epoch=args.startepoch,
                   output_dir=output_dir, max_k=args.max_k,
                   intrinsics=intrinsics,
-                  seed=int(cfg.RNG_SEED), keep=args.keep, callback=callback)
-    print(f"=> training on {device}")
+                  seed=int(cfg.RNG_SEED), keep=args.keep, callback=callback,
+                  mesh=mesh)
+    log(f"=> training on {device} (process 0 of {mesh.world})")
     if args.device_resident:
         if not getattr(dataset, "cache_dir", None):
             raise SystemExit("--device-resident needs an on-disk scene "
@@ -168,10 +193,10 @@ def main(argv: Optional[Sequence[str]] = None,
         dataset.check_cache_manifest()
         scenes = load_resident_scenes(
             os.path.dirname(dataset._scene_path(0)),
-            limit=args.resident_limit or len(dataset), device=device)
+            limit=args.resident_limit or len(dataset), mesh=mesh)
         gib = sum(x.numel() * x.element_size() for x in scenes) / 2 ** 30
-        print(f"=> device-resident: {int(scenes[0].shape[0])} scenes "
-              f"({gib:.2f} GiB) on {device}")
+        log(f"=> device-resident: {int(scenes[0].shape[0])} scenes "
+            f"({gib:.2f} GiB) on {device}")
         return train_epochs_resident(cfg, state, scenes, batch_size=batch,
                                      **common)
     return train_epochs(cfg, state, loader, **common)
@@ -179,3 +204,5 @@ def main(argv: Optional[Sequence[str]] = None,
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()
