@@ -94,7 +94,11 @@ Phases (any failure exits non-zero; no exception is caught):
      --pretrained_crop) on each tree and on synthetic_tabletop_test, in
      parity and with --fast, the counters set to 0 before each run and
      read after (every kernel at least once per frame), the .mat files
-     equal to the labels segment returned, the s per frame.  One
+     equal to the labels segment returned, the s per frame;
+     tools.test_images.main() (--vis) and tools.demo_artifact.main() with
+     phase 5's .pth files on two of the rendered scenes written as
+     -color.png / -depth.png, with no OpenCV (utils/png.py, the numpy
+     contours and resize), every file they write read back.  One
      {"data": {...}} line.
   8. the alternate backbones: seg_unet_embedding and seg_vgg_embedding
      (BatchNorm), RGB-D add, fixed-seed inits, through
@@ -118,9 +122,23 @@ Phases (any failure exits non-zero; no exception is caught):
      evaluate_dataset_sharded on phase 7's OCID tree (batch 4) with the
      U-Net built from a .pth file equal to the metrics of
      segment(refine=False) on the same batches, with objects detected,
-     beside evaluate_dataset(refine=False)'s; (b) two gloo processes
-     sharing the card (NCCL
-     refuses two ranks on one device): one float32 SGD step at 128x160 on
+     beside evaluate_dataset(refine=False)'s; Segmentor.
+     make_spatial_stage1 at world size 1 (the same sharded layers, edge
+     padding only) on phase 3's frame, against one process; (b) two gloo
+     processes sharing the card (NCCL refuses two ranks on one device):
+     first the spatial stage 1, phase 3's frame split by width over the
+     two ranks (bands of 320 columns, per-layer halo exchanges staged
+     through the host under gloo) with phase 3's ResNet and phase 8's
+     U-Net in both modes: the embeddings against the one-process batch-1
+     stage 1 (within 1e-4 in parity, 2e-2 in fast mode), the labels equal
+     to the clustering of the gathered embeddings, the pixels relabelled
+     against one process (U-Net: instances found; in parity at most 0.1%
+     of the frame relabelled and as many instances as one process), each
+     kernel exactly once per frame on each rank, a planted zero halo in
+     the ResNet's first dilated convolution that must break the parity
+     gate, and the ms/frame of the two time-sliced ranks (a stand-in, not
+     a latency) beside phase 3's batch-1 stage 1; then one float32 SGD
+     step at 128x160 on
      2 + 2 frames (pinned draws of the global batch) within STEP_TOL of
      one process's step on the 4 frames on the card (loss, gradients,
      parameters, BatchNorm statistics), a gate that per-replica BatchNorm
@@ -137,9 +155,10 @@ Phases (any failure exits non-zero; no exception is caught):
      not checked here.
  10. one {"kernels": [...]} line: each kernel's launches in the parity
      and fast runs of stage 1, of stage 2, of the stream, of each
-     test_net run, of the alternate networks and of phase 9's sharded
-     stage 1 and evaluation, its times and bounds in both modes at the
-     frame and the crop shape.
+     test_net run, of the alternate networks, of phase 9's sharded
+     stage 1 and evaluation and of its spatial stage 1 (rank 0's, per
+     network and mode, and at world size 1), its times and bounds in both
+     modes at the frame and the crop shape.
  11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -184,13 +203,16 @@ from unseenobjectclustering_torch.data.synthetic import (
 from unseenobjectclustering_torch.engine.builder import build_segmentor
 from unseenobjectclustering_torch.engine.evaluate import (
     average_metrics, evaluate_dataset, evaluate_dataset_sharded)
-from unseenobjectclustering_torch.engine.pipeline import Segmentor
+from unseenobjectclustering_torch.engine.pipeline import (Segmentor,
+                                                          _cluster_batch,
+                                                          _full_fp32)
 from unseenobjectclustering_torch.engine import train as train_engine
 from unseenobjectclustering_torch.engine.stream import StreamSegmentor
 from unseenobjectclustering_torch.engine.train import (
     create_train_state, make_train_step, make_train_step_raw,
     make_train_step_resident, step_seed)
 from unseenobjectclustering_torch import parallel
+from unseenobjectclustering_torch.parallel import spatial
 from unseenobjectclustering_torch.models import get_network, losses, resnet
 from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
@@ -203,9 +225,10 @@ from unseenobjectclustering_torch.ops.preprocess import (compute_xyz,
 from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
 from unseenobjectclustering_torch.ops.train_pipeline import (
     make_device_augment)
-from unseenobjectclustering_torch.tools import (make_real_fixtures,
-                                                test_net, test_npy,
-                                                train_net)
+from unseenobjectclustering_torch.tools import (demo_artifact,
+                                                make_real_fixtures,
+                                                test_images, test_net,
+                                                test_npy, train_net)
 from unseenobjectclustering_torch.utils import png
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
@@ -263,6 +286,13 @@ DP_FRAMES = 4  # phase 9: frames of each segment_sharded call
 DP_CALLS = 3  # phase 9: segment_sharded calls per mode (the first warms up)
 DP_SMALL_BATCH = 4  # phase 9: the two-rank step at SMALL_HW, 2 + 2 frames
 DP_TIMED_STEPS = 1  # phase 9: timed full-width DP steps, after a warm-up
+SPATIAL_FRAMES = 2  # phase 9: timed spatial calls per network and mode
+# phase 9: spatial embeddings against the one-process batch-1 stage 1 (the
+# same terms summed in the order cuDNN picks for a band; bfloat16 rounds
+# each layer's output, as the batch gap of 8.2e-3 did), and the U-Net's
+# parity pixels relabelled at most, as a share of the frame
+SPATIAL_TOL = {"parity": 1e-4, "fast": 2e-2}
+SPATIAL_RELABEL = 1e-3
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -1615,6 +1645,61 @@ def run_test_net(tag: str, args: list[str], frames: int) -> dict:
     return res
 
 
+def run_image_tools(work: str, paths: dict[str, str],
+                    ds: SyntheticTabletopDataset) -> dict:
+    """Phase 7: tools.test_images.main() (--vis) and
+    tools.demo_artifact.main() with phase 5's .pth files on two of the
+    rendered scenes, written by utils/png.py as <name>-color.png and
+    <name>-depth.png (uint16 mm) with the renderer's camera; every file
+    they write read back (labels and overlays at 480x640, the grid of 2
+    rows of color / stage 1 / refined at the default scale 0.5, its JSON
+    sidecar), with no OpenCV on this machine."""
+    d = os.path.join(work, "images")
+    os.makedirs(d)
+    for i in range(2):
+        bgr, depth_mm, _ = ds.get_scene(i)
+        png.imwrite(os.path.join(d, f"{i:06d}-color.png"), bgr)
+        png.write_png(os.path.join(d, f"{i:06d}-depth.png"),
+                      np.asarray(depth_mm, np.uint16))
+    with open(os.path.join(d, "camera_params.json"), "w") as f:
+        json.dump({"fx": 0.5 * W, "fy": 0.5 * W, "x_offset": W / 2.0,
+                   "y_offset": H / 2.0}, f)
+    model = ["--pretrained", paths["main"], "--pretrained_crop",
+             paths["crop"]]
+    out_dir, grid_path = os.path.join(d, "out"), os.path.join(d, "grid.png")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_images.main(["--imgdir", d, "--outdir", out_dir, "--vis"]
+                         + model)
+        demo_artifact.main(["--imgdir", d, "--out", grid_path] + model)
+    seconds = time.perf_counter() - t0
+    objects = {}
+    for i in range(2):
+        base = os.path.join(out_dir, f"{i:06d}")
+        labels = png.imread(base + "-label.png", "grey")
+        seg = png.imread(base + "-seg.png")
+        mask = png.imread(base + "-mask.png")
+        if labels.shape != (H, W) or seg.shape != (H, W, 3) \
+                or mask.shape != (H, W, 3):
+            raise AssertionError(f"[tools] bad outputs of frame {i}")
+        if not (seg == 255).all(-1).any() and labels.max() > 0:
+            raise AssertionError(f"[tools] frame {i}: no contour drawn")
+        objects[f"{i:06d}"] = int(len(np.unique(labels)) - 1)
+    grid = png.imread(grid_path)
+    with open(grid_path + ".json") as f:
+        sidecar = json.load(f)
+    if (grid.shape != (H, 3 * W // 2, 3)
+            or len(sidecar["stage1_instances"]) != 2):
+        raise AssertionError(f"[tools] grid {grid.shape}, {sidecar}")
+    print(f"[tools] test_images --vis and demo_artifact on 2 rendered "
+          f"scenes without OpenCV in {seconds:.1f} s: labels, overlays and "
+          f"masks at {H}x{W} read back, objects {objects}; grid "
+          f"{grid.shape[1]}x{grid.shape[0]}, stage-1 instances "
+          f"{sidecar['stage1_instances']}")
+    return dict(objects=objects, grid_shape=list(grid.shape), seconds=seconds,
+                stage1_instances=sidecar["stage1_instances"])
+
+
 def run_data(work: str, paths: dict[str, str]) -> dict:
     """Phase 7."""
     t0 = time.perf_counter()
@@ -1649,6 +1734,7 @@ def run_data(work: str, paths: dict[str, str]) -> dict:
             png.read_indexed(p.replace("rgb", "label"))
         png_ms = 1e3 * (time.perf_counter() - t1) / len(rgb)
         trees = check_trees(ds, cfg)
+        tools = run_image_tools(work, paths, ds)
         demo = {}
         for p in sorted(glob.glob(os.path.join(REPO, "data", "demo_gt",
                                                "*-label.png"))):
@@ -1673,7 +1759,7 @@ def run_data(work: str, paths: dict[str, str]) -> dict:
                     + (["--fast"] if mode == "fast" else []), frames)
     out = dict(native_build_s=built, render=render, write_trees_s=write_s,
                png_decode_ms_per_frame=png_ms, pcd=native, trees=trees,
-               demo_gt_ids=demo, test_net=runs,
+               demo_gt_ids=demo, test_net=runs, image_tools=tools,
                phase_s=time.perf_counter() - t0)
     print(f"[data] PNG decode {png_ms:.1f} ms per frame (BGR + labels); "
           f"phase 7 {out['phase_s']:.1f} s")
@@ -1911,6 +1997,10 @@ def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
             if mode == "parity" and not alone["feature_max_abs"] <= ALT_TOL:
                 raise AssertionError(f"[dp {tag}] batch-1 embeddings differ "
                                      f"by {alone['feature_max_abs']:.3e}")
+    # the spatial route at world size 1 runs the same sharded layers
+    out["spatial_world1"] = spatial_checks(mesh, nets=(NET,),
+                                           modes=("parity",), frames=1,
+                                           fault=False)
     tcfg = Config.from_yaml(os.path.join(REPO, TRAIN_YML)).replace(
         MODE="TEST")
     upath = os.path.join(work, f"{unet}.pth")
@@ -1951,9 +2041,179 @@ def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
     return out
 
 
+def zero_halo(real):
+    """A planted fault for spatial.SpatialShard.conv2d: zeros instead of
+    the neighbours' columns in the first dilated convolution of a call."""
+    seen = []
+
+    def conv2d(self, x, weight, bias, stride, padding, dilation, groups):
+        if dilation[1] == 1 or seen:
+            return real(self, x, weight, bias, stride, padding, dilation,
+                        groups)
+        seen.append(True)
+        reach = dilation[1] * (weight.shape[-1] - 1)
+        x = torch.nn.functional.pad(x, (padding[1], reach - padding[1]))
+        return torch.nn.functional.conv2d(x, weight, bias, stride,
+                                          (padding[0], 0), dilation, groups)
+    return conv2d
+
+
+def attributed_call(fn, *args) -> dict:
+    """One more call of a spatial stage 1 with a device sync before and
+    after each of its collectives (the halo and embedding all_gathers,
+    GroupNorm's all_reduces): the host ms spent waiting for the card's work
+    before each collective, inside the collectives, and in all."""
+    wait, inside, count = [0.0], [0.0], [0]
+
+    def timed(call):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = call(*a, **k)
+            torch.cuda.synchronize()
+            wait[0] += t1 - t0
+            inside[0] += time.perf_counter() - t1
+            count[0] += 1
+            return out
+        return wrapper
+
+    with mock.patch.object(spatial.SpatialShard, "all_gather",
+                           timed(spatial.SpatialShard.all_gather)), \
+            mock.patch.object(spatial.dist, "all_reduce",
+                              timed(spatial.dist.all_reduce)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return dict(collectives=count[0], total_ms=1e3 * total,
+                wait_ms=1e3 * wait[0], collective_ms=1e3 * inside[0])
+
+
+def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
+                   frames: int = SPATIAL_FRAMES, fault: bool = True) -> dict:
+    """Phase 9: Segmentor.make_spatial_stage1 over the mesh on phase 3's
+    480x640 frame (its width split over the ranks), with phase 3's
+    ResNet-34-8s and phase 8's U-Net (`nets`, default both) in each mode:
+    a warm-up call, then `frames` timed calls (a barrier and a device sync
+    before each), the counters set to 0 before them and read after (each
+    kernel exactly once per frame on this rank).  The embeddings against
+    the one-process batch-1 _stage1_impl within SPATIAL_TOL; the labels
+    equal to _cluster_batch of the gathered embeddings with the same
+    generator; the pixels relabelled against one process (U-Net: an
+    instance at least; in parity at most SPATIAL_RELABEL of the frame
+    relabelled and as many instances as one process finds).  With
+    `fault`, the parity ResNet with a zeroed halo in its first dilated
+    convolution must break the embedding gate."""
+    cfg = Config.inference_default(INPUT="RGBD")
+    torch.manual_seed(0)  # phase 3's init
+    weights = {NET: (cfg, get_network(NET, cfg).state_dict())}
+    weights[ALT_NETS[0][0]] = alt_network(0)
+    bgr, depth = tabletop_frame()
+    img, xyz = (t[None] for t in preprocess_rgbd(
+        torch.from_numpy(bgr).to(mesh.device),
+        torch.from_numpy(depth).to(mesh.device), cfg.pixel_means, *INTR))
+
+    def gens():
+        return [torch.Generator().manual_seed(5)]
+
+    out: dict = {}
+    for net in nets or weights:
+        ncfg, state = weights[net]
+        for mode in modes:
+            fast = mode == "fast"
+            seg = Segmentor(ncfg.replace(CLUSTER=dict(FAST_CLUSTER))
+                            if fast else ncfg, state, network_name=net,
+                            model_dtype=torch.bfloat16 if fast else None,
+                            device=mesh.device)
+            fn = seg.make_spatial_stage1(mesh)
+            fn(img, xyz, gens())
+            seconds = []
+            reset_counts()
+            for _ in range(frames):
+                if mesh.world > 1:
+                    dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                features, labels = fn(img, xyz, gens())
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            launches = launch_counts()
+            ref_f, ref_l = seg._stage1_impl(img, xyz, gens(),
+                                            threshold=seg._threshold())
+            with torch.inference_mode(), _full_fp32():
+                again = _cluster_batch(features, gens(),
+                                       z_valid=xyz[..., 2] > 0,
+                                       filter_threshold=seg._threshold(),
+                                       **seg._ms_kw)
+            gap = float((features - ref_f).abs().max())
+            relabelled = int((labels != ref_l).sum())
+            found = len(torch.unique(labels)) - 1
+            alone = len(torch.unique(ref_l)) - 1
+            row = dict(world=mesh.world, ms_per_frame=1e3 * float(
+                np.median(seconds)), call_s=seconds, feature_max_abs=gap,
+                pixels_relabelled=relabelled, instances=found,
+                one_process_instances=alone, launches=launches,
+                labels_equal_cluster_of_gathered=bool(torch.equal(
+                    labels, again)))
+            tag = (f"[spatial {net} {mode}, rank {mesh.rank} of "
+                   f"{mesh.world}]")
+            line = (f"{tag} {H}x{W}, bands of {W // mesh.world} columns: "
+                    f"{row['ms_per_frame']:.3f} ms/frame (median of "
+                    f"{frames} after a warm-up); embeddings vs one process "
+                    f"{gap:.3e}; {relabelled} pixels relabelled; instances "
+                    f"{found} (one process {alone}); labels equal to the "
+                    f"clustering of the gathered embeddings: "
+                    f"{row['labels_equal_cluster_of_gathered']}; launches "
+                    f"{launches}")
+            if mesh.world > 1:
+                row["attribution"] = split = attributed_call(
+                    fn, img, xyz, gens())
+                line += (f"; a call with a sync around each of its "
+                         f"{split['collectives']} collectives: "
+                         f"{split['total_ms']:.1f} ms, of it "
+                         f"{split['wait_ms']:.1f} waiting for the card "
+                         f"before them and {split['collective_ms']:.1f} "
+                         f"inside them")
+            if fault and net == NET and not fast:
+                planted = zero_halo(spatial.SpatialShard.conv2d)
+                with mock.patch.object(spatial.SpatialShard, "conv2d",
+                                       planted):
+                    broken, _ = fn(img, xyz, gens())
+                row["zero_halo_max_abs"] = float((broken - ref_f).abs().max())
+                line += (f"; planted zero halo: embeddings off by "
+                         f"{row['zero_halo_max_abs']:.3e}")
+                if not row["zero_halo_max_abs"] > SPATIAL_TOL[mode]:
+                    raise AssertionError(f"{tag} the planted zero halo "
+                                         "passes the embedding gate")
+            print(line, flush=True)
+            out[f"{net}/{mode}"] = row
+            if not gap <= SPATIAL_TOL[mode]:
+                raise AssertionError(f"{tag} embeddings off by {gap:.3e}")
+            if not row["labels_equal_cluster_of_gathered"]:
+                raise AssertionError(f"{tag} labels differ from the "
+                                     "clustering of the gathered embeddings")
+            if any(v != frames for v in launches.values()):
+                raise AssertionError(f"{tag} launches {launches}, not once "
+                                     "per frame")
+            # bfloat16 rounds each layer's output where the band's sums
+            # differ in their last float32 bits, which may split or merge
+            # a near-tie cluster: fast mode's count is printed, not gated
+            if net != NET and (found < 1 or (not fast and found != alone)):
+                raise AssertionError(f"{tag} {found} instances, one "
+                                     f"process {alone}")
+            if net != NET and not fast and relabelled > SPATIAL_RELABEL * N:
+                raise AssertionError(f"{tag} {relabelled} pixels relabelled")
+            del seg, fn, features, labels, ref_f, ref_l, again
+            torch.cuda.empty_cache()
+    return out
+
+
 def dp_rank(rank: int, tmp: str, go) -> None:
-    """Phase 9's two gloo ranks, each a process on the one card: the small
-    DP step (and with per-replica BatchNorm statistics, and with per-rank
+    """Phase 9's two gloo ranks, each a process on the one card: the
+    spatial stage 1 (spatial_checks), the small DP step (and with
+    per-replica BatchNorm statistics, and with per-rank
     loss scalars), then, once `go` is set, DP_TIMED_STEPS full-width
     resident steps after a warm-up; rank 0 saves its results in tmp."""
     parallel.initialize("file://" + os.path.join(tmp, "gloo_rdzv"), 2, rank,
@@ -1966,6 +2226,8 @@ def dp_rank(rank: int, tmp: str, go) -> None:
 
 def dp_rank_steps(rank: int, tmp: str, go, mesh) -> None:
     """dp_rank's work in its process group."""
+    out = {"spatial": spatial_checks(mesh)}
+    torch.cuda.reset_peak_memory_stats()
     inputs = small_step_inputs(DP_SMALL_BATCH)
     cfg, _, bgr, depth, label, init, step, draws = inputs
 
@@ -1973,7 +2235,7 @@ def dp_rank_steps(rank: int, tmp: str, go, mesh) -> None:
         return small_step(cfg, init, step, (bgr, depth, label), draws,
                           mesh.device, mesh)
 
-    out = {"small": small()}
+    out["small"] = small()
     with mock.patch.object(resnet, "data_parallel_group", lambda: None):
         out["bn_local"] = small()
     with mock.patch.object(losses, "data_parallel_group", lambda: None):
@@ -2071,7 +2333,8 @@ def check_torchrun(tmp: str, out_dir: str, stdout: str, wall: float
     return res
 
 
-def run_processes(tmp: str, training: dict) -> tuple[dict, dict]:
+def run_processes(tmp: str, training: dict, timings: dict
+                  ) -> tuple[dict, dict]:
     """Phase 9's processes on the card, the ranks' and torchrun's results.
     Two gloo ranks sharing the card (NCCL refuses two ranks on one
     device): the small DP step (2 + 2 frames at SMALL_HW) within STEP_TOL
@@ -2107,7 +2370,16 @@ def run_processes(tmp: str, training: dict) -> tuple[dict, dict]:
         raise AssertionError(f"[dp] gloo ranks: exit codes {codes}")
     wall = time.perf_counter() - t0
     res = torch.load(os.path.join(tmp, "dp_rank0.pt"), weights_only=False)
-    out = {"ranks_wall_s": wall}
+    out = {"ranks_wall_s": wall, "spatial": res["spatial"]}
+    for key, row in res["spatial"].items():
+        mode = key.split("/")[1]
+        row["batch1_stage1_ms"] = timings[mode]["stage1"]
+        print(f"[spatial {key}] two gloo ranks time-sliced on one card: "
+              f"{row['ms_per_frame']:.3f} ms/frame, a stand-in and not a "
+              f"latency (the ranks share the card and stage each halo "
+              f"through the host; NCCL refuses two ranks on one device); "
+              f"phase 3's one-process batch-1 stage 1 of the ResNet "
+              f"{timings[mode]['stage1']:.3f} ms/frame")
     for name in ("small", "bn_local", "loss_local"):
         row = out[name] = step_against(res[name], one)
         print(f"[dp] {name}: two gloo ranks (2 + 2 frames at "
@@ -2145,7 +2417,7 @@ def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
     """Phase 9."""
     t0 = time.perf_counter()
     out = dict(sharded=run_sharded(cfg, state_dict, work, timings))
-    out["ranks"], out["torchrun"] = run_processes(tmp, training)
+    out["ranks"], out["torchrun"] = run_processes(tmp, training, timings)
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 9 {out['phase_s']:.1f} s")
     return out
@@ -2293,6 +2565,11 @@ def main() -> None:
                 f"{ALT_NETS[0][0]}/parity"]["launches"][name],
             fast_dp_unet_launches=data_parallel["sharded"][
                 f"{ALT_NETS[0][0]}/fast"]["launches"][name],
+            spatial_launches={
+                key: row["launches"][name] for key, row in
+                data_parallel["ranks"]["spatial"].items()},
+            spatial_world1_launches=data_parallel["sharded"][
+                "spatial_world1"][f"{NET}/parity"]["launches"][name],
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -2334,7 +2611,8 @@ def main() -> None:
         "native_build_s": data["native_build_s"],
         "render_wall_s": data["render"]["wall_s"],
         "write_trees_s": data["write_trees_s"],
-        "demo_gt_ids": data["demo_gt_ids"], "phase_s": data["phase_s"]}}))
+        "demo_gt_ids": data["demo_gt_ids"],
+        "image_tools": data["image_tools"], "phase_s": data["phase_s"]}}))
     print(json.dumps({"alternates": alternates}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(card)

@@ -207,8 +207,9 @@ def test_segmentation_grid_has_the_jax_panels():
 def test_serving_modules_import_without_optional_packages(tmp_path):
     """What chip_smoke.py imports loads with OpenCV, PIL, matplotlib, rospy,
     JAX and the JAX package blocked (the GPU machine has none of them),
-    the data slice's modules included, and a palette PNG written by PIL
-    reads back."""
+    the data slice's modules and the image tools included, a palette PNG
+    written by PIL reads back, and the overlay (contours), the uint8
+    resize and the PNG writer of the image tools run."""
     from PIL import Image
 
     labels = np.random.RandomState(1).randint(0, 200, (9, 11)).astype(
@@ -227,7 +228,8 @@ for name in ("utils.evaluation", "utils.masks", "utils.visualization",
              "engine.builder", "tools.test_npy", "tools.ros_node",
              "tools.test_net", "tools.make_real_fixtures", "data.pcd",
              "data.native", "data.datasets", "data.augmentation",
-             "models.unets"):
+             "models.unets", "tools.test_images", "tools.eval_demo_gt",
+             "tools.demo_artifact", "utils.imgproc", "parallel.spatial"):
     importlib.import_module("unseenobjectclustering_torch." + name)
 import chip_smoke
 import numpy as np
@@ -240,6 +242,12 @@ m = multilabel_metrics(np.roll(gt, 3, 0), gt)
 assert 0.0 < m["Boundary F-measure"] < 1.0, m
 got = imread_indexed(sys.argv[1] + "/labels.png")
 assert (got == np.load(sys.argv[1] + "/labels.npy")).all()
+from unseenobjectclustering_torch.utils import imgproc, png
+from unseenobjectclustering_torch.utils.masks import visualize_segmentation
+over = visualize_segmentation(np.zeros((32, 48, 3), np.uint8), gt)
+assert (over == 255).all(-1).sum() > 0
+png.imwrite(sys.argv[1] + "/over.png", imgproc.resize_u8(over, 1.5))
+assert png.imread(sys.argv[1] + "/over.png").shape == (48, 72, 3)
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -131,7 +131,7 @@ def test_round_trip_with_a_chosen_filter_per_row(tmp_path, filters, shape,
 def test_round_trip_of_a_frame(tmp_path):
     bgr = _smooth((48, 64, 3), seed=2)
     path = tmp_path / "bgr.png"
-    png.write_bgr(str(path), bgr)
+    png.imwrite(str(path), bgr)
     np.testing.assert_array_equal(png.read_bgr(str(path)), bgr)
     np.testing.assert_array_equal(cv2.imread(str(path)), bgr)
 

@@ -191,6 +191,23 @@ def test_per_replica_batchnorm_fails_the_check(bn_loss):
                         one_process_bn(cases[0]))
 
 
+def test_batchnorm_outside_the_data_parallel_block_is_per_rank(bn_loss):
+    """The mesh the train step passes is the one source of the rank and
+    world: under the same process group but outside a data_parallel
+    block, train-mode BatchNorm normalizes each rank's own rows (what the
+    spatial route's ranks, which hold one frame's columns, must never
+    reduce over), equal to one process on those rows alone."""
+    cases, _, ranks = bn_loss
+    for rank, r in enumerate(ranks):
+        case = dict(cases[0], x=cases[0]["x"][2 * rank:2 * rank + 2],
+                    g=cases[0]["g"][2 * rank:2 * rank + 2])
+        want = one_process_bn(case)
+        got = r["bn_outside"]
+        for key in ("y", "dx", "running_mean", "running_var"):
+            np.testing.assert_allclose(got[key].numpy(), want[key].numpy(),
+                                       atol=1e-5, rtol=1e-5, err_msg=key)
+
+
 def one_process_loss(case):
     e = torch.cat(case["emb"]).requires_grad_(True)
     out = tl.embedding_loss(e, torch.cat(case["labels"]), **case["kw"])

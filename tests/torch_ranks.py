@@ -85,8 +85,11 @@ def group_facts(mesh, payload):
         except ValueError:
             return "uneven"
 
-    return dict(mesh=tuple(mesh), group=parallel.data_parallel_group()
-                is not None, slices=[rows(b) for b in payload["batches"]])
+    outside = parallel.data_parallel_group()
+    with parallel.data_parallel(mesh):
+        inside = parallel.data_parallel_group()
+    return dict(mesh=tuple(mesh), group=inside is not None and outside is None,
+                slices=[rows(b) for b in payload["batches"]])
 
 
 def replicated_state(mesh, payload):
@@ -169,7 +172,10 @@ def batchnorm_and_loss(mesh, payload):
     through embedding_loss (its share, the gradient of the share), and
     VGG's train-mode dropout on its rows of the first case's input, each
     also with the group left out (per-replica statistics, per-rank loss
-    scalars, per-rank dropout draws) for the tests' planted faults."""
+    scalars, per-rank dropout draws) for the tests' planted faults.  Each
+    runs inside parallel.data_parallel(mesh), as the train step runs
+    them."""
+    from unseenobjectclustering_torch import parallel
     from unseenobjectclustering_torch.models import losses, resnet, unets
 
     def bn_run(case):
@@ -198,14 +204,17 @@ def batchnorm_and_loss(mesh, payload):
             training=True, dropout_generator=torch.Generator().manual_seed(5))
         return unets.VGGEmbedding._dropout(vgg, x[mesh.batch_slice(len(x))])
 
-    res = dict(bn=[bn_run(c) for c in payload["bn"]],
-               loss=loss_run(payload["loss"]), dropout=dropout_run())
-    with mock.patch.object(resnet, "data_parallel_group", lambda: None):
-        res["bn_local"] = [bn_run(c) for c in payload["bn"]]
-    with mock.patch.object(losses, "data_parallel_group", lambda: None):
-        res["loss_local"] = loss_run(payload["loss"])
-    with mock.patch.object(unets, "data_parallel_group", lambda: None):
-        res["dropout_local"] = dropout_run()
+    with parallel.data_parallel(mesh):
+        res = dict(bn=[bn_run(c) for c in payload["bn"]],
+                   loss=loss_run(payload["loss"]), dropout=dropout_run())
+        with mock.patch.object(resnet, "data_parallel_group", lambda: None):
+            res["bn_local"] = [bn_run(c) for c in payload["bn"]]
+        with mock.patch.object(losses, "data_parallel_group", lambda: None):
+            res["loss_local"] = loss_run(payload["loss"])
+        with mock.patch.object(unets, "data_parallel_group", lambda: None):
+            res["dropout_local"] = dropout_run()
+    # outside the block the same ranks normalize their own rows
+    res["bn_outside"] = bn_run(payload["bn"][0])
     return res
 
 
@@ -277,4 +286,62 @@ def train_net_runs(mesh, payload):
     with mock.patch.object(train, "_rank_draws", own_rows_only), \
             contextlib.redirect_stdout(io.StringIO()):
         out[name] = dict(state=train_net.main(args).model.state_dict())
+    return out
+
+
+def spatial_stage1(mesh, payload):
+    """Segmentor.make_spatial_stage1 over the group on each case of
+    payload["cases"] (a Segmentor per case, the first seed pinned, one
+    generator per frame seeded 11), then each (case, fault) of
+    payload["faults"] with the fault planted: "zero_halo" (zeros instead of
+    the neighbours' columns in the first dilated convolution),
+    "local_upsample" (the head's upsample matrix built from the band's own
+    width) or "band_groupnorm" (GroupNorm over the band's own
+    statistics).  Returns {name: {"features", "labels"}}."""
+    import torch.nn.functional as F
+
+    from unseenobjectclustering_torch import Config
+    from unseenobjectclustering_torch.engine.pipeline import Segmentor
+    from unseenobjectclustering_torch.ops import resize
+    from unseenobjectclustering_torch.parallel import spatial
+
+    def run(case):
+        seg = Segmentor(Config.inference_default(**case["overrides"]),
+                        case["state_dict"], network_name=case["net"],
+                        depth_threshold=case["threshold"], seed=7,
+                        device="cpu")
+        seg._ms_kw = dict(seg._ms_kw, first_index=case["first_index"])
+        gens = [torch.Generator().manual_seed(11)
+                for _ in range(len(case["img"]))]
+        features, labels = seg.make_spatial_stage1(mesh)(
+            case["img"], case["xyz"], gens)
+        return dict(features=features, labels=labels)
+
+    real_conv = spatial.SpatialShard.conv2d
+    done = []
+
+    def zero_halo(self, x, weight, bias, stride, padding, dilation, groups):
+        if dilation[1] == 1 or done:
+            return real_conv(self, x, weight, bias, stride, padding,
+                             dilation, groups)
+        done.append(True)
+        reach = dilation[1] * (weight.shape[-1] - 1)
+        x = F.pad(x, (padding[1], reach - padding[1]))
+        return F.conv2d(x, weight, bias, stride, (padding[0], 0), dilation,
+                        groups)
+
+    faults = {
+        "zero_halo": ("conv2d", zero_halo),
+        "local_upsample": ("upsample_bilinear",
+                           lambda self, x, out_h: resize.upsample_bilinear(
+                               x, (out_h, self.band))),
+        "band_groupnorm": ("group_norm",
+                           lambda self, x, g, w, b, eps: F.group_norm(
+                               x, g, w, b, eps)),
+    }
+    cases = {c["name"]: c for c in payload["cases"]}
+    out = {name: run(c) for name, c in cases.items()}
+    for name, fault in payload["faults"]:
+        with mock.patch.object(spatial.SpatialShard, *faults[fault]):
+            out[f"{name}/{fault}"] = run(cases[name])
     return out

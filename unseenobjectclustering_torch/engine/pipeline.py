@@ -19,6 +19,11 @@ de-facto public API is ``test_sample`` (lib/fcn/test_dataset.py:232-267):
   data-parallel stage 1 (segment_sharded): each process of a
     parallel.Mesh segments its frames of a batch on its card, and the
     labels are all-gathered.
+
+  spatial stage 1 (make_spatial_stage1): one frame's columns split over
+    the processes of a parallel.Mesh, with per-layer halo exchanges
+    (parallel.spatial); the embeddings are all-gathered and every process
+    clusters the whole frame with the four kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from unseenobjectclustering_torch.models import cast_convs, get_network
 from unseenobjectclustering_torch.ops.mean_shift import mean_shift_smart_init
 from unseenobjectclustering_torch.ops.roi import (_dense_relabel, crop_rois,
                                                   paste_back, veto_and_order)
+from unseenobjectclustering_torch.parallel import spatial
 
 
 class SegmentationResult(NamedTuple):
@@ -439,6 +445,59 @@ class Segmentor:
                 dist.all_gather(parts, labels)
                 labels = torch.cat(parts)
             return labels[:b]
+
+        return fn
+
+    def make_spatial_stage1(self, mesh):
+        """Single-frame latency route: stage 1 with each frame's width split
+        over the ranks of a parallel.Mesh (the JAX package's
+        make_spatial_stage1, which leaves the split to XLA's SPMD
+        partitioner).
+
+        Returns fn(image, xyz, generators) -> (features [B, H, W, C],
+        labels [B, H, W] int32), both whole and equal on every rank, on
+        the Segmentor's device.  Every rank passes the same preprocessed
+        frames (numpy or tensors, on any device; image or xyz None as in
+        _stage1_impl) and the same generators, one per frame.  Rank r
+        uploads its band of W / world columns and the first layer's halo,
+        runs the network on it with each layer exchanging its own halo
+        with the neighbours (parallel.spatial), all-gathers the embedding
+        columns, and clusters the whole frame as _stage1_impl does (the
+        Segmentor's _ms_kw, the depth filter on the whole frame's z > 0):
+        on the card, through the four kernels.  The JAX function clusters
+        with its plain XLA path only because Pallas kernels do not
+        partition; here each rank holds the whole frame's embeddings.
+
+        The width rule (a difference kept on purpose; JAX needs W
+        divisible by the mesh only): W splits into bands whose width is a
+        multiple of the network's total stride (8 ResNet-8s, 16 U-Net, 32
+        VGG) and, at the lowest resolution, at least its widest halo (4
+        columns for ResNet-8s); otherwise fn raises.  The features agree
+        with _stage1_impl's to rounding (the convolutions sum the same
+        terms in the layout cuDNN or oneDNN picks for the band's shape),
+        and the labels wherever those bits do not decide a near-tie.  At
+        world size 1 the same sharded layers run with the frame's edge
+        padding only."""
+        plan = spatial.plan_network(self.model)
+        threshold = self._threshold()
+
+        @torch.inference_mode()
+        @_full_fp32()
+        def fn(image, xyz, generators):
+            ref = image if image is not None else xyz
+            shard = spatial.SpatialShard(mesh, int(ref.shape[2]), plan)
+            with shard.active():
+                band = self.model(shard.upload(image, self.device),
+                                  shard.upload(xyz, self.device))
+            features = shard.gather_columns(band)
+            if xyz is not None and threshold > 0:
+                z = torch.as_tensor(xyz[..., 2]).to(self.device)
+                labels = _cluster_batch(features, generators, z_valid=z > 0,
+                                        filter_threshold=threshold,
+                                        **self._ms_kw)
+            else:
+                labels = _cluster_batch(features, generators, **self._ms_kw)
+            return features, labels
 
         return fn
 

@@ -50,7 +50,7 @@ from unseenobjectclustering_torch.models import compute_convs_in, get_network
 from unseenobjectclustering_torch.models.losses import embedding_loss
 from unseenobjectclustering_torch.ops.train_pipeline import (
     make_device_augment, make_device_augment_crop)
-from unseenobjectclustering_torch.parallel import (Mesh, data_parallel_group,
+from unseenobjectclustering_torch.parallel import (Mesh, data_parallel,
                                                    shard_batch)
 from unseenobjectclustering_torch.parallel.distributed import (process_count,
                                                                process_index)
@@ -184,11 +184,11 @@ def _loss_kw(cfg: Config, max_k: int) -> dict:
 
 def _data_parallel(mesh: Optional[Mesh]) -> bool:
     """Whether a step runs on a rank's share of a global batch.  The mesh
-    must be the process group's (BatchNorm and the loss reduce over the
-    group itself): a process group of more than one rank without a mesh,
-    or a mesh whose rank or world is not the group's, is refused (its
-    ranks would apply different gradients)."""
-    if mesh is None and data_parallel_group() is not None:
+    must be the process group's (its ranks reduce over the group): a
+    process group of more than one rank without a mesh, or a mesh whose
+    rank or world is not the group's, is refused (its ranks would apply
+    different gradients)."""
+    if mesh is None and process_count() > 1:
         raise ValueError("a train step under a process group of more than "
                          "one rank needs mesh=parallel.make_mesh()")
     if mesh is not None and mesh[:2] != (process_index(), process_count()):
@@ -229,7 +229,8 @@ def train_step(state: TrainState, img: Optional[torch.Tensor],
     over the ranks before the update and the metrics are the global
     batch's, as one device's step on the whole batch gives them."""
     parallel = _data_parallel(mesh)
-    with _full_fp32():
+    # BatchNorm, the loss and dropout read the data-parallel mesh from here
+    with _full_fp32(), data_parallel(mesh if parallel else None):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         features = state.model(img, xyz)

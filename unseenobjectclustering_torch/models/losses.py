@@ -24,7 +24,8 @@ Everything computes in float32, or in float64 for float64 embeddings
 The loss couples the frames of a batch only through three scalars: the
 dynamic K (the batch's largest label + 1), whether any pixel of the batch
 is hard, and the batch size B in both divisions.  Under data parallelism
-(a process group of more than one rank) these are the global batch's
+(a parallel.data_parallel block of more than one rank, which the train
+step opens with its mesh) these are the global batch's
 (an all-reduce MAX and two SUMs), and each rank returns its share of the
 global loss: the shares of the ranks sum to the loss of one process on
 the whole batch.  The cluster means and hard-pixel weights are per frame
@@ -101,9 +102,9 @@ def embedding_loss(x: torch.Tensor, labels: torch.Tensor, *, alpha: float,
                    max_k: int = 32, metric: str = "cosine",
                    normalize: bool = True) -> EmbeddingLossOut:
     """Total = intra + inter loss of embeddings x [B, H, W, C] (unit-norm
-    when normalize=True upstream) against labels [B, H, W].  Under a
-    process group of more than one rank, this rank's share of the global
-    batch's loss (see the module docstring)."""
+    when normalize=True upstream) against labels [B, H, W].  Inside a
+    parallel.data_parallel block of more than one rank, this rank's share
+    of the global batch's loss (see the module docstring)."""
     b, h, w, c = x.shape
     ft = _wide(x.dtype)
     xf = x.to(ft)

@@ -23,9 +23,9 @@ In train mode BatchNorm updates its running statistics as flax's
 (``BatchNorm2d``), and a convolution may compute in bfloat16 over float32
 parameters (``Conv2d.compute_dtype``, the JAX package's
 ``dtype=bfloat16, param_dtype=float32``).  Under data parallelism
-(a process group of more than one rank) train-mode BatchNorm normalizes
-with the statistics of the global batch, as flax's does over a sharded
-batch (``_GlobalBatchNorm``).
+(a ``parallel.data_parallel`` block of more than one rank) train-mode
+BatchNorm normalizes with the statistics of the global batch, as flax's
+does over a sharded batch (``_GlobalBatchNorm``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
-from unseenobjectclustering_torch.ops.resize import upsample_bilinear
+from unseenobjectclustering_torch.parallel import spatial
 from unseenobjectclustering_torch.parallel.distributed import (
     data_parallel_group)
 
@@ -45,9 +45,17 @@ from unseenobjectclustering_torch.parallel.distributed import (
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in `compute_dtype` when it is set: input,
     weight and bias are cast for the product, the parameters (and so the
-    gradients and the optimizer state) keep their own dtype."""
+    gradients and the optimizer state) keep their own dtype.  Inside a
+    parallel.spatial shard it computes its band of columns."""
 
     compute_dtype: Optional[torch.dtype] = None
+
+    def _conv_forward(self, x, weight, bias):
+        shard = spatial.current()
+        if shard is None:
+            return super()._conv_forward(x, weight, bias)
+        return shard.conv2d(x, weight, bias, self.stride, self.padding,
+                            self.dilation, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -122,8 +130,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's.  One pass over the activation: torch's own update, then its
     batch term rescaled by (n-1)/n.
 
-    In train mode under a process group of more than one rank
-    (parallel.data_parallel_group), the batch statistics are the global
+    In train mode inside a parallel.data_parallel block of more than one
+    rank (parallel.data_parallel_group), the batch statistics are the global
     batch's, forward and backward (_GlobalBatchNorm), and the running
     statistics take the global biased variance, as flax's BatchNorm under
     a sharded jit does."""
@@ -131,6 +139,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if spatial.current() is not None:
+            raise NotImplementedError("the spatial route runs eval-mode "
+                                      "BatchNorm only")
         m = self.momentum
         group = data_parallel_group()
         if group is not None:
@@ -278,12 +289,12 @@ class ResNetFCN(nn.Module):
         self.fc = _conv(inplanes, num_classes, 1, padding=0, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        in_hw = (x.shape[-2], x.shape[-1])
+        in_hw = spatial.frame_hw(x)
         x = x.to(self.conv1.compute_dtype or self.conv1.weight.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        x = spatial.max_pool2d(x, 3, 2, 1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         x = self.fc(x)
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         x = x.permute(0, 2, 3, 1)
-        return upsample_bilinear(x, in_hw)
+        return spatial.upsample_bilinear(x, in_hw)

@@ -27,7 +27,8 @@ terms, biased variance); GroupNorm normalizes in float32 with eps 1e-5
 whatever the convolutions' dtype.  VGG's Dropout(0.2) draws from the
 module's ``dropout_generator`` (a torch.Generator on the input's device),
 which must be set before a train-mode forward; under data parallelism
-each rank draws the global batch's mask and keeps its own rows of it.
+(parallel.data_parallel) each rank draws the global batch's mask and keeps
+its own rows of it.
 """
 
 from __future__ import annotations
@@ -39,38 +40,46 @@ from torch import nn
 import torch.nn.functional as F
 
 from unseenobjectclustering_torch.models.resnet import BatchNorm2d, Conv2d
+from unseenobjectclustering_torch.parallel import spatial
 from unseenobjectclustering_torch.parallel.distributed import (
-    data_parallel_group, local_batch_slice, process_count)
+    data_parallel_group, data_parallel_mesh)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d that computes in `compute_dtype` when it is set,
-    over parameters of their own dtype (as models.resnet.Conv2d)."""
+    over parameters of their own dtype (as models.resnet.Conv2d), and its
+    band of columns inside a parallel.spatial shard."""
 
     compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None or dt == self.weight.dtype:
+        shard = spatial.current()
+        if shard is None and (dt is None or dt == self.weight.dtype):
             return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
-                                  self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        weight, bias = self.weight, self.bias
+        if dt is not None and dt != weight.dtype:
+            x, weight = x.to(dt), weight.to(dt)
+            bias = None if bias is None else bias.to(dt)
+        conv = F.conv_transpose2d if shard is None else shard.conv_transpose2d
+        return conv(x, weight, bias, self.stride, self.padding,
+                    self.output_padding, self.groups, self.dilation)
 
 
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm(eps=1e-5) computed in float32 (flax's GroupNorm keeps
-    its statistics in float32), returned in the input's dtype."""
+    its statistics in float32), returned in the input's dtype; inside a
+    parallel.spatial shard, with the statistics of the whole frame."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, torch.float32)
-        return F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt),
-                            self.bias.to(dt), self.eps).to(x.dtype)
+        shard = spatial.current()
+        norm = F.group_norm if shard is None else shard.group_norm
+        return norm(x.to(dt), self.num_groups, self.weight.to(dt),
+                    self.bias.to(dt), self.eps).to(x.dtype)
 
 
 def _input_dtype(conv: nn.Module) -> torch.dtype:
@@ -121,10 +130,10 @@ class UNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x1 = self.layer1(x)
-        x2 = self.layer2(F.max_pool2d(x1, 2))
-        x3 = self.layer3(F.max_pool2d(x2, 2))
-        x4 = self.layer4(F.max_pool2d(x3, 2))
-        return self.last_layer(F.max_pool2d(x4, 2)), [x1, x2, x3, x4]
+        x2 = self.layer2(spatial.max_pool2d(x1, 2))
+        x3 = self.layer3(spatial.max_pool2d(x2, 2))
+        x4 = self.layer4(spatial.max_pool2d(x3, 2))
+        return self.last_layer(spatial.max_pool2d(x4, 2)), [x1, x2, x3, x4]
 
 
 class UpsampleConcatConv(nn.Module):
@@ -141,9 +150,7 @@ class UpsampleConcatConv(nn.Module):
 
     def forward(self, x: torch.Tensor, skips: list[torch.Tensor]
                 ) -> torch.Tensor:
-        x = self.channel_reduction_layer(x)
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=False)
+        x = spatial.upsample2x(self.channel_reduction_layer(x))
         return self.conv_gn_relu(torch.cat([x] + skips, dim=1))
 
 
@@ -265,8 +272,9 @@ class VGGEmbedding(nn.Module):
         shape, rows = x.shape, slice(None)
         if data_parallel_group() is not None:
             # the global batch's draws, this rank's rows of them
-            shape = (x.shape[0] * process_count(),) + tuple(x.shape[1:])
-            rows = local_batch_slice(shape[0])
+            mesh = data_parallel_mesh()
+            shape = (x.shape[0] * mesh.world,) + tuple(x.shape[1:])
+            rows = mesh.batch_slice(shape[0])
         keep = torch.rand(shape, generator=self.dropout_generator,
                           device=x.device)[rows] >= rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
@@ -277,7 +285,7 @@ class VGGEmbedding(nn.Module):
             if kind == "module":
                 x = getattr(self, name)(x)
             elif kind == "pool":
-                x = F.max_pool2d(x, 2)
+                x = spatial.max_pool2d(x, 2)
             elif kind == "lrelu":
                 x = F.leaky_relu(x, 0.2)
             else:

@@ -13,9 +13,11 @@ nothing configured it does nothing: the run is one process of world size 1.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import datetime
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -93,14 +95,48 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+# the mesh of the data-parallel step running in this context (None: the
+# process's batch is the whole batch)
+_DATA_PARALLEL: contextvars.ContextVar[Any] = contextvars.ContextVar(
+    "data_parallel", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel(mesh: Any):
+    """For the length of the block, the batch is `mesh`'s rank's rows of a
+    global batch split over its ranks (a parallel.Mesh; None or a mesh of
+    one rank: the batch is the whole batch).  The mesh that the caller
+    passes is the one source of the data-parallel rank and world: train-
+    mode BatchNorm, the embedding loss and VGG's dropout read it here
+    (data_parallel_group, data_parallel_mesh), so code that uses the
+    process group with another meaning (the spatial route, whose ranks
+    split one frame's columns) never reaches their reductions.  Raises
+    when the mesh's rank or world is not the process group's."""
+    if mesh is not None and (mesh.rank, mesh.world) != (process_index(),
+                                                        process_count()):
+        raise ValueError(f"mesh rank {mesh.rank} of {mesh.world} is not "
+                         f"the process group's rank {process_index()} of "
+                         f"{process_count()}")
+    token = _DATA_PARALLEL.set(
+        mesh if mesh is not None and mesh.world > 1 else None)
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL.reset(token)
+
+
+def data_parallel_mesh() -> Any:
+    """The mesh of the enclosing data_parallel block when it has more than
+    one rank, else None."""
+    return _DATA_PARALLEL.get()
+
+
 def data_parallel_group():
-    """The default process group when it has more than one rank, else None.
-    Train-mode BatchNorm, the embedding loss and VGG's dropout take their
-    batch-wide quantities over this group's global batch."""
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        return dist.group.WORLD
-    return None
+    """The default process group inside a data_parallel block whose mesh
+    has more than one rank, else None.  Train-mode BatchNorm, the
+    embedding loss and VGG's dropout take their batch-wide quantities over
+    this group's global batch."""
+    return None if _DATA_PARALLEL.get() is None else dist.group.WORLD
 
 
 def rank_slice(global_batch: int, rank: int, world: int) -> slice:

@@ -4,7 +4,9 @@ RGB-D demo pairs (the reference's data/demo/, README.md:56).
 Port of the JAX package's tools/demo_artifact.py: runs the two-stage
 Segmentor on every `<imgdir>/*-color.png` and writes ONE grid image
 (rows = scenes; columns = color / stage-1 overlay / refined overlay) and a
-`.json` sidecar with each frame's stage-1 instance count.  Needs OpenCV.
+`.json` sidecar with each frame's stage-1 instance count.  The PNG IO,
+the contours and the grid's resize have OpenCV's bits without OpenCV
+(``utils/png.py``, ``utils/masks.py``, ``utils/imgproc.py``).
 
 Example:
   python -m unseenobjectclustering_torch.tools.demo_artifact \\
@@ -28,6 +30,8 @@ from unseenobjectclustering_torch.ops.preprocess import (
 from unseenobjectclustering_torch.tools.common import (add_model_args,
                                                        host_inputs, make_cfg,
                                                        make_segmentor)
+from unseenobjectclustering_torch.utils import png
+from unseenobjectclustering_torch.utils.imgproc import resize_u8
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -44,8 +48,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    import cv2
-
     from unseenobjectclustering_torch.utils.masks import (
         visualize_segmentation)
 
@@ -62,12 +64,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rows = []
     counts = {}
     for color_file in color_files:
-        im = cv2.imread(color_file)
-        raw = cv2.imread(color_file.replace("-color.png", "-depth.png"),
-                         cv2.IMREAD_ANYDEPTH)
-        if im is None or raw is None:
-            raise IOError(f"cannot read demo pair for {color_file} "
-                          "(cv2.imread returned None)")
+        im = png.imread(color_file)
+        raw = png.imread(color_file.replace("-color.png", "-depth.png"),
+                         "anydepth")
         depth = raw.astype(np.float32) / 1000.0
         image, xyz = host_inputs(cfg, im, depth, intrinsics)
         res = segmentor.segment(image, xyz,
@@ -83,9 +82,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     grid = np.concatenate(rows, axis=0)
     if args.scale != 1.0:
-        grid = cv2.resize(grid, None, fx=args.scale, fy=args.scale)
+        grid = resize_u8(grid, args.scale)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    cv2.imwrite(args.out, grid)
+    png.imwrite(args.out, grid)
     with open(args.out + ".json", "w") as f:
         json.dump({"pretrained": args.pretrained,
                    "stage1_instances": counts}, f, indent=1)

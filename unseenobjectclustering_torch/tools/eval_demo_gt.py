@@ -7,7 +7,8 @@ Objects F / Boundary F / %75 (utils/evaluation.py, metric parity with the
 reference's lib/utils/evaluation.py:109-257) for the stage-1 and the
 refined predictions.  The RGB-D pairs (`<imgdir>/<name>-color.png`,
 `-depth.png`, `camera_params.json`) are the reference's data/demo frames.
-Needs OpenCV for the PNG IO.
+The PNGs are read by ``utils/png.py`` (OpenCV's arrays), so the tool runs
+without OpenCV.
 
 Example:
   python -m unseenobjectclustering_torch.tools.eval_demo_gt --fast \\
@@ -32,6 +33,7 @@ from unseenobjectclustering_torch.ops.preprocess import (
 from unseenobjectclustering_torch.tools.common import (add_model_args,
                                                        host_inputs, make_cfg,
                                                        make_segmentor)
+from unseenobjectclustering_torch.utils import png
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
 KEYS = ("Objects F-measure", "Objects Precision", "Objects Recall",
@@ -91,8 +93,6 @@ def write_report(path: str, rows: list[dict], summary: dict,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    import cv2
-
     cfg = make_cfg(args)
     if args.refine_fallback:
         cfg = cfg.replace(CLUSTER={"REFINE_FALLBACK": True})
@@ -109,13 +109,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rows = []
     for gt_file in gt_files:
         name = os.path.basename(gt_file).replace("-label.png", "")
-        im = cv2.imread(os.path.join(args.imgdir, f"{name}-color.png"))
-        raw = cv2.imread(os.path.join(args.imgdir, f"{name}-depth.png"),
-                         cv2.IMREAD_ANYDEPTH)
-        if im is None or raw is None:
-            raise IOError(f"cannot read the RGB-D pair of {name} under "
-                          f"{args.imgdir}")
-        gt = cv2.imread(gt_file, cv2.IMREAD_GRAYSCALE).astype(np.int32)
+        im = png.imread(os.path.join(args.imgdir, f"{name}-color.png"))
+        raw = png.imread(os.path.join(args.imgdir, f"{name}-depth.png"),
+                         "anydepth")
+        gt = png.imread(gt_file, "grey").astype(np.int32)
         depth = raw.astype(np.float32) / args.depth_factor
         image, xyz = host_inputs(cfg, im, depth, intrinsics)
         res = segmentor.segment(image, xyz,

@@ -57,7 +57,7 @@ def write_ocid(root: str, ds, indices: Sequence[int], *,
         for i in idxs:
             bgr, depth_mm, gt = ds.get_scene(i)
             name = f"result_2026_{i:04d}.png"
-            png.write_bgr(os.path.join(root, seq, "rgb", name), bgr)
+            png.imwrite(os.path.join(root, seq, "rgb", name), bgr)
             # plane = 1 (table sequences also reserve 2), objects after
             shift = 2 if is_table else 1
             lab = np.where(gt > 0, gt + shift, 1).astype(np.uint8)
@@ -81,7 +81,7 @@ def write_osd(root: str, ds, indices: Sequence[int], *,
     for i in indices:
         bgr, depth_mm, gt = ds.get_scene(i)
         name = f"learn{i:02d}.png"
-        png.write_bgr(os.path.join(root, "image_color", name), bgr)
+        png.imwrite(os.path.join(root, "image_color", name), bgr)
         imwrite_indexed(os.path.join(root, "annotation", name),
                         gt.astype(np.uint8))
         save_pcd_xyz(os.path.join(root, "pcd", name.replace("png", "pcd")),

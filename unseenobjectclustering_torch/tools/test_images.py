@@ -4,7 +4,8 @@ tools/test_images.py:138-225 and the JAX package's tools/test_images.py).
 Expects `<imgdir>/*-color.png` + `*-depth.png` pairs and an optional
 `<imgdir>/camera_params.json` (else the RealSense D415 defaults); writes
 `<name>-label.png` (and with --vis a color overlay) next to the inputs or
-under --outdir.  Needs OpenCV for the PNG IO.
+under --outdir.  The PNGs are read and written by ``utils/png.py`` (the
+arrays and file bytes of OpenCV's), so the tool runs without OpenCV.
 
 Example:
   python -m unseenobjectclustering_torch.tools.test_images --imgdir data/demo \\
@@ -27,6 +28,7 @@ from unseenobjectclustering_torch.ops.preprocess import (
 from unseenobjectclustering_torch.tools.common import (add_model_args,
                                                        host_inputs, make_cfg,
                                                        make_segmentor)
+from unseenobjectclustering_torch.utils import png
 
 # Intel RealSense D415 intrinsics (ros/test_images_segmentation.py)
 D415_PARAMS = {"fx": 616.0, "fy": 616.0, "x_offset": 310.0,
@@ -52,27 +54,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def read_sample(color_file: str, depth_file: str, depth_factor: float
                 ) -> tuple[np.ndarray, Optional[np.ndarray]]:
-    """Read one RGB-D pair (tools/test_images.py:96-135 semantics)."""
-    import cv2
-
-    im = cv2.imread(color_file)
-    if im is None:
-        raise IOError(f"cannot read color image {color_file} "
-                      "(missing or corrupt; cv2.imread returned None)")
+    """Read one RGB-D pair (tools/test_images.py:96-135 semantics); a
+    missing or corrupt image raises IOError, a missing depth image gives
+    None."""
+    im = png.imread(color_file)
     depth = None
     if depth_file and os.path.exists(depth_file):
-        raw = cv2.imread(depth_file, cv2.IMREAD_ANYDEPTH)
-        if raw is None:
-            raise IOError(f"cannot read depth image {depth_file} "
-                          "(corrupt; cv2.imread returned None)")
-        depth = raw.astype(np.float32) / depth_factor
+        depth = png.imread(depth_file, "anydepth").astype(
+            np.float32) / depth_factor
     return im, depth
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    import cv2
-
     from unseenobjectclustering_torch.utils.masks import (
         get_color_mask, visualize_segmentation)
 
@@ -103,11 +97,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
         base = os.path.basename(color_file).replace("-color.png", "")
         out_label = os.path.join(outdir, base + "-label.png")
-        cv2.imwrite(out_label, labels.astype(np.uint8))
+        png.imwrite(out_label, labels.astype(np.uint8))
         if args.vis:
             overlay = visualize_segmentation(im, labels)
-            cv2.imwrite(os.path.join(outdir, base + "-seg.png"), overlay)
-            cv2.imwrite(os.path.join(outdir, base + "-mask.png"),
+            png.imwrite(os.path.join(outdir, base + "-seg.png"), overlay)
+            png.imwrite(os.path.join(outdir, base + "-mask.png"),
                         get_color_mask(labels))
         n = len(np.unique(labels)) - 1
         print(f"{color_file}: {n} objects -> {out_label} "

@@ -6,8 +6,8 @@ mask_to_tight_box (:171-195), build_matrix_of_indices (:41-46),
 get_color_mask (:17-39), visualize_segmentation (:49-147, a cv2 overlay).
 
 The indexed PNGs go through ``utils/png.py`` (zlib and numpy), whose arrays
-are PIL's: the GPU machine has neither PIL nor OpenCV.  cv2 is imported
-inside the one function that draws contours.
+are PIL's, and the contours are drawn in numpy (``draw_contours``, the
+pixels of cv2's): the GPU machine has neither PIL nor OpenCV.
 """
 
 from __future__ import annotations
@@ -15,8 +15,12 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+from scipy import ndimage
 
 from unseenobjectclustering_torch.utils import png
+
+# 4-connected background (the complement of 8-connected objects)
+_FOUR = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
 
 
 def imread_indexed(filename: str) -> np.ndarray:
@@ -67,25 +71,36 @@ def get_color_mask(labels: np.ndarray) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def outer_border(mask: np.ndarray) -> np.ndarray:
+    """[H, W] bool: the pixels that cv2.findContours(mask, RETR_EXTERNAL,
+    CHAIN_APPROX_SIMPLE) followed by cv2.drawContours(..., thickness=1)
+    marks.  Those are the border pixels of the outermost 8-connected
+    components: the pixels of the mask that are 4-adjacent to the
+    background region that reaches the frame (cv2 pads the frame with
+    zeros).  A hole's border is not one, and a component inside a hole is
+    not outermost; a 1-pixel line is a border on both sides."""
+    fg = np.pad(np.asarray(mask) != 0, 1)
+    regions, _ = ndimage.label(~fg, structure=_FOUR)
+    outside = regions == regions[0, 0]
+    touches = np.zeros_like(fg)
+    touches[1:-1, 1:-1] = (outside[:-2, 1:-1] | outside[2:, 1:-1]
+                           | outside[1:-1, :-2] | outside[1:-1, 2:])
+    return (fg & touches)[1:-1, 1:-1]
+
+
 def visualize_segmentation(im: np.ndarray, masks: np.ndarray,
                            alpha: float = 0.6,
                            draw_contours: bool = True) -> np.ndarray:
     """Overlay instance masks on an RGB/BGR uint8 image with per-instance
-    colors and optional contours (mask.py:49-147 capability; the contours
-    need cv2)."""
+    colors and optional white contours (mask.py:49-147 capability; the
+    pixels of the JAX package's cv2 overlay)."""
     im = im.astype(np.float32)
     color = get_color_mask(masks).astype(np.float32)
     fg = (masks > 0)[..., None].astype(np.float32)
     out = im * (1 - fg * (1 - alpha)) + color * fg * (1 - alpha)
     out = out.astype(np.uint8)
-    if draw_contours:
-        import cv2
-
+    if draw_contours:  # label after label, as cv2.drawContours per label
         for lab in np.unique(masks):
-            if lab == 0:
-                continue
-            m = (masks == lab).astype(np.uint8)
-            contours, _ = cv2.findContours(m, cv2.RETR_EXTERNAL,
-                                           cv2.CHAIN_APPROX_SIMPLE)
-            cv2.drawContours(out, contours, -1, (255, 255, 255), 1)
+            if lab != 0:
+                out[outer_border(masks == lab)] = 255
     return out

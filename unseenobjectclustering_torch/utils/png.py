@@ -20,7 +20,8 @@ Paeth).  Interlaced (Adam7) files raise NotImplementedError.
 
 ``write_png`` writes grey, RGB, RGBA or palette images at 8 or 16 bits,
 with a chosen filter for every row (or one for all), one IDAT chunk;
-``write_bgr`` is ``cv2.imwrite`` of a BGR uint8 image.
+``imwrite`` writes the very bytes of OpenCV 5.0's ``cv2.imwrite`` (libpng
+with OpenCV's defaults) for a grey or BGR image.
 """
 
 from __future__ import annotations
@@ -201,6 +202,31 @@ def read_anydepth(path: str) -> np.ndarray:
     return im.samples[..., 0]
 
 
+def read_grey(path: str) -> np.ndarray:
+    """The array of ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for a grey
+    PNG: [H, W] uint8 (16-bit reduced to its high byte, as libpng's
+    strip_16 does)."""
+    im = read(path)
+    if im.color_type != 0:
+        raise NotImplementedError("read_grey reads grey PNGs only (colour "
+                                  f"type 0), got colour type {im.color_type}")
+    return _high_byte(im.samples[..., 0])
+
+
+_IMREAD = {"color": read_bgr, "anydepth": read_anydepth, "grey": read_grey}
+
+
+def imread(path: str, mode: str = "color") -> np.ndarray:
+    """``cv2.imread(path, flag)`` of a PNG for mode "color"
+    (IMREAD_COLOR), "anydepth" (IMREAD_ANYDEPTH) or "grey"
+    (IMREAD_GRAYSCALE).  Where cv2 returns None (a missing file, or one
+    that is not a readable PNG) this raises IOError naming the file."""
+    try:
+        return _IMREAD[mode](path)
+    except (OSError, ValueError, zlib.error) as e:
+        raise IOError(f"cannot read {path} (missing or corrupt: {e})") from e
+
+
 def _filter_rows(px: np.ndarray, ftypes: np.ndarray, bpp: int) -> np.ndarray:
     """Apply each row's filter to [H, R] uint8 bytes (predictors from the
     unfiltered bytes, so all rows at once)."""
@@ -222,12 +248,11 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def encode(array: np.ndarray, palette: Optional[np.ndarray] = None,
-           filters: Union[int, Sequence[int]] = 0, level: int = 6) -> bytes:
-    """The bytes of a PNG of `array`: [H, W] grey (or palette indices when
-    `palette`, [N, 3] uint8, is given), [H, W, 3] RGB or [H, W, 4] RGBA, in
-    uint8 or uint16.  filters: one PNG filter type (0-4) for every row, or
-    one per row."""
+def _header_and_rows(array: np.ndarray, palette: Optional[np.ndarray],
+                     filters: Union[int, Sequence[int]]
+                     ) -> tuple[bytes, bytes]:
+    """The IHDR body and the filtered scanlines (each row led by its filter
+    type) of a PNG of `array` (see ``encode``)."""
     array = np.asarray(array)
     if array.dtype not in (np.uint8, np.uint16):
         raise TypeError(f"PNG samples are uint8 or uint16, got {array.dtype}")
@@ -247,16 +272,67 @@ def encode(array: np.ndarray, palette: Optional[np.ndarray] = None,
     rows = np.concatenate(
         [ftypes[:, None], _filter_rows(px, ftypes, channels * depth // 8)],
         axis=1)
-    out = [_SIGNATURE,
-           _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type,
-                                       0, 0, 0))]
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
+    return ihdr, rows.tobytes()
+
+
+def encode(array: np.ndarray, palette: Optional[np.ndarray] = None,
+           filters: Union[int, Sequence[int]] = 0, level: int = 6) -> bytes:
+    """The bytes of a PNG of `array`: [H, W] grey (or palette indices when
+    `palette`, [N, 3] uint8, is given), [H, W, 3] RGB or [H, W, 4] RGBA, in
+    uint8 or uint16.  filters: one PNG filter type (0-4) for every row, or
+    one per row."""
+    ihdr, rows = _header_and_rows(array, palette, filters)
+    out = [_SIGNATURE, _chunk(b"IHDR", ihdr)]
     if palette is not None:
         out.append(_chunk(b"PLTE",
                           np.asarray(palette, np.uint8).reshape(-1, 3)
                           .tobytes()))
-    out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)))
+    out.append(_chunk(b"IDAT", zlib.compress(rows, level)))
     out.append(_chunk(b"IEND", b""))
     return b"".join(out)
+
+
+def encode_cv2(array: np.ndarray) -> bytes:
+    """The bytes that ``cv2.imwrite`` (OpenCV 5.0, its bundled libpng)
+    writes for a [H, W] grey or [H, W, 3] BGR image, uint8 or uint16:
+    every row Sub-filtered (None at width 1), zlib level 1 with the Z_RLE
+    strategy and memLevel 8, libpng's window for small images (the
+    smallest that holds the scanlines and 262 bytes, at least 2^9) and its
+    rewrite of the zlib header to the smallest window the scanlines need,
+    IDAT chunks of 8192 bytes."""
+    array = np.asarray(array)
+    if array.ndim == 3:
+        if array.shape[2] != 3:
+            raise ValueError(f"encode_cv2 takes grey or BGR, not "
+                             f"{array.shape}")
+        array = array[..., ::-1]
+    # libpng drops Sub for a one-pixel-wide image (png_write_start_row)
+    ihdr, rows = _header_and_rows(array, None, 1 if array.shape[1] > 1
+                                  else 0)
+    size = len(rows)
+    wbits, half = 15, 1 << 14  # png_deflate_claim
+    if size <= 16384:
+        while size + 262 <= half:
+            half >>= 1
+            wbits -= 1
+    wbits = max(wbits, 9)
+    z = zlib.compressobj(1, zlib.DEFLATED, wbits, 8, zlib.Z_RLE)
+    data = bytearray(z.compress(rows) + z.flush())
+    if size <= 16384:  # optimize_cmf
+        cinfo = data[0] >> 4
+        half = 1 << (cinfo + 7)
+        if size <= half:
+            while cinfo > 0 and size <= half:
+                half >>= 1
+                cinfo -= 1
+            data[0] = (data[0] & 0x0F) | (cinfo << 4)
+            flg = data[1] & 0xE0
+            data[1] = flg + 0x1F - ((data[0] << 8) + flg) % 0x1F
+    idat = [_chunk(b"IDAT", bytes(data[i:i + 8192]))
+            for i in range(0, len(data), 8192)]
+    return b"".join([_SIGNATURE, _chunk(b"IHDR", ihdr)] + idat
+                    + [_chunk(b"IEND", b"")])
 
 
 def write_png(path: str, array: np.ndarray,
@@ -268,8 +344,8 @@ def write_png(path: str, array: np.ndarray,
         f.write(data)
 
 
-def write_bgr(path: str, bgr: np.ndarray,
-              filters: Union[int, Sequence[int]] = 4) -> None:
-    """``cv2.imwrite(path, bgr)`` for a [H, W, 3] BGR uint8 image: an RGB
-    PNG, Paeth-filtered by default (photographs compress best so)."""
-    write_png(path, np.ascontiguousarray(bgr[..., ::-1]), filters=filters)
+def imwrite(path: str, array: np.ndarray) -> None:
+    """``cv2.imwrite(path, array)`` of a grey or BGR PNG, byte for byte
+    (``encode_cv2``)."""
+    with open(path, "wb") as f:
+        f.write(encode_cv2(array))
