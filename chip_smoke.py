@@ -106,6 +106,25 @@ Phases (any failure exits non-zero; no exception is caught):
      kernel launched in each of 2 frames; the network ms), and each
      network on the card against the CPU on a 64x96 window within 1e-4.
      One {"alternates": {...}} line.
+ 8b. trained stage 1: the stage-1 recipe of unseenobjectclustering_torch/
+     cfgs/synthetic_240x320_rgbd_add.yml (ResNet-34-8s RGB-D add, Adam
+     2e-4, batch 16, bf16) trained from scratch on the card, cut to
+     TRAINED_SCENES train-split scenes rendered at 240x320 by
+     tools.render_dataset and TRAINED_EPOCHS epochs, through
+     tools.train_net.main() with --device-resident (the step ms, no
+     clustering kernel launched); tools.fast_parity_report.main() on its
+     snapshot over HELD_OUT held-out test-split scenes in both modes, each
+     mode's counters set to 0 before each frame and read after (every
+     kernel at least once per frame): Objects F, Boundary F and %75
+     detected per mode and the fast-vs-parity agreement (mean, min), gated:
+     an instance in every held-out frame, parity's mean Objects F at least
+     TRAINED_FLOOR, fast's within FAST_GAP of parity's; the same report on
+     phase 3's random-init ResNet must find no instance (and so miss the
+     floor);
+     tools.probe_seed_precision.main() on random unit vectors at the crop
+     shape (n = 224*224) and on the trained parity embeddings of one
+     held-out frame (n = 240*320): the plain route and the seeding kernel
+     each PASS against the float64 replay.  One {"trained": {...}} line.
   9. data parallelism (unseenobjectclustering_torch.parallel), what one
      card can show of it: (a) world size 1 on NCCL (an all-reduce and an
      all-gather checked): Segmentor.segment_sharded on 4 frames at
@@ -114,8 +133,9 @@ Phases (any failure exits non-zero; no exception is caught):
      segment(refine=False) call on the same 4 frames of a Segmentor with
      the same seed and each kernel launched exactly once per frame: with
      phase 3's network in 3 calls per mode (frames/s and ms per frame
-     beside phase 3's batch-1 stage 1), and with phase 8's U-Net, which
-     must find an instance in every frame (the random-init ResNet finds
+     beside phase 3's batch-1 stage 1), with phase 8's U-Net and with
+     phase 8b's trained ResNet on 4 held-out 240x320 scenes, which must
+     each find an instance in every frame (the random-init ResNet finds
      none, so its equality is between empty label maps); against each
      frame segmented alone, the pixels that differ and the embeddings
      (within 1e-4 in parity; cuDNN runs other kernels at batch 1);
@@ -129,11 +149,14 @@ Phases (any failure exits non-zero; no exception is caught):
      first the spatial stage 1, phase 3's frame split by width over the
      two ranks (bands of 320 columns, per-layer halo exchanges staged
      through the host under gloo) with phase 3's ResNet and phase 8's
-     U-Net in both modes: the embeddings against the one-process batch-1
+     U-Net, and a held-out 240x320 scene (bands of 160 columns) with phase
+     8b's trained ResNet, in both modes: the embeddings against the
+     one-process batch-1
      stage 1 (within 1e-4 in parity, 2e-2 in fast mode), the labels equal
      to the clustering of the gathered embeddings, the pixels relabelled
-     against one process (U-Net: instances found; in parity at most 0.1%
-     of the frame relabelled and as many instances as one process), each
+     against one process (U-Net and trained ResNet: instances found; in
+     parity at most 0.1% of the frame relabelled and as many instances as
+     one process), each
      kernel exactly once per frame on each rank, a planted zero halo in
      the ResNet's first dilated convolution that must break the parity
      gate, and the ms/frame of the two time-sliced ranks (a stand-in, not
@@ -155,9 +178,10 @@ Phases (any failure exits non-zero; no exception is caught):
      not checked here.
  10. one {"kernels": [...]} line: each kernel's launches in the parity
      and fast runs of stage 1, of stage 2, of the stream, of each
-     test_net run, of the alternate networks, of phase 9's sharded
-     stage 1 and evaluation and of its spatial stage 1 (rank 0's, per
-     network and mode, and at world size 1), its times and bounds in both
+     test_net run, of the alternate networks, of phase 8b's report, of
+     phase 9's sharded stage 1 and evaluation and of its spatial stage 1
+     (rank 0's, per network and mode, and at world size 1), its times and
+     bounds in both
      modes at the frame and the crop shape.
  11. the last line: {"ok": true, "device": {...}}.
 
@@ -188,6 +212,7 @@ import numpy as np
 import scipy.io
 import torch
 import torch.distributed as dist
+import yaml
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -200,7 +225,8 @@ from unseenobjectclustering_torch.data.loader import DataLoader
 from unseenobjectclustering_torch.data.resident import load_resident_scenes
 from unseenobjectclustering_torch.data.synthetic import (
     SyntheticTabletopDataset)
-from unseenobjectclustering_torch.engine.builder import build_segmentor
+from unseenobjectclustering_torch.engine.builder import (build_segmentor,
+                                                         load_network_state)
 from unseenobjectclustering_torch.engine.evaluate import (
     average_metrics, evaluate_dataset, evaluate_dataset_sharded)
 from unseenobjectclustering_torch.engine.pipeline import (Segmentor,
@@ -226,7 +252,9 @@ from unseenobjectclustering_torch.ops.roi import _dense_relabel, crop_rois
 from unseenobjectclustering_torch.ops.train_pipeline import (
     make_device_augment)
 from unseenobjectclustering_torch.tools import (demo_artifact,
+                                                fast_parity_report,
                                                 make_real_fixtures,
+                                                probe_seed_precision,
                                                 test_images, test_net,
                                                 test_npy, train_net)
 from unseenobjectclustering_torch.utils import png
@@ -293,6 +321,23 @@ SPATIAL_FRAMES = 2  # phase 9: timed spatial calls per network and mode
 # parity pixels relabelled at most, as a share of the frame
 SPATIAL_TOL = {"parity": 1e-4, "fast": 2e-2}
 SPATIAL_RELABEL = 1e-3
+# phase 8b: the stage-1 recipe of RECIPE_YML (240x320, Adam 2e-4, batch 16,
+# bf16), cut to TRAINED_SCENES rendered scenes and TRAINED_EPOCHS epochs of
+# TRAINED_SCENES / 16 steps; the report on HELD_OUT test-split scenes
+RECIPE_YML = "unseenobjectclustering_torch/cfgs/synthetic_240x320_rgbd_add.yml"
+TH, TW = 240, 320
+TRAINED_SCENES = 256
+TRAINED_EPOCHS = 50
+HELD_OUT = 16
+LOG_EVERY = 20  # train_epochs_resident's log line every 20th step
+# the gates of the trained network on the HELD_OUT scenes (PERF.md,
+# trained stage 1 findings): parity's mean Objects F at least
+# TRAINED_FLOOR, fast's within FAST_GAP of parity's; the random-init
+# network finds no instance, so it misses the floor.  On an NVIDIA H100
+# 80GB HBM3 (700.00 W) the smoke reads 0.626 (parity; fast 0.634), the
+# recipe's 375-step snapshot 0.260 and the random init 0.
+TRAINED_FLOOR = 0.4
+FAST_GAP = 0.05
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -1105,26 +1150,47 @@ _RENDER_RE = re.compile(r"done: (\d+) rendered, \d+ already cached, "
 
 
 def render_scenes(cache: str, split: str = "train",
-                  num: int = TRAIN_SCENES) -> dict:
-    """`num` scenes of `split`, rendered by tools.render_dataset in a
-    process of its own (numpy only) on a pool of spawned processes, one per
-    CPU core."""
-    out = subprocess.run(
+                  num: int = TRAIN_SCENES, hw: tuple = (H, W)) -> dict:
+    """`num` scenes of `split` at `hw`, rendered by tools.render_dataset in
+    a process of its own (numpy only) on a pool of spawned processes, one
+    per CPU core."""
+    return render_splits(cache, {split: num}, hw)[split]
+
+
+def render_splits(cache: str, nums: dict[str, int], hw: tuple) -> dict:
+    """render_scenes for each split of `nums` (split -> scenes), the
+    tools.render_dataset processes started together."""
+    h, w = hw
+    procs = {split: subprocess.Popen(
         [sys.executable, "-m", "unseenobjectclustering_torch.tools."
          "render_dataset", "--cache-dir", cache, "--split", split,
-         "--height", str(H), "--width", str(W), "--num", str(num)],
-        capture_output=True, text=True, check=True,
-        timeout=600)
-    m = _RENDER_RE.search(out.stdout)
-    if m is None or int(m.group(1)) != num:
-        raise AssertionError(f"render_dataset: {out.stdout[-500:]}")
-    wall, workers, per = (float(m.group(2)), int(m.group(3)),
-                          float(m.group(4)))
-    res = dict(scenes=num, processes=workers, wall_s=wall,
-               s_per_scene=per, wall_s_per_scene=wall / num)
-    print(f"[{split}] rendered {num} scenes at {H}x{W} in "
-          f"{wall:.2f} s with {workers} processes: {per:.3f} s/scene in "
-          f"one process, {res['wall_s_per_scene']:.3f} s/scene of wall")
+         "--height", str(h), "--width", str(w), "--num", str(num)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for split, num in nums.items()}
+    outs = {}
+    try:
+        for split, proc in procs.items():
+            outs[split] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    res = {}
+    for split, num in nums.items():
+        stdout, stderr = outs[split]
+        m = _RENDER_RE.search(stdout)
+        if procs[split].returncode or m is None or int(m.group(1)) != num:
+            raise AssertionError(f"render_dataset --split {split}: "
+                                 f"{stdout[-500:]}{stderr[-2000:]}")
+        wall, workers, per = (float(m.group(2)), int(m.group(3)),
+                              float(m.group(4)))
+        res[split] = dict(scenes=num, processes=workers, wall_s=wall,
+                          s_per_scene=per, wall_s_per_scene=wall / num)
+        print(f"[{split}] rendered {num} scenes at {h}x{w} in "
+              f"{wall:.2f} s with {workers} processes: {per:.3f} s/scene "
+              f"in one process, {res[split]['wall_s_per_scene']:.3f} "
+              f"s/scene of wall")
     return res
 
 
@@ -1134,36 +1200,52 @@ _LOG_RE = re.compile(r"loss ([-\d.]+), loss intra: ([-\d.]+), loss_inter "
 
 def run_train_net(tag: str, args: list[str]) -> tuple[object, list[dict]]:
     """tools.train_net.main(args): its final train state, and each step's
-    loss, intra and inter (each epoch is one step, so every step is
-    logged: read back as the user sees them and, unrounded, from the step
-    callback)."""
+    loss, intra and inter from the step callback (unrounded, read after
+    the run: the callback does not wait for the card) and its ms (CUDA
+    events recorded by consecutive callbacks; None for the first); the
+    steps the CLI logs (every LOG_EVERY-th of an epoch: all of them where
+    an epoch is one step) are read back as the user sees them and
+    printed."""
     steps: list[dict] = []
 
     def callback(epoch, i, metrics):
-        steps.append({"epoch": epoch, "i": i, **{
-            k: float(v) for k, v in metrics.items()}})
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        steps.append({"epoch": epoch, "i": i, "event": event, **{
+            k: v.detach() if torch.is_tensor(v) else v
+            for k, v in metrics.items()}})
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         state = train_net.main(args, callback=callback)
-    logged = _LOG_RE.findall(buf.getvalue())
-    if len(logged) != len(steps):
-        raise AssertionError(f"[{tag}] {len(logged)} log lines for "
-                             f"{len(steps)} steps")
+    torch.cuda.synchronize()
+    last = None
     for row in steps:
+        event = row.pop("event")
+        row["ms"] = None if last is None else last.elapsed_time(event)
+        last = event
+        row.update({k: float(v) for k, v in row.items()
+                    if k not in ("epoch", "i", "ms")})
+    logged = _LOG_RE.findall(buf.getvalue())
+    shown = [row for row in steps if row["i"] % LOG_EVERY == 0]
+    if len(logged) != len(shown):
+        raise AssertionError(f"[{tag}] {len(logged)} log lines for "
+                             f"{len(shown)} logged steps")
+    for row in shown:
         print(f"[{tag}] epoch {row['epoch']} step {row['i']}: loss "
               f"{row['loss']:.6f}, intra {row['intra']:.6f}, inter "
               f"{row['inter']:.6f}")
-        if not all(np.isfinite(row[k]) for k in ("loss", "intra", "inter")):
-            raise AssertionError(f"[{tag}] a non-finite loss")
+    if not all(np.isfinite(row[k]) for row in steps
+               for k in ("loss", "intra", "inter")):
+        raise AssertionError(f"[{tag}] a non-finite loss")
     return state, steps
 
 
-def train_args(cache: str, out: str, *extra: str, yml: str | None = None
-               ) -> list[str]:
+def train_args(cache: str, out: str, *extra: str, yml: str | None = None,
+               scenes: int = TRAIN_SCENES) -> list[str]:
     return ["--cfg", yml or TRAIN_YML, "--network", NET, "--solver", "adam",
             "--device-resident", "--render-cache", cache, "--resident-limit",
-            str(TRAIN_SCENES), "--batch_size", str(TRAIN_SCENES),
+            str(scenes), "--batch_size", str(TRAIN_SCENES),
             "--output-dir", out, "--workers", "0", "--device", DEV
             ] + list(extra)
 
@@ -1831,6 +1913,208 @@ def run_alternates(frame: dict) -> dict:
     return out
 
 
+# phase 8b: trained stage 1
+# ---------------------------------------------------------------------------
+
+def held_out(cache: str, cfg: Config) -> SyntheticTabletopDataset:
+    """The test split at TH x TW, its scenes read from the render cache."""
+    return SyntheticTabletopDataset("test", cfg, height=TH, width=TW,
+                                    size=HELD_OUT, cache_dir=cache)
+
+
+def held_out_frames(trained: dict, count: int, device="cuda"
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first `count` held-out scenes preprocessed on the card:
+    [count, TH, TW, 3] image and XYZ."""
+    cfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML))
+    ds = held_out(trained["cache"], cfg)
+    pairs = []
+    for i in range(count):
+        bgr, depth_mm, _ = ds.get_scene(i)
+        pairs.append(preprocess_rgbd(
+            torch.from_numpy(bgr).to(device),
+            torch.from_numpy(depth_mm.astype(np.float32) / 1000.0).to(device),
+            cfg.pixel_means, ds.f, ds.f, ds.cx, ds.cy))
+    return tuple(torch.stack(t) for t in zip(*pairs))
+
+
+class CountingSegmentor(TimedRecorder):
+    """TimedRecorder that sets the launch counters to 0 just before each
+    segment call and reads them just after."""
+
+    def __init__(self, seg: Segmentor):
+        super().__init__(seg)
+        self.launches: list[dict] = []
+
+    def segment(self, *args, **kwargs):
+        reset_counts()
+        out = super().segment(*args, **kwargs)
+        self.launches.append(launch_counts())
+        return out
+
+
+def run_report(tag: str, pretrained: str, cache: str, out: str) -> dict:
+    """tools.fast_parity_report.main() on the HELD_OUT scenes at TH x TW
+    with the recipe's cfg, each mode's Segmentor counting its launches per
+    frame: every kernel at least once per frame in each mode."""
+    segs: dict[str, CountingSegmentor] = {}
+    build = fast_parity_report.builder.build_segmentor
+
+    def counting(*a, **k):
+        mode = "parity" if k.get("model_dtype") is None else "fast"
+        segs[mode] = CountingSegmentor(build(*a, **k))
+        return segs[mode]
+
+    with mock.patch.object(fast_parity_report.builder, "build_segmentor",
+                           counting):
+        rep = fast_parity_report.main([
+            "--pretrained", pretrained, "--cfg", RECIPE_YML, "--network",
+            NET, "--scenes", str(HELD_OUT), "--height", str(TH), "--width",
+            str(TW), "--render-cache", cache, "--out", out])
+    rep["segmentors"] = segs
+    rep["launches"] = {}
+    for mode, seg in segs.items():
+        short = [i for i, c in enumerate(seg.launches)
+                 if min(c.values()) < 1]
+        if len(seg.launches) != HELD_OUT or short:
+            raise AssertionError(f"[{tag} {mode}] {len(seg.launches)} "
+                                 f"frames; frames {short} miss a kernel")
+        rep["launches"][mode] = {k: sum(c[k] for c in seg.launches)
+                                 for k in KERNELS}
+        rep[f"{mode}_instances"] = [int(m["obj_detected"])
+                                    for m in rep["frames"][mode]]
+        rep[f"{mode}_segment_ms"] = 1e3 * float(np.median(seg.seconds))
+    avg, agree = rep["average"], rep["agreement"]
+    for mode in ("parity", "fast"):
+        print(f"[{tag} {mode}] {HELD_OUT} held-out scenes at {TH}x{TW}: "
+              + ", ".join(f"{k} {avg[mode][k]:.4f}"
+                          for k in fast_parity_report.KEYS)
+              + f"; instances per frame {rep[mode + '_instances']}; "
+              f"segment median {rep[mode + '_segment_ms']:.2f} ms; "
+              f"launches {rep['launches'][mode]}")
+    print(f"[{tag}] fast-vs-parity agreement (Objects F of fast labels "
+          f"against parity labels): mean {np.mean(agree):.4f}, min "
+          f"{np.min(agree):.4f}")
+    return rep
+
+
+def run_probe(tag: str, argv: list[str], x: np.ndarray | None = None
+              ) -> dict:
+    """tools.probe_seed_precision.main() on the card: both routes, plain
+    and kernel, must PASS."""
+    res = probe_seed_precision.main(argv, x=x)
+    if sorted(res["routes"]) != ["kernel", "plain"] or not res["ok"]:
+        raise AssertionError(f"[probe {tag}] {res}")
+    print(f"[probe {tag}] n {res['n']}, m {res['m']}: " + "; ".join(
+        f"{k} PASS, {r['divergences']} divergences from the float64 "
+        f"replay, worst gap {r['worst_gap']:.3e}"
+        for k, r in res["routes"].items()))
+    return res
+
+
+def run_trained(tmp: str, random_pth: str) -> dict:
+    """Phase 8b: the stage-1 recipe (RECIPE_YML) trained from scratch on
+    the card, cut to TRAINED_SCENES scenes and TRAINED_EPOCHS epochs, then
+    fast_parity_report on HELD_OUT held-out scenes with the gates, the same
+    report on phase 3's random-init network (which must find nothing),
+    and the float64 seeding audit of both routes on random unit vectors at
+    the crop shape and on the trained embeddings of one held-out frame.
+    Phase 9 reads the snapshot and the held-out cache under tmp/trained."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "trained")
+    cache = os.path.join(work, "cache")
+    snapshots = os.path.join(work, "snapshots")
+    t1 = time.perf_counter()
+    render = render_splits(cache, {"train": TRAINED_SCENES,
+                                   "test": HELD_OUT}, (TH, TW))
+    render_s = time.perf_counter() - t1
+    with open(os.path.join(REPO, RECIPE_YML)) as f:
+        tree = yaml.safe_load(f)
+    tree["TRAIN"].update(SNAPSHOT_EPOCHS=TRAINED_EPOCHS,  # one, at the end
+                         SYN_HEIGHT=TH, SYN_WIDTH=TW)
+    yml = os.path.join(work, "recipe.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(tree, f)
+    reset_counts()
+    t1 = time.perf_counter()
+    _, steps = run_train_net("trained", train_args(
+        cache, snapshots, "--epochs", str(TRAINED_EPOCHS), "--bf16",
+        yml=yml, scenes=TRAINED_SCENES))
+    train_s = time.perf_counter() - t1
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[trained] training launched a clustering "
+                             f"kernel: {launched}")
+    step_ms = float(np.median([row["ms"] for row in steps[1:]]))
+    print(f"[trained] {len(steps)} steps of batch {TRAIN_SCENES} at "
+          f"{TH}x{TW}, bf16, in {train_s:.1f} s (train_net.main, start and "
+          f"snapshot included); step {step_ms:.2f} ms (median of CUDA "
+          f"events between consecutive steps); loss {steps[0]['loss']:.4f} "
+          f"-> {steps[-1]['loss']:.4f}")
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    rep = run_report("trained", snapshots, cache,
+                     os.path.join(work, "fast_parity.md"))
+    report_s = time.perf_counter() - t2
+    rnd = run_report("random init", random_pth, cache,
+                     os.path.join(work, "fast_parity_random.md"))
+    par = rep["average"]["parity"]["Objects F-measure"]
+    fast = rep["average"]["fast"]["Objects F-measure"]
+    par_random = rnd["average"]["parity"]["Objects F-measure"]
+    gates = dict(floor=TRAINED_FLOOR, fast_gap=FAST_GAP,
+                 parity_objects_f=par, fast_objects_f=fast,
+                 random_parity_objects_f=par_random)
+    print(f"[trained] gates: parity Objects F {par:.4f} >= floor "
+          f"{TRAINED_FLOOR}; |fast - parity| {abs(fast - par):.4f} <= "
+          f"{FAST_GAP}; an instance in every held-out frame (fewest "
+          f"{min(rep['parity_instances'])}); the random-init network finds "
+          f"nothing and misses the floor ({par_random:.4f}, instances "
+          f"{rnd['parity_instances']})")
+    if min(rep["parity_instances"]) < 1:
+        raise AssertionError("[trained] a held-out frame without an "
+                             f"instance: {rep['parity_instances']}")
+    if not par >= TRAINED_FLOOR:
+        raise AssertionError(f"[trained] parity Objects F {par:.4f} below "
+                             f"{TRAINED_FLOOR}")
+    if not abs(fast - par) <= FAST_GAP:
+        raise AssertionError(f"[trained] fast Objects F {fast:.4f} is more "
+                             f"than {FAST_GAP} from parity's {par:.4f}")
+    if max(rnd["parity_instances"]) > 0 or not par_random < TRAINED_FLOOR:
+        raise AssertionError(f"[trained] the random-init network finds "
+                             f"{rnd['parity_instances']}, Objects F "
+                             f"{par_random:.4f}")
+
+    cfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML))
+    ds = held_out(cache, cfg)
+    bgr, depth_mm, _ = ds.get_scene(0)
+    img = (bgr.astype(np.float32) / 255.0
+           - cfg.pixel_means.astype(np.float32) / 255.0)[None]
+    xyz = compute_xyz_np(depth_mm.astype(np.float32) / 1000.0, ds.f, ds.f,
+                         ds.cx, ds.cy)[None]
+    feats = rep["segmentors"]["parity"].seg.segment(
+        img, xyz, refine=False, return_features=True).features[0]
+    probes = {"random": run_probe("random", ["--n", str(CROP * CROP)]),
+              "trained": run_probe("trained", ["--m", str(M)],
+                                   x=feats.reshape(-1, D))}
+    out = dict(render=render, render_s=render_s, steps=len(steps),
+               batch=TRAIN_SCENES,
+               shape=[TH, TW], epochs=TRAINED_EPOCHS, train_s=train_s,
+               step_ms=step_ms, loss=[steps[0]["loss"], steps[-1]["loss"]],
+               report={k: rep[k] for k in (
+                   "average", "agreement", "launches", "parity_instances",
+                   "fast_instances", "parity_segment_ms",
+                   "fast_segment_ms")},
+               report_s=report_s,
+               random_report={k: rnd[k] for k in (
+                   "average", "parity_instances", "fast_instances")},
+               gates=gates, probes=probes, snapshot=snapshots, cache=cache,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 8b {out['phase_s']:.1f} s (render {render_s:.1f}, "
+          f"train {train_s:.1f}, trained report {report_s:.1f})")
+    return out
+
+
 # phase 9: data parallelism
 # ---------------------------------------------------------------------------
 
@@ -1874,7 +2158,7 @@ def sharded_call(mesh, seg: Segmentor, ref: Segmentor, img: torch.Tensor,
     if any(v != DP_FRAMES for v in counts.values()):
         raise AssertionError(f"[dp {tag}] launches {counts}, not one per "
                              f"frame of {DP_FRAMES}")
-    if labels.shape != (DP_FRAMES, H, W) or labels.dtype != np.int32:
+    if labels.shape != img.shape[:3] or labels.dtype != np.int32:
         raise AssertionError(f"[dp {tag}] labels {labels.shape} "
                              f"{labels.dtype}")
     want = ref.segment(img, xyz, refine=False, return_features=features)
@@ -1918,14 +2202,16 @@ def batch_metrics(ds, seg: Segmentor) -> dict:
 
 
 def run_sharded(cfg: Config, state_dict: dict, work: str,
-                timings: dict) -> dict:
+                timings: dict, trained: dict) -> dict:
     """Phase 9, world size 1 on NCCL: segment_sharded on DP_FRAMES frames
     at 480x640 in each mode, each call's labels equal per frame to one
     segment(refine=False) call on the same frames, each kernel launched
     once per frame: phase 3's ResNet in DP_CALLS calls, timed (frames/s
     and ms per frame beside phase 3's batch-1 stage 1); phase 8's U-Net in
-    one call, which must find an instance in every frame (the random-init
-    ResNet finds none, so its equality holds between empty label maps).
+    one call, and phase 8b's trained ResNet in one call on DP_FRAMES
+    held-out scenes at TH x TW, which must each find an instance in every
+    frame (the random-init ResNet finds none, so its equality holds
+    between empty label maps).
     Against the frames segmented one at a time: the pixels that differ and
     the embeddings, within ALT_TOL in parity (cuDNN runs other kernels at
     batch 1).  evaluate_dataset_sharded on phase 7's OCID tree (batch
@@ -1936,29 +2222,35 @@ def run_sharded(cfg: Config, state_dict: dict, work: str,
     parallel.initialize("file://" + os.path.join(work, "nccl_rdzv"), 1, 0,
                         backend="nccl")
     try:
-        return sharded_checks(cfg, state_dict, work, timings,
+        return sharded_checks(cfg, state_dict, work, timings, trained,
                               parallel.make_mesh())
     finally:
         dist.destroy_process_group()
 
 
 def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
-                   mesh) -> dict:
+                   trained: dict, mesh) -> dict:
     """run_sharded's checks in its process group."""
     print(f"[dp] process group: backend {dist.get_backend()}, world "
           f"{mesh.world}, device {mesh.device}")
     check_nccl(mesh)
-    img, xyz = dp_frames()
+    frames = dp_frames()
     unet = ALT_NETS[0][0]
     ucfg, ustate = alt_network(0)
+    rcfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML)).replace(
+        MODE="TEST")
     out: dict = {}
-    for net, ncfg, state, calls in ((NET, cfg, state_dict, DP_CALLS),
-                                    (unet, ucfg, ustate, 1)):
+    for key, net, ncfg, state, calls, (img, xyz) in (
+            (None, NET, cfg, state_dict, DP_CALLS, frames),
+            (unet, unet, ucfg, ustate, 1, frames),
+            ("trained", NET, rcfg, load_network_state(
+                rcfg, NET, trained["snapshot"]), 1,
+             held_out_frames(trained, DP_FRAMES))):
         for mode, mcfg, dtype in (
                 ("parity", ncfg, None),
                 ("fast", ncfg.replace(CLUSTER=dict(FAST_CLUSTER)),
                  torch.bfloat16)):
-            tag = mode if net == NET else f"{unet} {mode}"
+            tag = mode if key is None else f"{key} {mode}"
             seg, ref, one = (Segmentor(mcfg, state, network_name=net,
                                        model_dtype=dtype) for _ in range(3))
             runs = [sharded_call(mesh, seg, ref, img, xyz, tag,
@@ -1971,14 +2263,15 @@ def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
             row = dict(frames=DP_FRAMES, calls=calls, launches=launches,
                        instances=found, batch1=alone)
             line = (f"[dp {tag}] segment_sharded, world 1: {DP_FRAMES} "
-                    f"frames at {H}x{W} per call, labels equal per frame to "
+                    f"frames at {img.shape[1]}x{img.shape[2]} per call, "
+                    f"labels equal per frame to "
                     f"segment(refine=False) on the same frames in all "
                     f"{calls} calls; instances {found}; launches "
                     f"{launches}; each frame alone (batch 1): "
                     f"{alone['pixels']} pixels differ, instances "
                     f"{alone['instances']}, embeddings within "
                     f"{alone['feature_max_abs']:.3e}")
-            if net == NET:
+            if key is None:
                 seconds = [r[0] for r in runs]
                 t = float(np.median(seconds[1:]))
                 row.update(call_s=seconds, frames_per_s=DP_FRAMES / t,
@@ -1989,18 +2282,18 @@ def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
                          f"{calls - 1} calls after a warm-up), phase 3's "
                          f"batch-1 stage 1 {timings[mode]['stage1']:.3f} "
                          f"ms/frame")
-            out[mode if net == NET else f"{unet}/{mode}"] = row
+            out[mode if key is None else f"{key}/{mode}"] = row
             print(line)
-            if net != NET and min(found) < 1:
+            if key is not None and min(found) < 1:
                 raise AssertionError(f"[dp {tag}] a frame without an "
                                      f"instance: {found}")
             if mode == "parity" and not alone["feature_max_abs"] <= ALT_TOL:
                 raise AssertionError(f"[dp {tag}] batch-1 embeddings differ "
                                      f"by {alone['feature_max_abs']:.3e}")
     # the spatial route at world size 1 runs the same sharded layers
-    out["spatial_world1"] = spatial_checks(mesh, nets=(NET,),
-                                           modes=("parity",), frames=1,
-                                           fault=False)
+    out["spatial_world1"] = spatial_checks(
+        mesh, {NET: spatial_cases(mesh)[NET]}, modes=("parity",), frames=1,
+        fault=False)
     tcfg = Config.from_yaml(os.path.join(REPO, TRAIN_YML)).replace(
         MODE="TEST")
     upath = os.path.join(work, f"{unet}.pth")
@@ -2091,36 +2384,53 @@ def attributed_call(fn, *args) -> dict:
                 wait_ms=1e3 * wait[0], collective_ms=1e3 * inside[0])
 
 
-def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
+def spatial_cases(mesh, trained_dir: str | None = None) -> dict:
+    """spatial_checks' networks, each with its weights and frame: phase
+    3's random-init ResNet-34-8s and phase 8's U-Net on phase 3's 480x640
+    frame; with `trained_dir` (phase 8b's work directory), also phase 8b's
+    trained ResNet on the first held-out TH x TW scene."""
+    cfg = Config.inference_default(INPUT="RGBD")
+    torch.manual_seed(0)  # phase 3's init
+    bgr, depth = tabletop_frame()
+    frame = tuple(t[None] for t in preprocess_rgbd(
+        torch.from_numpy(bgr).to(mesh.device),
+        torch.from_numpy(depth).to(mesh.device), cfg.pixel_means, *INTR))
+    cases = {NET: (NET, cfg, get_network(NET, cfg).state_dict(), frame),
+             ALT_NETS[0][0]: (ALT_NETS[0][0], *alt_network(0), frame)}
+    if trained_dir is not None:
+        rcfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML)).replace(
+            MODE="TEST")
+        cases["trained"] = (NET, rcfg, load_network_state(
+            rcfg, NET, os.path.join(trained_dir, "snapshots")),
+            held_out_frames({"cache": os.path.join(trained_dir, "cache")}, 1,
+                            mesh.device))
+    return cases
+
+
+def spatial_checks(mesh, cases: dict, modes=("parity", "fast"),
                    frames: int = SPATIAL_FRAMES, fault: bool = True) -> dict:
-    """Phase 9: Segmentor.make_spatial_stage1 over the mesh on phase 3's
-    480x640 frame (its width split over the ranks), with phase 3's
-    ResNet-34-8s and phase 8's U-Net (`nets`, default both) in each mode:
-    a warm-up call, then `frames` timed calls (a barrier and a device sync
+    """Phase 9: Segmentor.make_spatial_stage1 over the mesh, each frame's
+    width split over the ranks, for each of spatial_cases' networks (phase
+    3's ResNet-34-8s and phase 8's U-Net on phase 3's 480x640 frame, phase
+    8b's trained ResNet on a 240x320 held-out scene) in each mode: a
+    warm-up call, then `frames` timed calls (a barrier and a device sync
     before each), the counters set to 0 before them and read after (each
     kernel exactly once per frame on this rank).  The embeddings against
     the one-process batch-1 _stage1_impl within SPATIAL_TOL; the labels
     equal to _cluster_batch of the gathered embeddings with the same
-    generator; the pixels relabelled against one process (U-Net: an
-    instance at least; in parity at most SPATIAL_RELABEL of the frame
-    relabelled and as many instances as one process finds).  With
-    `fault`, the parity ResNet with a zeroed halo in its first dilated
-    convolution must break the embedding gate."""
-    cfg = Config.inference_default(INPUT="RGBD")
-    torch.manual_seed(0)  # phase 3's init
-    weights = {NET: (cfg, get_network(NET, cfg).state_dict())}
-    weights[ALT_NETS[0][0]] = alt_network(0)
-    bgr, depth = tabletop_frame()
-    img, xyz = (t[None] for t in preprocess_rgbd(
-        torch.from_numpy(bgr).to(mesh.device),
-        torch.from_numpy(depth).to(mesh.device), cfg.pixel_means, *INTR))
+    generator; the pixels relabelled against one process (the U-Net and
+    the trained ResNet: an instance at least; in parity at most
+    SPATIAL_RELABEL of the frame relabelled and as many instances as one
+    process finds).  With `fault`, the parity random-init ResNet with a
+    zeroed halo in its first dilated convolution must break the embedding
+    gate."""
 
     def gens():
         return [torch.Generator().manual_seed(5)]
 
     out: dict = {}
-    for net in nets or weights:
-        ncfg, state = weights[net]
+    for key, (net, ncfg, state, (img, xyz)) in cases.items():
+        h, w = img.shape[1:3]
         for mode in modes:
             fast = mode == "fast"
             seg = Segmentor(ncfg.replace(CLUSTER=dict(FAST_CLUSTER))
@@ -2157,9 +2467,9 @@ def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
                 one_process_instances=alone, launches=launches,
                 labels_equal_cluster_of_gathered=bool(torch.equal(
                     labels, again)))
-            tag = (f"[spatial {net} {mode}, rank {mesh.rank} of "
+            tag = (f"[spatial {key} {mode}, rank {mesh.rank} of "
                    f"{mesh.world}]")
-            line = (f"{tag} {H}x{W}, bands of {W // mesh.world} columns: "
+            line = (f"{tag} {h}x{w}, bands of {w // mesh.world} columns: "
                     f"{row['ms_per_frame']:.3f} ms/frame (median of "
                     f"{frames} after a warm-up); embeddings vs one process "
                     f"{gap:.3e}; {relabelled} pixels relabelled; instances "
@@ -2176,7 +2486,7 @@ def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
                          f"{split['wait_ms']:.1f} waiting for the card "
                          f"before them and {split['collective_ms']:.1f} "
                          f"inside them")
-            if fault and net == NET and not fast:
+            if fault and key == NET and not fast:
                 planted = zero_halo(spatial.SpatialShard.conv2d)
                 with mock.patch.object(spatial.SpatialShard, "conv2d",
                                        planted):
@@ -2188,7 +2498,7 @@ def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
                     raise AssertionError(f"{tag} the planted zero halo "
                                          "passes the embedding gate")
             print(line, flush=True)
-            out[f"{net}/{mode}"] = row
+            out[f"{key}/{mode}"] = row
             if not gap <= SPATIAL_TOL[mode]:
                 raise AssertionError(f"{tag} embeddings off by {gap:.3e}")
             if not row["labels_equal_cluster_of_gathered"]:
@@ -2200,10 +2510,11 @@ def spatial_checks(mesh, nets=None, modes=("parity", "fast"),
             # bfloat16 rounds each layer's output where the band's sums
             # differ in their last float32 bits, which may split or merge
             # a near-tie cluster: fast mode's count is printed, not gated
-            if net != NET and (found < 1 or (not fast and found != alone)):
+            if key != NET and (found < 1 or (not fast and found != alone)):
                 raise AssertionError(f"{tag} {found} instances, one "
                                      f"process {alone}")
-            if net != NET and not fast and relabelled > SPATIAL_RELABEL * N:
+            if (key != NET and not fast
+                    and relabelled > SPATIAL_RELABEL * h * w):
                 raise AssertionError(f"{tag} {relabelled} pixels relabelled")
             del seg, fn, features, labels, ref_f, ref_l, again
             torch.cuda.empty_cache()
@@ -2226,7 +2537,8 @@ def dp_rank(rank: int, tmp: str, go) -> None:
 
 def dp_rank_steps(rank: int, tmp: str, go, mesh) -> None:
     """dp_rank's work in its process group."""
-    out = {"spatial": spatial_checks(mesh)}
+    out = {"spatial": spatial_checks(
+        mesh, spatial_cases(mesh, os.path.join(tmp, "trained")))}
     torch.cuda.reset_peak_memory_stats()
     inputs = small_step_inputs(DP_SMALL_BATCH)
     cfg, _, bgr, depth, label, init, step, draws = inputs
@@ -2413,10 +2725,10 @@ def run_processes(tmp: str, training: dict, timings: dict
 
 
 def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
-                      training: dict, timings: dict) -> dict:
+                      training: dict, timings: dict, trained: dict) -> dict:
     """Phase 9."""
     t0 = time.perf_counter()
-    out = dict(sharded=run_sharded(cfg, state_dict, work, timings))
+    out = dict(sharded=run_sharded(cfg, state_dict, work, timings, trained))
     out["ranks"], out["torchrun"] = run_processes(tmp, training, timings)
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 9 {out['phase_s']:.1f} s")
@@ -2531,10 +2843,16 @@ def main() -> None:
             print(f"wall after phase 8 {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 8b: phase 5's .pth of phase 3's random-init ResNet
+            trained = run_trained(tmp, paths["main"])
+            print(f"wall after phase 8b {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 9: phase 3's weights and timings, phase 8's U-Net,
-            # phase 6's render cache and phase 7's OCID tree
+            # phase 6's render cache, phase 7's OCID tree and phase 8b's
+            # trained ResNet
             data_parallel = run_data_parallel(cfg, state_dict, work, tmp,
-                                              training, timings)
+                                              training, timings, trained)
             print(f"wall after phase 9 {time.perf_counter() - t_start:.1f}"
                   " s")
 
@@ -2570,6 +2888,13 @@ def main() -> None:
                 data_parallel["ranks"]["spatial"].items()},
             spatial_world1_launches=data_parallel["sharded"][
                 "spatial_world1"][f"{NET}/parity"]["launches"][name],
+            trained_launches=trained["report"]["launches"]["parity"][name],
+            fast_trained_launches=trained["report"]["launches"]["fast"][
+                name],
+            dp_trained_launches=data_parallel["sharded"]["trained/parity"][
+                "launches"][name],
+            fast_dp_trained_launches=data_parallel["sharded"][
+                "trained/fast"]["launches"][name],
             max_abs_err=par["max_abs_err"],
             ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
             bound_by=par["bound"][1], library_ms=None,
@@ -2614,6 +2939,7 @@ def main() -> None:
         "demo_gt_ids": data["demo_gt_ids"],
         "image_tools": data["image_tools"], "phase_s": data["phase_s"]}}))
     print(json.dumps({"alternates": alternates}))
+    print(json.dumps({"trained": trained}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -174,7 +174,9 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
 def test_port_imports_without_jax(tmp_path):
     """Every module of the port, and chip_smoke, imports with jax, flax,
     the JAX package, OpenCV and PIL blocked; the training, data and
-    data-parallel slices' modules are among them, and a palette PNG written by PIL reads back
+    data-parallel slices' modules and the repo tools (fast_parity_report,
+    probe_seed_precision, dataset_statistics) are among them, and a
+    palette PNG written by PIL reads back
     (utils/masks through utils/png)."""
     from PIL import Image
 
@@ -204,6 +206,8 @@ data = {pkg.__name__ + "." + m for m in (
     "tools.test_net", "tools.make_real_fixtures")}
 training |= {pkg.__name__ + "." + m for m in (
     "parallel", "parallel.mesh", "parallel.distributed")}
+data |= {pkg.__name__ + ".tools." + m for m in (
+    "fast_parity_report", "probe_seed_precision", "dataset_statistics")}
 assert training | data <= set(names), (training | data) - set(names)
 assert len(names) >= 35, names
 import numpy as np
