@@ -235,7 +235,7 @@ from unseenobjectclustering_torch.engine.pipeline import (Segmentor,
 from unseenobjectclustering_torch.engine import train as train_engine
 from unseenobjectclustering_torch.engine.stream import StreamSegmentor
 from unseenobjectclustering_torch.engine.train import (
-    create_train_state, make_train_step, make_train_step_raw,
+    LOG_EVERY, create_train_state, make_train_step, make_train_step_raw,
     make_train_step_resident, step_seed)
 from unseenobjectclustering_torch import parallel
 from unseenobjectclustering_torch.parallel import spatial
@@ -325,11 +325,11 @@ SPATIAL_RELABEL = 1e-3
 # bf16), cut to TRAINED_SCENES rendered scenes and TRAINED_EPOCHS epochs of
 # TRAINED_SCENES / 16 steps; the report on HELD_OUT test-split scenes
 RECIPE_YML = "unseenobjectclustering_torch/cfgs/synthetic_240x320_rgbd_add.yml"
-TH, TW = 240, 320
+TH, TW = (int(Config.from_yaml(os.path.join(REPO, RECIPE_YML)).TRAIN[k])
+          for k in ("SYN_HEIGHT", "SYN_WIDTH"))
 TRAINED_SCENES = 256
 TRAINED_EPOCHS = 50
 HELD_OUT = 16
-LOG_EVERY = 20  # train_epochs_resident's log line every 20th step
 # the gates of the trained network on the HELD_OUT scenes (PERF.md,
 # trained stage 1 findings): parity's mean Objects F at least
 # TRAINED_FLOOR, fast's within FAST_GAP of parity's; the random-init
@@ -1150,11 +1150,11 @@ _RENDER_RE = re.compile(r"done: (\d+) rendered, \d+ already cached, "
 
 
 def render_scenes(cache: str, split: str = "train",
-                  num: int = TRAIN_SCENES, hw: tuple = (H, W)) -> dict:
-    """`num` scenes of `split` at `hw`, rendered by tools.render_dataset in
+                  num: int = TRAIN_SCENES) -> dict:
+    """`num` scenes of `split` at H x W, rendered by tools.render_dataset in
     a process of its own (numpy only) on a pool of spawned processes, one
     per CPU core."""
-    return render_splits(cache, {split: num}, hw)[split]
+    return render_splits(cache, {split: num}, (H, W))[split]
 
 
 def render_splits(cache: str, nums: dict[str, int], hw: tuple) -> dict:
@@ -1922,12 +1922,12 @@ def held_out(cache: str, cfg: Config) -> SyntheticTabletopDataset:
                                     size=HELD_OUT, cache_dir=cache)
 
 
-def held_out_frames(trained: dict, count: int, device="cuda"
+def held_out_frames(cache: str, count: int, device="cuda"
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The first `count` held-out scenes preprocessed on the card:
-    [count, TH, TW, 3] image and XYZ."""
+    """The first `count` held-out scenes of the render cache preprocessed
+    on the card: [count, TH, TW, 3] image and XYZ."""
     cfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML))
-    ds = held_out(trained["cache"], cfg)
+    ds = held_out(cache, cfg)
     pairs = []
     for i in range(count):
         bgr, depth_mm, _ = ds.get_scene(i)
@@ -2030,8 +2030,7 @@ def run_trained(tmp: str, random_pth: str) -> dict:
     render_s = time.perf_counter() - t1
     with open(os.path.join(REPO, RECIPE_YML)) as f:
         tree = yaml.safe_load(f)
-    tree["TRAIN"].update(SNAPSHOT_EPOCHS=TRAINED_EPOCHS,  # one, at the end
-                         SYN_HEIGHT=TH, SYN_WIDTH=TW)
+    tree["TRAIN"]["SNAPSHOT_EPOCHS"] = TRAINED_EPOCHS  # one, at the end
     yml = os.path.join(work, "recipe.yml")
     with open(yml, "w") as f:
         yaml.safe_dump(tree, f)
@@ -2085,15 +2084,9 @@ def run_trained(tmp: str, random_pth: str) -> dict:
                              f"{rnd['parity_instances']}, Objects F "
                              f"{par_random:.4f}")
 
-    cfg = Config.from_yaml(os.path.join(REPO, RECIPE_YML))
-    ds = held_out(cache, cfg)
-    bgr, depth_mm, _ = ds.get_scene(0)
-    img = (bgr.astype(np.float32) / 255.0
-           - cfg.pixel_means.astype(np.float32) / 255.0)[None]
-    xyz = compute_xyz_np(depth_mm.astype(np.float32) / 1000.0, ds.f, ds.f,
-                         ds.cx, ds.cy)[None]
     feats = rep["segmentors"]["parity"].seg.segment(
-        img, xyz, refine=False, return_features=True).features[0]
+        *held_out_frames(cache, 1, DEV), refine=False,
+        return_features=True).features[0]
     probes = {"random": run_probe("random", ["--n", str(CROP * CROP)]),
               "trained": run_probe("trained", ["--m", str(M)],
                                    x=feats.reshape(-1, D))}
@@ -2245,7 +2238,7 @@ def sharded_checks(cfg: Config, state_dict: dict, work: str, timings: dict,
             (unet, unet, ucfg, ustate, 1, frames),
             ("trained", NET, rcfg, load_network_state(
                 rcfg, NET, trained["snapshot"]), 1,
-             held_out_frames(trained, DP_FRAMES))):
+             held_out_frames(trained["cache"], DP_FRAMES))):
         for mode, mcfg, dtype in (
                 ("parity", ncfg, None),
                 ("fast", ncfg.replace(CLUSTER=dict(FAST_CLUSTER)),
@@ -2402,7 +2395,7 @@ def spatial_cases(mesh, trained_dir: str | None = None) -> dict:
             MODE="TEST")
         cases["trained"] = (NET, rcfg, load_network_state(
             rcfg, NET, os.path.join(trained_dir, "snapshots")),
-            held_out_frames({"cache": os.path.join(trained_dir, "cache")}, 1,
+            held_out_frames(os.path.join(trained_dir, "cache"), 1,
                             mesh.device))
     return cases
 

@@ -59,6 +59,7 @@ from unseenobjectclustering_torch.utils.checkpoint import save_checkpoint
 Schedule = Callable[[int], float]
 LOG_LINE = ("[%d/%d][%d/%d], loss %.4f, loss intra: %.4f, loss_inter %.4f, "
             "lr %.6f, time %.2f")
+LOG_EVERY = 20  # the log line on every LOG_EVERY-th step of an epoch
 
 
 class TrainState:
@@ -370,7 +371,8 @@ def _maybe_snapshot(state, output_dir, epoch, epochs, snapshot_epochs, keep,
 def train_epochs(cfg: Config, state: TrainState, dataloader, *,
                  epochs: int, start_epoch: int = 0,
                  output_dir: Optional[str] = None, max_k: int = 32,
-                 log_every: int = 20, snapshot_epochs: Optional[int] = None,
+                 log_every: int = LOG_EVERY,
+                 snapshot_epochs: Optional[int] = None,
                  intrinsics: Optional[tuple] = None, seed: int = 3,
                  keep: int = 4, callback: Optional[Callable] = None,
                  mesh: Optional[Mesh] = None) -> TrainState:
@@ -432,7 +434,7 @@ def train_epochs(cfg: Config, state: TrainState, dataloader, *,
 def train_epochs_resident(cfg: Config, state: TrainState, scenes, *,
                           epochs: int, batch_size: int, start_epoch: int = 0,
                           output_dir: Optional[str] = None, max_k: int = 32,
-                          log_every: int = 20,
+                          log_every: int = LOG_EVERY,
                           snapshot_epochs: Optional[int] = None,
                           intrinsics: Optional[tuple] = None, seed: int = 3,
                           crop: Optional[bool] = None, keep: int = 4,

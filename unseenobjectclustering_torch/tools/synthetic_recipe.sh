@@ -9,15 +9,16 @@
 #
 #   bash unseenobjectclustering_torch/tools/synthetic_recipe.sh
 #
-# SCENES (6000), EPOCHS (10), HELD_OUT (50) and OUT (output/synthetic_240x320)
-# come from the environment.  Everything it writes goes under OUT.
+# The config's TRAIN.SYNNUM scenes an epoch, 10 epochs, 50 held-out
+# scenes.  Everything it writes goes under OUT (output/synthetic_240x320
+# unless OUT is set in the environment).
 set -euo pipefail
 
-SCENES=${SCENES:-6000}
-EPOCHS=${EPOCHS:-10}
-HELD_OUT=${HELD_OUT:-50}
-OUT=${OUT:-output/synthetic_240x320}
 CFG=unseenobjectclustering_torch/cfgs/synthetic_240x320_rgbd_add.yml
+SCENES=$(sed -n 's/^ *SYNNUM: *//p' "$CFG")
+EPOCHS=10
+HELD_OUT=50
+OUT=${OUT:-output/synthetic_240x320}
 NET=seg_resnet34_8s_embedding
 TOOLS=unseenobjectclustering_torch.tools
 
