@@ -126,9 +126,15 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 //
 //  * float32 X: split TF32 ("3xTF32") on the tensor cores with wgmma
 //    (hill_tf32_kernel).  Each operand a is big + small, big = tf32(a)
-//    (round to nearest even), small = a - big as the tensor cores read it
-//    (truncated to tf32), and each product is small*big + big*small +
-//    big*big with fp32 accumulators: about fp32 accuracy.  A warpgroup
+//    (round to nearest even), small = a - big rounded to tf32 (nearest,
+//    split_tf32_rn), and each product is small*big + big*small + big*big
+//    with fp32 accumulators: about fp32 accuracy.  The tensor cores'
+//    accumulator rounds every wgmma step, and exp(kappa S) magnifies an
+//    error in S by kappa: so each S sums its small products first, while
+//    it is small, and the big ones after; and each half tile's W X_h is
+//    summed on its own and added to the block's sum by the CUDA cores (an
+//    fp32 add per half tile where the accumulator took 24 steps per half
+//    tile across all the block's tiles).  A warpgroup
 //    owns 64 seed rows (ceil(m/64) warpgroups) and keeps Z's split A
 //    fragments in registers.  The whole block splits each landed tile once
 //    into big and small copies in the two K-major layouts that wgmma reads
@@ -203,6 +209,17 @@ __device__ __forceinline__ void split_tf32(float a, unsigned& big,
   const float hi = __fsub_rn(t, __fsub_rn(t, a));
   big = __float_as_uint(hi);
   small = __float_as_uint(__fsub_rn(a, hi));
+}
+
+// As split_tf32, with small rounded to tf32 (nearest, ties away) before
+// the tensor cores read it: within 2^-23 of a and unbiased, where the
+// truncation leaves up to 2^-22 toward zero.
+__device__ __forceinline__ void split_tf32_rn(float a, unsigned& big,
+                                              unsigned& small) {
+  split_tf32(a, big, small);
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(small)
+      : "f"(__uint_as_float(small)));
 }
 
 // d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 8 tf32 from
@@ -298,10 +315,10 @@ __device__ __forceinline__ void split_half(const float* xs, int h,
     const float4 v =
         reinterpret_cast<const float4*>(xs + (8 * c + r) * kF32Pitch)[kq];
     uint4 b, s;
-    split_tf32(v.x, b.x, s.x);
-    split_tf32(v.y, b.y, s.y);
-    split_tf32(v.z, b.z, s.z);
-    split_tf32(v.w, b.w, s.w);
+    split_tf32_rn(v.x, b.x, s.x);
+    split_tf32_rn(v.y, b.y, s.y);
+    split_tf32_rn(v.z, b.z, s.z);
+    split_tf32_rn(v.w, b.w, s.w);
     const int o = (kq * (kHalfTile / 8) + c) * 8 + r;
     pb[o] = b;
     ps[o] = s;
@@ -310,10 +327,10 @@ __device__ __forceinline__ void split_half(const float* xs, int h,
     const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
     const float* col = xs + (8 * c + par) * kF32Pitch + n;
     uint4 b, s;
-    split_tf32(col[0], b.x, s.x);
-    split_tf32(col[2 * kF32Pitch], b.y, s.y);
-    split_tf32(col[4 * kF32Pitch], b.z, s.z);
-    split_tf32(col[6 * kF32Pitch], b.w, s.w);
+    split_tf32_rn(col[0], b.x, s.x);
+    split_tf32_rn(col[2 * kF32Pitch], b.y, s.y);
+    split_tf32_rn(col[4 * kF32Pitch], b.z, s.z);
+    split_tf32_rn(col[6 * kF32Pitch], b.w, s.w);
     const int o = ((2 * c + par) * (kD / 8) + n / 8) * 8 + n % 8;
     qb[o] = b;
     qs[o] = s;
@@ -490,7 +507,7 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
                             lo < m ? __ldcg(&z[lo * kD + c + 4]) : 0.0f,
                             hi < m ? __ldcg(&z[hi * kD + c + 4]) : 0.0f};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(a[q], zb[kk][q], zs[kk][q]);
+        for (int q = 0; q < 4; ++q) split_tf32_rn(a[q], zb[kk][q], zs[kk][q]);
       }
     }
     float acc[32];
@@ -522,13 +539,18 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
         for (int i = 0; i < 32; ++i) s[i] = 0.0f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < 8; ++kk) {  // the small products first
           const int o = 2 * kk * (kHalfTile / 8) * (kCore / 4);
           const uint64_t db = smem_desc(pb + o, (kHalfTile / 8) * kCore, kCore);
           const uint64_t ds = smem_desc(ps + o, (kHalfTile / 8) * kCore, kCore);
           wgmma_tf32(s, zs[kk], db);
           wgmma_tf32(s, zb[kk], ds);
-          wgmma_tf32(s, zb[kk], db);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int o = 2 * kk * (kHalfTile / 8) * (kCore / 4);
+          wgmma_tf32(s, zb[kk],
+                     smem_desc(pb + o, (kHalfTile / 8) * kCore, kCore));
         }
         wgmma_commit();
         wgmma_wait();
@@ -541,24 +563,33 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
         for (int kc = 0; kc < 8; ++kc)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            split_tf32(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
-                       wb[kc][i], ws[kc][i]);
-        // acc (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
+            split_tf32_rn(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
+                          wb[kc][i], ws[kc][i]);
+        // s (64 seeds x 64 dims) = W X_h: K = pixels, 8 per wgmma, the
+        // small products first; then acc += s on the CUDA cores
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
         wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < 8; ++kc) {
           const int o = 2 * kc * (kD / 8) * (kCore / 4);
           const uint64_t db = smem_desc(qb + o, (kD / 8) * kCore, kCore);
           const uint64_t ds = smem_desc(qs + o, (kD / 8) * kCore, kCore);
-          wgmma_tf32(acc, ws[kc], db);
-          wgmma_tf32(acc, wb[kc], ds);
-          wgmma_tf32(acc, wb[kc], db);
+          wgmma_tf32(s, ws[kc], db);
+          wgmma_tf32(s, wb[kc], ds);
+        }
+#pragma unroll
+        for (int kc = 0; kc < 8; ++kc) {
+          const int o = 2 * kc * (kD / 8) * (kCore / 4);
+          wgmma_tf32(s, wb[kc], smem_desc(qb + o, (kD / 8) * kCore, kCore));
         }
         wgmma_commit();
         wgmma_wait();
-        pin_registers(acc);
+        pin_registers(s);
         pin_registers(wb);
         pin_registers(ws);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += s[i];
       }
     }
 
@@ -927,8 +958,8 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // fragment read from the ring into registers, B is Z staged once per block
 // in the K-major core-matrix layout, seed rows past m zero.  float32: A and
 // Z are split into big + small TF32 parts (split_tf32), three products per
-// k-chunk in the hill climb's order; bfloat16: A by ldmatrix, Z rounded to
-// bf16 (nearest even), one product.  S never leaves registers: a thread
+// k-chunk (small*big, big*small, big*big); bfloat16: A by ldmatrix, Z
+// rounded to bf16 (nearest even), one product.  S never leaves registers: a thread
 // holds pixels 16w + g and 16w + g + 8 of its warpgroup's 64 and seeds
 // 8j + 2t, 8j + 2t + 1; per pixel it finds b1, the best score, with the
 // label l1 of a seed that attains it, then b2, the best score among seeds

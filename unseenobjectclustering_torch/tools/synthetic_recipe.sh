@@ -4,8 +4,14 @@
 # splits, train with --bf16 --device-resident (Adam 2e-4, batch 16,
 # unseenobjectclustering_torch/cfgs/synthetic_240x320_rgbd_add.yml), run
 # tools.test_net on the held-out scenes for every kept snapshot, then
-# tools.fast_parity_report on the last one.  One card; run it from the
-# repository's root:
+# tools.fast_parity_report on the last one.  Then train both zoom-in
+# networks on the same cache (cfgs/synthetic_crop_240x320_rgbd_add.yml:
+# ResNet-34-8s at 224^2; cfgs/synthetic_crop128_r18_240x320_rgbd_add.yml:
+# ResNet-18-8s at 128^2; 3 epochs each, the JAX record's crop length) and
+# run tools.test_net with the last stage-1 snapshot and every crop
+# snapshot, then with the last crop snapshots under --fast: stage 1
+# against refined for each crop network and mode.  One card; run it from
+# the repository's root:
 #
 #   bash unseenobjectclustering_torch/tools/synthetic_recipe.sh
 #
@@ -51,4 +57,34 @@ done
 python -m $TOOLS.fast_parity_report --pretrained "$OUT/snapshots" \
   --cfg "$CFG" --network $NET --scenes "$HELD_OUT" --height 240 --width 320 \
   --render-cache "$OUT/cache" --out "$OUT/fast_parity.md"
+echo "stage 1 reported in $(( $(date +%s) - start )) s"
+
+# the stage-1 and the refined table's Objects F, Boundary F and %75
+tables() {
+  grep -E '^(Objects F-measure|Boundary F-measure|obj_detected_075_percentage):' \
+    "$1" | awk '{print (NR <= 3 ? "  stage 1 " : "  refined ") $0}'
+}
+CROP_EPOCHS=3
+STAGE1="$OUT/snapshots/$EPOCHS"
+for crop in synthetic_crop_240x320_rgbd_add.yml:seg_resnet34_8s_embedding:224 \
+            synthetic_crop128_r18_240x320_rgbd_add.yml:seg_resnet18_8s_embedding:128; do
+  IFS=: read -r yml net size <<< "$crop"
+  dir="$OUT/crop$size"
+  python -m $TOOLS.train_net --cfg "unseenobjectclustering_torch/cfgs/$yml" \
+    --network "$net" --solver adam --epochs $CROP_EPOCHS --bf16 \
+    --device-resident --render-cache "$OUT/cache" --resident-limit "$SCENES" \
+    --keep $CROP_EPOCHS --workers 0 --output-dir "$dir/snapshots"
+  echo "crop$size trained in $(( $(date +%s) - start )) s"
+  for epoch in $(seq $CROP_EPOCHS) fast; do
+    snap=$([ "$epoch" = fast ] && echo $CROP_EPOCHS || echo "$epoch")
+    python -m $TOOLS.test_net --cfg "$CFG" --network $NET \
+      --dataset synthetic_tabletop_test --dataset_root "$OUT/cache" \
+      --pretrained "$STAGE1" --pretrained_crop "$dir/snapshots/$snap" \
+      --network_crop "$net" --crop_size "$size" --max_images "$HELD_OUT" \
+      $([ "$epoch" = fast ] && echo --fast) --output-dir "$dir/test_net/$epoch" \
+      > "$dir/test_net_$epoch.log"
+    echo "crop$size epoch $snap$([ "$epoch" = fast ] && echo ', --fast'):"
+    tables "$dir/test_net_$epoch.log"
+  done
+done
 echo "done in $(( $(date +%s) - start )) s"
