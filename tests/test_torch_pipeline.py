@@ -172,12 +172,12 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
 
 
 def test_port_imports_without_jax(tmp_path):
-    """Every module of the port, and chip_smoke, imports with jax, flax,
-    the JAX package, OpenCV and PIL blocked; the training, data and
-    data-parallel slices' modules and the repo tools (fast_parity_report,
-    probe_seed_precision, dataset_statistics) are among them, and a
-    palette PNG written by PIL reads back
-    (utils/masks through utils/png)."""
+    """Every module of the port, chip_smoke and hill_climb_study import
+    with jax, flax, the JAX package, OpenCV and PIL blocked; the training,
+    data and data-parallel slices' modules and the repo tools
+    (fast_parity_report, probe_seed_precision, dataset_statistics) are
+    among them, and a palette PNG written by PIL reads back (utils/masks
+    through utils/png)."""
     from PIL import Image
 
     labels = np.random.RandomState(0).randint(0, 9, (13, 17)).astype(
@@ -196,6 +196,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import hill_climb_study
 training = {pkg.__name__ + "." + m for m in (
     "engine.train", "ops.augment", "ops.train_pipeline", "data.synthetic",
     "data.resident", "data.loader", "data.factory", "data.datasets",

@@ -128,13 +128,20 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 //    (hill_tf32_kernel).  Each operand a is big + small, big = tf32(a)
 //    (round to nearest even), small = a - big rounded to tf32 (nearest,
 //    split_tf32_rn), and each product is small*big + big*small + big*big
-//    with fp32 accumulators: about fp32 accuracy.  The tensor cores'
-//    accumulator rounds every wgmma step, and exp(kappa S) magnifies an
-//    error in S by kappa: so each S sums its small products first, while
-//    it is small, and the big ones after; and each half tile's W X_h is
-//    summed on its own and added to the block's sum by the CUDA cores (an
-//    fp32 add per half tile where the accumulator took 24 steps per half
-//    tile across all the block's tiles).  A warpgroup
+//    with fp32 accumulators.  The tensor cores add each wgmma step to the
+//    accumulator after aligning every term to the largest and truncating
+//    it toward zero two bits below the largest one's last (the rule whose
+//    emulation in hill_climb_study.py reproduces this kernel): an error
+//    that grows with the accumulator and the steps it takes, always of one
+//    sign per term.  exp(kappa S) multiplies an error in S by kappa, and a
+//    seed that rests on few pixels moves with every error in W X.  So each
+//    product sums its 16 small steps (tiny terms) first and then its 8 big
+//    steps in groups of kBigPerGroup, every group in a fresh accumulator,
+//    and the CUDA cores add the groups (fp32, rounded to nearest):
+//    grouped_sum keeps two accumulators, one on the tensor cores while the
+//    other's sum is added.  On trained crop embeddings this keeps Z within
+//    4e-6 of a float64 replay where the plain float32 version (cuBLAS)
+//    strays up to 2.5e-5.  A warpgroup
 //    owns 64 seed rows (ceil(m/64) warpgroups) and keeps Z's split A
 //    fragments in registers.  The whole block splits each landed tile once
 //    into big and small copies in the two K-major layouts that wgmma reads
@@ -213,7 +220,9 @@ __device__ __forceinline__ void split_tf32(float a, unsigned& big,
 
 // As split_tf32, with small rounded to tf32 (nearest, ties away) before
 // the tensor cores read it: within 2^-23 of a and unbiased, where the
-// truncation leaves up to 2^-22 toward zero.
+// truncation leaves up to 2^-22 toward zero.  The hill climb needs this;
+// the assignment keeps split_tf32, whose error its exact re-check of
+// near-tied pixels covers (see kRecheckMargin).
 __device__ __forceinline__ void split_tf32_rn(float a, unsigned& big,
                                               unsigned& small) {
   split_tf32(a, big, small);
@@ -224,11 +233,12 @@ __device__ __forceinline__ void split_tf32_rn(float a, unsigned& big,
 
 // d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 8 tf32 from
 // registers, the m16n8k8 A layout per warp) * b (8 x 64 tf32, K-major in
-// shared memory, described by desc).  Asynchronous: see wgmma_commit and
-// wgmma_wait.
+// shared memory, described by desc); with accumulate false, d = a * b.
+// Asynchronous: see wgmma_commit and wgmma_wait.
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
                                            const unsigned (&a)[4],
-                                           uint64_t desc) {
+                                           uint64_t desc,
+                                           bool accumulate = true) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -245,7 +255,8 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(static_cast<int>(accumulate)));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -256,9 +267,12 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// Wait for every committed wgmma of this warpgroup.
+// Wait until at most kPending of this warpgroup's committed wgmma groups
+// are still running (0: all have finished).
+template <int kPending = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
 }
 
 // The compiler does not see that a wgmma reads and writes its registers
@@ -472,6 +486,45 @@ __device__ __forceinline__ void issue_load(const T* x, int n, int q, int mine,
   cp_async_commit();
 }
 
+// The float32 hill climb sums each product (S, and W X_h) in kGroups
+// groups of wgmma steps, each group in a fresh accumulator: the first holds
+// the small products and the first kBigPerGroup big ones, each later group
+// the next kBigPerGroup big ones.  hill_climb_study.py builds the kernel
+// with other values (-DHILL_BIG_PER_GROUP=1, 2, 4 or 8) to compare them.
+#ifndef HILL_BIG_PER_GROUP
+#define HILL_BIG_PER_GROUP 2
+#endif
+constexpr int kBigPerGroup = HILL_BIG_PER_GROUP;
+constexpr int kGroups = 8 / kBigPerGroup;
+
+// out (or out +, with kAdd) = the sum of the kGroups groups that issue(g, d)
+// puts into d, added in group order on the CUDA cores.  Two accumulators
+// take turns: group g runs on the tensor cores while group g - 1's sum is
+// added.
+template <bool kAdd, typename Issue>
+__device__ __forceinline__ void grouped_sum(float (&out)[32],
+                                            float (&t)[2][32], Issue issue) {
+  wgmma_fence();
+  issue(0, t[0]);
+  wgmma_commit();
+#pragma unroll
+  for (int g = 1; g <= kGroups; ++g) {
+    if (g < kGroups) {
+      wgmma_fence();  // t[g & 1] was read by the CUDA cores
+      issue(g, t[g & 1]);
+      wgmma_commit();
+      wgmma_wait<1>();  // group g - 1 has finished
+    } else {
+      wgmma_wait<0>();
+    }
+    float(&done)[32] = t[(g - 1) & 1];
+    pin_registers(done);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      out[i] = (kAdd || g > 1) ? out[i] + done[i] : done[i];
+  }
+}
+
 // x: [n, 64] rows 16-byte aligned; z: [m, 64] float32, holding Z0 on entry
 // and the result on exit; partial: [gridDim.x, m, 64] scratch; arrived: a
 // zeroed counter for the grid barriers.  blockDim.x = 128 * ceil(m / 64).
@@ -534,27 +587,25 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
         const unsigned* qb = pb + 2 * kHalfWords;      // [dim][pixel] big
         const unsigned* qs = pb + 3 * kHalfWords;      // [dim][pixel] small
         // S (64 seeds x 64 pixels) = Z X_h^T: K = dims, 8 per wgmma
-        float s[32];
+        float s[32], pair[2][32];
+        grouped_sum<false>(s, pair, [&](int grp, float (&d)[32]) {
+          const auto desc = [&](const unsigned* p, int kk) {
+            return smem_desc(p + 2 * kk * (kHalfTile / 8) * (kCore / 4),
+                             (kHalfTile / 8) * kCore, kCore);
+          };
+          if (grp == 0) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
-        wgmma_fence();
+            for (int kk = 0; kk < 8; ++kk) {
+              wgmma_tf32(d, zs[kk], desc(pb, kk), kk > 0);
+              wgmma_tf32(d, zb[kk], desc(ps, kk));
+            }
+          }
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {  // the small products first
-          const int o = 2 * kk * (kHalfTile / 8) * (kCore / 4);
-          const uint64_t db = smem_desc(pb + o, (kHalfTile / 8) * kCore, kCore);
-          const uint64_t ds = smem_desc(ps + o, (kHalfTile / 8) * kCore, kCore);
-          wgmma_tf32(s, zs[kk], db);
-          wgmma_tf32(s, zb[kk], ds);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const int o = 2 * kk * (kHalfTile / 8) * (kCore / 4);
-          wgmma_tf32(s, zb[kk],
-                     smem_desc(pb + o, (kHalfTile / 8) * kCore, kCore));
-        }
-        wgmma_commit();
-        wgmma_wait();
-        pin_registers(s);
+          for (int j = 0; j < kBigPerGroup; ++j) {
+            const int kk = grp * kBigPerGroup + j;
+            wgmma_tf32(d, zb[kk], desc(pb, kk), grp == 0 || j > 0);
+          }
+        });
         // W as the A operand over pixel chunks of 8: accumulator order
         // (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> operand order
         // (g, k t), (g+8, t), (g, t+4), (g+8, t+4)
@@ -565,31 +616,27 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
           for (int i = 0; i < 4; ++i)
             split_tf32_rn(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
                           wb[kc][i], ws[kc][i]);
-        // s (64 seeds x 64 dims) = W X_h: K = pixels, 8 per wgmma, the
-        // small products first; then acc += s on the CUDA cores
+        // acc (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
+        grouped_sum<true>(acc, pair, [&](int grp, float (&d)[32]) {
+          const auto desc = [&](const unsigned* p, int kc) {
+            return smem_desc(p + 2 * kc * (kD / 8) * (kCore / 4),
+                             (kD / 8) * kCore, kCore);
+          };
+          if (grp == 0) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
-        wgmma_fence();
+            for (int kc = 0; kc < 8; ++kc) {
+              wgmma_tf32(d, ws[kc], desc(qb, kc), kc > 0);
+              wgmma_tf32(d, wb[kc], desc(qs, kc));
+            }
+          }
 #pragma unroll
-        for (int kc = 0; kc < 8; ++kc) {
-          const int o = 2 * kc * (kD / 8) * (kCore / 4);
-          const uint64_t db = smem_desc(qb + o, (kD / 8) * kCore, kCore);
-          const uint64_t ds = smem_desc(qs + o, (kD / 8) * kCore, kCore);
-          wgmma_tf32(s, ws[kc], db);
-          wgmma_tf32(s, wb[kc], ds);
-        }
-#pragma unroll
-        for (int kc = 0; kc < 8; ++kc) {
-          const int o = 2 * kc * (kD / 8) * (kCore / 4);
-          wgmma_tf32(s, wb[kc], smem_desc(qb + o, (kD / 8) * kCore, kCore));
-        }
-        wgmma_commit();
-        wgmma_wait();
-        pin_registers(s);
+          for (int j = 0; j < kBigPerGroup; ++j) {
+            const int kc = grp * kBigPerGroup + j;
+            wgmma_tf32(d, wb[kc], desc(qb, kc), grp == 0 || j > 0);
+          }
+        });
         pin_registers(wb);
         pin_registers(ws);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] += s[i];
       }
     }
 
@@ -972,14 +1019,16 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // truncation of each small part as the tensor cores read it (< 2^-21
 // |a_i b_i| each): < 1.3 * 2^-20 over the dot, since sum |a_i b_i| <=
 // |a| |b| = 1.  The accumulator takes 24 wgmma steps (8 k-chunks x 3
-// products), each rounded once, at worst by truncation: < 24 * 2^-23.  The
-// float32 plain version's own sum of 64 products is within 64 * 2^-24 of
-// the exact dot.  So the kernel's S and the plain version's differ by less
-// than 8e-6 < 2^-16 = kRecheckMargin / 2.  Where b1 - b2 >= kRecheckMargin
-// the plain version's best seed carries label l1; the other pixels (b1 - b2
-// < kRecheckMargin, a tie at b1 between labels included) are re-checked
-// out of line (recheck): the quad recomputes the pixel's
-// similarity to every real seed as the sequential fp32 FMA chain over d
+// products); each step truncates its nine terms (the accumulator and eight
+// products) two bits below the largest one's last, the rule whose
+// emulation reproduces the hill climb's results on the H100: < 24 * 9 *
+// 2^-25.  The float32 plain version's own sum of 64 products is within
+// 64 * 2^-24 of the exact dot.  So the kernel's S and the plain version's
+// differ by less than 1.2e-5 < 2^-16 = kRecheckMargin / 2.  Where b1 - b2
+// >= kRecheckMargin the plain version's best seed carries label l1; the
+// other pixels (b1 - b2 < kRecheckMargin, a tie at b1 between labels
+// included) are re-checked out of line (recheck): the quad recomputes the
+// pixel's similarity to every real seed as the sequential fp32 FMA chain over d
 // from 0 (Z = big + small, exact), each thread a quarter of the seeds,
 // lowest index on a tie.  bf16 products are exact and take 4 steps, so the
 // same margin holds there (the re-check then uses bf16 X and bf16(Z)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -129,23 +130,25 @@ def connected_components(z: torch.Tensor, epsilon: float,
         dist = 0.5 * (1.0 - z @ z.T)
     else:
         dist = torch.linalg.norm(z[:, None, :] - z[None, :, :], dim=2)
-    adj = dist <= epsilon  # [m, m]; row i = i's epsilon-ball
+    # [m, m]; row i = i's epsilon-ball.  The merge is m sequential steps of
+    # integer logic: on the host, one step costs no device launches.
+    adj = (dist <= epsilon).cpu().numpy()
 
-    labels = torch.full((m,), -1, dtype=torch.long, device=z.device)
-    k = torch.zeros((), dtype=torch.long, device=z.device)
+    labels = np.full(m, -1, dtype=np.int64)
+    k = 0
     for i in range(m):
-        do = labels[i] == -1
+        if labels[i] != -1:
+            continue
         neigh = adj[i]
-        labeled_neigh = neigh & (labels >= 0)
-        has_labeled = labeled_neigh.any()
-        # mode of labels among labeled neighbours; ties -> smallest label
-        counts = torch.zeros(m, dtype=torch.long, device=z.device)
-        counts.scatter_add_(0, labels.clamp(min=0), labeled_neigh.long())
-        mode = torch.argmax(counts)
-        new_label = torch.where(has_labeled, mode, k)
-        labels = torch.where(do & neigh, new_label, labels)
-        k = k + (do & ~has_labeled).long()
-    return labels.to(torch.int32)
+        labeled = labels[neigh & (labels >= 0)]
+        if labeled.size:
+            # mode of the labeled neighbours' labels; ties -> smallest label
+            new_label = int(np.argmax(np.bincount(labeled, minlength=m)))
+        else:
+            new_label = k
+            k += 1
+        labels[neigh] = new_label
+    return torch.from_numpy(labels.astype(np.int32)).to(z.device)
 
 
 def swap_background(labels: torch.Tensor, counts: torch.Tensor
