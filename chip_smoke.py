@@ -101,6 +101,35 @@ Phases (any failure exits non-zero; no exception is caught):
      -color.png / -depth.png, with no OpenCV (utils/png.py, the numpy
      contours and resize), every file they write read back.  One
      {"data": {...}} line.
+ 7b. the data path without OpenCV, with sys.modules["cv2"] and
+     sys.modules["PIL"] set to None for the length of the phase: the JPEG
+     library (unseenobjectclustering_torch/csrc/jpeg.cpp) built with g++
+     (its seconds); every JPEG of tests/torch_fixtures/tabletop decoded by
+     utils/jpeg.py with the digest of cv2.imread recorded in its
+     digests.json (the progressive one must raise), and the decode ms of
+     a 480x640 frame (median of 20); every TableTop sample of the fixture
+     tree (TEST, TRAIN with the rgbd_add recipe, TRAIN with SYN_CROP at 224,
+     epochs 0 and 1) with every array's digest equal to the JAX reader's
+     recorded there; the host loader's samples/s over DataLoader(
+     num_workers=4, batch 2) over an epoch of 16 samples from 480x640
+     frames and steady (after its second batch), for tabletop_object_train
+     (the fixture tree) and synthetic_tabletop_train (host-augmented on
+     phase 6's render cache, DEPTH_ARTIFACTS on), and each stage's ms per
+     sample in one thread (decode, depth noise and ellipses, XYZ noise,
+     crop, chromatic and noise), there and with the crop recipe (TableTop
+     cropped at 224); tools.train_net.main() on its default
+     host-augmented route: the rgbd_add recipe with --bf16 at batch 16 on
+     phase 6's cache for 2 steps (one-batch epochs) and the crop recipe on
+     the fixture tree's training_set at batch 4 for 1 epoch (finite
+     losses, a snapshot written, no clustering kernel launched); the host
+     route's steady step at batch 4 (steps 3-8 of an epoch under
+     torch.profiler, the loader two batches ahead: ms a step and a
+     sample, idle share) beside phase 6's resident step;
+     tools.test_net.main() on
+     tabletop_object_test with phase 5's .pth files in parity and fast
+     (each kernel at least once per frame; the launches join the kernels
+     line's data_launches).  Nothing is caught.  One
+     {"data_no_opencv": {...}} line.
   8. the alternate backbones: seg_unet_embedding and seg_vgg_embedding
      (BatchNorm), RGB-D add, fixed-seed inits, through
      Segmentor.segment_sample in parity on phase 3's 480x640 frame (every
@@ -224,6 +253,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import glob
+import importlib.util
 import io
 import json
 import math
@@ -251,7 +281,8 @@ from unseenobjectclustering_torch.data import native as data_native
 from unseenobjectclustering_torch.data import pcd
 from unseenobjectclustering_torch.data.datasets import process_label
 from unseenobjectclustering_torch.data.factory import get_dataset
-from unseenobjectclustering_torch.data.loader import DataLoader
+from unseenobjectclustering_torch.data.loader import (DataLoader,
+                                                      stack_samples)
 from unseenobjectclustering_torch.data.resident import load_resident_scenes
 from unseenobjectclustering_torch.data.synthetic import (
     SyntheticTabletopDataset)
@@ -288,7 +319,9 @@ from unseenobjectclustering_torch.tools import (demo_artifact,
                                                 probe_seed_precision,
                                                 test_images, test_net,
                                                 test_npy, train_net)
-from unseenobjectclustering_torch.utils import png
+from unseenobjectclustering_torch.data import augmentation
+from unseenobjectclustering_torch.data import datasets as data_datasets
+from unseenobjectclustering_torch.utils import jpeg, png
 from unseenobjectclustering_torch.utils.evaluation import multilabel_metrics
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -340,6 +373,17 @@ STEP_TOL = {"loss_rtol": 1e-4, "grad_rel_l2": 4e-2,
             "param_atol": 1e-6, "stat_atol": 1e-4, "stat_rtol": 1e-4}
 FAULT_TENSOR = "fcn_depth.resnet34_8s.conv1.weight"
 DATA_SCENES = 4  # phase 7: rendered scenes in each fixture tree
+# phase 7b: the committed TableTop tree, its JPEG corpus and digests.json
+TABLETOP = os.path.join(REPO, "tests", "torch_fixtures", "tabletop")
+LOADER_WORKERS = 4
+# phase 7b: the loader's epoch of 8 batches and the host route's epoch of
+# 8 steps.  With two batches in flight, batches 1-2 are assembled
+# together, then 3-4, and so on, so the batches after the second, over the
+# time after it, read the steady rate when their number is even.
+LOADER_BATCH, LOADER_SAMPLES = 2, 16
+HOST_STEP_BATCH, HOST_STEP_SAMPLES = 4, 32
+STAGE_SAMPLES = 8  # phase 7b: samples a dataset's stages are timed over
+TABLETOP_FRAMES = 2  # phase 7b: tabletop_object_test frames per mode
 SYN_FRAMES = 2  # phase 7: synthetic_tabletop_test frames per mode
 ALT_NETS = (("seg_unet_embedding", False), ("seg_vgg_embedding", True))
 ALT_WINDOW = (64, 96)  # phase 8's card-vs-CPU frame (VGG pools 5 times)
@@ -1970,6 +2014,376 @@ def run_data(work: str, paths: dict[str, str]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the data path without OpenCV
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def without_opencv():
+    """sys.modules["cv2"] and ["PIL"] set to None (an import raises), then
+    restored."""
+    saved = {k: sys.modules.get(k, mock.sentinel.absent)
+             for k in ("cv2", "PIL")}
+    for k in saved:
+        sys.modules[k] = None
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is mock.sentinel.absent:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = v
+
+
+def tabletop_fixtures():
+    """tests/torch_fixtures/tabletop/make_tabletop_fixtures.py (numpy
+    only at import: CASES, array_digest, sample_digests, jpeg_files)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_tabletop_fixtures",
+        os.path.join(TABLETOP, "make_tabletop_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_jpegs(fx, digests: dict) -> dict:
+    """Every committed JPEG through utils/jpeg.py: the digest of cv2.imread
+    recorded in digests.json, the progressive file refused; the decode ms
+    of the 480x640 frame rgb_00000.jpeg (median of 20)."""
+    files = fx.jpeg_files()
+    if files != sorted(digests["jpeg"]):
+        raise AssertionError("the committed JPEGs differ from digests.json")
+    refused = []
+    for rel in files:
+        path = os.path.join(TABLETOP, rel)
+        if digests["jpeg"][rel] is None:
+            try:
+                jpeg.imread(path)
+            except ValueError as e:
+                if "progressive" not in str(e):
+                    raise
+                refused.append(rel)
+                continue
+            raise AssertionError(f"{rel}: the decoder took a progressive "
+                                 "file")
+        if fx.array_digest(jpeg.imread(path)) != digests["jpeg"][rel]:
+            raise AssertionError(f"{rel}: decoded bits differ from "
+                                 "cv2.imread's")
+    frame = os.path.join(TABLETOP, "training_set", "scene_00000",
+                         "rgb_00000.jpeg")
+    with open(frame, "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        im = jpeg.decode(data)
+        times.append(1e3 * (time.perf_counter() - t0))
+    if im.shape != (H, W, 3):
+        raise AssertionError(f"{frame}: {im.shape}")
+    ms = float(np.median(times))
+    print(f"[no-opencv] {len(files) - len(refused)} JPEGs decoded with "
+          f"cv2.imread's digests, {refused} refused (progressive); decode "
+          f"{ms:.3f} ms per {H}x{W} frame ({len(data)} bytes, median of 20)")
+    return dict(files=len(files), refused=refused, decode_ms=ms,
+                decode_ms_all=times, frame_bytes=len(data))
+
+
+def check_samples(fx, digests: dict) -> dict:
+    """Every array of every TableTop sample of the tree, in each case and
+    epoch of digests.json, with the JAX reader's digest."""
+    t0 = time.perf_counter()
+    got = fx.sample_digests(get_dataset, Config, TABLETOP)
+    if got != digests["samples"]:
+        bad = [(c, e, i) for c in got for e in got[c]
+               for i, (a, b) in enumerate(zip(got[c][e],
+                                              digests["samples"][c][e]))
+               if a != b]
+        raise AssertionError(f"TableTop samples differ from the JAX "
+                             f"reader's digests: {bad[:5]}")
+    n = sum(len(v) for c in got.values() for v in c.values())
+    seconds = time.perf_counter() - t0
+    print(f"[no-opencv] {n} TableTop samples "
+          f"({', '.join(f'{c}: {len(v[str(fx.EPOCHS[0])])} x {len(v)} epochs' for c, v in got.items())}) "
+          f"with every array's digest equal to the JAX reader's, in "
+          f"{seconds:.1f} s")
+    return dict(samples=n, seconds=seconds)
+
+
+STAGES = {  # stage -> the functions it times
+    "decode": [(data_datasets.jpeg, "imread")],
+    "depth_noise_and_ellipses": [
+        (augmentation, "add_noise_to_depth"),
+        (augmentation, "dropout_random_ellipses"),
+        (augmentation, "add_realsense_artifacts")],
+    "xyz_noise": [(augmentation, "add_noise_to_xyz")],
+    "crop": [(data_datasets.TableTopObject, "pad_crop_resize")],
+    "chromatic_and_noise": [(augmentation, "chromatic_transform"),
+                            (augmentation, "add_noise")],
+}
+
+
+def stage_ms(ds, count: int) -> dict:
+    """Each stage's ms per sample over `count` samples read in one thread
+    (the stage's functions wrapped with a clock), and the whole sample's."""
+    spent = {k: 0.0 for k in STAGES}
+    patches = []
+    for stage, targets in STAGES.items():
+        for owner, name in targets:
+            fn = getattr(owner, name)
+
+            def timed(*a, _fn=fn, _stage=stage, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    spent[_stage] += time.perf_counter() - t0
+
+            patches.append(mock.patch.object(owner, name, timed))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        t0 = time.perf_counter()
+        for i in range(count):
+            ds[i % len(ds)]
+        total = time.perf_counter() - t0
+    out = {k: 1e3 * v / count for k, v in spent.items()}
+    out["sample"] = 1e3 * total / count
+    return out
+
+
+class Repeated:
+    """`ds` read over and over to `n` samples (index i is ds[i % len]):
+    an epoch long enough to read a steady rate from."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.n = ds, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        return self.ds[i % len(self.ds)]
+
+    def set_epoch(self, epoch: int) -> None:
+        self.ds.set_epoch(epoch)
+
+
+def loader_rate(ds, batch: int, hw: tuple[int, int]) -> dict:
+    """Samples/s of DataLoader(num_workers=LOADER_WORKERS) over one epoch
+    of LOADER_SAMPLES samples of `ds` (of `hw`) at `batch`:
+    `samples_per_s` over the whole epoch (the pool's start and the first
+    batches' wait included), and `steady_samples_per_s`, the samples after
+    the second batch over the time after it."""
+    loader = DataLoader(Repeated(ds, LOADER_SAMPLES), batch_size=batch,
+                        shuffle=True, num_workers=LOADER_WORKERS,
+                        drop_last=True, seed=3)
+    sizes, arrived = [], []
+    t0 = time.perf_counter()
+    for b in loader:
+        if b["image_color"].shape[1:] != (*hw, 3):
+            raise AssertionError("a batch of the wrong shape")
+        sizes.append(len(b["label"]))
+        arrived.append(time.perf_counter())
+    if len(sizes) < 4 or len(sizes) % 2:
+        raise AssertionError(f"{len(sizes)} batches: no steady pairs")
+    n, steady = sum(sizes), sum(sizes[2:])
+    return dict(batch=batch, samples=n, seconds=arrived[-1] - t0,
+                samples_per_s=n / (arrived[-1] - t0), steady_samples=steady,
+                steady_samples_per_s=steady / (arrived[-1] - arrived[1]))
+
+
+def host_loaders(cache: str) -> dict:
+    """The host loader on the fixture tree (tabletop_object_train, the
+    rgbd_add recipe) and on phase 6's render cache
+    (synthetic_tabletop_train, DEPTH_ARTIFACTS on): samples/s with
+    LOADER_WORKERS threads over an epoch and steady; and each stage's ms
+    per sample in one thread, there and with the crop recipe, which crops
+    each TableTop sample at 224."""
+    cfg = Config.from_yaml(os.path.join(REPO, TRAIN_YML)).replace(
+        MODE="TRAIN")
+    crop = Config.from_yaml(os.path.join(REPO, CROP_YML)).replace(
+        MODE="TRAIN")
+    sets = {
+        "tabletop_object_train": get_dataset("tabletop_object_train", cfg,
+                                             path=TABLETOP),
+        "synthetic_tabletop_train": SyntheticTabletopDataset(
+            "train", cfg.replace(TRAIN={"DEPTH_ARTIFACTS": True}), height=H,
+            width=W, size=TRAIN_SCENES, cache_dir=cache),
+        "tabletop_object_train crop": get_dataset(
+            "tabletop_object_train", crop, path=TABLETOP)}
+    out = {}
+    for name, ds in sets.items():
+        stages = stage_ms(ds, min(len(ds), STAGE_SAMPLES))
+        out[name] = dict(stage_ms=stages)
+        line = (f"[no-opencv] {name} from {H}x{W} frames, one thread, ms "
+                "per sample: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in stages.items()))
+        if "crop" not in name:
+            rate = loader_rate(ds, LOADER_BATCH, (H, W))
+            out[name].update(rate)
+            line += (f"; loader at batch {LOADER_BATCH} with "
+                     f"{LOADER_WORKERS} workers: "
+                     f"{rate['steady_samples_per_s']:.2f} samples/s steady "
+                     f"({rate['steady_samples']} samples after the second "
+                     f"batch), {rate['samples_per_s']:.2f} over the epoch "
+                     f"({rate['samples']})")
+        print(line)
+    if not out["tabletop_object_train crop"]["stage_ms"]["crop"] > 0:
+        raise AssertionError("the crop recipe's samples were not cropped")
+    return out
+
+
+def snapshots(out_dir: str) -> list[str]:
+    return sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+
+
+def host_train_net(tmp: str, cache: str) -> dict:
+    """tools.train_net.main() on its default (host-augmented) route: the
+    rgbd_add recipe with --bf16 at batch 16 on phase 6's render cache for 2
+    steps, and the crop recipe on the fixture tree's training_set at batch
+    4 for one epoch; finite losses, a snapshot each, no clustering kernel
+    launched."""
+    runs = {}
+    common = ["--network", NET, "--solver", "adam", "--workers",
+              str(LOADER_WORKERS), "--device", DEV]
+    tree = yaml.safe_load(open(os.path.join(REPO, TRAIN_YML)))
+    tree["TRAIN"]["SYNNUM"] = TRAIN_SCENES  # the scenes phase 6 rendered
+    yml = os.path.join(tmp, "host_rgbd_add.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(tree, f)
+    for tag, args in (
+            ("host rgbd_add", ["--cfg", yml, "--render-cache", cache,
+                               "--batch_size", str(TRAIN_SCENES), "--bf16",
+                               "--epochs", "2"]),
+            ("host crop tabletop", ["--cfg", CROP_YML, "--dataset",
+                                    "tabletop_object_train",
+                                    "--dataset_root", TABLETOP,
+                                    "--batch_size", "4", "--epochs", "1"])):
+        out_dir = os.path.join(tmp, tag.replace(" ", "_"))
+        reset_counts()
+        t0 = time.perf_counter()
+        state, steps = run_train_net(tag, args + common + ["--output-dir",
+                                                           out_dir])
+        wall = time.perf_counter() - t0
+        launched = launch_counts()
+        written = snapshots(out_dir)
+        if any(launched.values()) or not written or not steps:
+            raise AssertionError(f"[{tag}] launches {launched}, snapshots "
+                                 f"{written}, {len(steps)} steps")
+        step_ms = [r["ms"] for r in steps if r["ms"] is not None]
+        runs[tag] = dict(steps=len(steps), step_ms=step_ms, wall_s=wall,
+                         snapshots=written, losses=[r["loss"] for r in steps])
+        print(f"[{tag}] train_net default route: {len(steps)} steps in "
+              f"{wall:.1f} s (step ms after the first {step_ms}); "
+              f"snapshots {written}; no clustering kernel launched")
+    return runs
+
+
+def profile_host_step(cache: str) -> dict:
+    """The host route's steady step: bf16 rgbd_add steps at
+    HOST_STEP_BATCH on phase 6's cache, as train_net takes them; after a
+    warm-up step on a batch assembled in this thread, an epoch of
+    HOST_STEP_SAMPLES samples whose steps after the second run under
+    torch.profiler (the loader assembling the following batches
+    meanwhile, two in flight): wall ms per step, the device's busy ms per
+    step and its idle share."""
+    cfg = Config.from_yaml(os.path.join(REPO, TRAIN_YML)).replace(
+        MODE="TRAIN")
+    ds = SyntheticTabletopDataset("train", cfg, height=H, width=W,
+                                  size=TRAIN_SCENES, cache_dir=cache)
+    loader = DataLoader(Repeated(ds, HOST_STEP_SAMPLES),
+                        batch_size=HOST_STEP_BATCH, shuffle=True,
+                        num_workers=LOADER_WORKERS, seed=3)
+    state = create_train_state(cfg, network_name=NET, solver="adam",
+                               model_dtype=torch.bfloat16, device=DEV)
+    step = make_train_step(cfg)
+
+    def run(b):
+        put = (lambda k: torch.as_tensor(b[k]).to(DEV))
+        _, m = step(state, put("image_color"), put("depth"), put("label"))
+        return m
+
+    run(stack_samples([ds[i] for i in range(HOST_STEP_BATCH)]))  # warm-up
+    batches = iter(loader)
+    run(next(batches))
+    run(next(batches))
+    torch.cuda.synchronize()
+    n = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            m = run(b)
+            n += 1
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    if n < 2 or n % 2 or not torch.isfinite(m["loss"]):
+        raise AssertionError(f"[host step] {n} steps, loss {m['loss']}")
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        raise AssertionError("[host step] the profiler saw no device time")
+    out = dict(batch=HOST_STEP_BATCH, steps=n, step_ms=wall / n,
+               device_busy_ms=busy / n, idle_share=1.0 - busy / wall)
+    print(f"[host step] bf16 rgbd_add at batch {HOST_STEP_BATCH}, steady "
+          f"(steps 3-{n + 2} of an epoch, the loader two batches ahead): "
+          f"{out['step_ms']:.1f} ms a step, device busy "
+          f"{out['device_busy_ms']:.1f} ms, idle share "
+          f"{out['idle_share']:.3f}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_data_no_opencv(work: str, tmp: str, paths: dict[str, str],
+                       training: dict) -> dict:
+    """Phase 7b."""
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "render_cache")
+    with without_opencv():
+        jpeg.library()
+        built = jpeg.build_seconds
+        print(f"[no-opencv] cv2 and PIL blocked; JPEG library from "
+              f"{jpeg.SOURCE}: "
+              f"{'reused' if built is None else f'built in {built:.2f} s'}")
+        fx = tabletop_fixtures()
+        with open(os.path.join(TABLETOP, "digests.json")) as f:
+            digests = json.load(f)
+        jpegs = check_jpegs(fx, digests)
+        samples = check_samples(fx, digests)
+        loaders = host_loaders(cache)
+        runs = host_train_net(tmp, cache)
+        host_step = profile_host_step(cache)
+        resident = {k: training["timing"][k]["split_ms"]["step"]
+                    for k in ("fp32", "bf16")}
+        print(f"[no-opencv] host route bf16 rgbd_add: "
+              f"{host_step['step_ms'] / HOST_STEP_BATCH:.1f} ms a sample "
+              f"steady (batch {HOST_STEP_BATCH}); train_net's one-batch "
+              f"epochs at batch {TRAIN_SCENES}: step ms "
+              f"{runs['host rgbd_add']['step_ms']}; phase 6's resident "
+              f"step {resident['bf16']:.1f} ms at batch {TRAIN_SCENES}, "
+              f"{resident['bf16'] / TRAIN_SCENES:.1f} ms a sample (fp32 "
+              f"{resident['fp32']:.1f} ms)")
+        tests = {}
+        for mode in ("parity", "fast"):
+            name = "tabletop_object_test"
+            tests[f"{mode}/{name}"], _ = run_test_net(f"{mode}, {name}", [
+                "--dataset", name, "--dataset_root", TABLETOP,
+                "--cfg", os.path.join(REPO, TRAIN_YML), "--network", NET,
+                "--pretrained", paths["main"],
+                "--pretrained_crop", paths["crop"],
+                "--max_images", str(TABLETOP_FRAMES), "--output-dir",
+                os.path.join(work, "test_net_tabletop", mode)]
+                + (["--fast"] if mode == "fast" else []), TABLETOP_FRAMES)
+    out = dict(jpeg_build_s=built, jpeg=jpegs, samples=samples,
+               loaders=loaders, train_net=runs, host_step=host_step,
+               resident_step_ms=resident, test_net=tests,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 7b {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the alternate backbones
 # ---------------------------------------------------------------------------
 
@@ -3321,6 +3735,13 @@ def main() -> None:
             print(f"wall after phase 7 {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 7b: phase 5's .pth files, phase 6's render cache and
+            # resident step
+            no_opencv = run_data_no_opencv(work, tmp, paths, training)
+            data["test_net"].update(no_opencv["test_net"])
+            print(f"wall after phase 7b {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 8
             alternates = run_alternates(frame)
             print(f"wall after phase 8 {time.perf_counter() - t_start:.1f}"
@@ -3438,6 +3859,7 @@ def main() -> None:
         "write_trees_s": data["write_trees_s"],
         "demo_gt_ids": data["demo_gt_ids"],
         "image_tools": data["image_tools"], "phase_s": data["phase_s"]}}))
+    print(json.dumps({"data_no_opencv": no_opencv}))
     print(json.dumps({"alternates": alternates}))
     print(json.dumps({"trained": trained}))
     print(json.dumps({"two_stage": two_stage}))

@@ -20,6 +20,7 @@ from unseenobjectclustering_torch.data import loader as tloader
 from unseenobjectclustering_torch.data import resident as tresident
 from unseenobjectclustering_torch.data import synthetic as tsyn
 from unseenobjectclustering_torch.data.datasets import process_label
+from unseenobjectclustering_torch.utils import imgproc
 from unseenobjectclustering_tpu import config as jcfg
 from unseenobjectclustering_tpu.data import datasets as jdatasets
 from unseenobjectclustering_tpu.data import loader as jloader
@@ -61,7 +62,7 @@ def test_scene_with_no_objects_is_bit_equal():
 def test_linear_resize_is_bit_equal_to_cv2(src_hw, out_hw):
     src = np.random.RandomState(sum(src_hw)).rand(*src_hw)
     want = cv2.resize(src, out_hw[::-1], interpolation=cv2.INTER_LINEAR)
-    np.testing.assert_array_equal(tsyn._resize_linear_cv2(src, out_hw), want)
+    np.testing.assert_array_equal(imgproc.resize_linear_f64(src, out_hw), want)
 
 
 def test_render_cache_round_trip_and_manifest(tmp_path):

@@ -4,7 +4,11 @@ tools/make_real_fixtures.py and by the port's, a TableTop tree written with
 cv2, every sample key in TEST and TRAIN mode (SYN_CROP and pixel sampling
 included), each data/augmentation function under the same RandomState, the
 synthetic dataset's host-augmented samples, the registry, and the
-trainer's host-augmented route for a few steps on the CPU.
+trainer's host-augmented route for a few steps on the CPU.  The port's
+side also runs with ``sys.modules["cv2"] = None`` (the JAX side, which
+needs cv2, computes its arrays first): its readers and augmentations use
+the numpy replicas of utils/imgproc.py and the JPEG decoder of
+utils/jpeg.py.
 
 The readers derive paths by replacing "rgb", "png", "image_color" in the
 whole path and test for "table" and "OCID"/"OSD" in it, as the reference
@@ -184,6 +188,7 @@ def tabletop_tree(root, views=7):
         imwrite_indexed(str(d / ("segmentation_%05d.png" % v)), seg)
 
 
+@pytest.mark.parametrize("block_cv2", [False, True])
 @pytest.mark.parametrize("mode,train", [
     ("TEST", {}), ("TRAIN", {}),
     ("TRAIN", {"SYN_CROP": True, "SYN_CROP_SIZE": 32}),
@@ -191,7 +196,9 @@ def tabletop_tree(root, views=7):
     ("TRAIN", {"SYN_CROP": True, "SYN_CROP_SIZE": 32,
                "EMBEDDING_SAMPLING": True, "EMBEDDING_SAMPLING_NUM": 50})])
 def test_tabletop_samples_equal_jax(tmp_path_factory, monkeypatch, mode,
-                                    train):
+                                    train, block_cv2):
+    import sys
+
     root = tmp_path_factory.mktemp("tod")
     tabletop_tree(root)
     monkeypatch.chdir(root)
@@ -199,11 +206,16 @@ def test_tabletop_samples_equal_jax(tmp_path_factory, monkeypatch, mode,
     jds = jfactory.get_dataset("tabletop_object_train", jc, path=".")
     tds = tfactory.get_dataset("tabletop_object_train", tc, path=".")
     assert len(tds) == len(jds) == (5 if train.get("SYN_CROP") else 7)
+    want = {}
     for epoch in (0, 1):
         jds.set_epoch(epoch)
+        want[epoch] = [jds[i] for i in range(len(jds))]
+    if block_cv2:
+        monkeypatch.setitem(sys.modules, "cv2", None)
+    for epoch in (0, 1):
         tds.set_epoch(epoch)
         for i in range(len(tds)):
-            assert_same_sample(tds[i], jds[i])
+            assert_same_sample(tds[i], want[epoch][i])
 
 
 @pytest.mark.parametrize("split,mode,train", [
@@ -222,20 +234,34 @@ def test_synthetic_host_samples_equal_jax(split, mode, train):
 
 
 def test_synthetic_test_samples_need_no_opencv(monkeypatch):
-    """TEST mode without SYN_CROP runs with numpy only."""
+    """TEST mode, TRAIN mode (every host augmentation, the depth
+    artifacts) and TRAIN with SYN_CROP run with numpy only, at two epochs:
+    the samples equal the JAX package's, which it builds with cv2 before
+    the block."""
     import sys
 
-    _, tc = cfgs("TEST")
-    ds = tsyn.SyntheticTabletopDataset("test", tc, height=48, width=64,
-                                       size=2)
-    want = ds[1]
+    kw = dict(height=48, width=64, size=3)
+    cases = [("test", "TEST", {}),
+             ("train", "TRAIN", {"DEPTH_ARTIFACTS": True}),
+             ("train", "TRAIN", {"DEPTH_ARTIFACTS": True, "SYN_CROP": True,
+                                 "SYN_CROP_SIZE": 32})]
+    want = []
+    for split, mode, train in cases:
+        jds = jsyn.SyntheticTabletopDataset(split, cfgs(mode, **train)[0],
+                                            **kw)
+        for epoch in (0, 1):
+            jds.set_epoch(epoch)
+            want.append(jds[2])
     monkeypatch.setitem(sys.modules, "cv2", None)
-    assert_same_sample(ds[1], want)
-    _, tc = cfgs("TRAIN")
-    train = tsyn.SyntheticTabletopDataset("train", tc, height=48, width=64,
-                                          size=2)
-    with pytest.raises(ImportError):
-        train[0]
+    got = []
+    for split, mode, train in cases:
+        tds = tsyn.SyntheticTabletopDataset(split, cfgs(mode, **train)[1],
+                                            **kw)
+        for epoch in (0, 1):
+            tds.set_epoch(epoch)
+            got.append(tds[2])
+    for g, w in zip(got, want):
+        assert_same_sample(g, w)
 
 
 def _depth(rng):
@@ -303,17 +329,22 @@ def test_augmentations_equal_jax(name):
         assert rt.randint(2 ** 31) == rj.randint(2 ** 31)
 
 
-def test_augmentations_need_opencv(monkeypatch):
+def test_augmentations_need_no_opencv(monkeypatch):
+    """Every function of AUGMENTATIONS runs with cv2 blocked and equals
+    the JAX package's result, computed with cv2 before the block."""
     import sys
 
+    seeds = range(4)
+    want = {name: [fn(jaug, np.random.RandomState(s),
+                      np.random.RandomState(100 + s)) for s in seeds]
+            for name, fn in AUGMENTATIONS.items()}
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError):
-        taug.chromatic_transform(np.zeros((4, 4, 3), np.uint8),
-                                 rng=np.random.RandomState(0))
-    depth = np.ones((8, 8), np.float32)
-    assert taug.add_noise_to_depth(
-        depth, taug.DEFAULT_NOISE_PARAMS, np.random.RandomState(0)).shape \
-        == depth.shape
+    for name, fn in AUGMENTATIONS.items():
+        for s in seeds:
+            got = fn(taug, np.random.RandomState(s),
+                     np.random.RandomState(100 + s))
+            assert got.dtype == want[name][s].dtype, name
+            np.testing.assert_array_equal(got, want[name][s], err_msg=name)
 
 
 def test_registry_knows_every_jax_name(tmp_path):
@@ -324,10 +355,15 @@ def test_registry_knows_every_jax_name(tmp_path):
         assert ds.name == name
 
 
-def test_train_net_host_route_takes_steps_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("block_cv2", [False, True])
+def test_train_net_host_route_takes_steps_on_the_cpu(tmp_path, monkeypatch,
+                                                     block_cv2):
     """tools.train_net without --device-augment: the loader serves
     host-augmented synthetic_tabletop_train samples (chromatic, noise,
-    depth noise, pixel sampling) and the trainer steps on them."""
+    depth noise, pixel sampling) and the trainer steps on them, also with
+    cv2 blocked (as on the GPU machine)."""
+    import sys
+
     yml = tmp_path / "small.yml"
     yml.write_text("""EXP_DIR: tabletop_object
 INPUT: RGBD
@@ -347,6 +383,8 @@ TRAIN:
     cache = tmp_path / "cache"
     render_dataset.main(["--cache-dir", str(cache), "--height", "48",
                          "--width", "64", "--num", "4"])
+    if block_cv2:
+        monkeypatch.setitem(sys.modules, "cv2", None)
     seen = []
     state = train_net.main(
         ["--cfg", str(yml), "--network", "seg_resnet18_8s_embedding",

@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 
@@ -121,14 +122,17 @@ def test_multilabel_metrics_cases_match_jax(case):
 
 @pytest.mark.parametrize("radius", [1, 3, 5])
 def test_numpy_dilation_matches_cv2(monkeypatch, radius):
-    """Without OpenCV (as on the GPU machine) _dilate shifts and ORs in
-    numpy; the map equals cv2.dilate's, and so do the metrics."""
+    """With OpenCV blocked (as on the GPU machine) _dilate shifts and ORs
+    in numpy; the map equals cv2.dilate's, and the metrics equal the JAX
+    package's, which dilates with cv2."""
     rng = np.random.RandomState(radius)
     bmap = tev.seg2bmap(boxes_map(rng, 60, 80, 5) > 0)
-    with_cv2 = tev._dilate(bmap, radius)
+    with_cv2 = cv2.dilate(bmap.astype(np.uint8), tev.disk(radius),
+                          iterations=1).astype(bool)
     gt = boxes_map(rng, 60, 80, 4)
     pred = perturbed(rng, gt)
-    want = tev.multilabel_metrics(pred, gt)
+    assert jev.cv2 is cv2  # the reference's boundary maps come from cv2
+    want = jev.multilabel_metrics(pred, gt)
     monkeypatch.setitem(sys.modules, "cv2", None)
     np.testing.assert_array_equal(tev._dilate(bmap, radius), with_cv2)
     np.testing.assert_array_equal(with_cv2, jev._dilate(bmap, radius))
@@ -229,7 +233,8 @@ for name in ("utils.evaluation", "utils.masks", "utils.visualization",
              "tools.test_net", "tools.make_real_fixtures", "data.pcd",
              "data.native", "data.datasets", "data.augmentation",
              "models.unets", "tools.test_images", "tools.eval_demo_gt",
-             "tools.demo_artifact", "utils.imgproc", "parallel.spatial"):
+             "tools.demo_artifact", "utils.imgproc", "utils.jpeg",
+             "parallel.spatial"):
     importlib.import_module("unseenobjectclustering_torch." + name)
 import chip_smoke
 import numpy as np

@@ -53,6 +53,7 @@ from unseenobjectclustering_tpu import config as jcfg
 from unseenobjectclustering_tpu.data import factory as jfactory
 from unseenobjectclustering_tpu.engine import builder as jbuilder
 from unseenobjectclustering_tpu.engine import evaluate as jevaluate
+from unseenobjectclustering_tpu.ops import roi as jroi
 from unseenobjectclustering_tpu.ops import train_pipeline as jtp
 
 torch.set_num_threads(1)
@@ -253,3 +254,100 @@ def test_recipe_script_names_what_exists():
     for flag in ("--network_crop", "--crop_size", "--pretrained_crop",
                  "--fast", "--bf16", "--device-resident"):
         assert flag in text
+
+
+def plant_port(seg, planted):
+    """The port Segmentor's stage 1 runs, then reports `planted` [H, W] as
+    its labels (the crop network then sees known instances)."""
+    original = seg._stage1_impl
+
+    def stage1(img, xyz, generators, **kw):
+        features, _ = original(img, xyz, generators, **kw)
+        return features, torch.from_numpy(planted)[None]
+
+    seg._stage1_impl = stage1
+    return seg
+
+
+def record_crop_network(seg, seen):
+    """Keep each crop-network call's inputs and embeddings."""
+    forward = seg.model_crop.forward
+
+    def recorded(rgb, xyz):
+        out = forward(rgb, xyz)
+        seen.append((rgb.clone(), xyz.clone(), out.clone()))
+        return out
+
+    seg.model_crop.forward = recorded
+
+
+@pytest.mark.parametrize("side", [224, 128])
+def test_refinement_at_the_recipes_crop_sides_matches_jax(
+        files, small, tmp_path, monkeypatch, side):
+    """test_net --network_crop --crop_size at the two trained recipes' crop
+    sides against the JAX evaluate_dataset, on the first OCID frame with
+    three of its ground-truth objects planted as the stage-1 labels
+    (sparse ids, so the dense relabel runs): the RoI crops and the crop network's
+    embeddings of every slot agree with JAX's, and so do the refined
+    labels, exactly."""
+    jc = jcfg.Config.from_yaml(files.jax_cfg).replace(
+        MODE="TEST", TRAIN={"SYN_CROP_SIZE": side})
+    jds = jfactory.get_dataset("ocid_object_test", jc, path="OCID")
+    sample = jds[0]
+    gt = np.asarray(sample["label"])
+    keep = (gt > 0) & (gt <= 3)  # three of the frame's objects
+    planted = np.pad(np.where(keep, 3 * gt + 1, 0).astype(np.int32),
+                     ((0, (-H) % 16), (0, (-W) % 16)))
+    assert len(np.unique(gt[keep])) == 3
+
+    seen = []
+    original = tbuilder.build_segmentor
+
+    def build(*args, **kwargs):
+        seg = plant_port(pinned(original)(*args, **kwargs), planted)
+        record_crop_network(seg, seen)
+        return seg
+
+    monkeypatch.setattr(test_net.builder, "build_segmentor", build)
+    test_net.main(["--dataset", "ocid_object_test", "--dataset_root", "OCID",
+                   "--cfg", files.port_cfg, "--network", NET,
+                   "--pretrained", files.main, "--pretrained_crop",
+                   files.crop, "--network_crop", NET, "--crop_size",
+                   str(side), "--max_images", "1", "--device", "cpu",
+                   "--output-dir", str(tmp_path / "port")])
+
+    jseg = pinned(jbuilder.build_segmentor)(
+        jc, NET, pretrained=files.main, pretrained_crop=files.crop,
+        crop_network_name=NET, depth_threshold=0.5, height=H, width=W)
+    stage1 = jseg._stage1
+    jseg._stage1 = lambda *a: (stage1(*a)[0], jnp.asarray(planted)[None])
+    jevaluate.evaluate_dataset(jds, jseg, output_dir=str(tmp_path / "jax"),
+                               save_results=True, max_images=1,
+                               verbose=False)
+
+    # the crops and embeddings JAX's _stage2_impl computes for this frame
+    pad = ((0, (-H) % 16), (0, (-W) % 16), (0, 0))
+    img = jnp.asarray(np.pad(sample["image_color"], pad))
+    xyz = jnp.asarray(np.pad(sample["depth"], pad))
+    dense = jtp._dense_relabel(jnp.asarray(planted),
+                              max_id=int(jseg._ms_kw["num_seeds"]))
+    crops = jroi.crop_rois(img, dense, xyz, max_instances=jseg.max_instances,
+                           crop_size=side)
+    feats = jseg.model_crop.apply(jseg.variables_crop, crops.rgb_crops,
+                                  crops.depth_crops, train=False)
+    [(rgb, dep, got)] = seen
+    assert got.shape == (jseg.max_instances, side, side, 8)
+    valid = np.asarray(crops.valid)
+    assert valid.sum() == 3
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(crops.rgb_crops),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dep.numpy(), np.asarray(crops.depth_crops),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[valid], np.asarray(feats)[valid],
+                               rtol=0, atol=1e-4)
+    port, want = (scipy.io.loadmat(tmp_path / d / "000000.mat")
+                  for d in ("port", "jax"))
+    np.testing.assert_array_equal(port["labels"], want["labels"])
+    np.testing.assert_array_equal(port["labels_refined"],
+                                  want["labels_refined"])
+    assert not np.array_equal(want["labels_refined"], want["labels"])

@@ -3,11 +3,24 @@ corruption and the region-refinement mask perturbations.
 
 A copy of ``unseenobjectclustering_tpu/data/augmentation.py`` for the
 port: the same draws from the same explicit RandomState in the same order,
-so a sample is bit-equal to the JAX package's.  OpenCV is imported inside
-each function that calls it (cvtColor, filter2D, resize, ellipse,
-warpAffine, morphology): on a machine without it those functions raise
-ImportError and nothing stands in for them.  The port's on-device training
-augmentation is ops/train_pipeline.py.
+so a sample is bit-equal to the JAX package's.  The JAX package calls
+OpenCV; here each call is a numpy replica in ``utils/imgproc.py`` that
+gives cv2's bits (tests/test_torch_imgproc_cv2.py), so the module runs
+where OpenCV is missing:
+
+  cv2.cvtColor BGR2HLS / HLS2BGR       -> imgproc.bgr_to_hls / hls_to_bgr
+  cv2.filter2D (motion blur)           -> imgproc.filter2d_u8
+  cv2.resize INTER_CUBIC (GP noise)    -> imgproc.resize_cubic_f64
+  cv2.resize INTER_LINEAR (artifacts)  -> imgproc.resize_linear_f64
+  cv2.ellipse (filled)                 -> imgproc.fill_ellipse
+  cv2.warpAffine INTER_NEAREST with
+  cv2.getRotationMatrix2D              -> imgproc.warp_affine_nearest with
+                                          imgproc.rotation_matrix_2d
+  cv2.getStructuringElement ELLIPSE,
+  cv2.morphologyEx                     -> imgproc.ellipse_kernel,
+                                          imgproc.morphology
+
+The port's on-device training augmentation is ops/train_pipeline.py.
 
 The reference's stack (which mutates global numpy/random state from
 dataloader workers):
@@ -24,7 +37,7 @@ dataloader workers):
                            erode/dilate, ellipse add/drop, translate, rotate,
                            cut, add (lib/utils/augmentation.py:195-509)
 
-All functions are host-side numpy/cv2; they run in the loader's prefetch
+All functions are host-side numpy; they run in the loader's prefetch
 threads.
 """
 
@@ -33,6 +46,8 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import numpy as np
+
+from unseenobjectclustering_torch.utils import imgproc
 
 # lib/datasets/tabletop_object.py:23-55
 DEFAULT_NOISE_PARAMS: dict = {
@@ -69,17 +84,15 @@ def chromatic_transform(im: np.ndarray, label: Optional[np.ndarray] = None,
     HLS-space add (hue wraps mod 180, L/S clip) rather than per-plane
     split/merge.
     """
-    import cv2
-
     r = _rng(rng)
     delta = (r.rand(3).astype(np.float32) - 0.5) * _HLS_JITTER
     for i, override in enumerate((d_h, d_l, d_s)):
         if override is not None:
             delta[i] = np.asarray(override, np.float32).reshape(())
-    hls = cv2.cvtColor(im, cv2.COLOR_BGR2HLS).astype(np.float32) + delta
+    hls = imgproc.bgr_to_hls(im).astype(np.float32) + delta
     hls[..., 0] %= 180.0
     np.clip(hls[..., 1:], 0.0, 255.0, out=hls[..., 1:])
-    new_im = cv2.cvtColor(hls.astype(np.uint8), cv2.COLOR_HLS2BGR)
+    new_im = imgproc.hls_to_bgr(hls.astype(np.uint8))
     if label is not None:
         keep = label > 0
         new_im[keep] = im[keep]
@@ -93,19 +106,16 @@ def add_noise(image: np.ndarray, level: float = 0.1,
               rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """90% additive Gaussian noise / 10% axis-aligned motion blur on a BGR
     uint8 image (distribution parity with blob.py:102-129)."""
-    import cv2
-
     r = _rng(rng)
     if r.rand() < 0.9:
         sigma = r.rand() * r.uniform(0, level) * 256
         gauss = r.randn(*image.shape[:2]).astype(np.float32) * sigma
         return np.clip(image + gauss[..., None], 0, 255).astype(np.uint8)
-    # motion blur: 1-D box filter along a random axis — cv2.filter2D with a
-    # line kernel is separable, so run the 1-D kernel directly
+    # motion blur: a 1-D box filter along a random axis
     size = _BLUR_SIZES[r.randint(len(_BLUR_SIZES))]
     line = np.full((1, size), 1.0 / size, np.float32)
     kernel = line if r.rand() < 0.5 else line.T
-    return cv2.filter2D(image, -1, kernel).astype(np.uint8)
+    return imgproc.filter2d_u8(image, kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -128,15 +138,12 @@ def add_noise_to_xyz(xyz_img: np.ndarray, depth_img: np.ndarray,
     """Approximate-GP additive noise: a coarse Gaussian field bicubically
     upscaled to full resolution, applied only where depth is valid
     (distribution parity with augmentation.py:73-90)."""
-    import cv2
-
     r = _rng(rng)
     h, w, c = xyz_img.shape
     gp = int(noise_params["gp_rescale_factor"])
     field = r.normal(0.0, noise_params["gaussian_scale"],
                      size=(h // gp, w // gp, c))
-    field = cv2.resize(field, (w, h),
-                       interpolation=cv2.INTER_CUBIC).astype(xyz_img.dtype)
+    field = imgproc.resize_cubic_f64(field, (h, w)).astype(xyz_img.dtype)
     return np.where((depth_img > 0)[..., None], xyz_img + field, xyz_img)
 
 
@@ -150,8 +157,6 @@ def dropout_random_ellipses(depth_img: np.ndarray, noise_params: Mapping,
     masked store — the reference allocates a fresh full-size mask and
     rescans the image per ellipse.
     """
-    import cv2
-
     r = _rng(rng)
     num = r.poisson(noise_params["ellipse_dropout_mean"])
     ys, xs = np.nonzero(depth_img > 0)
@@ -164,9 +169,8 @@ def dropout_random_ellipses(depth_img: np.ndarray, noise_params: Mapping,
     angles = r.randint(0, 360, size=num)
     canvas = np.zeros(depth_img.shape[:2], np.uint8)
     for i in range(num):
-        cv2.ellipse(canvas, (int(xs[pick[i]]), int(ys[pick[i]])),
-                    tuple(radii[i]), angle=int(angles[i]), startAngle=0,
-                    endAngle=360, color=1, thickness=-1)
+        imgproc.fill_ellipse(canvas, (int(xs[pick[i]]), int(ys[pick[i]])),
+                             tuple(radii[i]), int(angles[i]), 1)
     return np.where(canvas.astype(bool), 0, depth_img)
 
 
@@ -191,8 +195,6 @@ def add_realsense_artifacts(depth_img: np.ndarray,
 
     The device-resident twin is ops/train_pipeline.add_depth_artifacts_device
     (same modes and distributions; keep them in sync)."""
-    import cv2
-
     r = _rng(rng)
     h, w = depth_img.shape[:2]
     depth = depth_img.copy()
@@ -215,14 +217,13 @@ def add_realsense_artifacts(depth_img: np.ndarray,
         drop |= shadow
     # 2. low-frequency glossy blobs
     if r.rand() < 0.7:
-        field = cv2.resize(r.rand(h // 40 + 2, w // 40 + 2), (w, h),
-                           interpolation=cv2.INTER_LINEAR)
+        field = imgproc.resize_linear_f64(r.rand(h // 40 + 2, w // 40 + 2),
+                                          (h, w))
         drop |= field > r.uniform(0.80, 0.95)
     # 3. ragged border band
     if r.rand() < 0.5:
         base = r.randint(8, 48)
-        jag = cv2.resize(r.rand(h // 16 + 2, 1), (1, h),
-                         interpolation=cv2.INTER_LINEAR)[:, 0]
+        jag = imgproc.resize_linear_f64(r.rand(h // 16 + 2, 1), (h, 1))[:, 0]
         widths = (base * (0.5 + jag)).astype(int)
         cols = np.arange(w)[None, :]
         band = (cols < widths[:, None] if r.rand() < 0.5
@@ -235,24 +236,19 @@ def add_realsense_artifacts(depth_img: np.ndarray,
 # mask perturbation (region-refinement training mode)
 # ---------------------------------------------------------------------------
 
-def _translate(img, tx, ty, interpolation=None):
-    import cv2
-
-    if interpolation is None:
-        interpolation = cv2.INTER_LINEAR
+def _translate(img, tx, ty):
+    """cv2.warpAffine by (tx, ty), INTER_NEAREST, 0 outside."""
     h, w = img.shape[:2]
     m = np.array([[1, 0, tx], [0, 1, ty]], dtype=np.float32)
-    return cv2.warpAffine(img, m, (w, h), flags=interpolation)
+    return imgproc.warp_affine_nearest(img, m, (w, h))
 
 
-def _rotate(img, angle, interpolation=None):
-    import cv2
-
-    if interpolation is None:
-        interpolation = cv2.INTER_LINEAR
+def _rotate(img, angle):
+    """cv2.warpAffine by getRotationMatrix2D((w // 2, h // 2), angle, 1),
+    INTER_NEAREST, 0 outside."""
     h, w = img.shape[:2]
-    m = cv2.getRotationMatrix2D((w // 2, h // 2), angle, 1)
-    return cv2.warpAffine(img, m, (w, h), flags=interpolation)
+    m = imgproc.rotation_matrix_2d((w // 2, h // 2), angle, 1)
+    return imgproc.warp_affine_nearest(img, m, (w, h))
 
 
 def _mask_ok(mask: np.ndarray) -> bool:
@@ -263,8 +259,6 @@ def morph_open_close(mask: np.ndarray, cfg_train,
                      rng: np.random.RandomState) -> np.ndarray:
     """Random erosion/dilation/opening/closing with beta-sampled kernel size
     (augmentation.py:195-240 semantics)."""
-    import cv2
-
     mask = mask.copy()
     h, w = mask.shape
     sidelength = np.mean([h, w])
@@ -272,12 +266,11 @@ def morph_open_close(mask: np.ndarray, cfg_train,
         ksize = int(round(sidelength * rng.beta(
             cfg_train.label_dilation_alpha, cfg_train.label_dilation_beta)))
         ksize = max(ksize, 1)
-        kernel = cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (ksize, ksize))
+        kernel = imgproc.ellipse_kernel(ksize)
         op = rng.randint(4)
-        new = cv2.morphologyEx(
-            mask.astype(np.uint8),
-            [cv2.MORPH_ERODE, cv2.MORPH_DILATE, cv2.MORPH_OPEN,
-             cv2.MORPH_CLOSE][op], kernel)
+        new = imgproc.morphology(mask.astype(np.uint8),
+                                 ("erode", "dilate", "open", "close")[op],
+                                 kernel)
         if _mask_ok(new):
             mask = new
     return mask.astype(mask.dtype)
@@ -287,8 +280,6 @@ def random_translation(mask: np.ndarray, cfg_train,
                        rng: np.random.RandomState) -> np.ndarray:
     """Translate by a beta-sampled fraction of the mask extent
     (augmentation.py:309-345 semantics)."""
-    import cv2
-
     ys, xs = np.nonzero(mask)
     if ys.size == 0:
         return mask
@@ -299,7 +290,7 @@ def random_translation(mask: np.ndarray, cfg_train,
     d = int(round(pct * extent))
     tx = rng.randint(-d, d + 1)
     ty = rng.randint(-d, d + 1)
-    new = _translate(mask.astype(np.uint8), tx, ty, cv2.INTER_NEAREST)
+    new = _translate(mask.astype(np.uint8), tx, ty)
     return new if _mask_ok(new) else mask
 
 
@@ -307,11 +298,9 @@ def random_rotation(mask: np.ndarray, cfg_train,
                     rng: np.random.RandomState) -> np.ndarray:
     """Rotate by a uniform angle within +-rotation_angle_max
     (augmentation.py:348-378 semantics)."""
-    import cv2
-
     angle = rng.uniform(-cfg_train.rotation_angle_max,
                         cfg_train.rotation_angle_max)
-    new = _rotate(mask.astype(np.uint8), angle, cv2.INTER_NEAREST)
+    new = _rotate(mask.astype(np.uint8), angle)
     return new if _mask_ok(new) else mask
 
 
@@ -319,8 +308,6 @@ def random_ellipses(mask: np.ndarray, cfg_train, rng: np.random.RandomState,
                     add: bool) -> np.ndarray:
     """Add or remove Poisson-many gamma-sized ellipses
     (augmentation.py:242-307 semantics)."""
-    import cv2
-
     mask = mask.copy().astype(np.uint8)
     num = rng.poisson(cfg_train.num_ellipses_mean)
     ys, xs = np.nonzero(mask)
@@ -337,9 +324,8 @@ def random_ellipses(mask: np.ndarray, cfg_train, rng: np.random.RandomState,
                                      cfg_train.ellipse_gamma_base_scale)
                            * cfg_train.ellipse_size_percentage * extent)), 1)
         angle = rng.randint(0, 360)
-        ell = np.zeros_like(mask)
-        ell = cv2.ellipse(ell, (cx, cy), (rx, ry), angle=angle, startAngle=0,
-                          endAngle=360, color=1, thickness=-1)
+        ell = imgproc.fill_ellipse(np.zeros_like(mask), (cx, cy), (rx, ry),
+                                   angle, 1)
         new = mask | ell if add else mask & ~ell
         if _mask_ok(new):
             mask = new
@@ -376,8 +362,6 @@ def random_add(mask: np.ndarray, cfg_train,
                rng: np.random.RandomState) -> np.ndarray:
     """Add a translated+rotated copy of the mask next to itself
     (augmentation.py:432-509 semantics)."""
-    import cv2
-
     mask = mask.copy().astype(np.uint8)
     ys, xs = np.nonzero(mask)
     if ys.size == 0:
@@ -388,8 +372,8 @@ def random_add(mask: np.ndarray, cfg_train,
                       cfg_train.add_percentage_max)
     tx = int(round(pct * extent_x)) * rng.choice([-1, 1])
     ty = int(round(pct * extent_y)) * rng.choice([-1, 1])
-    piece = _translate(mask, tx, ty, cv2.INTER_NEAREST)
-    piece = _rotate(piece, rng.uniform(-10, 10), cv2.INTER_NEAREST)
+    piece = _translate(mask, tx, ty)
+    piece = _rotate(piece, rng.uniform(-10, 10))
     new = mask | piece
     return new if _mask_ok(new) else mask
 

@@ -7,13 +7,13 @@ numpy NHWC float32 dicts {'image_color' [H,W,3] normalized BGR, 'depth'
 from a RandomState of (base_seed, index, epoch), and a sample is bit-equal
 to the JAX package's.
 
-What each reader needs on the machine it runs on: OCID and OSD read their
-PNGs through ``utils/png.py`` and their PCDs through ``data/pcd.py``
-(numpy, zlib and the native LZF library), so they run where PIL and
-OpenCV are missing.  TableTopObject reads its ``rgb_*.jpeg`` with
-``cv2.imread`` (there is no JPEG decoder here) and its PNGs with
-``utils/png.py``; its training crops resize with cv2.  The TRAIN-mode
-augmentations (``data/augmentation.py``) need OpenCV too.
+No reader needs PIL or OpenCV: OCID and OSD read their PNGs through
+``utils/png.py`` and their PCDs through ``data/pcd.py`` (numpy, zlib and
+the native LZF library); TableTopObject reads its ``rgb_*.jpeg`` through
+``utils/jpeg.py`` (the port's C++ decoder, cv2.imread's bits) and its PNGs
+through ``utils/png.py``, and crops with ``utils/imgproc.py``'s cv2.resize
+replicas.  The TRAIN-mode augmentations (``data/augmentation.py``) are
+numpy replicas of their cv2 calls.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import numpy as np
 from unseenobjectclustering_torch.config import Config
 from unseenobjectclustering_torch.data import augmentation
 from unseenobjectclustering_torch.data.pcd import load_pcd_xyz
-from unseenobjectclustering_torch.utils import png
+from unseenobjectclustering_torch.utils import imgproc, jpeg, png
 from unseenobjectclustering_torch.utils.masks import (imread_indexed,
                                                       mask_to_tight_box)
 
@@ -163,9 +163,8 @@ class TableTopObject(_DatasetBase):
 
     def pad_crop_resize(self, img, label, depth, rng):
         """Object-centric square crop with random padding, resized to
-        SYN_CROP_SIZE^2 with cv2 (tabletop_object.py:175-237)."""
-        import cv2
-
+        SYN_CROP_SIZE^2 as cv2.resize does it (tabletop_object.py:175-237):
+        bilinear image, nearest labels and XYZ."""
         cfg = self.cfg
         h, w = label.shape
         k = int(np.max(label))
@@ -193,13 +192,14 @@ class TableTopObject(_DatasetBase):
                 continue
             break
         s = int(cfg.TRAIN.SYN_CROP_SIZE)
-        img_c = cv2.resize(img[y_min:y_max + 1, x_min:x_max + 1], (s, s))
-        lab_c = cv2.resize(label[y_min:y_max + 1, x_min:x_max + 1], (s, s),
-                           interpolation=cv2.INTER_NEAREST)
+        img_c = imgproc.resize_linear_u8(
+            img[y_min:y_max + 1, x_min:x_max + 1], (s, s))
+        lab_c = imgproc.resize_nearest(
+            label[y_min:y_max + 1, x_min:x_max + 1], (s, s))
         dep_c = None
         if depth is not None:
-            dep_c = cv2.resize(depth[y_min:y_max + 1, x_min:x_max + 1],
-                               (s, s), interpolation=cv2.INTER_NEAREST)
+            dep_c = imgproc.resize_nearest(
+                depth[y_min:y_max + 1, x_min:x_max + 1], (s, s))
         return img_c, lab_c, dep_c
 
     def sample_pixels(self, labels: np.ndarray, num: int,
@@ -218,8 +218,6 @@ class TableTopObject(_DatasetBase):
         return out
 
     def __getitem__(self, idx: int) -> dict:
-        import cv2
-
         cfg = self.cfg
         rng = self._rng(idx)
         scene_dir = self.scene_dirs[idx // self.views_per_scene]
@@ -233,7 +231,7 @@ class TableTopObject(_DatasetBase):
         labels[labels == 1] = 0  # table -> background
         labels = process_label(labels)
 
-        im = cv2.imread(os.path.join(scene_dir, "rgb_%05d.jpeg" % view))
+        im = jpeg.imread(os.path.join(scene_dir, "rgb_%05d.jpeg" % view))
 
         xyz = None
         if cfg.INPUT in ("DEPTH", "RGBD"):

@@ -1,12 +1,17 @@
-"""ctypes binding of the native IO library (``native/ucio.cpp``).
+"""ctypes binding of the native IO library (``native/ucio.cpp``), and the
+build helper of every host C++ library of the port.
 
 Port of ``unseenobjectclustering_tpu/data/native.py`` with one difference:
-nothing falls back quietly.  The library is built from ``native/ucio.cpp``
-with ``g++ -O3 -fPIC -shared -std=c++17`` at first use, into
+nothing falls back quietly.  ``build_shared`` compiles a C++ source with
+``g++ -O3 -fPIC -shared -std=c++17`` at first use, into
 ``unseenobjectclustering_torch/_build/`` under a name that carries a digest
 of the source and flags (as ``ops/_build.py`` does for the CUDA kernels),
-so an edited source is rebuilt and an unchanged one reused.  A missing
-compiler, a failed build or a failed load raises.
+so an edited source is rebuilt and an unchanged one reused; ``load`` binds
+a library's C signatures, and ``load_once`` does both at a binding
+module's first call.  A missing compiler, a failed build or a failed load
+raises.  This module builds ``native/ucio.cpp`` (LZF, the strided gather,
+the nearest paste); ``utils/jpeg.py`` builds its decoder through the same
+``load_once``.
 
 The pure-Python versions in ``data/pcd.py`` (LZF, the strided gather) and
 ``ops/roi.py`` (the nearest paste) are the plain versions: callers ask for
@@ -43,51 +48,73 @@ _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last build, if any
 
 
-def _digest() -> str:
+def build_shared(source: str, stem: str, build_dir: str, what: str
+                 ) -> tuple[str, float | None]:
+    """Compile `source` into `build_dir`/`stem`_<digest>.so unless a build
+    of this source and these flags exists; return (the library's path, the
+    build's seconds or None when it was reused).  `what` names the library
+    in the errors."""
+    if not os.path.exists(source):
+        raise RuntimeError(f"{what}: no source at {source}")
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return h.hexdigest()[:16]
+    lib_path = os.path.join(build_dir, f"{stem}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        return lib_path, None
+    cxx = shutil.which(os.environ.get("CXX") or "g++")
+    if not cxx:
+        raise RuntimeError(f"{what}: no C++ compiler ($CXX or g++) to build "
+                           f"{source} with")
+    t0 = time.perf_counter()
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}_{threading.get_ident()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, source]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"{what} build failed:\n$ " + " ".join(cmd)
+                           + "\n" + out.stdout + out.stderr)
+    os.replace(tmp, lib_path)
+    return lib_path, time.perf_counter() - t0
+
+
+def load(path: str, signatures: dict) -> ctypes.CDLL:
+    """ctypes.CDLL(path) with each {name: (argtypes, restype)} bound."""
+    lib = ctypes.CDLL(path)
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def load_once(scope: dict, stem: str, signatures: dict, what: str
+              ) -> ctypes.CDLL:
+    """The library of a binding module, built and loaded at its first call.
+
+    `scope` is that module's globals(): its SOURCE is built under BUILD_DIR
+    as `stem`, the loaded library is kept in its _lib, and a build's
+    seconds in its build_seconds (left as they were when a build was
+    reused).  `what` names the library in the errors."""
+    with _lock:
+        if scope["_lib"] is None:
+            path, seconds = build_shared(scope["SOURCE"], stem, BUILD_DIR,
+                                         what)
+            if seconds is not None:
+                scope["build_seconds"] = seconds
+            scope["_lib"] = load(path, signatures)
+    return scope["_lib"]
 
 
 def build() -> str:
     """Compile native/ucio.cpp unless a build of this source exists; return
     the library's path."""
-    global build_seconds
-    if not os.path.exists(SOURCE):
-        raise RuntimeError(f"native IO library: no source at {SOURCE}")
-    lib_path = os.path.join(BUILD_DIR, f"libucio_{_digest()}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    cxx = shutil.which(os.environ.get("CXX") or "g++")
-    if not cxx:
-        raise RuntimeError("native IO library: no C++ compiler ($CXX or "
-                           "g++) to build native/ucio.cpp with")
-    t0 = time.perf_counter()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}_{threading.get_ident()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, SOURCE]
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        raise RuntimeError("native IO library build failed:\n$ "
-                           + " ".join(cmd) + "\n" + out.stdout + out.stderr)
-    os.replace(tmp, lib_path)
-    build_seconds = time.perf_counter() - t0
-    return lib_path
+    return build_shared(SOURCE, "libucio", BUILD_DIR, "native IO library")[0]
 
 
 def library() -> ctypes.CDLL:
     """The loaded library (built on first call)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
-    return _lib
+    return load_once(globals(), "libucio", _SIGNATURES, "native IO library")
 
 
 def _ptr(a: np.ndarray) -> int:

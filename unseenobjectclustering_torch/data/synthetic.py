@@ -2,8 +2,9 @@
 
 A copy of ``unseenobjectclustering_tpu/data/synthetic.py`` (renderer v4)
 for the port, without OpenCV: the one cv2 call of the renderer, the
-bilinear resize of the blotch noise, is ``_resize_linear_cv2``, a numpy
-replica of ``cv2.resize(INTER_LINEAR)`` on float64 that gives cv2's bits.
+bilinear resize of the blotch noise, is ``utils/imgproc.resize_linear_f64``,
+a numpy replica of ``cv2.resize(INTER_LINEAR)`` on float64 that gives
+cv2's bits.
 Scenes are a pure function of their index and equal the JAX package's
 bit for bit.
 
@@ -16,8 +17,8 @@ shadows and coloured lighting, ray cast per pixel with a z-buffer.
 The device trainer reads raw scenes (``raw=True``: uint8 BGR, uint16
 depth in mm, uint8 labels), augmented on the device
 (ops/train_pipeline.py); otherwise ``__getitem__`` builds the JAX
-package's host-augmented sample (data/augmentation.py: OpenCV in TRAIN
-mode).  Registered as ``synthetic_tabletop_{train,test}``.
+package's host-augmented sample (data/augmentation.py, numpy replicas of
+its cv2 calls).  Registered as ``synthetic_tabletop_{train,test}``.
 """
 
 from __future__ import annotations
@@ -32,56 +33,11 @@ from unseenobjectclustering_torch.data.datasets import (TableTopObject,
                                                         _compute_xyz_np,
                                                         _DatasetBase,
                                                         process_label)
+from unseenobjectclustering_torch.utils.imgproc import resize_linear_f64
 
 
 def _normalize(v):
     return v / max(np.linalg.norm(v), 1e-12)
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once, in float64 numpy: Dekker's exact product and
-    Knuth's exact sum, then one final rounding (the error terms are far
-    below half an ulp, so this agrees with a hardware fused multiply-add
-    except at an exact tie of probability ~2^-52)."""
-    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
-    p = a * b
-    sa = a * 134217729.0
-    ah = sa - (sa - a)
-    al = a - ah
-    sb = b * 134217729.0
-    bh = sb - (sb - b)
-    bl = b - bh
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    s = p + c
-    bb = s - p
-    t = (p - (s - bb)) + (c - bb)
-    return s + (t + e)
-
-
-def _linear_taps(n_in: int, n_out: int):
-    """cv2.resize's INTER_LINEAR taps along one axis for float64 images:
-    fx = fma(d + 0.5, in/out, -0.5), sx = floor(fx), weight fx - sx,
-    clamped at both borders with the weight moved to the border pixel."""
-    fx = _fma(np.arange(n_out) + 0.5, n_in / n_out, -0.5)
-    sx = np.floor(fx).astype(np.int64)
-    fx = fx - sx
-    low = sx < 0
-    fx[low], sx[low] = 0.0, 0
-    high = sx >= n_in - 1
-    fx[high], sx[high] = 0.0, n_in - 1
-    return sx, np.minimum(sx + 1, n_in - 1), fx
-
-
-def _resize_linear_cv2(src: np.ndarray, out_hw: tuple[int, int]
-                       ) -> np.ndarray:
-    """cv2.resize(src, (w, h), interpolation=cv2.INTER_LINEAR) for a 2-D
-    float64 array, with cv2's bits: rows first, then columns, each output
-    fma(f, s1 - s0, s0)."""
-    h, w = out_hw
-    x0, x1, fx = _linear_taps(src.shape[1], w)
-    y0, y1, fy = _linear_taps(src.shape[0], h)
-    rows = _fma(fx, src[:, x1] - src[:, x0], src[:, x0])
-    return _fma(fy[:, None], rows[y1] - rows[y0], rows[y0])
 
 
 # Bump to invalidate on-disk scene caches when the renderer changes.
@@ -662,7 +618,7 @@ class SyntheticTabletopDataset(_DatasetBase):
                                               "phase": 0.0})[:, None]
                 col = floor_col1 * (1.0 - t) + floor_col2 * t
             # smooth blotch noise (bilinear-upsampled low-res field)
-            tex = _resize_linear_cv2(rng.rand(h // 32 + 2, w // 32 + 2),
+            tex = resize_linear_f64(rng.rand(h // 32 + 2, w // 32 + 2),
                                      (h, w))
             col = col * (0.8 + 0.4 * tex[m])[:, None]
             base_col[m] = col
@@ -852,8 +808,7 @@ class SyntheticTabletopDataset(_DatasetBase):
         package's host pipeline builds from it: depth noise, ellipse
         dropout and GP noise in TRAIN mode, the object-centric crop with
         SYN_CROP, pixel sampling, the chromatic and noise jitter, the
-        normalization.  TEST mode without SYN_CROP needs numpy only; the
-        TRAIN-mode augmentations and the crop need OpenCV."""
+        normalization, all in numpy (no OpenCV)."""
         cfg = self.cfg
         rng = self._rng(idx)  # augmentation stream: (epoch, index)
         bgr, depth_mm, labels8 = self.get_scene(idx)

@@ -2,10 +2,10 @@
 tools/train_net.py:30-160 and the JAX package's tools/train_net.py).
 
 By default the loader serves host-augmented samples
-(data/augmentation.py, as the JAX package's tool does; OpenCV in TRAIN
-mode).  --device-augment streams raw synthetic scenes and augments them on
-the device, --device-resident reads the whole render cache onto the device
-first (both numpy and PyTorch only).
+(data/augmentation.py, as the JAX package's tool does, with numpy replicas
+of its cv2 calls: no OpenCV needed).  --device-augment streams raw
+synthetic scenes and augments them on the device, --device-resident reads
+the whole render cache onto the device first.
 
 One process trains on cuda:<--gpu> (or --device, e.g. cpu).  Data
 parallelism runs one process per card under torchrun: each process trains

@@ -61,15 +61,8 @@ def disk(radius: int) -> np.ndarray:
 
 
 def _dilate(bmap: np.ndarray, radius: int) -> np.ndarray:
-    """Binary dilation by a disk; cv2 when it is installed, else a numpy
-    shift-OR (the same map)."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.dilate(bmap.astype(np.uint8), disk(radius),
-                          iterations=1).astype(bool)
+    """Binary dilation by a disk, as a numpy shift-OR: the map of the JAX
+    package's cv2.dilate (tests/test_torch_evaluation.py)."""
     r = int(radius)
     out = np.zeros_like(bmap, dtype=bool)
     h, w = bmap.shape
