@@ -184,6 +184,30 @@ Phases (any failure exits non-zero; no exception is caught):
      SEED_GAP), seed labels and every pixel but those certified as
      near-ties (near_ties), and tools.probe_seed_precision.main() on one
      crop (both routes PASS).  One {"two_stage": {...}} line.
+ 2c. (run after phase 8c, whose render cache it reads) the JAX repo's
+     rgbd_cat recipes: FUSION_TYPE cat concatenates the two towers'
+     64-D outputs into 128-D embeddings, which the kernels' width-128
+     instantiations take.  (a) each kernel against its plain version at
+     the frame and both crop shapes in both modes, with phase 2's checks,
+     tolerances, launch configurations and times beside the bound; (b)
+     stage 1 through Segmentor.segment_sample with the cat network of
+     experiments/cfgs/seg_resnet34_8s_embedding_cosine_rgbd_cat_tabletop
+     .yml at 480x640 (fixed-seed init) in both modes, the counters set to
+     0 before each mode's frames and read after (every kernel launched),
+     in parity the kernel route's labels equal to the plain route's on
+     the same embeddings; stage 2 with a cat crop network at 224x224 on
+     phase 4's 8/16/32-box frames in both modes (each kernel once per
+     valid crop; parity's kernel route = plain route); (c)
+     tools.test_net.main() with that yml on the committed TableTop tree
+     in both modes (each kernel exactly once a frame and per valid
+     crop); (d) unseenobjectclustering_torch/cfgs/
+     synthetic_240x320_rgbd_cat.yml trained on phase 8b's cache (CAT_EPOCHS,
+     bf16, device-resident) and, on CAT_FRAMES held-out frames' 128-D
+     embeddings, every kernel against its plain version in both modes
+     with the hill climb held to the float64 replay within Z_TOL, the
+     seeds exact or parting below SEED_GAP, and parity's kernel route's
+     labels equal to the plain route's but at certified near-ties.  One
+     {"cat": {...}} line.
   9. data parallelism (unseenobjectclustering_torch.parallel), what one
      card can show of it: (a) world size 1 on NCCL (an all-reduce and an
      all-gather checked): Segmentor.segment_sharded on 4 frames at
@@ -241,7 +265,10 @@ Phases (any failure exits non-zero; no exception is caught):
      phase 9's sharded stage 1 and evaluation and of its spatial stage 1
      (rank 0's, per network and mode, and at world size 1), of phase 8c's
      two-stage test_net runs per crop network and mode, its times and
-     bounds in both modes at the frame and both crop shapes.
+     bounds in both modes at the frame and both crop shapes; then each
+     kernel's width-128 instantiation (name suffixed _d128) with its
+     launches on phase 2c's stage 1, stage 2 and test_net runs and its
+     readings from phase 2c (a).
  11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -442,6 +469,18 @@ CROP_SIDES = {name: int(Config.from_yaml(os.path.join(REPO, yml)).TRAIN[
 CROP_EPOCHS = 15
 REFINE_DROP = 0.2
 STAGE2_PARTS = ("crops", "network", "cluster", "veto", "fetch", "paste")
+# phase 2c: the JAX repo's rgbd_cat recipes (FUSION_TYPE cat: the two
+# towers' NUM_UNITS = 64 outputs concatenated into CAT_D-dim embeddings),
+# the kernels' width-128 instantiations; CAT_RECIPE_YML trained on phase
+# 8b's render cache for CAT_EPOCHS epochs of TRAINED_SCENES / 16 steps,
+# its kernels checked on CAT_FRAMES held-out frames
+CAT_D = 128
+CAT_YML = ("experiments/cfgs/"
+           "seg_resnet34_8s_embedding_cosine_rgbd_cat_tabletop.yml")
+CAT_RECIPE_YML = ("unseenobjectclustering_torch/cfgs/"
+                  "synthetic_240x320_rgbd_cat.yml")
+CAT_EPOCHS = 10
+CAT_FRAMES = 4
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -501,13 +540,18 @@ def time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, name: str, reps: int, tries: int = 3) -> float:
-    """Device time per call of fn of the CUDA kernels whose name holds
-    `name` (torch.profiler), after one warm-up call: the kernel's own time,
-    without the host latency that time_ms includes.  Now and then the
-    profiler returns a window without the kernel's device events (twice in
-    seven runs of this script on the H100, both at the 0.01 ms
-    connected-components kernel), so a window that shows none is profiled
-    again, up to `tries` windows in all."""
+    """Device time per launch of the CUDA kernels whose name holds `name`
+    (torch.profiler) over reps calls of fn (one launch each), after one
+    warm-up call: the kernel's own time, without the host latency that
+    time_ms includes.  The time is averaged over the launches the window
+    recorded: the profiler drops some launches' device events now and then
+    (the width-128 seeding kernel read 1.61 and 0.08 ms where its CUDA
+    events gave 5.4 and 0.32 ms a call, on the H100), and a note says when
+    it recorded fewer than reps.  A window that shows none (twice in seven
+    runs of this script, both at the 0.01 ms connected-components kernel)
+    is profiled again, up to `tries` windows in all; when none of them
+    shows it (three windows in a row once, at that kernel late in the
+    script), the time comes from queued_ms instead, and a note says so."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -515,14 +559,47 @@ def device_ms(fn, name: str, reps: int, tries: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if name in e.key)
+        events = [e for e in prof.key_averages() if name in e.key]
+        us = sum(e.device_time_total for e in events)
+        count = sum(e.count for e in events)
         if us > 0:
-            return us / reps / 1e3
+            if count != reps:
+                print(f"device_ms: {count} of {reps} launches of {name} "
+                      "recorded; averaged over those")
+            return us / count / 1e3
         print(f"device_ms: a profiler window without {name}'s device "
               "events; profiling again")
-    raise AssertionError(f"the profiler saw no device time for {name} in "
-                         f"{tries} windows")
+    ms = queued_ms(fn, reps)
+    print(f"device_ms: the profiler saw no device time for {name} in "
+          f"{tries} windows; {ms:.4f} ms from CUDA events around {reps} "
+          "queued calls")
+    return ms
+
+
+def queued_ms(fn, reps: int, cycles: int = 20_000_000) -> float:
+    """Device time per call of fn from CUDA events around reps calls that
+    the host queues while a sleep kernel holds the stream, so that the
+    events see the device's work back to back and none of the host's
+    latency.  fn must not wait for the device.  The sleep doubles until it
+    outlasts the host's queueing, at most five times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        queued = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queued = (time.perf_counter() - queued) * 1e3
+        marks[2].record()
+        marks[2].synchronize()
+        if queued < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / reps
+        cycles *= 2
+    raise AssertionError(f"queued_ms: the host took {queued:.3f} ms to "
+                         f"queue {reps} calls, longer than every sleep")
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -531,17 +608,17 @@ def bound(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def clustered_embeddings(seed: int = 0, k: int = 12, n: int = N
+def clustered_embeddings(seed: int = 0, k: int = 12, n: int = N, d: int = D
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[n, D] unit embeddings around k centers (one large background
+    """[n, d] unit embeddings around k centers (one large background
     cluster), and a [n] validity mask with one mostly-invalid cluster."""
     rng = np.random.RandomState(seed)
-    centers = rng.randn(k, D)
+    centers = rng.randn(k, d)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
     prob = np.full(k, 1.0)
     prob[0] = 6.0
     assign = rng.choice(k, size=n, p=prob / prob.sum())
-    x = centers[assign] + 0.3 * rng.randn(n, D) / np.sqrt(D)
+    x = centers[assign] + 0.3 * rng.randn(n, d) / np.sqrt(d)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     z_valid = rng.rand(n) > 0.05
     z_valid[assign == 3] = rng.rand(int((assign == 3).sum())) > 0.7
@@ -549,10 +626,10 @@ def clustered_embeddings(seed: int = 0, k: int = 12, n: int = N
             torch.from_numpy(z_valid).cuda())
 
 
-def pairwise_far_seeds(seed: int = 1) -> torch.Tensor:
-    """[M, D] random unit seeds, every pair far outside EPS (cosine
+def pairwise_far_seeds(seed: int = 1, d: int = D) -> torch.Tensor:
+    """[M, d] random unit seeds, every pair far outside EPS (cosine
     distance about 0.5): each seed is its own cluster."""
-    z = np.random.RandomState(seed).randn(M, D)
+    z = np.random.RandomState(seed).randn(M, d)
     z /= np.linalg.norm(z, axis=1, keepdims=True)
     return torch.from_numpy(z.astype(np.float32)).cuda()
 
@@ -594,15 +671,19 @@ def check_kernels(mode: str, x32: torch.Tensor,
                   z_valid: torch.Tensor | None, where: str = "",
                   timed: bool = True, against_exact: bool = False,
                   far: bool = True) -> dict[str, dict]:
-    """Phase 2 for one mode at x32's shape ([n, D]): every kernel against
+    """Phase 2 for one mode at x32's shape ([n, d]): every kernel against
     its plain version, and with `timed` each one's times beside its
     bound.  z_valid (the stage-1 depth mask) goes to the assignment when
-    given; stage 2 has none.  The seeds must be equal, but in fast mode
-    and with `against_exact` (trained embeddings) they may part where the
-    plain version's min-distance gap between the two picks is below
-    SEED_GAP, a float32 near-tie (the checks after it start from the plain
-    version's seeds).  In parity, and in fast mode with
-    `against_exact`, the hill climb's Z is also compared with the float64
+    given; stage 2 has none.  The seeds must be equal, but in fast mode,
+    with `against_exact` (trained embeddings) and at width CAT_D (the
+    kernel's sequential 128-term float32 chains and the plain version's
+    cuBLAS sums round apart: in parity at the 224^2 crop's clustered input
+    on the H100 the two picked pixels whose min-distances were 2^-25
+    apart) they may part where the plain version's min-distance gap
+    between the two picks is below SEED_GAP, a float32 near-tie (the
+    checks after it start from the plain version's seeds).  In parity, and
+    in fast mode with `against_exact`, the hill climb's Z is also compared
+    with the float64
     result on the same X (hill_climb_exact).  With `against_exact` the
     hill climb is held to that result instead of to its plain version: in
     parity within Z_TOL (on trained crop embeddings the plain float32
@@ -614,7 +695,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
     dtype = torch.float32 if mode == "parity" else torch.bfloat16
     sub = 1 if mode == "parity" else int(FAST_CLUSTER["SEED_SUBSAMPLE"])
     x = x32.to(dtype)
-    n = x.shape[0]
+    n, d = x.shape
     x_seed = x[::sub]
     n_seed = x_seed.shape[0]
     first = 12345 % n_seed
@@ -635,12 +716,12 @@ def check_kernels(mode: str, x32: torch.Tensor,
     step, gap = seed_gap(x_seed, got_i, want_i)
     print(f"[{tag}] select_seeds: first differing step {step}, "
           f"min-distance gap there {gap:.3e}")
-    if step >= 0 and not ((mode == "fast" or against_exact)
+    if step >= 0 and not ((mode == "fast" or against_exact or d == CAT_D)
                           and gap < SEED_GAP):
         raise AssertionError(f"[{tag}] seeding differs at step {step} "
                              f"(gap {gap:.3e})")
-    ops = 2.0 * (M - 1) * n_seed * D
-    nbytes = n_seed * D * esize + M * (D * esize + 4)
+    ops = 2.0 * (M - 1) * n_seed * d
+    nbytes = n_seed * d * esize + M * (d * esize + 4)
     calls["select_seeds"] = (
         lambda: cuda_seeding.select_seeds(x_seed, M, first),
         lambda: cuda_seeding.select_seeds_reference(x_seed, M, first), 10)
@@ -648,7 +729,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
         max_abs_err=float((got_s.float() - want_s.float()).abs().max())
         if step < 0 else float(gap), differing_step=step,
         bound=bound(nbytes, ops, dtype),
-        rereads_ms=(M - 1) * n_seed * D * esize / HBM_BYTES_PER_S * 1e3)
+        rereads_ms=(M - 1) * n_seed * d * esize / HBM_BYTES_PER_S * 1e3)
 
     z0 = want_s.float()
     got_z = cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS)
@@ -673,8 +754,8 @@ def check_kernels(mode: str, x32: torch.Tensor,
     if not held <= Z_TOL[mode]:
         raise AssertionError(f"[{tag}] hill_climb {held:.3e} {what} > "
                              f"{Z_TOL[mode]}")
-    ops = ITERS * 4.0 * M * n * D
-    nbytes = n * D * esize + 2 * M * D * 4
+    ops = ITERS * 4.0 * M * n * d
+    nbytes = n * d * esize + 2 * M * d * 4
     calls["hill_climb"] = (
         lambda: cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS),
         lambda: cms.hill_climb_reference(x, z0, kappa=KAPPA,
@@ -686,7 +767,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
     z = want_z
     inputs = {"clustered": z}
     if far:
-        inputs["pairwise-far"] = pairwise_far_seeds()
+        inputs["pairwise-far"] = pairwise_far_seeds(d=d)
     cc = {}  # input -> (plain labels, merge steps)
     for name, zin in inputs.items():
         got_l = cms.connected_components(zin, EPS)
@@ -706,7 +787,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
         lambda: cms.connected_components_reference(z, EPS), 20)
     out["connected_components"] = dict(
         max_abs_err=0.0,
-        bound=bound(M * D * 4 + M * 4, 2.0 * M * M * D, torch.float32),
+        bound=bound(M * d * 4 + M * 4, 2.0 * M * M * d, torch.float32),
         merge_steps=cc["clustered"][1],
         far_merge_steps=cc["pairwise-far"][1] if far else None)
 
@@ -722,9 +803,9 @@ def check_kernels(mode: str, x32: torch.Tensor,
                 f"{int((g != w).sum())} entries")
     print(f"[{tag}] assign_labels: labels and both histograms equal; "
           f"{rechecked} pixels re-checked exactly")
-    ops = 2.0 * M * n * D
-    nbytes = (n * D * esize + n * (4 + (z_valid is not None))
-              + M * (D * 4 + 4 + 8))
+    ops = 2.0 * M * n * d
+    nbytes = (n * d * esize + n * (4 + (z_valid is not None))
+              + M * (d * 4 + 4 + 8))
     calls["assign_labels"] = (
         lambda: cms.assign_labels(x, z, slab, z_valid=z_valid),
         lambda: cms.assign_labels_reference(x, z, slab, z_valid=z_valid), 10)
@@ -742,8 +823,11 @@ def check_kernels(mode: str, x32: torch.Tensor,
                                 10))
     for name, r in out.items():
         r["device_ms"] = device_ms(calls[name][0], KERNEL_NAMES[name], 10)
+        # device_ms's fallback, read every time so that it stays tried
+        r["queued_ms"] = queued_ms(calls[name][0], 10)
         print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"{r['device_ms']:.4f} ms, queued {r['queued_ms']:.4f} ms), "
+              f"plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
               + (f", X re-read every step {r['rereads_ms']:.4f} ms"
                  if "rereads_ms" in r else "")
@@ -806,9 +890,10 @@ def tabletop_frame(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return np.clip(bgr, 0, 255).astype(np.uint8), depth
 
 
-def run_slice(cfg: Config, state_dict: dict, frame: dict
-              ) -> tuple[dict, dict, torch.Tensor]:
-    """Phase 3: both modes through Segmentor.segment_sample, each mode's
+def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
+              where: str = "") -> tuple[dict, dict, torch.Tensor]:
+    """Phase 3 (and 2c's stage 1, at width d, its lines tagged with
+    `where`): both modes through Segmentor.segment_sample, each mode's
     counters reset just before its frames and read just after; every
     kernel must have launched in each mode."""
     segs = {"parity": Segmentor(cfg, state_dict),
@@ -818,41 +903,42 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict
     counts: dict[str, dict] = {}
     features = None
     for mode, seg in segs.items():
+        tag = where + mode
         rows = []
         reset_counts()
         for i in range(1 + FRAMES):
             res = seg.segment_sample(frame, return_features=(i == 0))
             labels = res.labels
             if labels.shape != (1, H, W) or labels.dtype != np.int32:
-                raise AssertionError(f"[{mode}] labels {labels.shape} "
+                raise AssertionError(f"[{tag}] labels {labels.shape} "
                                      f"{labels.dtype}")
             if labels.min() < 0 or labels.max() > M:
-                raise AssertionError(f"[{mode}] label ids out of range")
+                raise AssertionError(f"[{tag}] label ids out of range")
             if i == 0:
                 f = res.features
                 norms = np.linalg.norm(f, axis=-1)
-                if (f.shape != (1, H, W, D) or not np.isfinite(f).all()
+                if (f.shape != (1, H, W, d) or not np.isfinite(f).all()
                         or np.abs(norms - 1.0).max() > 1e-3):
-                    raise AssertionError(f"[{mode}] bad embeddings")
+                    raise AssertionError(f"[{tag}] bad embeddings")
                 if mode == "parity":
                     features = torch.from_numpy(f[0]).cuda()
-                print(f"[{mode}] labels: {len(np.unique(labels))} ids, "
+                print(f"[{tag}] labels: {len(np.unique(labels))} ids, "
                       f"largest non-background "
                       f"{int(np.bincount(labels.ravel())[1:].max(initial=0))}"
                       " px")
             else:
                 rows.append(res.timing)
         counts[mode] = launch_counts()
-        print(f"[{mode}] main-path launches: {counts[mode]}; the last "
+        print(f"[{tag}] main-path launches: {counts[mode]}; the last "
               f"frame's assignment re-checked "
               f"{int(cms.assign_labels_rechecked)} pixels")
         missing = [k for k, v in counts[mode].items() if v <= 0]
         if missing:
-            raise AssertionError(f"[{mode}] kernels not launched on the main "
+            raise AssertionError(f"[{tag}] kernels not launched on the main "
                                  f"path: {missing}")
         timings[mode] = {k: 1e3 * float(np.median([r[k] for r in rows]))
                          for k in ("network", "cluster", "stage1")}
-        print(f"[{mode}] stage 1 ms/frame (median of {FRAMES}): "
+        print(f"[{tag}] stage 1 ms/frame (median of {FRAMES}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in timings[mode].items()))
     return counts, timings, features
 
@@ -2691,12 +2777,12 @@ def near_ties(x: torch.Tensor, kernel, plain) -> dict:
     seed's similarity less the best similarity of a seed of another
     label), and the bound no pixel's margin can exceed if the seeds'
     difference alone flipped it: twice the largest row distance between
-    the two routes' seeds, plus twice the float32 rounding of a D-term dot
-    product of unit vectors (D * 2^-24)."""
+    the two routes' seeds, plus twice the float32 rounding of a d-term dot
+    product of unit vectors (d * 2^-24)."""
     z = plain.seeds.double()
     delta = float((kernel.seeds.double() - z).norm(dim=1).max())
     out = dict(pixels=int((kernel.labels != plain.labels).sum()),
-               margin=0.0, bound=2 * delta + 2 * D * 2.0 ** -24)
+               margin=0.0, bound=2 * delta + 2 * x.shape[1] * 2.0 ** -24)
     if out["pixels"]:
         diff = (kernel.labels != plain.labels).nonzero()[:, 0]
         sim = x[diff].double() @ z.T
@@ -2707,6 +2793,25 @@ def near_ties(x: torch.Tensor, kernel, plain) -> dict:
         out["margin"] = float((sim.max(dim=1).values
                                - other.max(dim=1).values).max())
     return out
+
+
+def route_ties(tag: str, x: torch.Tensor, kern, plain
+               ) -> tuple[dict | None, dict | None]:
+    """One clustering's kernel route against its plain route
+    (MeanShiftResults from the same first seed): (the seeding's near-tie
+    where the routes part, else None; the pixels near_ties finds where
+    some labels differ, else None).  Raises where the seeds part at a gap
+    of SEED_GAP or more or, with equal seeds, the seed labels differ."""
+    if not torch.equal(kern.seed_indices, plain.seed_indices):
+        step, gap = seed_gap(x, kern.seed_indices, plain.seed_indices)
+        if not gap < SEED_GAP:
+            raise AssertionError(f"[{tag}] the routes' seeds differ at step "
+                                 f"{step} (gap {gap:.3e})")
+        return dict(step=step, gap=gap), None  # the routes part here
+    if not torch.equal(kern.seed_labels, plain.seed_labels):
+        raise AssertionError(f"[{tag}] the routes' seed labels differ")
+    t = near_ties(x, kern, plain)
+    return None, (t if t["pixels"] else None)
 
 
 def crop_routes(feats: torch.Tensor, valid: list[bool], seed: int,
@@ -2724,7 +2829,7 @@ def crop_routes(feats: torch.Tensor, valid: list[bool], seed: int,
                 g = torch.Generator()
                 g.set_state(state)
                 out[i].append(mean_shift_smart_init(
-                    feats[i].reshape(-1, D), g,
+                    feats[i].reshape(-1, feats.shape[-1]), g,
                     **dict(ms_kw, use_pallas=pallas)))
     return out
 
@@ -2795,27 +2900,13 @@ def check_crop_kernels(name: str, segs: dict[str, Segmentor], cache: str
                             raise AssertionError(
                                 f"[{name}] frame {fr} crop {i}: the route "
                                 "replay differs from _cluster_crops")
-                        x = feats[i].reshape(n, D)
-                        if not torch.equal(kern.seed_indices,
-                                           plain.seed_indices):
-                            step, gap = seed_gap(x, kern.seed_indices,
-                                                 plain.seed_indices)
-                            if not gap < SEED_GAP:
-                                raise AssertionError(
-                                    f"[{name} parity] frame {fr} crop {i}: "
-                                    f"the routes' seeds differ at step "
-                                    f"{step} (gap {gap:.3e})")
-                            # a float32 near-tie: the routes part here
+                        seed_tie, t = route_ties(
+                            f"{name} parity, frame {fr} crop {i}",
+                            feats[i].reshape(n, D), kern, plain)
+                        if seed_tie:
                             seed_ties.append(dict(frame=fr, crop=i,
-                                                  step=step, gap=gap))
-                            continue
-                        if not torch.equal(kern.seed_labels,
-                                           plain.seed_labels):
-                            raise AssertionError(
-                                f"[{name} parity] frame {fr} crop {i}: the "
-                                "routes' seed labels differ")
-                        t = near_ties(x, kern, plain)
-                        if t["pixels"]:
+                                                  **seed_tie))
+                        if t:
                             ties.append(dict(frame=fr, crop=i, **t))
             if set(launched.values()) != {len(crops)}:
                 raise AssertionError(f"[{name} {mode}] frame {fr}: the crop "
@@ -3006,6 +3097,229 @@ def run_two_stage(tmp: str, trained: dict, random_crop: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the rgbd_cat recipes (128-D embeddings)
+# ---------------------------------------------------------------------------
+
+def crop_shapes() -> list[tuple[int, str]]:
+    """Stage 2's crop sides, largest first, with the tag of their lines."""
+    return [(side, ", crop" + ("" if side == CROP else f" {side}"))
+            for side in sorted(set(CROP_SIDES.values()), reverse=True)]
+
+
+def cat_stage2(cfg: Config, state: dict, state_crop: dict) -> dict:
+    """Phase 2c (b), stage 2: a cat stage-1 network and a cat crop network
+    at CROP^2 on phase 4's box frames (the boxes as the stage-1 labels), in
+    both modes with the counters set to 0 before the mode's frames and
+    read after: every kernel exactly once per valid crop; in parity the
+    kernel route's refined labels equal the plain route's."""
+    segs = {"parity": Segmentor(cfg, state, state_crop),
+            "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)), state,
+                              state_crop, model_dtype=torch.bfloat16)}
+    frames = stage2_frames(cfg)
+    out: dict = {"launches": {}, "ms": {}}
+    for mode, seg in segs.items():
+        reset_counts()
+        ms = {}
+        for k, frame in frames.items():
+            rows = []
+            for i in range(2):  # the first call warms up
+                timing: dict[str, float] = {}
+                refine(seg, frame, seed=i, timing=timing)
+                rows.append(1e3 * timing["stage2"])
+            ms[k] = rows[1]
+        crops = 2 * sum(frames)
+        out["launches"][mode] = launch_counts()
+        out["ms"][mode] = ms
+        print(f"[cat {mode}] stage 2 with the cat crop network, "
+              f"{crops} valid crops: launches {out['launches'][mode]}; ms "
+              f"per frame at {', '.join(map(str, frames))} instances "
+              + ", ".join(f"{v:.3f}" for v in ms.values()))
+        if set(out["launches"][mode].values()) != {crops}:
+            raise AssertionError(f"[cat {mode}] stage 2 launched "
+                                 f"{out['launches'][mode]}, not once per "
+                                 f"valid crop ({crops})")
+    seg = segs["parity"]
+    kernel_kw = seg._ms_kw
+    for k, frame in frames.items():
+        got = refine(seg, frame, seed=7)
+        seg._ms_kw = dict(kernel_kw, use_pallas=False)
+        want = refine(seg, frame, seed=7)
+        seg._ms_kw = kernel_kw
+        n_diff = int((got != want).sum())
+        print(f"[cat parity] stage 2, {k} instances, kernel route vs plain "
+              f"route: {len(np.unique(want)) - 1} refined instances, "
+              f"{n_diff} pixels differ")
+        if n_diff:
+            raise AssertionError("[cat] stage 2's kernel route differs from "
+                                 "its plain route")
+    return out
+
+
+def cat_trained(work: str, cache: str) -> dict:
+    """Phase 2c (d): CAT_RECIPE_YML trained on phase 8b's render cache
+    (CAT_EPOCHS, --bf16 --device-resident), then on each of CAT_FRAMES
+    held-out frames' 128-D embeddings every kernel against its plain
+    version in both modes with the hill climb held to the float64 result
+    (check_kernels with against_exact: the seeds exact or parting at a
+    near-tie below SEED_GAP), and in parity the kernel route against the
+    plain route (route_ties: labels equal but at certified near-ties)."""
+    snapshots = os.path.join(work, "snapshots")
+    steps, train_s, step_ms = train_recipe("cat trained", CAT_RECIPE_YML,
+                                           NET, CAT_EPOCHS, cache, snapshots)
+    cfg = Config.from_yaml(os.path.join(REPO, CAT_RECIPE_YML))
+    seg = build_segmentor(cfg, NET, pretrained=snapshots)
+    img, xyz = held_out_frames(cache, CAT_FRAMES, DEV)
+    errs: dict[str, float] = {}  # the largest over the frames
+    seed_flips, seed_ties, ties, found = [], [], [], []
+    for fr in range(CAT_FRAMES):
+        res = seg.segment(img[fr:fr + 1], xyz[fr:fr + 1], refine=False,
+                          return_features=True)
+        found.append(instances(res.labels[0]))
+        x = torch.from_numpy(res.features[0]).cuda().reshape(-1, CAT_D)
+        for mode in ("parity", "fast"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                checked = check_kernels(
+                    mode, x, None, where=f", cat trained frame {fr}",
+                    timed=False, against_exact=True, far=False)
+            for kernel, r in checked.items():
+                for key in ("max_abs_err", "exact_err", "plain_exact_err"):
+                    if key in r:
+                        k = (f"{mode}/{kernel}" + ("" if key == "max_abs_err"
+                                                   else "_" + key[:-4]))
+                        errs[k] = max(errs.get(k, 0.0), r[key])
+            if checked["select_seeds"]["differing_step"] >= 0:
+                seed_flips.append(dict(
+                    mode=mode, frame=fr,
+                    step=checked["select_seeds"]["differing_step"],
+                    gap=checked["select_seeds"]["max_abs_err"]))
+        routes = [mean_shift_smart_init(
+            x, torch.Generator().manual_seed(fr),
+            **dict(seg._ms_kw, use_pallas=pallas)) for pallas in (True, False)]
+        seed_tie, t = route_ties(f"cat trained parity, frame {fr}", x,
+                                 *routes)
+        if seed_tie:
+            seed_ties.append(dict(frame=fr, **seed_tie))
+        if t:
+            ties.append(dict(frame=fr, **t))
+    print(f"[cat trained] kernels on the trained 128-D embeddings of "
+          f"{CAT_FRAMES} held-out frames at {TH}x{TW} (stage-1 instances "
+          f"{found}): each kernel equal to its plain version, the seeding "
+          f"but at near-ties (mode, frame: step, gap) "
+          + (", ".join(f"{t['mode']}, {t['frame']}: {t['step']}, "
+                       f"{t['gap']:.2e}" for t in seed_flips) or "none")
+          + f"; largest readings {json.dumps(errs)}; parity kernel route "
+          f"vs plain route: seeds parting at a near-tie (frame: step, gap) "
+          + (", ".join(f"{t['frame']}: {t['step']}, {t['gap']:.2e}"
+                       for t in seed_ties) or "none")
+          + ", pixels that differ (frame: pixels, largest margin, bound) "
+          + (", ".join(f"{t['frame']}: {t['pixels']}, {t['margin']:.2e}, "
+                       f"{t['bound']:.2e}" for t in ties) or "none"))
+    bad = [t for t in ties if t["margin"] > t["bound"]]
+    if bad:
+        raise AssertionError(f"[cat trained] the routes differ beyond a "
+                             f"near-tie: {bad}")
+    return dict(steps=len(steps), epochs=CAT_EPOCHS, train_s=train_s,
+                step_ms=step_ms, loss=[steps[0]["loss"], steps[-1]["loss"]],
+                frames=CAT_FRAMES, stage1_instances=found, max_abs_err=errs,
+                seed_near_ties=seed_flips or None,
+                route_seed_near_ties=seed_ties or None,
+                route_near_ties=ties or None)
+
+
+def run_cat(tmp: str, cache: str) -> dict:
+    """Phase 2c: the JAX repo's rgbd_cat recipes, whose cat fusion
+    concatenates the two towers' 64-D outputs into 128-D embeddings, on
+    the kernels' width-128 instantiations.  (a) each kernel against its
+    plain version at the frame (n = 480*640, m = 100) and both crop
+    shapes in both modes, timed beside its bound (check_kernels: the same
+    checks and tolerances as phase 2); (b) stage 1 through
+    Segmentor.segment_sample with the cat network of CAT_YML at 480x640
+    in both modes (run_slice: counters set to 0 before each mode's frames
+    and read after, every kernel launched), in parity the kernel route's
+    labels equal to the plain route's on the same embeddings, then stage
+    2 with a cat crop network (cat_stage2); (c) tools.test_net with
+    CAT_YML on the committed TableTop tree in both modes, each kernel
+    exactly once a frame and once per valid crop; (d) cat_trained on
+    phase 8b's render cache (`cache`)."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "cat")
+    os.makedirs(work, exist_ok=True)
+    x32, z_valid = clustered_embeddings(seed=20, d=CAT_D)
+    checks = {mode: check_kernels(mode, x32, z_valid, where=", cat")
+              for mode in ("parity", "fast")}
+    del x32, z_valid
+    crop_checks = {}
+    for seed, (side, where) in enumerate(crop_shapes(), start=21):
+        x_crop, _ = clustered_embeddings(seed=seed, n=side * side, d=CAT_D)
+        crop_checks[side] = {mode: check_kernels(mode, x_crop, None,
+                                                 where=", cat" + where)
+                             for mode in ("parity", "fast")}
+        del x_crop
+    kernels_s = time.perf_counter() - t0
+
+    cfg = Config.from_yaml(os.path.join(REPO, CAT_YML)).replace(MODE="TEST")
+    torch.manual_seed(20)
+    net = get_network(NET, cfg)
+    if net.embedding_dim != CAT_D:
+        raise AssertionError(f"{CAT_YML}: {net.embedding_dim}-D embeddings")
+    state = net.state_dict()
+    torch.manual_seed(21)
+    state_crop = get_network(NET, cfg).state_dict()
+    bgr, depth = tabletop_frame()
+    img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
+                               torch.from_numpy(depth).cuda(),
+                               cfg.pixel_means, *INTR)
+    frame = {"image_color": img, "depth": xyz}
+    counts, timings, features = run_slice(cfg, state, frame, d=CAT_D,
+                                          where="cat ")
+    kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
+              metric="cosine", first_index=4321, seed_subsample=1,
+              compute_dtype="float32", filter_threshold=0.8,
+              z_valid=(xyz[..., 2] > 0).reshape(N))
+    feats = features.reshape(N, CAT_D)
+    k_route = mean_shift_smart_init(feats, use_pallas=True, **kw)
+    p_route = mean_shift_smart_init(feats, use_pallas=False, **kw)
+    n_diff = int((k_route.labels != p_route.labels).sum())
+    step, gap = seed_gap(feats, k_route.seed_indices, p_route.seed_indices)
+    print(f"[cat parity] kernel route vs plain route on the cat network's "
+          f"embeddings: {n_diff} pixels differ; seeds first differ at step "
+          f"{step} (gap {gap:.3e}); max |Z - Z_plain| "
+          f"{float((k_route.seeds - p_route.seeds).abs().max()):.3e}")
+    # the labels equal; the seeds too, or parting at a float32 near-tie
+    if n_diff or (step >= 0 and not gap < SEED_GAP):
+        raise AssertionError("[cat] the kernel route differs from the plain "
+                             "route on the cat network's embeddings")
+    stage2 = cat_stage2(cfg, state, state_crop)
+
+    paths = {}
+    for name, st in (("main", state), ("crop", state_crop)):
+        paths[name] = os.path.join(work, f"{name}.pth")
+        torch.save({"model": {"module." + k: v for k, v in st.items()}},
+                   paths[name])
+    tests = {}
+    for mode in ("parity", "fast"):
+        tests[mode], _ = run_test_net(f"cat {mode}, tabletop_object_test", [
+            "--dataset", "tabletop_object_test", "--dataset_root", TABLETOP,
+            "--cfg", os.path.join(REPO, CAT_YML), "--network", NET,
+            "--pretrained", paths["main"], "--pretrained_crop", paths["crop"],
+            "--max_images", str(TABLETOP_FRAMES), "--output-dir",
+            os.path.join(work, "test_net", mode)]
+            + (["--fast"] if mode == "fast" else []), TABLETOP_FRAMES,
+            exact=True)
+    del state, state_crop, net
+    torch.cuda.empty_cache()
+    trained = cat_trained(work, cache)
+    out = dict(checks=checks, crop_checks=crop_checks, kernels_s=kernels_s,
+               stage1_launches=counts, stage1_ms=timings, stage2=stage2,
+               test_net=tests, trained=trained,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 2c {out['phase_s']:.1f} s (kernels {kernels_s:.1f}, "
+          f"training {trained['train_s']:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: data parallelism
 # ---------------------------------------------------------------------------
 
@@ -3626,6 +3940,40 @@ def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
     return out
 
 
+def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
+    """One kernel's readings for the kernels line from check_kernels at the
+    frame (checks[mode]) and at each crop side (crop_checks[side][mode]):
+    errors, ms, device ms, plain ms and bound in both modes."""
+    par, fast = checks["parity"][name], checks["fast"][name]
+    out = dict(
+        max_abs_err=par["max_abs_err"],
+        ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
+        bound_by=par["bound"][1], library_ms=None,
+        device_ms=par["device_ms"], fast_device_ms=fast["device_ms"],
+        fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
+        fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
+        fast_bound_by=fast["bound"][1])
+    for side, by_mode in crop_checks.items():
+        crop = "crop_" if side == CROP else f"crop{side}_"
+        for mode, prefix in (("parity", crop), ("fast", "fast_" + crop)):
+            r = by_mode[mode][name]
+            out.update({prefix + "max_abs_err": r["max_abs_err"],
+                        prefix + "ms": r["ms"],
+                        prefix + "device_ms": r["device_ms"],
+                        prefix + "plain_ms": r["plain_ms"],
+                        prefix + "bound_ms": r["bound"][0],
+                        prefix + "bound_by": r["bound"][1]})
+    if name == "connected_components":
+        out.update(merge_steps=par["merge_steps"],
+                   fast_merge_steps=fast["merge_steps"],
+                   pairwise_far_ms=par["far_ms"],
+                   pairwise_far_device_ms=par["far_device_ms"],
+                   fast_pairwise_far_ms=fast["far_ms"],
+                   fast_pairwise_far_device_ms=fast["far_device_ms"],
+                   pairwise_far_merge_steps=par["far_merge_steps"])
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -3649,14 +3997,11 @@ def main() -> None:
                  for mode in ("parity", "fast")}
     del x32, z_valid
     crop_checks = {}  # crop side -> mode -> kernel -> readings
-    for seed, side in enumerate(sorted(set(CROP_SIDES.values()),
-                                       reverse=True), start=2):
+    for seed, (side, where) in enumerate(crop_shapes(), start=2):
         x_crop, _ = clustered_embeddings(seed=seed, n=side * side)
-        crop_checks[side] = {
-            mode: check_kernels(mode, x_crop, None,
-                                where=", crop" + ("" if side == CROP
-                                                  else f" {side}"))
-            for mode in ("parity", "fast")}
+        crop_checks[side] = {mode: check_kernels(mode, x_crop, None,
+                                                 where=where)
+                             for mode in ("parity", "fast")}
         del x_crop
 
     # phase 3
@@ -3758,6 +4103,12 @@ def main() -> None:
             print(f"wall after phase 8c {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 2c: the rgbd_cat recipes at width 128; phase 8b's
+            # render cache
+            cat = run_cat(tmp, trained["cache"])
+            print(f"wall after phase 2c {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 9: phase 3's weights and timings, phase 8's U-Net,
             # phase 6's render cache, phase 7's OCID tree and phase 8b's
             # trained ResNet
@@ -3768,7 +4119,6 @@ def main() -> None:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        par, fast = checks["parity"][name], checks["fast"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts["parity"][name], fast_launches=counts["fast"][name],
@@ -3813,33 +4163,18 @@ def main() -> None:
                 for crop in CROP_NETS},
             random_crop_refined_launches=two_stage["runs"]["random/parity"][
                 "launches"][name],
-            max_abs_err=par["max_abs_err"],
-            ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
-            bound_by=par["bound"][1], library_ms=None,
-            device_ms=par["device_ms"], fast_device_ms=fast["device_ms"],
-            fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
-            fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
-            fast_bound_by=fast["bound"][1]))
-        for side, by_mode in crop_checks.items():
-            crop = "crop_" if side == CROP else f"crop{side}_"
-            for mode, prefix in (("parity", crop), ("fast", "fast_" + crop)):
-                r = by_mode[mode][name]
-                kernels[-1].update({
-                    prefix + "max_abs_err": r["max_abs_err"],
-                    prefix + "ms": r["ms"],
-                    prefix + "device_ms": r["device_ms"],
-                    prefix + "plain_ms": r["plain_ms"],
-                    prefix + "bound_ms": r["bound"][0],
-                    prefix + "bound_by": r["bound"][1]})
-        if name == "connected_components":
-            kernels[-1].update(
-                merge_steps=par["merge_steps"],
-                fast_merge_steps=fast["merge_steps"],
-                pairwise_far_ms=par["far_ms"],
-                pairwise_far_device_ms=par["far_device_ms"],
-                fast_pairwise_far_ms=fast["far_ms"],
-                fast_pairwise_far_device_ms=fast["far_device_ms"],
-                pairwise_far_merge_steps=par["far_merge_steps"])
+            **kernel_readings(name, checks, crop_checks)))
+    for name, (source, replaces) in KERNELS.items():
+        # the width-128 instantiation: launches on phase 2c's paths
+        kernels.append(dict(
+            name=f"{name}_d{CAT_D}", route="cuda", source=source,
+            replaces=replaces, launches=cat["stage1_launches"]["parity"][name],
+            fast_launches=cat["stage1_launches"]["fast"][name],
+            stage2_launches=cat["stage2"]["launches"]["parity"][name],
+            fast_stage2_launches=cat["stage2"]["launches"]["fast"][name],
+            test_net_launches=cat["test_net"]["parity"]["launches"][name],
+            fast_test_net_launches=cat["test_net"]["fast"]["launches"][name],
+            **kernel_readings(name, cat["checks"], cat["crop_checks"])))
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
                       routes_ms, "stage2_ms": s2_timings,
                       "stage2_peak_gib": s2_memory}))
@@ -3863,6 +4198,8 @@ def main() -> None:
     print(json.dumps({"alternates": alternates}))
     print(json.dumps({"trained": trained}))
     print(json.dumps({"two_stage": two_stage}))
+    print(json.dumps({"cat": {k: v for k, v in cat.items()
+                              if k not in ("checks", "crop_checks")}}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(card)
     print(json.dumps({"kernels": kernels}))

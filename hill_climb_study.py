@@ -72,8 +72,8 @@ def build_variants(out: dict) -> dict:
         if any(p.returncode for p in ps):
             raise RuntimeError("\n".join(logs))
         lines = logs[_build.SOURCES.index("mean_shift.cu")].splitlines()
-        at = next(i for i, line in enumerate(lines) if "hill_tf32" in line
-                  and "Compiling" in line)
+        at = next(i for i, line in enumerate(lines)
+                  if "hill_tf32_kernel" in line and "Compiling" in line)
         regs = " ".join(line.split(":", 1)[-1].strip()
                         for line in lines[at + 2:at + 4])
         print(f"[{name}] hill_tf32_kernel: {regs}")
@@ -95,14 +95,14 @@ def hill(lib, x, z0):
     import torch
     import chip_smoke as cs
     from unseenobjectclustering_torch.ops import _build
-    n, m = x.shape[0], z0.shape[0]
+    (n, d), m = x.shape, z0.shape[0]
     plan = (ctypes.c_longlong * 5)()
-    assert lib.uoc_hill_climb_plan(0, n, m, ctypes.addressof(plan)) == 0
-    partial = torch.empty((int(plan[0]), m, cs.D), device=x.device)
+    assert lib.uoc_hill_climb_plan(0, n, m, d, ctypes.addressof(plan)) == 0
+    partial = torch.empty((int(plan[0]), m, d), device=x.device)
     arrived = torch.empty(1, dtype=torch.int32, device=x.device)
-    z = torch.empty((m, cs.D), device=x.device)
+    z = torch.empty((m, d), device=x.device)
     z0 = z0.float().contiguous()
-    err = lib.uoc_hill_climb(x.data_ptr(), 0, n, z0.data_ptr(), m, cs.KAPPA,
+    err = lib.uoc_hill_climb(x.data_ptr(), 0, n, d, z0.data_ptr(), m, cs.KAPPA,
                              cs.ITERS, partial.data_ptr(), arrived.data_ptr(),
                              z.data_ptr(), _build.stream(x))
     _build.check(err, "hill_climb (study)")

@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain versions on the card.
 
 chip_smoke.py holds each kernel to its plain version at the stage-1 shapes
-(n = 480*640, d = 64, m = 100).  These tests cover the other shapes each
-kernel takes: m from 1 to 128 (ragged against the hill climb's 16-row
-groups and the assignment's two 64-seed products), a ragged last pixel
-tile, fewer pixels than one tile or one block's threads and more than the
-blocks hold on chip, a strided seeding view, rows that do not start on a
-16-byte boundary, the assignment's exact re-check of near-ties between
-labels, and hand-built seeds for the connected components (every seed its
-own cluster, one ball, an overwrite of labeled neighbours, a mode tie, pairs
-just inside and outside epsilon).  They need a CUDA device and skip without
-one.  On the machine with the card:
+(n = 480*640, d = 64, m = 100; phase 2c at d = 128).  These tests cover
+the other shapes each kernel takes: m from 1 to 128 (ragged against the
+hill climb's 16-row groups and the assignment's two 64-seed products), a
+ragged last pixel tile, fewer pixels than one tile or one block's threads
+and more than the blocks hold on chip, a strided seeding view, rows that
+do not start on a 16-byte boundary, the assignment's exact re-check of
+near-ties between labels, and hand-built seeds for the connected
+components (every seed its own cluster, one ball, an overwrite of labeled
+neighbours, a mode tie, pairs just inside and outside epsilon), and the
+four kernels at width 128 (the RGB-D cat fusion's embeddings: each
+kernel's second instantiation) across m, ragged and many tiles, a strided
+seeding view, misaligned rows and the crop shape.  They need a CUDA
+device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -408,16 +411,171 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card, monkeypatch):
         cuda_seeding.select_seeds(x.half(), 4, 0)
     with pytest.raises(ValueError):
         cuda_seeding.select_seeds(x, 4, 256)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="width 64 or 128"):
         cuda_seeding.select_seeds(x[:, :32], 4, 0)
     with pytest.raises(ValueError):
         cms.hill_climb(x, torch.randn(129, 64, device=card))
     with pytest.raises(ValueError):
         cms.hill_climb(x[:, :32], x[:4, :32])
-    with pytest.raises(ValueError):
-        cms.connected_components(torch.randn(8, 128, device=card), 0.04)
+    with pytest.raises(ValueError, match="width 64 or 128"):
+        cms.connected_components(torch.randn(8, 96, device=card), 0.04)
     with pytest.raises(ValueError):
         cms.assign_labels(x[:, :32], x[:4, :32],
                           torch.zeros(4, dtype=torch.int32, device=card))
     with pytest.raises(ValueError):
         cms.assign_labels(x, x[:4], torch.zeros(4, dtype=torch.int32))
+
+
+# -- width 128: the RGB-D cat fusion's 2 * NUM_UNITS --------------------------
+
+WIDE = 128
+
+
+def test_launch_configs_at_width_128(card):
+    """The width-128 instantiations at the frame: seeding 256 threads a
+    block, every SM, X held on chip; the float32 hill climb's warpgroups
+    and 32-pixel tiles, the bf16 hill climb's one half of 7 warps; the
+    float32 assignment one warpgroup a block, the bf16 two; every block
+    resident at once."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    x = torch.zeros(480 * 640, WIDE, device=card)
+    seed = cuda_seeding.launch_config(x)
+    assert seed["threads"] == 256 and seed["grid"] == sms
+    assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * WIDE * 4
+    for dtype, threads, assign_threads in zip(DTYPES, (2 * 128, 7 * 32),
+                                              (128, 256)):
+        hill = cms.hill_climb_config(x.to(dtype), 100)
+        assert hill["threads"] == threads
+        assert 1 <= hill["grid"] <= hill["blocks_per_sm"] * sms
+        assert hill["smem_bytes"] <= 232448
+        assign = cms.assign_labels_config(x.to(dtype), 100)
+        assert assign["threads"] == assign_threads
+        assert assign["blocks_per_sm"] >= 1
+        assert assign["grid"] == assign["blocks_per_sm"] * sms
+        assert assign["x_on_chip_bytes"] < assign["smem_bytes"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,stride", [
+    (100, 1),      # fewer pixels than one block's threads
+    (6001, 3),     # a strided view
+    (400000, 1),   # more than the blocks hold on chip
+])
+def test_seeding_kernel_at_width_128(card, dtype, n, stride):
+    x = on_card(card, clustered(n * stride, WIDE, seed=31)[0],
+                dtype)[::stride]
+    seeds, idx = cuda_seeding.select_seeds(x, 40, 5)
+    want_seeds, want_idx = cuda_seeding.select_seeds_reference(x, 40, 5)
+    assert_same_seeds(x, idx, want_idx)
+    assert seeds.shape == (40, WIDE) and seeds.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m", [(100, 20), (3001, 1), (3001, 65),
+                                 (70001, 100), (20000, 128)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_hill_climb_kernel_at_width_128(card, dtype, n, m, misaligned):
+    """Ragged against the float32 kernel's 32-pixel tiles and the bf16
+    kernel's 128, one and two warpgroups, many tiles a block."""
+    x = on_card(card, clustered(n, WIDE, seed=32)[0], dtype, misaligned)
+    pick = np.random.RandomState(33).choice(n, m, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    before = cms.hill_climb_launches
+    got = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    want = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
+    assert cms.hill_climb_launches == before + 1
+    assert got.shape == (m, WIDE)
+    assert float((got - want).abs().max()) <= Z_ATOL[dtype]
+
+
+@pytest.mark.parametrize("m", [1, 33, 65, 100, 128])
+def test_connected_components_kernel_at_width_128(card, m):
+    x = on_card(card, clustered(4000, WIDE, seed=34)[0], torch.float32)
+    labels, _ = cc_both(converged(card, x, m))
+    if m >= 33:
+        assert max(labels) > 0
+    z = unit(card, np.random.RandomState(m).randn(m, WIDE))
+    labels, steps = cc_both(z)  # pairwise far: each seed its own
+    assert labels == list(range(m)) and steps == m
+
+
+def test_connected_components_kernel_at_epsilon_width_128(card):
+    """Pairs just inside and just outside eps, each dot a full 128-term
+    chain (a random rotation)."""
+    eps, d = 0.04, WIDE
+    pairs = []
+    for k in range(16):
+        dist = eps * (1.0 + (-2.5e-4 if k % 2 == 0 else 2.5e-4))
+        c = 1.0 - 2.0 * dist
+        a, b = np.zeros(d), np.zeros(d)
+        a[2 * k] = 1.0
+        b[2 * k], b[2 * k + 1] = c, np.sqrt(1.0 - c * c)
+        pairs += [a, b]
+    rot, _ = np.linalg.qr(np.random.RandomState(36).randn(d, d))
+    labels, _ = cc_both(unit(card, np.stack(pairs) @ rot), eps)
+    for k in range(16):
+        assert (labels[2 * k] == labels[2 * k + 1]) == (k % 2 == 0), k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m", [(100, 20), (5001, 64), (5001, 65),
+                                 (300001, 100), (5001, 128)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_assign_kernel_at_width_128(card, dtype, n, m, misaligned):
+    xf, z_valid = clustered(n, WIDE, seed=37)
+    x = on_card(card, xf, dtype, misaligned)
+    z = converged(card, x.float(), m)
+    slab = cms.connected_components_reference(z, 0.04)
+    (_, counts, _), _ = assign_both(x, z, slab,
+                                    torch.from_numpy(z_valid).to(card))
+    assert float(counts.sum()) == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assign_kernel_exact_tie_at_width_128(card, dtype):
+    xf, _ = clustered(5000, WIDE, seed=38)
+    x = on_card(card, xf, dtype)
+    pick = np.random.RandomState(39).choice(5000, 20, replace=False)
+    z = x[torch.from_numpy(pick).to(card)].float()
+    z[5] = z[2]
+    slab = torch.arange(20, dtype=torch.int32, device=card)
+    (labels, _, _), rechecked = assign_both(x, z, slab)
+    assert rechecked > 0
+    assert int((labels == 2).sum()) > 0 and int((labels == 5).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride", [1, 8])
+def test_kernels_at_the_crop_shape_width_128(card, dtype, stride):
+    """Stage 2 with a cat crop network: n = 224*224, m = 100, each kernel
+    against its plain version on the plain version's inputs."""
+    x = on_card(card, clustered(224 * 224, WIDE, seed=40)[0], dtype)
+    x_seed = x[::stride]
+    _, idx = cuda_seeding.select_seeds(x_seed, 100, 17)
+    want_seeds, want_idx = cuda_seeding.select_seeds_reference(x_seed, 100,
+                                                               17)
+    assert_same_seeds(x_seed, idx, want_idx)
+    z0 = want_seeds.float()
+    got_z = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    want_z = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
+    assert float((got_z - want_z).abs().max()) <= Z_ATOL[dtype]
+    labels, _ = cc_both(want_z)
+    assert max(labels) > 0
+    slab = torch.tensor(labels, dtype=torch.int32, device=card)
+    assign_both(x, want_z, slab)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("subsample", [1, 8])
+def test_kernel_route_at_width_128_matches_it_on_cpu(card, compute_dtype,
+                                                     subsample):
+    xf, z_valid = clustered(48 * 64, WIDE, seed=41)
+    kw = dict(num_seeds=50, first_index=9, seed_subsample=subsample,
+              compute_dtype=compute_dtype, filter_threshold=0.8)
+    got = mean_shift_smart_init(torch.from_numpy(xf).to(card),
+                                z_valid=torch.from_numpy(z_valid).to(card),
+                                **kw)
+    want = mean_shift_smart_init(torch.from_numpy(xf),
+                                 z_valid=torch.from_numpy(z_valid), **kw)
+    for name in ("seed_indices", "seed_labels", "labels"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))

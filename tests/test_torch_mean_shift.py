@@ -3,7 +3,9 @@ kernel replaces, on the same numpy inputs (CPU, small shapes).
 
 On a CPU tensor every kernel wrapper runs its plain version, so these hold
 the plain versions (the references the kernels are held against on the
-card) to the JAX package's Pallas kernels in interpret mode.  Two tests
+card) to the JAX package's Pallas kernels in interpret mode, at width 16
+and at width 128 (the RGB-D cat fusion's 2 * NUM_UNITS, the kernels' second
+instantiation beside 64).  Two tests
 emulate the float32 kernels' split-TF32 arithmetic in torch: the hill
 climb's, held to the float32 plain version, and the assignment's, held to
 the margin below which the assignment kernel re-checks a pixel exactly.
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
 from unseenobjectclustering_torch.ops import mean_shift as tms
@@ -278,6 +281,86 @@ def test_assign_labels_matches_pallas(dtype, with_valid):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
 
 
+# The cat fusion's width, 2 * NUM_UNITS: the kernels' second instantiation.
+WIDE = 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seeding_matches_pallas_at_width_128(dtype):
+    x, _ = clustered(21, d=WIDE)
+    xj, xt = both(x, dtype)
+    _, want = select_seeds_pallas(xj, M, jnp.int32(9))
+    seeds, got = cuda_seeding.select_seeds(xt, M, 9)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert seeds.shape == (M, WIDE) and seeds.dtype == xt.dtype
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hill_climb_matches_pallas_at_width_128(dtype):
+    x, _ = clustered(22, d=WIDE)
+    xj, xt = both(x, dtype)
+    z0 = x[np.random.RandomState(23).choice(N, M, replace=False)]
+    want = jpms.hill_climb_pallas(xj, jnp.asarray(z0), kappa=20.0,
+                                  max_iters=10)
+    got = cms.hill_climb(xt, torch.from_numpy(z0), kappa=20.0, max_iters=10)
+    assert got.dtype == torch.float32 and got.shape == (M, WIDE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=Z_ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_connected_components_matches_pallas_at_width_128(dtype):
+    """Seeds hill-climbed in `dtype` (the route's Z is float32 either
+    way), merged by both packages."""
+    x, _ = clustered(24, d=WIDE)
+    xj, _ = both(x, dtype)
+    z0 = x[np.random.RandomState(25).choice(N, M, replace=False)]
+    z = np.array(jpms.hill_climb_pallas(xj, jnp.asarray(z0)))
+    want = jpms.connected_components_pallas(jnp.asarray(z), 0.04)
+    got = cms.connected_components(torch.from_numpy(z), 0.04)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(np.unique(np.asarray(want))) > 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_assign_labels_matches_pallas_at_width_128(dtype, with_valid):
+    x, z_valid = clustered(26, d=WIDE)
+    xj, xt = both(x, dtype)
+    z0 = x[np.random.RandomState(27).choice(N, M, replace=False)]
+    z = np.array(jpms.hill_climb_pallas(xj, jnp.asarray(z0)))
+    slab = np.array(jpms.connected_components_pallas(jnp.asarray(z), 0.04))
+    assert slab.max() > 0  # more than one label
+    want = jpms.assign_labels_pallas(
+        xj, jnp.asarray(z), jnp.asarray(slab),
+        z_valid=jnp.asarray(z_valid) if with_valid else None)
+    got = cms.assign_labels(xt, torch.from_numpy(z), torch.from_numpy(slab),
+                            z_valid=(torch.from_numpy(z_valid)
+                                     if with_valid else None))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_kernel_shape_checks_take_widths_64_and_128():
+    """The checks the wrappers make before a launch on a CUDA tensor (and
+    the launch plans before they reach the library) pass widths 64 and 128
+    and refuse any other, naming both."""
+    for d in (64, 128):
+        _build.check_width("select_seeds", d)
+        cms._check_shapes("hill_climb", M, d)
+    for d in (16, 32, 96, 256):
+        for check in (lambda: _build.check_width("select_seeds", d),
+                      lambda: cms._check_shapes("assign_labels", M, d),
+                      lambda: cuda_seeding.launch_config(torch.zeros(8, d)),
+                      lambda: cms.hill_climb_config(torch.zeros(8, d), M),
+                      lambda: cms.assign_labels_config(torch.zeros(8, d),
+                                                       M)):
+            with pytest.raises(ValueError, match="width 64 or 128, got"):
+                check()
+    with pytest.raises(ValueError, match="seeds"):
+        cms._check_shapes("hill_climb", cms.MAX_SEEDS + 1, 128)
+
+
 @pytest.mark.parametrize("subsample", [1, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mean_shift_smart_init_matches_pallas_route(subsample, dtype):
@@ -425,14 +508,17 @@ def test_split_tf32_hill_climb_meets_the_float32_tolerance():
     assert int(labels.max()) > 0  # more than one cluster
 
 
-@pytest.mark.parametrize("m", [100, 128])
-def test_split_tf32_assignment_margin_holds(m):
+@pytest.mark.parametrize("m,d", [
+    pytest.param(100, 64, id="100"), pytest.param(128, 64, id="128"),
+    pytest.param(100, 128, id="100-d128"),
+    pytest.param(128, 128, id="128-d128")])
+def test_split_tf32_assignment_margin_holds(m, d):
     """The float32 assignment kernel's S, emulated: within half the re-check
-    margin of the float32 S, so every pixel whose best seed beats every
-    seed of another label by at least the margin gets the plain version's
-    label; the kernel re-checks the others exactly."""
-    n, d = 4096, 64
-    delta = cms.ASSIGN_RECHECK_MARGIN
+    margin of width d of the float32 S, so every pixel whose best seed
+    beats every seed of another label by at least the margin gets the plain
+    version's label; the kernel re-checks the others exactly."""
+    n = 4096
+    delta = cms.ASSIGN_RECHECK_MARGIN[d]
     x, _ = clustered(15, k=8, n=n, d=d)
     xt = torch.from_numpy(x)
     z0 = xt[torch.from_numpy(np.random.RandomState(16).choice(n, m,

@@ -8,13 +8,16 @@
 //   assign_tf32_kernel,
 //   assign_bf16_kernel  <- _assign_kernel / assign_labels_pallas
 //
-// The kernels take the embedding width d = 64 (NUM_UNITS of every recipe)
-// and m <= 128 seeds.  The hill climb and the assignment stream X through a
-// cp.async ring of 128-pixel tiles and run their products on the tensor
-// cores in both modes: float32 as split TF32 on wgmma (about fp32
-// accuracy), bfloat16 on mma.sync (hill climb) or wgmma (assignment).  The
-// assignment re-checks the few pixels whose best two labels are nearly tied
-// with the exact fp32 FMA chain; see its section.
+// The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
+// of every recipe) or d = 128 (2 * NUM_UNITS: the RGB-D cat fusion), each
+// width its own instantiation; the C entry points take d and refuse any
+// other width.  The hill climb and the assignment stream X through a
+// cp.async ring of pixel tiles and run their products on the tensor cores
+// in both modes: float32 as split TF32 on wgmma (about fp32 accuracy),
+// bfloat16 on mma.sync (hill climb) or wgmma (assignment).  The assignment
+// re-checks the few pixels whose best two labels are nearly tied with the
+// exact fp32 FMA chain; see its section.  What changes with the width is
+// said in each section.
 #include <math.h>
 #include <stdint.h>
 
@@ -25,16 +28,20 @@
 namespace {
 
 constexpr int kMaxSeeds = 128;
-constexpr int kD = 64;
 
 // bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
 // bf16 hill climb: the products of bf16 values
 // are exact and the sums fp32, in the tensor cores' order.  Warp w owns
 // seed rows [16w, 16w + 16) and keeps their Z fragments in registers.  X
-// tiles sit in shared memory as bf16 with a 144-byte row pitch, so every
-// ldmatrix row hits its own banks; the global loads need 16-byte aligned
-// rows of X.
+// tiles sit in shared memory as bf16 with a row pitch of d + 8 elements
+// (144 or 272 bytes), so every ldmatrix row hits its own banks; the global
+// loads need 16-byte aligned rows of X.
+template <int kD>
 constexpr int kMmaPitch = kD + 8;
+// float32 rows in shared memory: d + 4 floats, 16-byte aligned rows whose
+// 8 neighbours fall in 8 distinct 16-byte bank groups.
+template <int kD>
+constexpr int kF32Pitch = kD + 4;
 
 using uoc::smem_addr;
 
@@ -68,20 +75,23 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// A fragments of Z rows [r0, r0 + 16), one per k-chunk of 16.
-__device__ __forceinline__ void load_seed_fragments(const __nv_bfloat16* zs,
-                                                    int r0, int lane,
-                                                    unsigned (&za)[4][4]) {
+// A fragments of rows [r0, r0 + 16) of zs (row pitch kPitch), one per
+// k-chunk of 16 columns from column 0 of zs.
+template <int kPitch, int kChunks>
+__device__ __forceinline__ void load_seed_fragments(
+    const __nv_bfloat16* zs, int r0, int lane, unsigned (&za)[kChunks][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(za[kk], &zs[(r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kMmaPitch +
+  for (int kk = 0; kk < kChunks; ++kk)
+    ldmatrix_x4(za[kk], &zs[(r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
                            16 * kk + (lane >> 4) * 8]);
 }
 
 // S (16 seeds x 64 pixels) = Z_rows X_tile^T as eight m16n8 accumulators.
-__device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
-                                               const __nv_bfloat16* xs,
-                                               int lane, float (&s)[8][4]) {
+template <int kD>
+__device__ __forceinline__ void mma_similarity(
+    const unsigned (&za)[kD / 16][4], const __nv_bfloat16* xs, int lane,
+    float (&s)[8][4]) {
+  constexpr int kPitch = kMmaPitch<kD>;
   const int quad = lane >> 3;  // which 8x8 matrix this lane addresses
 #pragma unroll
   for (int t = 0; t < 8; ++t)
@@ -90,9 +100,9 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 #pragma unroll
   for (int t = 0; t < 8; t += 2)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
       unsigned b[4];
-      ldmatrix_x4(b, &xs[(8 * t + (lane & 7) + (quad >> 1) * 8) * kMmaPitch +
+      ldmatrix_x4(b, &xs[(8 * t + (lane & 7) + (quad >> 1) * 8) * kPitch +
                          16 * kk + (quad & 1) * 8]);
       mma_bf16(s[t], za[kk], b[0], b[1]);
       mma_bf16(s[t + 1], za[kk], b[2], b[3]);
@@ -108,8 +118,8 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 // acc += W X.
 //
 // Bound on the H100: 4*m*n*d flops per iteration (78.6 GFLOP for 10
-// iterations at m=100, n=307200, d=64) against one read of X per
-// iteration; bound by the tensor cores in both modes.
+// iterations at m=100, n=307200, d=64; 157 GFLOP at d=128) against one
+// read of X per iteration; bound by the tensor cores in both modes.
 //
 // Design: one persistent cooperative launch runs every iteration, one
 // block per SM.  Each block walks its share of 128-pixel X tiles (split-K
@@ -143,7 +153,8 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 //    4e-6 of a float64 replay where the plain float32 version (cuBLAS)
 //    strays up to 2.5e-5.  A warpgroup
 //    owns 64 seed rows (ceil(m/64) warpgroups) and keeps Z's split A
-//    fragments in registers.  The whole block splits each landed tile once
+//    fragments in registers (d = 64; d = 128 below).  The whole block
+//    splits each landed tile once
 //    into big and small copies in the two K-major layouts that wgmma reads
 //    from shared memory (8-row x 16-byte core matrices, no swizzle): X as
 //    [pixel][dim] for S = Z X^T and as [dim][pixel] for W X.  The
@@ -151,20 +162,58 @@ __device__ __forceinline__ void mma_similarity(const unsigned (&za)[4][4],
 //    columns (t, t+4) of W X by storing the pixels of each group of 8 in
 //    the order 0, 2, 4, 6, 1, 3, 5, 7 in the second layout: the sum over
 //    pixels does not depend on their order.
+//  * float32 X at d = 128 (hill_tf32_wide_kernel).  Z's split fragments
+//    would take 128 registers a thread and the accumulator of W X 64 more,
+//    past the 255 a thread may hold, and a 64-pixel half's four split
+//    copies 128 KB of shared memory.  So Z's two split copies sit in
+//    shared memory (128 KB, the [dim/4][seed/8] core-matrix layout of the
+//    assignment's Z) and S = Z X^T reads both operands from there (wgmma
+//    m64n32k8, A and B by descriptor); tiles are 32 pixels (four split
+//    copies, 64 KB; a ring of two raw tiles, 33 KB; 225 KB in all, the
+//    reduction's scratch on the split copies); W X runs as two m64n64
+//    products, one per 64 dims, A = W from registers.  The accumulation
+//    rule is the same: each product sums its small steps first and then
+//    its big steps in groups of kBigPerGroup, each group in a fresh
+//    accumulator, added on the CUDA cores.  S then takes 32 small and 16
+//    big steps (8 groups of 2), W X 8 small and 4 big (2 groups).  The
+//    bound on S's error grows with the groups: each group's 2 big steps
+//    truncate 9 terms each at most 2^-25 of |S| <= 1 (the small steps'
+//    terms are 2^-10 smaller), and the CUDA cores round each group's add
+//    to nearest, so |S - S_exact| < 8 * 18 * 2^-25 + 7 * 2^-24 + 2^-21,
+//    about 5e-6, against 2.8e-6 at d = 64 (4 groups) and the plain
+//    float32 version's 128 * 2^-24 = 7.6e-6.  W X's error per tile is
+//    no larger than at d = 64, and its accumulator takes as many CUDA-core
+//    adds (two groups per 32-pixel tile, four per 64-pixel half before).
 //  * bfloat16 X: mma.sync m16n8k16 (hill_bf16_kernel), two halves of
 //    ceil(m/16) warps, each half owning 64 pixels of a tile; Z is rounded
 //    to bf16 for the first product and W before the second, as the TPU
-//    kernel did.  The halves' sums are added in shared memory.
+//    kernel did.  The halves' sums are added in shared memory.  At d = 128
+//    a warp's Z fragments and accumulators double (96 registers), past the
+//    128 a thread may hold at 512 threads, so there is one half of
+//    ceil(m/16) warps (at most 256 threads), each warp taking both 64-pixel
+//    halves of every tile in turn.
 // ---------------------------------------------------------------------------
 constexpr int kHillTile = 128;        // pixels per X tile
 constexpr int kHalfTile = kHillTile / 2;
 constexpr int kStages = 3;            // bf16 X tiles in flight per block
 constexpr int kTf32Stages = 2;        // float32 X tiles in flight per block
-constexpr int kBF16Threads = 2 * 32 * (kMaxSeeds / 16);
-constexpr int kF32Pitch = kD + 4;     // floats per raw X row in the ring
+// bf16 hill climb: halves of a block, its most threads
+__host__ __device__ constexpr int bf16_halves(int d) {
+  return d == 64 ? 2 : 1;
+}
+__host__ __device__ constexpr int bf16_threads(int d) {
+  return bf16_halves(d) * 32 * (kMaxSeeds / 16);
+}
+template <int kD>
 constexpr int kRedFloats = 16 * kD;   // per-group sums of a reduced row
 constexpr int kCore = 128;            // bytes of a core matrix (8 x 16 B)
-constexpr int kHalfWords = kHalfTile * kD;  // one split copy of a half
+constexpr int kHalfWords = kHalfTile * 64;  // one split copy of a half, d = 64
+// float32 at d = 128 (a ring of kTf32Stages raw tiles): pixels per tile,
+// one split copy of a tile and of Z, in words
+constexpr int kWideD = 128;
+constexpr int kWideTile = 32;
+constexpr int kWideTileWords = kWideTile * kWideD;
+constexpr int kWideZWords = kMaxSeeds * kWideD;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -183,9 +232,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// X rows [p0, p0 + rows) -> xs [rows][kPitch], 16 bytes per copy, by
-// threads tid, tid + threads, ...; rows past n are zero-filled.
-template <typename T, int kPitch>
+// X ([n, kD] rows) rows [p0, p0 + rows) -> xs [rows][kPitch], 16 bytes
+// per copy, by threads tid, tid + threads, ...; rows past n are
+// zero-filled.
+template <typename T, int kD, int kPitch>
 __device__ __forceinline__ void issue_rows(const T* __restrict__ x, int n,
                                            int p0, int rows, int tid,
                                            int threads, T* xs) {
@@ -199,12 +249,6 @@ __device__ __forceinline__ void issue_rows(const T* __restrict__ x, int n,
   }
 }
 
-// The whole block: X rows [p0, p0 + kHillTile) -> xs [kHillTile][kPitch].
-template <typename T, int kPitch>
-__device__ __forceinline__ void issue_tile(const T* __restrict__ x, int n,
-                                           int p0, T* xs) {
-  issue_rows<T, kPitch>(x, n, p0, kHillTile, threadIdx.x, blockDim.x, xs);
-}
 
 // a = big + small: big = tf32(a) (the mantissa rounded to 10 bits,
 // nearest even, by Veltkamp's split: four fp32 operations, none fused),
@@ -308,75 +352,79 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// The whole block: pixels [64h, 64h + 64) of the landed raw tile xs
-// [kHillTile][kF32Pitch] -> big and small copies in the two layouts of
-// `buf` (4 x kHalfWords words):
+// The whole block: kPx pixels of a landed raw tile from xs ([kPx][kD + 4]
+// floats) -> big and small copies in the two layouts of `buf` (4 x kPx x
+// kD words):
 //   first  [dim / 4][pixel / 8] core matrices, row = pixel % 8;
 //   second [pixel / 4][dim / 8] core matrices, row = dim % 8, pixels of
 //          each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7.
 // The core matrices neighbouring along N (pixels, then dims) are adjacent.
 // In each pass 8 neighbouring threads read and write 8 distinct 16-byte
 // bank groups.
-__device__ __forceinline__ void split_half(const float* xs, int h,
-                                           unsigned* buf) {
+template <int kD, int kPx>
+__device__ __forceinline__ void split_pixels(const float* xs, unsigned* buf) {
+  constexpr int kPitch = kF32Pitch<kD>;
+  constexpr int kWords = kPx * kD;
   uint4* pb = reinterpret_cast<uint4*>(buf);     // [pixel][dim], big
-  uint4* ps = pb + kHalfWords / 4;               // [pixel][dim], small
-  uint4* qb = ps + kHalfWords / 4;               // [dim][pixel], big
-  uint4* qs = qb + kHalfWords / 4;               // [dim][pixel], small
-  xs += kHalfTile * h * kF32Pitch;
-  for (int e = threadIdx.x; e < kHalfTile * kD / 4; e += blockDim.x) {
+  uint4* ps = pb + kWords / 4;                   // [pixel][dim], small
+  uint4* qb = ps + kWords / 4;                   // [dim][pixel], big
+  uint4* qs = qb + kWords / 4;                   // [dim][pixel], small
+  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x) {
     const int r = e % 8, kq = (e / 8) % (kD / 4), c = e / (2 * kD);
     const float4 v =
-        reinterpret_cast<const float4*>(xs + (8 * c + r) * kF32Pitch)[kq];
+        reinterpret_cast<const float4*>(xs + (8 * c + r) * kPitch)[kq];
     uint4 b, s;
     split_tf32_rn(v.x, b.x, s.x);
     split_tf32_rn(v.y, b.y, s.y);
     split_tf32_rn(v.z, b.z, s.z);
     split_tf32_rn(v.w, b.w, s.w);
-    const int o = (kq * (kHalfTile / 8) + c) * 8 + r;
+    const int o = (kq * (kPx / 8) + c) * 8 + r;
     pb[o] = b;
     ps[o] = s;
   }
-  for (int e = threadIdx.x; e < kHalfTile * kD / 4; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x) {
     const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
-    const float* col = xs + (8 * c + par) * kF32Pitch + n;
+    const float* col = xs + (8 * c + par) * kPitch + n;
     uint4 b, s;
     split_tf32_rn(col[0], b.x, s.x);
-    split_tf32_rn(col[2 * kF32Pitch], b.y, s.y);
-    split_tf32_rn(col[4 * kF32Pitch], b.z, s.z);
-    split_tf32_rn(col[6 * kF32Pitch], b.w, s.w);
+    split_tf32_rn(col[2 * kPitch], b.y, s.y);
+    split_tf32_rn(col[4 * kPitch], b.z, s.z);
+    split_tf32_rn(col[6 * kPitch], b.w, s.w);
     const int o = ((2 * c + par) * (kD / 8) + n / 8) * 8 + n % 8;
     qb[o] = b;
     qs[o] = s;
   }
 }
 
-// One warp's state and per-tile work, bfloat16 X.
+// One warp's state and per-tile work, bfloat16 X of width kD.
+template <int kD>
 struct HillBF16 {
-  unsigned za[4][4];  // A fragments of bf16(Z), per k-chunk of 16
+  static constexpr int kPitch = kMmaPitch<kD>;
+  unsigned za[kD / 16][4];  // A fragments of bf16(Z), per k-chunk of 16
 
   // Every thread of the block stages z into zs (bf16, as many rows as a
   // half has warps), then each warp loads its fragments; the caller's
   // barrier has freed zs.
   __device__ __forceinline__ void load_seeds(const float* z, int m, int r0,
                                              int lane, __nv_bfloat16* zs) {
-    const int rows = blockDim.x / 4;  // 16 rows per warp of a half
+    // 16 rows per warp of a half
+    const int rows = blockDim.x / (2 * bf16_halves(kD));
     for (int e = threadIdx.x; e < rows * kD; e += blockDim.x) {
       const int s = e / kD, j = e % kD;
-      zs[s * kMmaPitch + j] =
+      zs[s * kPitch + j] =
           __float2bfloat16_rn(s < m ? __ldcg(&z[s * kD + j]) : 0.0f);
     }
     __syncthreads();
-    load_seed_fragments(zs, r0, lane, za);
+    load_seed_fragments<kPitch>(zs, r0, lane, za);
   }
 
   __device__ __forceinline__ void tile(const __nv_bfloat16* xs, int half,
                                        int lane, float kappa,
-                                       float (&acc)[8][4]) const {
+                                       float (&acc)[kD / 8][4]) const {
     const int quad = lane >> 3;
-    const __nv_bfloat16* xh = xs + half * kHalfTile * kMmaPitch;
+    const __nv_bfloat16* xh = xs + half * kHalfTile * kPitch;
     float s[8][4];
-    mma_similarity(za, xh, lane, s);
+    mma_similarity<kD>(za, xh, lane, s);
     // W = bf16(exp(kappa S)), laid out as the A operand over pixel chunks
     // of 16 (the m16n8 accumulator layout is the m16k16 operand layout)
     unsigned wa[4][4];
@@ -393,12 +441,12 @@ struct HillBF16 {
     }
     // acc += W X_tile, X read transposed as [d][pixel]
 #pragma unroll
-    for (int t = 0; t < 8; t += 2)
+    for (int t = 0; t < kD / 8; t += 2)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         unsigned b[4];
         ldmatrix_x4_trans(
-            b, &xh[(16 * kk + (lane & 7) + (quad & 1) * 8) * kMmaPitch +
+            b, &xh[(16 * kk + (lane & 7) + (quad & 1) * 8) * kPitch +
                    8 * t + (quad >> 1) * 8]);
         mma_bf16(acc[t], wa[kk], b[0], b[1]);
         mma_bf16(acc[t + 1], wa[kk], b[2], b[3]);
@@ -408,6 +456,7 @@ struct HillBF16 {
 
 // Seed row r of the next Z: the block sums partial[0..grid)[r] in block
 // order, then z[r] = v / max(||v||, 1e-12).
+template <int kD>
 __device__ __forceinline__ void reduce_row(const float* partial, int m, int r,
                                            float* red, float* z) {
   const int ng = max(1, static_cast<int>(blockDim.x) / kD);  // <= 16 groups
@@ -422,94 +471,106 @@ __device__ __forceinline__ void reduce_row(const float* partial, int m, int r,
   __syncthreads();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    float v[2] = {0.0f, 0.0f}, ss = 0.0f;
+    float v[kD / 32], ss = 0.0f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kD / 32; ++h) {
+      v[h] = 0.0f;
       for (int q = 0; q < ng; ++q) v[h] += red[q * kD + lane + 32 * h];
       ss = fmaf(v[h], v[h], ss);
     }
     for (int off = 16; off > 0; off >>= 1)
       ss += __shfl_xor_sync(0xFFFFFFFFu, ss, off);
     const float den = fmaxf(sqrtf(ss), 1e-12f);
-    z[r * kD + lane] = v[0] / den;
-    z[r * kD + lane + 32] = v[1] / den;
+#pragma unroll
+    for (int h = 0; h < kD / 32; ++h) z[r * kD + lane + 32 * h] = v[h] / den;
   }
   __syncthreads();  // red is free again
 }
 
-// acc (the m16n8 accumulators of eight 8-column tiles, rows [r0, r0 + 16))
-// plus, when given, the same rows of `other` ([rows][64]) -> rows < m of
-// `out` [m][64].
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], int r0,
+// acc (the m16n8 accumulators of kT 8-column tiles, rows [r0, r0 + 16))
+// plus, when given, the same rows of `other` ([rows][kPitch]) -> rows < m
+// of `out` [m][kPitch].
+template <int kPitch, int kT>
+__device__ __forceinline__ void store_rows(const float (&acc)[kT][4], int r0,
                                            int m, const float* other,
                                            float* out) {
   const int lane = threadIdx.x % 32;
   const int row = r0 + lane / 4, col = 2 * (lane % 4);
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < kT; ++t)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int r = row + (q >> 1) * 8, c = 8 * t + col + (q & 1);
       if (r < m)
-        out[r * kD + c] = acc[t][q] + (other ? other[r * kD + c] : 0.0f);
+        out[r * kPitch + c] =
+            acc[t][q] + (other ? other[r * kPitch + c] : 0.0f);
     }
 }
 
 // Every partial is written: sum them into the next Z (two grid barriers).
+template <int kD>
 __device__ __forceinline__ void next_seeds(const float* partial, int m,
                                            float* red, float* z,
                                            unsigned* arrived,
                                            unsigned& barriers) {
   uoc::grid_barrier(arrived, ++barriers);  // every partial is written
   for (int r = blockIdx.x; r < m; r += gridDim.x)
-    reduce_row(partial, m, r, red, z);
+    reduce_row<kD>(partial, m, r, red, z);
   uoc::grid_barrier(arrived, ++barriers);  // the new Z is written
 }
 
-// This block's tiles are blockIdx.x + k * gridDim.x, k < tiles_of_block();
-// the q-th load of the launch (q = it * mine + k) goes to ring stage
-// q % stages.
+// This block's tiles of kTile pixels are blockIdx.x + k * gridDim.x, k <
+// tiles_of_block(); the q-th load of the launch (q = it * mine + k) goes
+// to ring stage q % stages.
+template <int kTile>
 __device__ __forceinline__ int tiles_of_block(int n) {
-  const int num_tiles = (n + kHillTile - 1) / kHillTile;
+  const int num_tiles = (n + kTile - 1) / kTile;
   return (num_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) /
          gridDim.x;
 }
 
-template <typename T, int kPitch, int kRing>
+template <typename T, int kD, int kPitch, int kRing, int kTile>
 __device__ __forceinline__ void issue_load(const T* x, int n, int q, int mine,
                                            int total, T* ring) {
   if (q < total)
-    issue_tile<T, kPitch>(
-        x, n,
-        (static_cast<int>(blockIdx.x) + (q % mine) * gridDim.x) * kHillTile,
-        ring + (q % kRing) * kHillTile * kPitch);
+    issue_rows<T, kD, kPitch>(
+        x, n, (static_cast<int>(blockIdx.x) + (q % mine) * gridDim.x) * kTile,
+        kTile, threadIdx.x, blockDim.x, ring + (q % kRing) * kTile * kPitch);
   cp_async_commit();
 }
 
-// The float32 hill climb sums each product (S, and W X_h) in kGroups
-// groups of wgmma steps, each group in a fresh accumulator: the first holds
-// the small products and the first kBigPerGroup big ones, each later group
-// the next kBigPerGroup big ones.  hill_climb_study.py builds the kernel
-// with other values (-DHILL_BIG_PER_GROUP=1, 2, 4 or 8) to compare them.
+// The float32 hill climb sums each product (S, and W X_h) in groups of
+// wgmma steps, each group in a fresh accumulator: the first holds the
+// small products and the first kBigPerGroup big ones, each later group the
+// next kBigPerGroup big ones (at most all of a product's big steps, one
+// per k-chunk).  hill_climb_study.py builds the kernel with other values
+// (-DHILL_BIG_PER_GROUP=1, 2, 4 or 8) to compare them.
 #ifndef HILL_BIG_PER_GROUP
 #define HILL_BIG_PER_GROUP 2
 #endif
 constexpr int kBigPerGroup = HILL_BIG_PER_GROUP;
-constexpr int kGroups = 8 / kBigPerGroup;
+// big steps per group, and groups, of a product of `chunks` k-chunks
+__host__ __device__ constexpr int big_per_group(int chunks) {
+  return kBigPerGroup < chunks ? kBigPerGroup : chunks;
+}
+__host__ __device__ constexpr int groups_of(int chunks) {
+  return chunks / big_per_group(chunks);
+}
+constexpr int kGroups = groups_of(8);  // d = 64: S and W X_h, 8 chunks each
 
-// out (or out +, with kAdd) = the sum of the kGroups groups that issue(g, d)
+// out (or out +, with kAdd) = the sum of the kG groups that issue(g, d)
 // puts into d, added in group order on the CUDA cores.  Two accumulators
 // take turns: group g runs on the tensor cores while group g - 1's sum is
 // added.
-template <bool kAdd, typename Issue>
-__device__ __forceinline__ void grouped_sum(float (&out)[32],
-                                            float (&t)[2][32], Issue issue) {
+template <int kG, bool kAdd, int kR, typename Issue>
+__device__ __forceinline__ void grouped_sum(float (&out)[kR],
+                                            float (&t)[2][kR], Issue issue) {
   wgmma_fence();
   issue(0, t[0]);
   wgmma_commit();
 #pragma unroll
-  for (int g = 1; g <= kGroups; ++g) {
-    if (g < kGroups) {
+  for (int g = 1; g <= kG; ++g) {
+    if (g < kG) {
       wgmma_fence();  // t[g & 1] was read by the CUDA cores
       issue(g, t[g & 1]);
       wgmma_commit();
@@ -517,24 +578,26 @@ __device__ __forceinline__ void grouped_sum(float (&out)[32],
     } else {
       wgmma_wait<0>();
     }
-    float(&done)[32] = t[(g - 1) & 1];
+    float(&done)[kR] = t[(g - 1) & 1];
     pin_registers(done);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < kR; ++i)
       out[i] = (kAdd || g > 1) ? out[i] + done[i] : done[i];
   }
 }
 
-// x: [n, 64] rows 16-byte aligned; z: [m, 64] float32, holding Z0 on entry
-// and the result on exit; partial: [gridDim.x, m, 64] scratch; arrived: a
-// zeroed counter for the grid barriers.  blockDim.x = 128 * ceil(m / 64).
-// Shared memory: the ring of raw tiles, the split copies of a tile's two
-// halves, the reduction scratch.
+// d = 64.  x: [n, 64] rows 16-byte aligned; z: [m, 64] float32, holding
+// Z0 on entry and the result on exit; partial: [gridDim.x, m, 64] scratch;
+// arrived: a zeroed counter for the grid barriers.  blockDim.x = 128 *
+// ceil(m / 64).  Shared memory: the ring of raw tiles, the split copies of
+// a tile's two halves, the reduction scratch.
 __global__ void __launch_bounds__(256, 1)
 hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
                  int max_iters, float* __restrict__ partial,
                  unsigned* __restrict__ arrived, float* __restrict__ z) {
-  constexpr int kRawElems = kHillTile * kF32Pitch;
+  constexpr int kD = 64;
+  constexpr int kPitch = kF32Pitch<kD>;
+  constexpr int kRawElems = kHillTile * kPitch;
   extern __shared__ __align__(128) float tf32_smem[];
   float* ring = tf32_smem;
   unsigned* split = reinterpret_cast<unsigned*>(ring + kTf32Stages * kRawElems);
@@ -542,11 +605,12 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // rows of this warp: warpgroup warp / 4
-  const int mine = tiles_of_block(n);
+  const int mine = tiles_of_block<kHillTile>(n);
   const int total = max_iters * mine;
   unsigned barriers = 0;
 
-  issue_load<float, kF32Pitch, kTf32Stages>(x, n, 0, mine, total, ring);
+  issue_load<float, kD, kPitch, kTf32Stages, kHillTile>(x, n, 0, mine, total,
+                                                         ring);
   for (int it = 0; it < max_iters; ++it) {
     // split A fragments of Z rows [r0, r0 + 16), per k-chunk of 8
     unsigned zb[8][4], zs[8][4];
@@ -571,11 +635,12 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
       const int q = it * mine + k;
       cp_async_wait<0>();  // load q has landed
       __syncthreads();     // ... for every thread; tile q-1 is done with
-      issue_load<float, kF32Pitch, kTf32Stages>(x, n, q + 1, mine, total,
-                                                ring);
+      issue_load<float, kD, kPitch, kTf32Stages, kHillTile>(x, n, q + 1, mine,
+                                                             total, ring);
       const float* xs = ring + (q % kTf32Stages) * kRawElems;
-      split_half(xs, 0, split);
-      split_half(xs, 1, split + 4 * kHalfWords);
+      split_pixels<kD, kHalfTile>(xs, split);
+      split_pixels<kD, kHalfTile>(xs + kHalfTile * kPitch,
+                                  split + 4 * kHalfWords);
       // the split copies are read by wgmma (the async proxy)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
@@ -588,7 +653,7 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
         const unsigned* qs = pb + 3 * kHalfWords;      // [dim][pixel] small
         // S (64 seeds x 64 pixels) = Z X_h^T: K = dims, 8 per wgmma
         float s[32], pair[2][32];
-        grouped_sum<false>(s, pair, [&](int grp, float (&d)[32]) {
+        grouped_sum<kGroups, false>(s, pair, [&](int grp, float (&d)[32]) {
           const auto desc = [&](const unsigned* p, int kk) {
             return smem_desc(p + 2 * kk * (kHalfTile / 8) * (kCore / 4),
                              (kHalfTile / 8) * kCore, kCore);
@@ -617,7 +682,7 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
             split_tf32_rn(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
                           wb[kc][i], ws[kc][i]);
         // acc (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
-        grouped_sum<true>(acc, pair, [&](int grp, float (&d)[32]) {
+        grouped_sum<kGroups, true>(acc, pair, [&](int grp, float (&d)[32]) {
           const auto desc = [&](const unsigned* p, int kc) {
             return smem_desc(p + 2 * kc * (kD / 8) * (kCore / 4),
                              (kD / 8) * kCore, kCore);
@@ -643,43 +708,227 @@ hill_tf32_kernel(const float* __restrict__ x, int n, int m, float kappa,
     float rows[8][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) rows[i / 4][i % 4] = acc[i];
-    store_rows(rows, r0, m, nullptr,
-               partial + static_cast<size_t>(blockIdx.x) * m * kD);
-    next_seeds(partial, m, red, z, arrived, barriers);
+    store_rows<kD>(rows, r0, m, nullptr,
+                   partial + static_cast<size_t>(blockIdx.x) * m * kD);
+    next_seeds<kD>(partial, m, red, z, arrived, barriers);
   }
   cp_async_wait<0>();
 }
 
-// As hill_tf32_kernel, for bf16 X on mma.sync; blockDim.x = 64 *
-// ceil(m / 16).  Shared memory: the ring of tiles, the second half's sums
-// [16 * groups][64], the reduction scratch, bf16(Z) [16 * groups][72].
-__global__ void __launch_bounds__(kBF16Threads, 1)
+// d (64 x 32, fp32, the m64n32 accumulator layout) += a (64 x 8 tf32) * b
+// (8 x 32 tf32), both K-major in shared memory, described by adesc and
+// bdesc; with accumulate false, d = a * b.  Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t adesc,
+                                               uint64_t bdesc,
+                                               bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(adesc), "l"(bdesc), "r"(static_cast<int>(accumulate)));
+}
+
+// Z in shared memory as a K-major operand: [dim / kPer][seed / 8] core
+// matrices (kPer = 4 fp32 or 8 bf16 dims per 16-byte row), row = seed % 8;
+// the word (or element) of seed s, dim j.
+__device__ __forceinline__ int seed_word(int s, int j, int per) {
+  return (((j / per) * (kMaxSeeds / 8) + s / 8) * 8 + s % 8) * per + j % per;
+}
+
+// Every thread of the block: Z [m, 128] float32 -> its split copies zb, zs
+// (split_tf32_rn, as the d = 64 kernel splits its fragments) in the
+// seed_word layout, zero past m; consecutive threads write consecutive
+// seeds, so a 16-byte store of 8 threads hits 8 bank groups.
+__device__ __forceinline__ void stage_wide_seeds(const float* z, int m,
+                                                 unsigned* zb, unsigned* zs) {
+  for (int e = threadIdx.x; e < kMaxSeeds * kWideD / 4; e += blockDim.x) {
+    const int s = e % kMaxSeeds, j = 4 * (e / kMaxSeeds);
+    const float4 v =
+        s < m ? __ldcg(reinterpret_cast<const float4*>(z + s * kWideD + j))
+              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint4 b, sm;
+    split_tf32_rn(v.x, b.x, sm.x);
+    split_tf32_rn(v.y, b.y, sm.y);
+    split_tf32_rn(v.z, b.z, sm.z);
+    split_tf32_rn(v.w, b.w, sm.w);
+    const int w = seed_word(s, j, 4);
+    *reinterpret_cast<uint4*>(zb + w) = b;
+    *reinterpret_cast<uint4*>(zs + w) = sm;
+  }
+}
+
+// d = 128 (see the section's comment).  x: [n, 128] rows 16-byte aligned;
+// z: [m, 128] float32, Z0 on entry, the result on exit, rows 16-byte
+// aligned; partial: [gridDim.x, m, 128] scratch; arrived as above.
+// blockDim.x = 128 * ceil(m / 64).  Shared memory: Z's split copies, the
+// split copies of one tile (the reduction's scratch between iterations),
+// the ring of raw tiles.
+__global__ void __launch_bounds__(256, 1)
+hill_tf32_wide_kernel(const float* __restrict__ x, int n, int m, float kappa,
+                      int max_iters, float* __restrict__ partial,
+                      unsigned* __restrict__ arrived, float* __restrict__ z) {
+  constexpr int kD = kWideD;
+  constexpr int kPitch = kF32Pitch<kD>;
+  constexpr int kRawElems = kWideTile * kPitch;
+  constexpr int kBigS = big_per_group(kD / 8);          // S: 16 chunks
+  constexpr int kBigW = big_per_group(kWideTile / 8);   // W X: 4 chunks
+  extern __shared__ __align__(128) float wide_smem[];
+  unsigned* zb = reinterpret_cast<unsigned*>(wide_smem);
+  unsigned* zsm = zb + kWideZWords;
+  unsigned* split = zsm + kWideZWords;
+  float* red = reinterpret_cast<float*>(split);
+  float* ring = reinterpret_cast<float*>(split + 4 * kWideTileWords);
+  const unsigned* pb = split;                        // [pixel][dim] big
+  const unsigned* ps = split + kWideTileWords;       // [pixel][dim] small
+  const unsigned* qb = split + 2 * kWideTileWords;   // [dim][pixel] big
+  const unsigned* qs = split + 3 * kWideTileWords;   // [dim][pixel] small
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;   // this warpgroup's seeds: [64 wg, 64 wg + 64)
+  const int r0 = 16 * warp;  // rows of this warp's accumulators
+  const int mine = tiles_of_block<kWideTile>(n);
+  const int total = max_iters * mine;
+  unsigned barriers = 0;
+  // K-chunk kk (8 dims) of this warpgroup's Z rows, and of the tile's X
+  // in the [pixel][dim] layout
+  const auto zdesc = [&](const unsigned* p, int kk) {
+    return smem_desc(p + (2 * kk * (kMaxSeeds / 8) + 8 * wg) * (kCore / 4),
+                     (kMaxSeeds / 8) * kCore, kCore);
+  };
+  const auto xdesc = [&](const unsigned* p, int kk) {
+    return smem_desc(p + 2 * kk * (kWideTile / 8) * (kCore / 4),
+                     (kWideTile / 8) * kCore, kCore);
+  };
+
+  issue_load<float, kD, kPitch, kTf32Stages, kWideTile>(x, n, 0, mine, total,
+                                                         ring);
+  for (int it = 0; it < max_iters; ++it) {
+    // the loop's first fence and barrier publish Z to wgmma
+    stage_wide_seeds(z, m, zb, zsm);
+    float acc[2][32];  // seeds x dims [64 h, 64 h + 64)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+
+    for (int k = 0; k < mine; ++k) {
+      const int q = it * mine + k;
+      cp_async_wait<0>();  // load q has landed
+      __syncthreads();     // ... for every thread; tile q-1 is done with
+      issue_load<float, kD, kPitch, kTf32Stages, kWideTile>(x, n, q + 1, mine,
+                                                            total, ring);
+      split_pixels<kD, kWideTile>(ring + (q % kTf32Stages) * kRawElems,
+                                  split);
+      // Z's and the tile's split copies are read by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+
+      // S (64 seeds x 32 pixels) = Z X^T: K = dims, 8 per wgmma
+      float s[16], spair[2][16];
+      grouped_sum<groups_of(kD / 8), false>(
+          s, spair, [&](int grp, float (&d)[16]) {
+            if (grp == 0) {
+#pragma unroll
+              for (int kk = 0; kk < kD / 8; ++kk) {
+                wgmma_tf32_n32(d, zdesc(zsm, kk), xdesc(pb, kk), kk > 0);
+                wgmma_tf32_n32(d, zdesc(zb, kk), xdesc(ps, kk));
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kBigS; ++j) {
+              const int kk = grp * kBigS + j;
+              wgmma_tf32_n32(d, zdesc(zb, kk), xdesc(pb, kk),
+                             grp == 0 || j > 0);
+            }
+          });
+      // W as the A operand over pixel chunks of 8, as in hill_tf32_kernel
+      unsigned wb[4][4], ws[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32_rn(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
+                        wb[kc][i], ws[kc][i]);
+      // acc[h] (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pair[2][32];
+        grouped_sum<groups_of(kWideTile / 8), true>(
+            acc[h], pair, [&](int grp, float (&d)[32]) {
+              const auto desc = [&](const unsigned* p, int kc) {
+                return smem_desc(
+                    p + (2 * kc * (kD / 8) + 8 * h) * (kCore / 4),
+                    (kD / 8) * kCore, kCore);
+              };
+              if (grp == 0) {
+#pragma unroll
+                for (int kc = 0; kc < 4; ++kc) {
+                  wgmma_tf32(d, ws[kc], desc(qb, kc), kc > 0);
+                  wgmma_tf32(d, wb[kc], desc(qs, kc));
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < kBigW; ++j) {
+                const int kc = grp * kBigW + j;
+                wgmma_tf32(d, wb[kc], desc(qb, kc), grp == 0 || j > 0);
+              }
+            });
+      }
+      pin_registers(wb);
+      pin_registers(ws);
+    }
+
+    float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float rows[8][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) rows[i / 4][i % 4] = acc[h][i];
+      store_rows<kD>(rows, r0, m, nullptr, out + 64 * h);
+    }
+    next_seeds<kD>(partial, m, red, z, arrived, barriers);
+  }
+  cp_async_wait<0>();
+}
+
+// As hill_tf32_kernel, for bf16 X on mma.sync; blockDim.x = 32 *
+// bf16_halves(kD) * ceil(m / 16).  Shared memory: the ring of tiles, the
+// second half's sums [16 * groups][kD] (two halves only), the reduction
+// scratch, bf16(Z) [16 * groups][kD + 8].
+template <int kD>
+__global__ void __launch_bounds__(bf16_threads(kD), 1)
 hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
                  float kappa, int max_iters, float* __restrict__ partial,
                  unsigned* __restrict__ arrived, float* __restrict__ z) {
-  constexpr int kStageElems = kHillTile * kMmaPitch;
+  constexpr int kHalves = bf16_halves(kD);
+  constexpr int kPitch = kMmaPitch<kD>;
+  constexpr int kStageElems = kHillTile * kPitch;
   extern __shared__ __align__(16) float bf16_smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(bf16_smem);
   float* other = bf16_smem + kStages * kStageElems / 2;
-  const int groups = blockDim.x / 64;
-  float* red = other + 16 * groups * kD;
-  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(red + kRedFloats);
+  const int groups = blockDim.x / (32 * kHalves);
+  float* red = other + (kHalves - 1) * 16 * groups * kD;
+  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(red + kRedFloats<kD>);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int half = warp / groups;
   const int r0 = 16 * (warp % groups);
-  const int mine = tiles_of_block(n);
+  const int mine = tiles_of_block<kHillTile>(n);
   const int total = max_iters * mine;
   unsigned barriers = 0;
 
 #pragma unroll
   for (int q = 0; q < kStages - 1; ++q)
-    issue_load<__nv_bfloat16, kMmaPitch, kStages>(x, n, q, mine, total, ring);
+    issue_load<__nv_bfloat16, kD, kPitch, kStages, kHillTile>(x, n, q, mine,
+                                                              total, ring);
   for (int it = 0; it < max_iters; ++it) {
-    HillBF16 w;
+    HillBF16<kD> w;
     w.load_seeds(z, m, r0, lane, zs);
-    float acc[8][4];
+    float acc[kD / 8][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+    for (int t = 0; t < kD / 8; ++t)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[t][q] = 0.0f;
 
@@ -687,42 +936,68 @@ hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
       const int q = it * mine + k;
       cp_async_wait<kStages - 2>();  // load q has landed
       __syncthreads();  // ... for every thread; tile q-1 is done with
-      issue_load<__nv_bfloat16, kMmaPitch, kStages>(x, n, q + kStages - 1,
-                                                    mine, total, ring);
-      w.tile(ring + (q % kStages) * kStageElems, half, lane, kappa, acc);
+      issue_load<__nv_bfloat16, kD, kPitch, kStages, kHillTile>(
+          x, n, q + kStages - 1, mine, total, ring);
+      // a warp takes its half of the tile, or with one half both in turn
+#pragma unroll
+      for (int h = 0; h < 2 / kHalves; ++h)
+        w.tile(ring + (q % kStages) * kStageElems, half + h, lane, kappa,
+               acc);
     }
 
-    // the two halves' sums, added in a fixed order, are the block's partial
-    if (half == 1) store_rows(acc, r0, 16 * groups, nullptr, other);
-    __syncthreads();
-    if (half == 0)
-      store_rows(acc, r0, m, other,
-                 partial + static_cast<size_t>(blockIdx.x) * m * kD);
-    next_seeds(partial, m, red, z, arrived, barriers);
+    float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
+    if (kHalves == 2) {
+      // the two halves' sums, added in a fixed order, are the partial
+      if (half == 1) store_rows<kD>(acc, r0, 16 * groups, nullptr, other);
+      __syncthreads();
+      if (half == 0) store_rows<kD>(acc, r0, m, other, out);
+    } else {
+      store_rows<kD>(acc, r0, m, nullptr, out);
+    }
+    next_seeds<kD>(partial, m, red, z, arrived, barriers);
   }
   cp_async_wait<0>();
 }
 
 size_t hill_tf32_smem_bytes() {
-  return sizeof(float) * kTf32Stages * kHillTile * kF32Pitch +
-         sizeof(unsigned) * 8 * kHalfWords + sizeof(float) * kRedFloats;
+  return sizeof(float) * kTf32Stages * kHillTile * kF32Pitch<64> +
+         sizeof(unsigned) * 8 * kHalfWords + sizeof(float) * kRedFloats<64>;
 }
 
+size_t hill_tf32_wide_smem_bytes() {
+  return sizeof(unsigned) * (2 * kWideZWords + 4 * kWideTileWords) +
+         sizeof(float) * kTf32Stages * kWideTile * kF32Pitch<kWideD>;
+}
+
+template <int kD>
 size_t hill_bf16_smem_bytes(int groups) {
-  return sizeof(__nv_bfloat16) * kStages * kHillTile * kMmaPitch +
-         sizeof(float) * 16 * groups * kD + sizeof(float) * kRedFloats +
-         sizeof(__nv_bfloat16) * 16 * groups * kMmaPitch;
+  return sizeof(__nv_bfloat16) * kStages * kHillTile * kMmaPitch<kD> +
+         sizeof(float) * (bf16_halves(kD) - 1) * 16 * groups * kD +
+         sizeof(float) * kRedFloats<kD> +
+         sizeof(__nv_bfloat16) * 16 * groups * kMmaPitch<kD>;
 }
 
-// The launch shape: ceil(m/64) warpgroups per block (float32) or two
-// halves of ceil(m/16) warps (bfloat16), as many blocks as can be resident
-// at once (at most one per X tile).
+// The launch shape: ceil(m/64) warpgroups per block (float32) or
+// bf16_halves(d) halves of ceil(m/16) warps (bfloat16), as many blocks as
+// can be resident at once (at most one per X tile); the tile's pixels.
 struct HillPlan {
-  int grid, per_sm, threads;
+  int grid, per_sm, threads, tile;
   size_t smem;
 };
 
-cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
+template <int kD>
+cudaError_t plan_hill_bf16(int dev, int m, HillPlan* p) {
+  const int groups = (m + 15) / 16;
+  p->threads = 32 * bf16_halves(kD) * groups;
+  p->smem = hill_bf16_smem_bytes<kD>(groups);
+  p->tile = kHillTile;
+  return uoc::blocks_per_sm<hill_bf16_kernel<kD>>(
+      dev, p->threads, p->smem, hill_bf16_smem_bytes<kD>(kMaxSeeds / 16),
+      &p->per_sm);
+}
+
+cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -730,20 +1005,23 @@ cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
                                     dev)) != cudaSuccess)
     return err;
   if (dtype == uoc::kBF16) {
-    const int groups = (m + 15) / 16;
-    p->threads = 64 * groups;
-    p->smem = hill_bf16_smem_bytes(groups);
-    err = uoc::blocks_per_sm<hill_bf16_kernel>(
-        dev, p->threads, p->smem, hill_bf16_smem_bytes(kMaxSeeds / 16),
-        &p->per_sm);
-  } else {
+    err = d == 64 ? plan_hill_bf16<64>(dev, m, p)
+                  : plan_hill_bf16<128>(dev, m, p);
+  } else if (d == 64) {
     p->threads = 128 * ((m + 63) / 64);
     p->smem = hill_tf32_smem_bytes();
+    p->tile = kHillTile;
     err = uoc::blocks_per_sm<hill_tf32_kernel>(dev, p->threads, p->smem,
                                                p->smem, &p->per_sm);
+  } else {
+    p->threads = 128 * ((m + 63) / 64);
+    p->smem = hill_tf32_wide_smem_bytes();
+    p->tile = kWideTile;
+    err = uoc::blocks_per_sm<hill_tf32_wide_kernel>(dev, p->threads, p->smem,
+                                                    p->smem, &p->per_sm);
   }
   if (err != cudaSuccess) return err;
-  const int num_tiles = (n + kHillTile - 1) / kHillTile;
+  const int num_tiles = (n + p->tile - 1) / p->tile;
   p->grid = std::max(1, std::min(p->per_sm * sms, num_tiles));
   return cudaSuccess;
 }
@@ -755,23 +1033,27 @@ cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
 //
 // Replaces _cc_kernel / connected_components_pallas.  Bound on the H100: a
 // few KB of Z in and m labels out, and m (m + 1) / 2 dot products of width
-// 64 (0.65 MFLOP at m = 100), nanoseconds of bytes and flops; what bounds it
-// is latency: one launch, the 64-long dependent FMA chains of the
+// d (0.65 MFLOP at m = 100, d = 64), nanoseconds of bytes and flops; what
+// bounds it is latency: one launch, the d-long dependent FMA chains of the
 // adjacency, and one dependent merge step for each seed that is still
 // unlabeled when its turn comes (about one per cluster).
 //
-// Design: one block of 16 warps, static shared memory only (36 KB).
+// Design: one block of 16 warps; Z in dynamic shared memory (kMaxSeeds
+// rows of d + 4 floats: 34 KB at d = 64, 66 KB at d = 128, past the 48 KB
+// of static shared memory), the adjacency in static (2 KB).
 //   Adjacency as bitmasks, each pair computed once.  Row i is four uint32
 //   words: bit b of adj[i][w] is set when 0.5 * (1 - z_i . z_j) <= eps for
 //   j = 32 w + b < m; bits at or past m stay 0.  Of the 32 x 32 tiles of the
 //   matrix only those on or above the diagonal are computed, each in the
 //   orientation whose row block holds fewer seeds.  A lane owns one column
-//   seed j and keeps its 64 floats in registers; it runs kCCRows rows'
-//   chains at once, reading the rows' values as shared-memory broadcasts.
+//   seed j and keeps 64 of its floats in registers at a time (d / 64
+//   passes: at 512 threads a thread holds at most 128 registers); it runs
+//   kCCRows rows' chains at once, reading the rows' values as
+//   shared-memory broadcasts.
 //   A row's word is one __ballot_sync; the lane's own bits over the rows
 //   are column j's word of the row block (the mirror, OR-ed in shared
 //   memory).  The mirror is exact: every dot is the sequential fp32 fmaf
-//   chain over k = 0..63, and fmaf(a, b, c) == fmaf(b, a, c) bit for bit,
+//   chain over k = 0..d-1, and fmaf(a, b, c) == fmaf(b, a, c) bit for bit,
 //   so (i, j) and (j, i) agree.  The diagonal is computed like any pair.
 //   The merge on one warp, with no block barrier.  Labels are membership
 //   bitmasks of four words; lane l % 32 holds labels l, l + 32, l + 64 and
@@ -793,48 +1075,53 @@ cudaError_t plan_hill_for(int dtype, int n, int m, HillPlan* p) {
 constexpr int kCCThreads = 512;
 constexpr int kCCWarps = kCCThreads / 32;
 constexpr int kCCWords = kMaxSeeds / 32;
-// Z's row pitch in shared memory, in floats: rows stay 16-byte aligned, and
-// the 8 lanes of one 16-byte load phase, each reading its own row, hit 8
-// disjoint groups of 4 banks.
-constexpr int kCCPitch = kD + 4;
+// Z's row pitch in shared memory is kF32Pitch<d> floats: rows stay 16-byte
+// aligned, and the 8 lanes of one 16-byte load phase, each reading its own
+// row, hit 8 disjoint groups of 4 banks.
 constexpr int kCCRows = 8;  // rows of one work item, run as independent chains
 
 // Rows [r0, r0 + kCCRows) of row block rb (which holds `rows` seeds)
 // against the 32 seeds of column block cb: the rows' words of block cb, by
 // ballot, and when `mirror` is set each lane's bits over these rows, OR-ed
 // into its column's word of block rb.
+template <int kD>
 __device__ __forceinline__ void cc_rows(const float* zs,
                                         unsigned (*adj)[kCCWords], int m,
                                         float eps, int rb, int rows, int r0,
                                         int cb, bool mirror) {
+  constexpr int kPitch = kF32Pitch<kD>;
   const int lane = threadIdx.x & 31;
   const int j = 32 * cb + lane;
-  const float* zj = zs + min(j, m - 1) * kCCPitch;
-  float col[kD];
-#pragma unroll
-  for (int k = 0; k < kD; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(zj + k);
-    col[k] = v.x;
-    col[k + 1] = v.y;
-    col[k + 2] = v.z;
-    col[k + 3] = v.w;
-  }
+  const float* zj = zs + min(j, m - 1) * kPitch;
   const float* zi[kCCRows];
   float acc[kCCRows];
 #pragma unroll
   for (int r = 0; r < kCCRows; ++r) {
-    zi[r] = zs + (32 * rb + min(r0 + r, rows - 1)) * kCCPitch;
+    zi[r] = zs + (32 * rb + min(r0 + r, rows - 1)) * kPitch;
     acc[r] = 0.0f;
   }
+  // the chains run on over the passes of 64 dims
 #pragma unroll
-  for (int k = 0; k < kD; k += 4) {
+  for (int k0 = 0; k0 < kD; k0 += 64) {
+    float col[64];
 #pragma unroll
-    for (int r = 0; r < kCCRows; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(zi[r] + k);
-      acc[r] = fmaf(v.x, col[k], acc[r]);
-      acc[r] = fmaf(v.y, col[k + 1], acc[r]);
-      acc[r] = fmaf(v.z, col[k + 2], acc[r]);
-      acc[r] = fmaf(v.w, col[k + 3], acc[r]);
+    for (int k = 0; k < 64; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(zj + k0 + k);
+      col[k] = v.x;
+      col[k + 1] = v.y;
+      col[k + 2] = v.z;
+      col[k + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 64; k += 4) {
+#pragma unroll
+      for (int r = 0; r < kCCRows; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(zi[r] + k0 + k);
+        acc[r] = fmaf(v.x, col[k], acc[r]);
+        acc[r] = fmaf(v.y, col[k + 1], acc[r]);
+        acc[r] = fmaf(v.z, col[k + 2], acc[r]);
+        acc[r] = fmaf(v.w, col[k + 3], acc[r]);
+      }
     }
   }
   unsigned own = 0;  // column j's bits over these rows
@@ -860,17 +1147,25 @@ __device__ __forceinline__ int cc_first(const unsigned (&s)[kCCWords]) {
   return first;
 }
 
+// Z's rows in dynamic shared memory, and the kernel that fits it.
+template <int kD>
+constexpr size_t cc_smem_bytes() {
+  return sizeof(float) * kMaxSeeds * kF32Pitch<kD>;
+}
+
+template <int kD>
 __global__ void __launch_bounds__(kCCThreads)
 cc_kernel(const float* __restrict__ z, int m, float eps,
           int* __restrict__ labels, int* __restrict__ steps) {
-  __shared__ __align__(16) float zs[kMaxSeeds * kCCPitch];
+  extern __shared__ __align__(16) float cc_smem[];
+  float* zs = cc_smem;  // [kMaxSeeds][kF32Pitch<kD>]
   __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
   for (int e = t; e < kMaxSeeds * kCCWords; e += kCCThreads)
     adj[e / kCCWords][e % kCCWords] = 0u;
   for (int e = t; e < m * (kD / 4); e += kCCThreads)
-    *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kCCPitch +
+    *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kF32Pitch<kD> +
                                4 * (e % (kD / 4))) =
         reinterpret_cast<const float4*>(z)[e];
   __syncthreads();
@@ -888,7 +1183,7 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
       const int rows = min(32, m - 32 * rb);
       for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item)
         if (item % kCCWarps == warp)
-          cc_rows(zs, adj, m, eps, rb, rows, r0, cb, a != c);
+          cc_rows<kD>(zs, adj, m, eps, rb, rows, r0, cb, a != c);
     }
   __syncthreads();
   if (warp != 0) return;
@@ -991,9 +1286,10 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // filter).
 //
 // Replaces _assign_kernel / assign_labels_pallas.  Bound on the H100: one
-// read of X (78.6 MB fp32, 39.3 MB bf16 at n = 307200) against 2*m*n*d
-// flops (3.9 GFLOP at m = 100; three TF32 products each for fp32 accuracy):
-// bytes-bound in both modes, by a factor of about 1.3 at fp32.
+// read of X (78.6 MB fp32, 39.3 MB bf16 at n = 307200, d = 64; twice that
+// at d = 128) against 2*m*n*d flops (3.9 GFLOP at m = 100, d = 64; three
+// TF32 products each for fp32 accuracy): bytes-bound in both modes, by a
+// factor of about 1.3 at fp32.
 //
 // Design: one persistent launch (no grid barrier), as many blocks as fit
 // on the card.  A block of two warpgroups walks its 128-pixel tiles
@@ -1012,28 +1308,41 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // label l1 of a seed that attains it, then b2, the best score among seeds
 // of any other label (thread_best), and the quad merges the four by
 // shuffle.  Seeds of one label may tie freely; only a near-tie across
-// labels can change a pixel's label.
+// labels can change a pixel's label.  The product runs in passes of 64
+// dims (8 float32 or 4 bf16 k-chunks): each pass loads and splits its A
+// fragments, issues its wgmmas into the same accumulators and waits, so a
+// thread holds one pass's fragments, at d = 128 as at d = 64.
 //
-// The re-check margin.  X and Z rows are unit vectors.  Split TF32 drops,
-// per product a_i b_i, small * small (<= 2^-22 |a_i b_i|) and the
-// truncation of each small part as the tensor cores read it (< 2^-21
-// |a_i b_i| each): < 1.3 * 2^-20 over the dot, since sum |a_i b_i| <=
-// |a| |b| = 1.  The accumulator takes 24 wgmma steps (8 k-chunks x 3
-// products); each step truncates its nine terms (the accumulator and eight
-// products) two bits below the largest one's last, the rule whose
-// emulation reproduces the hill climb's results on the H100: < 24 * 9 *
-// 2^-25.  The float32 plain version's own sum of 64 products is within
-// 64 * 2^-24 of the exact dot.  So the kernel's S and the plain version's
-// differ by less than 1.2e-5 < 2^-16 = kRecheckMargin / 2.  Where b1 - b2
-// >= kRecheckMargin the plain version's best seed carries label l1; the
-// other pixels (b1 - b2 < kRecheckMargin, a tie at b1 between labels
-// included) are re-checked out of line (recheck): the quad recomputes the
-// pixel's similarity to every real seed as the sequential fp32 FMA chain over d
-// from 0 (Z = big + small, exact), each thread a quarter of the seeds,
-// lowest index on a tie.  bf16 products are exact and take 4 steps, so the
-// same margin holds there (the re-check then uses bf16 X and bf16(Z)
-// widened to fp32, as the plain version does).  When every seed carries one
-// label, b2 stays -inf and nothing is re-checked.
+// At d = 128, float32: Z's split copies take 128 KB of shared memory, so
+// a block is one warpgroup with 64-pixel tiles and a ring of two (66 KB);
+// bfloat16: Z takes 32 KB, two warpgroups, a ring of two 128-pixel tiles
+// (68 KB), two blocks per SM as at d = 64.  (AssignShape.)
+//
+// The re-check margin (kRecheckMargin<d>).  X and Z rows are unit
+// vectors.  Split TF32 drops, per product a_i b_i, small * small (<= 2^-22
+// |a_i b_i|) and the truncation of each small part as the tensor cores
+// read it (< 2^-21 |a_i b_i| each): < 1.3 * 2^-20 over the dot, since
+// sum |a_i b_i| <= |a| |b| = 1.  At d = 64 the accumulator takes 24 wgmma
+// steps (8 k-chunks x 3 products); each step truncates its nine terms (the
+// accumulator and eight products) two bits below the largest one's last,
+// the rule whose emulation reproduces the hill climb's results on the
+// H100: < 24 * 9 * 2^-25.  The float32 plain version's own sum of 64
+// products is within 64 * 2^-24 of the exact dot.  So the kernel's S and
+// the plain version's differ by less than 1.2e-5 < 2^-16 =
+// kRecheckMargin<64> / 2.  At d = 128 the same argument gives 48 steps (16
+// k-chunks x 3 products, one accumulator over both passes), 48 * 9 * 2^-25
+// = 1.29e-5, and the plain version's 128 * 2^-24 = 7.6e-6: with the
+// split's 1.2e-6 less than 2.2e-5 < 2^-15 = kRecheckMargin<128> / 2.
+// Where b1 - b2 >= kRecheckMargin the plain version's best seed carries
+// label l1; the other pixels (b1 - b2 < kRecheckMargin, a tie at b1
+// between labels included) are re-checked out of line (recheck): the quad
+// recomputes the pixel's similarity to every real seed as the sequential
+// fp32 FMA chain over d from 0 (Z = big + small, exact), each thread a
+// quarter of the seeds, lowest index on a tie.  bf16 products are exact
+// and take 4 steps (8 at d = 128, 17 terms each: 4.1e-6), so the same
+// margins hold there (the re-check then uses bf16 X and bf16(Z) widened to
+// fp32, as the plain version does).  When every seed carries one label, b2
+// stays -inf and nothing is re-checked.
 //
 // Outputs: one thread per pixel writes its label; per-block int32
 // histograms in shared memory take warp-aggregated adds (__match_any_sync
@@ -1041,9 +1350,27 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // block: sums of integers below 2^24 are exact in float32 and do not
 // depend on the order.  The kernel counts the pixels it re-checked.
 // ---------------------------------------------------------------------------
-constexpr int kAssignThreads = 256;  // two warpgroups
-constexpr int kAssignStages = 4;     // X tiles in the ring
-constexpr float kRecheckMargin = 3.0517578125e-05f;  // 2^-15
+// ASSIGN_RECHECK_MARGIN in ops/cuda_mean_shift.py holds the same values.
+template <int kD>
+constexpr float kRecheckMargin =
+    kD == 64 ? 3.0517578125e-05f : 6.103515625e-05f;  // 2^-15, 2^-14
+
+// The launch shape of the assignment for X of type T and width kD:
+// warpgroups per block, threads, pixels per tile (64 per warpgroup), X
+// tiles in the ring, the row pitch of a tile in shared memory, and the
+// dynamic shared bytes (the ring, then Z: float32 its two split copies).
+template <typename T, int kD>
+struct AssignShape {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kGroups = kF32 && kD == 128 ? 1 : 2;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kTile = 64 * kGroups;
+  static constexpr int kStages = kD == 64 ? 4 : 2;
+  static constexpr int kPitch = kF32 ? kF32Pitch<kD> : kMmaPitch<kD>;
+  static constexpr size_t kSmem =
+      sizeof(T) * kStages * kTile * kPitch +
+      (kF32 ? 2 * sizeof(float) : sizeof(T)) * kMaxSeeds * kD;
+};
 
 // d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 16 bf16 from
 // registers, the m16n8k16 A layout per warp) * b (16 x 64 bf16, K-major in
@@ -1070,15 +1397,12 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Z in shared memory as the B operand: [dim / kPer][seed / 8] core matrices
-// (kPer = 4 fp32 or 8 bf16 dims per 16-byte row), row = seed % 8.  float32
+// Z in shared memory as the B operand, in the seed_word layout.  float32
 // keeps a big and a small copy, kMaxSeeds * kD words apart.
-__device__ __forceinline__ int seed_word(int s, int j, int per) {
-  return (((j / per) * (kMaxSeeds / 8) + s / 8) * 8 + s % 8) * per + j % per;
-}
 
-// Every thread: Z [m, 64] float32 (16-byte aligned) -> the split copies
+// Every thread: Z [m, kD] float32 (16-byte aligned) -> the split copies
 // (or bf16(Z)), zero past m.
+template <int kD>
 __device__ __forceinline__ void stage_assign(const float* __restrict__ z,
                                              int m, unsigned* zs) {
   for (int e = threadIdx.x; e < kMaxSeeds * kD / 4; e += blockDim.x) {
@@ -1096,6 +1420,7 @@ __device__ __forceinline__ void stage_assign(const float* __restrict__ z,
   }
 }
 
+template <int kD>
 __device__ __forceinline__ void stage_assign(const float* __restrict__ z,
                                              int m, __nv_bfloat16* zs) {
   for (int e = threadIdx.x; e < kMaxSeeds * kD / 4; e += blockDim.x) {
@@ -1109,12 +1434,14 @@ __device__ __forceinline__ void stage_assign(const float* __restrict__ z,
 
 // Seed s, dim j, as the re-check reads it: big + small (exactly Z) or
 // bf16(Z) widened.
+template <int kD>
 __device__ __forceinline__ float seed_value(const unsigned* zs, int s, int j) {
   const int w = seed_word(s, j, 4);
   return __fadd_rn(__uint_as_float(zs[w]),
                    __uint_as_float(zs[kMaxSeeds * kD + w]));
 }
 
+template <int kD>
 __device__ __forceinline__ float seed_value(const __nv_bfloat16* zs, int s,
                                             int j) {
   return __bfloat162float(zs[seed_word(s, j, 8)]);
@@ -1122,69 +1449,84 @@ __device__ __forceinline__ float seed_value(const __nv_bfloat16* zs, int s,
 
 // S of the warpgroup's 64 pixels (xs: their rows in the ring) against the
 // seeds: acc[nh] holds seeds [64 nh, 64 nh + 64).  Split TF32, the hill
-// climb's order: small * big, big * small, big * big per k-chunk of 8.
+// climb's order: small * big, big * small, big * big per k-chunk of 8;
+// one pass per 64 dims.
+template <int kD>
 __device__ __forceinline__ void assign_product(const float* xs,
                                                const unsigned* zs, int m,
                                                float (&acc)[2][32]) {
+  constexpr int kPitch = kF32Pitch<kD>;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const float* xw = xs + (16 * (threadIdx.x / 32 % 4) + g) * kF32Pitch + t;
-  unsigned xb[8][4], xsm[8][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const float a[4] = {xw[8 * kk], xw[8 * kF32Pitch + 8 * kk],
-                        xw[8 * kk + 4], xw[8 * kF32Pitch + 8 * kk + 4]};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split_tf32(a[q], xb[kk][q], xsm[kk][q]);
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+  const float* xw = xs + (16 * (threadIdx.x / 32 % 4) + g) * kPitch + t;
   const unsigned* zb = zs;
   const unsigned* zsm = zs + kMaxSeeds * kD;
-  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
 #pragma unroll
-    for (int nh = 0; nh < 2; ++nh) {
-      if (nh == 1 && m <= 64) continue;  // uniform over the warpgroup
-      const int o = (2 * kk * (kMaxSeeds / 8) + 8 * nh) * (kCore / 4);
-      const uint64_t db = smem_desc(zb + o, (kMaxSeeds / 8) * kCore, kCore);
-      const uint64_t ds = smem_desc(zsm + o, (kMaxSeeds / 8) * kCore, kCore);
-      wgmma_tf32(acc[nh], xsm[kk], db);
-      wgmma_tf32(acc[nh], xb[kk], ds);
-      wgmma_tf32(acc[nh], xb[kk], db);
+  for (int k0 = 0; k0 < kD / 8; k0 += 8) {  // k-chunks [k0, k0 + 8)
+    unsigned xb[8][4], xsm[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int c = 8 * (k0 + kk);
+      const float a[4] = {xw[c], xw[8 * kPitch + c], xw[c + 4],
+                          xw[8 * kPitch + c + 4]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(a[q], xb[kk][q], xsm[kk][q]);
     }
-  wgmma_commit();
-  wgmma_wait();
-  pin_registers(acc[0]);
-  pin_registers(acc[1]);
-  pin_registers(xb);
-  pin_registers(xsm);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        if (nh == 1 && m <= 64) continue;  // uniform over the warpgroup
+        const int o =
+            (2 * (k0 + kk) * (kMaxSeeds / 8) + 8 * nh) * (kCore / 4);
+        const uint64_t db = smem_desc(zb + o, (kMaxSeeds / 8) * kCore, kCore);
+        const uint64_t ds =
+            smem_desc(zsm + o, (kMaxSeeds / 8) * kCore, kCore);
+        wgmma_tf32(acc[nh], xsm[kk], db);
+        wgmma_tf32(acc[nh], xb[kk], ds);
+        wgmma_tf32(acc[nh], xb[kk], db);
+      }
+    wgmma_commit();
+    wgmma_wait();
+    pin_registers(acc[0]);
+    pin_registers(acc[1]);
+    pin_registers(xb);
+    pin_registers(xsm);
+  }
 }
 
 // The same for bf16 X: one product per k-chunk of 16.
+template <int kD>
 __device__ __forceinline__ void assign_product(const __nv_bfloat16* xs,
                                                const __nv_bfloat16* zs, int m,
                                                float (&acc)[2][32]) {
   const int lane = threadIdx.x % 32;
-  unsigned xa[4][4];
-  load_seed_fragments(xs, 16 * (threadIdx.x / 32 % 4), lane, xa);
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
-  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int k0 = 0; k0 < kD / 16; k0 += 4) {  // k-chunks [k0, k0 + 4)
+    unsigned xa[4][4];
+    load_seed_fragments<kMmaPitch<kD>>(xs + 16 * k0,
+                                       16 * (threadIdx.x / 32 % 4), lane, xa);
+    wgmma_fence();
 #pragma unroll
-    for (int nh = 0; nh < 2; ++nh) {
-      if (nh == 1 && m <= 64) continue;
-      const int o = (2 * kk * (kMaxSeeds / 8) + 8 * nh) * (kCore / 2);
-      wgmma_bf16(acc[nh], xa[kk],
-                 smem_desc(zs + o, (kMaxSeeds / 8) * kCore, kCore));
-    }
-  wgmma_commit();
-  wgmma_wait();
-  pin_registers(acc[0]);
-  pin_registers(acc[1]);
-  pin_registers(xa);
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        if (nh == 1 && m <= 64) continue;
+        const int o =
+            (2 * (k0 + kk) * (kMaxSeeds / 8) + 8 * nh) * (kCore / 2);
+        wgmma_bf16(acc[nh], xa[kk],
+                   smem_desc(zs + o, (kMaxSeeds / 8) * kCore, kCore));
+      }
+    wgmma_commit();
+    wgmma_wait();
+    pin_registers(acc[0]);
+    pin_registers(acc[1]);
+    pin_registers(xa);
+  }
 }
 
 // A pixel's best scores over a set of seeds: b1, the label l1 of a seed
@@ -1293,7 +1635,7 @@ __device__ __forceinline__ void merge_quad(Best& r) {
 // the quad takes seeds t, t + 4, ... < m, each the fp32 FMA chain over d
 // from 0; lowest index on a tie.  Every lane of the warp calls it; a quad
 // that passes active = false gets a meaningless seed.
-template <typename T, typename Z>
+template <int kD, typename T, typename Z>
 __device__ __forceinline__ int exact_argmax(const T* xrow, const Z* zs, int m,
                                             bool active, int t) {
   float best = -INFINITY;
@@ -1303,7 +1645,7 @@ __device__ __forceinline__ int exact_argmax(const T* xrow, const Z* zs, int m,
       float acc = 0.0f;
 #pragma unroll 8
       for (int j = 0; j < kD; ++j)
-        acc = fmaf(uoc::to_f32(xrow[j]), seed_value(zs, s, j), acc);
+        acc = fmaf(uoc::to_f32(xrow[j]), seed_value<kD>(zs, s, j), acc);
       if (acc > best) {
         best = acc;
         best_s = s;
@@ -1326,7 +1668,7 @@ __device__ __forceinline__ int exact_argmax(const T* xrow, const Z* zs, int m,
 // those of the near-tied ones (bit i of near: pixel i) replaced by the
 // exact argmax's; counts the re-checked pixels.  Out of line: it runs
 // rarely, and its registers stay out of the main loop.
-template <typename T, typename Z, int kPitch>
+template <typename T, typename Z, int kD, int kPitch>
 __device__ __noinline__ int2 recheck(const T* xrow, const Z* zs, int m, int t,
                                      int near, const int* slab,
                                      float* rechecked, int2 l1) {
@@ -1334,7 +1676,7 @@ __device__ __noinline__ int2 recheck(const T* xrow, const Z* zs, int m, int t,
   for (int i = 0; i < 2; ++i) {
     const bool mine = (near >> i) & 1;
     if (!__any_sync(0xFFFFFFFFu, mine)) continue;
-    const int s = exact_argmax(xrow + 8 * i * kPitch, zs, m, mine, t);
+    const int s = exact_argmax<kD>(xrow + 8 * i * kPitch, zs, m, mine, t);
     if (mine) {
       (i ? l1.y : l1.x) = slab[s];
       if (t == 0) atomicAdd(rechecked, 1.0f);
@@ -1343,41 +1685,45 @@ __device__ __noinline__ int2 recheck(const T* xrow, const Z* zs, int m, int t,
   return l1;
 }
 
-// x: [n, 64] rows 16-byte aligned (float32 with kPitch = kF32Pitch, bf16
-// with kMmaPitch); z: [m, 64] float32; seed_labels: [m]; z_valid: [n] or
-// null; labels: [n] out; counts: [2 m] float32 (zeroed) += the block's
-// histograms; rechecked: += the pixels this block re-checked (float32, an
-// exact integer below 2^24).
-template <typename T, typename Z, int kPitch>
+// x: [n, kD] rows 16-byte aligned (float32, or bf16); z: [m, kD]
+// float32; seed_labels: [m]; z_valid: [n] or null; labels: [n] out;
+// counts: [2 m] float32 (zeroed) += the block's histograms; rechecked: +=
+// the pixels this block re-checked (float32, an exact integer below 2^24).
+// The block's shape is AssignShape<T, kD>.
+template <typename T, typename Z, int kD>
 __device__ __forceinline__ void assign_body(
     const T* __restrict__ x, int n, const float* __restrict__ z,
     const int* __restrict__ seed_labels, int m,
     const unsigned char* __restrict__ z_valid, int* __restrict__ labels,
     float* __restrict__ counts, float* __restrict__ rechecked, T* ring) {
-  constexpr int kStageElems = kHillTile * kPitch;
-  Z* zs = reinterpret_cast<Z*>(ring + kAssignStages * kStageElems);
+  using Shape = AssignShape<T, kD>;
+  constexpr int kPitch = Shape::kPitch;
+  constexpr int kTile = Shape::kTile;
+  constexpr int kRing = Shape::kStages;
+  constexpr int kStageElems = kTile * kPitch;
+  Z* zs = reinterpret_cast<Z*>(ring + kRing * kStageElems);
   __shared__ __align__(16) int slab[kMaxSeeds];
   __shared__ int hist[2][kMaxSeeds];
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int half = threadIdx.x / 128;            // warpgroup
   const int row = 16 * (threadIdx.x / 32 % 4) + g;  // first pixel of a thread
-  const int mine = tiles_of_block(n);
+  const int mine = tiles_of_block<kTile>(n);
   // warpgroup `half` loads rows [64 half, 64 half + 64) of tile q into
-  // ring stage q % kAssignStages
+  // ring stage q % kRing
   auto issue = [&](int q) {
     if (q < mine)
-      issue_rows<T, kPitch>(
+      issue_rows<T, kD, kPitch>(
           x, n,
-          (static_cast<int>(blockIdx.x) + q * gridDim.x) * kHillTile +
+          (static_cast<int>(blockIdx.x) + q * gridDim.x) * kTile +
               kHalfTile * half,
           kHalfTile, threadIdx.x % 128, 128,
-          ring + (q % kAssignStages) * kStageElems + kHalfTile * half * kPitch);
+          ring + (q % kRing) * kStageElems + kHalfTile * half * kPitch);
     cp_async_commit();
   };
 
 #pragma unroll
-  for (int q = 0; q < kAssignStages - 1; ++q) issue(q);
-  stage_assign(z, m, zs);
+  for (int q = 0; q < kRing - 1; ++q) issue(q);
+  stage_assign<kD>(z, m, zs);
   for (int s = threadIdx.x; s < kMaxSeeds; s += blockDim.x) {
     slab[s] = s < m ? seed_labels[s] : 0;
     hist[0][s] = hist[1][s] = 0;
@@ -1390,15 +1736,14 @@ __device__ __forceinline__ void assign_body(
     // this warpgroup's rows of tile k have landed for all its threads, and
     // its rows of tile k - 1 are done with; the warpgroups do not wait for
     // each other
-    cp_async_wait<kAssignStages - 2>();
+    cp_async_wait<kRing - 2>();
     if (half == 0)
       bar_sync<1>(128);
     else
       bar_sync<2>(128);
-    issue(k + kAssignStages - 1);
-    const T* xs = ring + (k % kAssignStages) * kStageElems +
-                  kHalfTile * half * kPitch;
-    const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kHillTile +
+    issue(k + kRing - 1);
+    const T* xs = ring + (k % kRing) * kStageElems + kHalfTile * half * kPitch;
+    const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kTile +
                    kHalfTile * half + row;
     // thread t < 2 of the quad owns pixel p0 + 8t; its validity is loaded
     // before the products, which hide the load
@@ -1406,20 +1751,20 @@ __device__ __forceinline__ void assign_body(
     const bool owner = t < 2 && p < n;
     const bool valid = owner && (z_valid == nullptr || z_valid[p]);
     float acc[2][32];
-    assign_product(xs, zs, m, acc);
+    assign_product<kD>(xs, zs, m, acc);
     Best r[2];
     thread_best(acc, t, m, slab, r);
     int near = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
-      if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin)
+      if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
     }
     int2 l1 = make_int2(r[0].l1, r[1].l1);
     if (__any_sync(0xFFFFFFFFu, near != 0))
-      l1 = recheck<T, Z, kPitch>(xs + row * kPitch, zs, m, t, near, slab,
-                                 rechecked, l1);
+      l1 = recheck<T, Z, kD, kPitch>(xs + row * kPitch, zs, m, t, near, slab,
+                                     rechecked, l1);
 
     // the owner writes its pixel's label and adds the pixel to the
     // histograms, aggregated over the warp's lanes of equal label
@@ -1448,7 +1793,8 @@ __device__ __forceinline__ void assign_body(
   }
 }
 
-__global__ void __launch_bounds__(kAssignThreads, 1)
+template <int kD>
+__global__ void __launch_bounds__(AssignShape<float, kD>::kThreads, 1)
 assign_tf32_kernel(const float* __restrict__ x, int n,
                    const float* __restrict__ z,
                    const int* __restrict__ seed_labels, int m,
@@ -1456,12 +1802,12 @@ assign_tf32_kernel(const float* __restrict__ x, int n,
                    int* __restrict__ labels, float* __restrict__ counts,
                    float* __restrict__ rechecked) {
   extern __shared__ __align__(128) float assign_f32_smem[];
-  assign_body<float, unsigned, kF32Pitch>(x, n, z, seed_labels, m, z_valid,
-                                          labels, counts, rechecked,
-                                          assign_f32_smem);
+  assign_body<float, unsigned, kD>(x, n, z, seed_labels, m, z_valid, labels,
+                                   counts, rechecked, assign_f32_smem);
 }
 
-__global__ void __launch_bounds__(kAssignThreads, 2)
+template <int kD>
+__global__ void __launch_bounds__(AssignShape<__nv_bfloat16, kD>::kThreads, 2)
 assign_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n,
                    const float* __restrict__ z,
                    const int* __restrict__ seed_labels, int m,
@@ -1469,56 +1815,61 @@ assign_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n,
                    int* __restrict__ labels, float* __restrict__ counts,
                    float* __restrict__ rechecked) {
   extern __shared__ __align__(128) __nv_bfloat16 assign_bf16_smem[];
-  assign_body<__nv_bfloat16, __nv_bfloat16, kMmaPitch>(
+  assign_body<__nv_bfloat16, __nv_bfloat16, kD>(
       x, n, z, seed_labels, m, z_valid, labels, counts, rechecked,
       assign_bf16_smem);
 }
 
-// The ring of X tiles and Z (float32: its two split copies).
-size_t assign_smem_bytes(int dtype) {
-  return dtype == uoc::kBF16
-             ? sizeof(__nv_bfloat16) *
-                   (kAssignStages * kHillTile * kMmaPitch + kMaxSeeds * kD)
-             : sizeof(float) *
-                   (kAssignStages * kHillTile * kF32Pitch + 2 * kMaxSeeds * kD);
-}
-
-// The launch shape: 256 threads, as many blocks as fit on the card at once
-// (at most one per X tile).
+// The launch shape: AssignShape's block, as many blocks as fit on the card
+// at once (at most one per X tile).
 struct AssignPlan {
-  int grid, per_sm;
+  int grid, per_sm, threads, tile, stages;
   size_t smem;
 };
 
-cudaError_t plan_assign_for(int dtype, int n, AssignPlan* p) {
-  // {blocks per SM, SMs} per device and dtype, found at the first call (0:
-  // not yet): the launch asks for its plan on every call
+template <typename T, int kD, auto kKernel>
+cudaError_t plan_assign(int dev, int n, int (&cache)[2], AssignPlan* p) {
+  using Shape = AssignShape<T, kD>;
+  p->threads = Shape::kThreads;
+  p->tile = Shape::kTile;
+  p->stages = Shape::kStages;
+  p->smem = Shape::kSmem;
+  if (cache[1] == 0) {
+    int per_sm, sms;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = uoc::blocks_per_sm<kKernel>(dev, p->threads, p->smem, p->smem,
+                                      &per_sm);
+    if (err != cudaSuccess) return err;
+    cache[0] = per_sm;
+    cache[1] = sms;
+  }
+  p->per_sm = cache[0];
+  const int num_tiles = (n + p->tile - 1) / p->tile;
+  p->grid = std::max(1, std::min(cache[0] * cache[1], num_tiles));
+  return cudaSuccess;
+}
+
+cudaError_t plan_assign_for(int dtype, int n, int d, AssignPlan* p) {
+  // {blocks per SM, SMs} per device, dtype and width, found at the first
+  // call (0: not yet): the launch asks for its plan on every call
   constexpr int kDevices = 64;
-  static int cached[kDevices][2][2] = {};
+  static int cached[kDevices][2][2][2] = {};
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kDevices) return cudaErrorInvalidDevice;
-  const bool bf16 = dtype == uoc::kBF16;
-  int* c = cached[dev][bf16];
-  p->smem = assign_smem_bytes(dtype);
-  if (c[1] == 0) {
-    int per_sm, sms;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
-    err = bf16 ? uoc::blocks_per_sm<assign_bf16_kernel>(
-                     dev, kAssignThreads, p->smem, p->smem, &per_sm)
-               : uoc::blocks_per_sm<assign_tf32_kernel>(
-                     dev, kAssignThreads, p->smem, p->smem, &per_sm);
-    if (err != cudaSuccess) return err;
-    c[0] = per_sm;
-    c[1] = sms;
-  }
-  p->per_sm = c[0];
-  const int num_tiles = (n + kHillTile - 1) / kHillTile;
-  p->grid = std::max(1, std::min(c[0] * c[1], num_tiles));
-  return cudaSuccess;
+  const bool bf16 = dtype == uoc::kBF16, wide = d == 128;
+  int(&c)[2] = cached[dev][bf16][wide];
+  if (bf16)
+    return wide ? plan_assign<__nv_bfloat16, 128, assign_bf16_kernel<128>>(
+                      dev, n, c, p)
+                : plan_assign<__nv_bfloat16, 64, assign_bf16_kernel<64>>(
+                      dev, n, c, p);
+  return wide ? plan_assign<float, 128, assign_tf32_kernel<128>>(dev, n, c, p)
+              : plan_assign<float, 64, assign_tf32_kernel<64>>(dev, n, c, p);
 }
 
 bool misaligned(const void* p) {
@@ -1527,118 +1878,158 @@ bool misaligned(const void* p) {
 
 }  // namespace
 
-// The launch configuration uoc_hill_climb uses for n pixels and m seeds:
-// out = [grid, blocks per SM, threads per block, dynamic shared bytes,
-// bytes of X held on chip per block].
-extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, long long* out) {
+// The launch configuration uoc_hill_climb uses for n pixels and m seeds of
+// width d (64 or 128; any other width returns cudaErrorInvalidValue): out
+// = [grid, blocks per SM, threads per block, dynamic shared bytes, bytes
+// of X held on chip per block].
+extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
+                                   long long* out) {
   if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
   HillPlan p;
-  const cudaError_t err = plan_hill_for(dtype, n, m, &p);
+  const cudaError_t err = plan_hill_for(dtype, n, m, d, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.per_sm;
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
   // the ring of raw tiles, and for float32 the tile's four split copies
-  out[4] = dtype == uoc::kBF16 ? 2LL * kStages * kHillTile * kD
-                               : 4LL * (kTf32Stages + 4) * kHillTile * kD;
+  out[4] = dtype == uoc::kBF16 ? 2LL * kStages * kHillTile * d
+                               : 4LL * (kTf32Stages + 4) * p.tile * d;
   return 0;
 }
 
-// x: [n, 64] row-major float32 or bfloat16, rows 16-byte aligned; z0:
-// [m, 64] float32; partial: [grid, m, 64] float32 scratch with the grid of
-// uoc_hill_climb_plan; arrived: one uint32 scratch (the grid barrier's
-// counter, zero-filled here); z: [m, 64] float32 out.
-// m <= 128.  One cooperative launch on `stream` runs all iterations; a
-// grid that cannot be resident at once is refused by the launch.
-extern "C" int uoc_hill_climb(const void* x, int dtype, int n,
+// x: [n, d] row-major float32 or bfloat16 (d = 64 or 128), rows 16-byte
+// aligned; z0: [m, d] float32; partial: [grid, m, d] float32 scratch with
+// the grid of uoc_hill_climb_plan; arrived: one uint32 scratch (the grid
+// barrier's counter, zero-filled here); z: [m, d] float32 out, rows
+// 16-byte aligned.  m <= 128.  One cooperative launch on `stream` runs all
+// iterations; a grid that cannot be resident at once is refused by the
+// launch.
+extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
                               const float* z0, int m, float kappa,
                               int max_iters, float* partial, unsigned* arrived,
                               float* z, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
-  if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (misaligned(x) || misaligned(z))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   HillPlan p;
-  cudaError_t err = plan_hill_for(dtype, n, m, &p);
+  cudaError_t err = plan_hill_for(dtype, n, m, d, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  err = cudaMemcpyAsync(z, z0, sizeof(float) * m * kD,
+  err = cudaMemcpyAsync(z, z0, sizeof(float) * m * d,
                         cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaMemsetAsync(arrived, 0, sizeof(*arrived), s)) != cudaSuccess)
     return static_cast<int>(err);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xf = static_cast<const float*>(x);
   if (dtype == uoc::kBF16)
-    err = uoc::launch_cooperative(
-        hill_bf16_kernel, p.grid, p.threads, p.smem, s,
-        static_cast<const __nv_bfloat16*>(x), n, m, kappa, max_iters, partial,
-        arrived, z);
+    err = d == 64 ? uoc::launch_cooperative(hill_bf16_kernel<64>, p.grid,
+                                            p.threads, p.smem, s, xb, n, m,
+                                            kappa, max_iters, partial,
+                                            arrived, z)
+                  : uoc::launch_cooperative(hill_bf16_kernel<128>, p.grid,
+                                            p.threads, p.smem, s, xb, n, m,
+                                            kappa, max_iters, partial,
+                                            arrived, z);
   else
-    err = uoc::launch_cooperative(hill_tf32_kernel, p.grid, p.threads, p.smem,
-                                  s, static_cast<const float*>(x), n, m, kappa,
-                                  max_iters, partial, arrived, z);
+    err = d == 64 ? uoc::launch_cooperative(hill_tf32_kernel, p.grid,
+                                            p.threads, p.smem, s, xf, n, m,
+                                            kappa, max_iters, partial,
+                                            arrived, z)
+                  : uoc::launch_cooperative(hill_tf32_wide_kernel, p.grid,
+                                            p.threads, p.smem, s, xf, n, m,
+                                            kappa, max_iters, partial,
+                                            arrived, z);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: [m, 64] float32, rows 16-byte aligned; labels: [m] int32 out; steps:
-// one int32 out, the merge steps taken (the seeds still unlabeled when their
-// turn came).  1 <= m <= 128.  One launch on `stream`, with static shared
-// memory only.
-extern "C" int uoc_connected_components(const float* z, int m, float epsilon,
-                                        int* labels, int* steps,
-                                        void* stream) {
-  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+// z: [m, d] float32 (d = 64 or 128), rows 16-byte aligned; labels: [m]
+// int32 out; steps: one int32 out, the merge steps taken (the seeds still
+// unlabeled when their turn came).  1 <= m <= 128.  One launch on
+// `stream`.
+extern "C" int uoc_connected_components(const float* z, int m, int d,
+                                        float epsilon, int* labels,
+                                        int* steps, void* stream) {
+  if (m < 1 || m > kMaxSeeds || (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(z)) return static_cast<int>(cudaErrorMisalignedAddress);
-  cc_kernel<<<1, kCCThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      z, m, epsilon, labels, steps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) {
+    cc_kernel<64><<<1, kCCThreads, cc_smem_bytes<64>(), s>>>(z, m, epsilon,
+                                                             labels, steps);
+  } else {
+    // past 48 KB of dynamic shared memory: the kernel's limit is raised
+    // once per device
+    int dev, per_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = uoc::blocks_per_sm<cc_kernel<128>>(dev, kCCThreads,
+                                             cc_smem_bytes<128>(),
+                                             cc_smem_bytes<128>(), &per_sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cc_kernel<128><<<1, kCCThreads, cc_smem_bytes<128>(), s>>>(
+        z, m, epsilon, labels, steps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch configuration uoc_assign_labels uses for n pixels and m seeds:
+// The launch configuration uoc_assign_labels uses for n pixels and m seeds
+// of width d (64 or 128; any other width returns cudaErrorInvalidValue):
 // out = [grid, blocks per SM, threads per block, dynamic shared bytes,
 // bytes of X held on chip per block (its ring of tiles)].
-extern "C" int uoc_assign_labels_plan(int dtype, int n, int m,
+extern "C" int uoc_assign_labels_plan(int dtype, int n, int m, int d,
                                       long long* out) {
   if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
   AssignPlan p;
-  const cudaError_t err = plan_assign_for(dtype, n, &p);
+  const cudaError_t err = plan_assign_for(dtype, n, d, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.per_sm;
-  out[2] = kAssignThreads;
+  out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
-  out[4] = (dtype == uoc::kBF16 ? 2LL : 4LL) * kAssignStages * kHillTile * kD;
+  out[4] = (dtype == uoc::kBF16 ? 2LL : 4LL) * p.stages * p.tile * d;
   return 0;
 }
 
-// x: [n, 64] row-major float32 or bfloat16, rows 16-byte aligned; z:
-// [m, 64] float32; seed_labels: [m] int32; z_valid: [n] bytes (0 or 1) or
-// null (every pixel valid); labels: [n] int32 out; counts: [2 m + 1]
-// float32 out, zero-filled here: pixels per label, valid pixels per label,
-// then the count of re-checked pixels.  m <= 128, n < 2^24 (the float
-// counts stay exact).  One launch on `stream`.
-extern "C" int uoc_assign_labels(const void* x, int dtype, int n,
+// x: [n, d] row-major float32 or bfloat16 (d = 64 or 128), rows 16-byte
+// aligned; z: [m, d] float32, 16-byte aligned; seed_labels: [m] int32;
+// z_valid: [n] bytes (0 or 1) or null (every pixel valid); labels: [n]
+// int32 out; counts: [2 m + 1] float32 out, zero-filled here: pixels per
+// label, valid pixels per label, then the count of re-checked pixels.
+// m <= 128, n < 2^24 (the float counts stay exact).  One launch on
+// `stream`.
+extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
                                  const float* z, const int* seed_labels,
                                  int m, const unsigned char* z_valid,
                                  int* labels, float* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || m > kMaxSeeds || n >= (1 << 24))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (misaligned(x) || misaligned(z))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   AssignPlan p;
-  cudaError_t err = plan_assign_for(dtype, n, &p);
+  cudaError_t err = plan_assign_for(dtype, n, d, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
       cudaSuccess)
     return static_cast<int>(err);
   float* rechecked = counts + 2 * m;
-  if (dtype == uoc::kBF16)
-    assign_bf16_kernel<<<p.grid, kAssignThreads, p.smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), n, z, seed_labels, m, z_valid,
-        labels, counts, rechecked);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xf = static_cast<const float*>(x);
+  if (dtype == uoc::kBF16 && d == 64)
+    assign_bf16_kernel<64><<<p.grid, p.threads, p.smem, s>>>(
+        xb, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
+  else if (dtype == uoc::kBF16)
+    assign_bf16_kernel<128><<<p.grid, p.threads, p.smem, s>>>(
+        xb, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
+  else if (d == 64)
+    assign_tf32_kernel<64><<<p.grid, p.threads, p.smem, s>>>(
+        xf, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
   else
-    assign_tf32_kernel<<<p.grid, kAssignThreads, p.smem, s>>>(
-        static_cast<const float*>(x), n, z, seed_labels, m, z_valid, labels,
-        counts, rechecked);
+    assign_tf32_kernel<128><<<p.grid, p.threads, p.smem, s>>>(
+        xf, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,15 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "uoc_select_seeds": [_P, _I, _I, ctypes.c_longlong, _I, _I, _P, _P, _P,
-                         _P],
-    "uoc_select_seeds_plan": [_I, _I, _P],
-    "uoc_hill_climb": [_P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
-    "uoc_hill_climb_plan": [_I, _I, _I, _P],
-    "uoc_connected_components": [_P, _I, _F, _P, _P, _P],
-    "uoc_assign_labels": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
-    "uoc_assign_labels_plan": [_I, _I, _I, _P],
+    "uoc_select_seeds": [_P, _I, _I, _I, ctypes.c_longlong, _I, _I, _P, _P,
+                         _P, _P],
+    "uoc_select_seeds_plan": [_I, _I, _I, _P],
+    "uoc_hill_climb": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
+    "uoc_hill_climb_plan": [_I, _I, _I, _I, _P],
+    "uoc_connected_components": [_P, _I, _I, _F, _P, _P, _P],
+    "uoc_assign_labels": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    "uoc_assign_labels_plan": [_I, _I, _I, _I, _P],
 }
+# The embedding widths the kernels take: NUM_UNITS (64 in every recipe) and
+# 2 * NUM_UNITS (the RGB-D cat fusion); each has its own instantiation.
+WIDTHS = (64, 128)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -150,6 +153,13 @@ def dtype_code(x: torch.Tensor, what: str) -> int:
         return 1
     raise TypeError(f"{what}: the kernel takes float32 or bfloat16, "
                     f"got {x.dtype}")
+
+
+def check_width(what: str, d: int) -> None:
+    """Raise unless the kernels take embedding width d."""
+    if d not in WIDTHS:
+        raise ValueError(f"{what}: the kernel takes width "
+                         f"{' or '.join(map(str, WIDTHS))}, got {d}")
 
 
 def on_device(what: str, x: torch.Tensor, *others: torch.Tensor | None

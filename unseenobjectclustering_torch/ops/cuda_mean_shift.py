@@ -4,7 +4,7 @@ Counterpart of ``unseenobjectclustering_tpu/ops/pallas_mean_shift.py``.  The
 kernels are in ``csrc/mean_shift.cu``:
 
   * hill_climb: one persistent cooperative launch for all iterations;
-    one block per SM sums exp(kappa Z X^T) X over its 128-pixel tiles
+    one block per SM sums exp(kappa Z X^T) X over its pixel tiles
     (loaded by cp.async into a ring, products on the tensor cores: split
     TF32 on wgmma for float32, bf16 on mma.sync for bfloat16), then a
     fixed-order reduction of the blocks' partials + row normalization
@@ -17,14 +17,15 @@ kernels are in ``csrc/mean_shift.cu``:
   * assign_labels: one persistent launch; each block streams its 128-pixel
     tiles through a cp.async ring, S = X Z^T on wgmma (split TF32 for
     float32, bf16 for bfloat16) stays in registers for the argmax, pixels
-    whose best two labels are within ASSIGN_RECHECK_MARGIN are re-checked
+    whose best two labels are within ASSIGN_RECHECK_MARGIN[d] are re-checked
     with the exact fp32 FMA chain, and per-label pixel / valid-depth
     histograms come out of the same X sweep.
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
 on a CUDA tensor (or raises).  The kernels take m <= 128 seeds of width
-d = 64, the NUM_UNITS of every recipe in experiments/cfgs.  The plain
-versions take any width.
+d = 64 or 128: NUM_UNITS is 64 in every recipe in experiments/cfgs, and the
+RGB-D cat fusion concatenates two towers' embeddings into 2 * NUM_UNITS.
+The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -38,11 +39,10 @@ from unseenobjectclustering_torch.ops.mean_shift import (
     connected_components as _connected_components_plain)
 
 MAX_SEEDS = 128
-DIM = 64
 # the assignment kernel re-checks a pixel exactly where its best score beats
-# every seed of another label by less than this (kRecheckMargin in
-# csrc/mean_shift.cu, where it is derived): 2^-15
-ASSIGN_RECHECK_MARGIN = 2.0 ** -15
+# every seed of another label by less than this, per width
+# (kRecheckMargin<d> in csrc/mean_shift.cu, where it is derived)
+ASSIGN_RECHECK_MARGIN = {64: 2.0 ** -15, 128: 2.0 ** -14}
 
 # calls that launched each kernel
 hill_climb_launches = 0
@@ -56,9 +56,10 @@ assign_labels_rechecked: Optional[torch.Tensor] = None
 
 
 def _check_shapes(what: str, m: int, d: int) -> None:
-    if not 1 <= m <= MAX_SEEDS or d != DIM:
-        raise ValueError(f"{what}: the kernel takes 1..{MAX_SEEDS} seeds of "
-                         f"{DIM} dims, got m={m}, d={d}")
+    _build.check_width(what, d)
+    if not 1 <= m <= MAX_SEEDS:
+        raise ValueError(f"{what}: the kernel takes 1..{MAX_SEEDS} seeds, "
+                         f"got m={m}")
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -123,7 +124,7 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
     partial = torch.empty((grid, m, d), dtype=torch.float32, device=x.device)
     arrived = torch.empty(1, dtype=torch.int32, device=x.device)
     z = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    err = lib.uoc_hill_climb(xc.data_ptr(), code, n, z0c.data_ptr(), m,
+    err = lib.uoc_hill_climb(xc.data_ptr(), code, n, d, z0c.data_ptr(), m,
                              float(kappa), int(max_iters), partial.data_ptr(),
                              arrived.data_ptr(), z.data_ptr(),
                              _build.stream(x))
@@ -133,12 +134,14 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
 
 
 def hill_climb_config(x: torch.Tensor, m: int) -> dict[str, int]:
-    """The hill-climb kernel's launch shape for x ([n, 64] on the card) and
-    m seeds: grid, blocks per SM, threads per block, dynamic shared-memory
-    bytes, bytes of X held on chip per block (its ring of tiles, and for
-    float32 the current tile's split-TF32 copies)."""
+    """The hill-climb kernel's launch shape for x ([n, d] on the card, d =
+    64 or 128) and m seeds: grid, blocks per SM, threads per block, dynamic
+    shared-memory bytes, bytes of X held on chip per block (its ring of
+    tiles, and for float32 the current tile's split-TF32 copies)."""
+    _check_shapes("hill_climb", m, x.shape[1])
     return _build.plan(x.device, "uoc_hill_climb_plan",
                        _build.dtype_code(x, "hill_climb"), x.shape[0], m,
+                       x.shape[1],
                        names=("grid", "blocks_per_sm", "threads",
                               "smem_bytes", "x_on_chip_bytes"))
 
@@ -165,8 +168,8 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
     # the labels, then the count of merge steps
     out = torch.empty(m + 1, dtype=torch.int32, device=z.device)
     ptr = out.data_ptr()
-    err = lib.uoc_connected_components(zc.data_ptr(), m, float(epsilon), ptr,
-                                       ptr + 4 * m, _build.stream(z))
+    err = lib.uoc_connected_components(zc.data_ptr(), m, d, float(epsilon),
+                                       ptr, ptr + 4 * m, _build.stream(z))
     _build.check(err, "connected_components")
     connected_components_launches += 1
     labels, connected_components_steps = out.split((m, 1))
@@ -234,7 +237,7 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     # pixels per label, valid pixels per label, re-checked pixels
     out = torch.empty(2 * m + 1, dtype=torch.float32, device=x.device)
-    err = lib.uoc_assign_labels(xc.data_ptr(), code, n, zc.data_ptr(),
+    err = lib.uoc_assign_labels(xc.data_ptr(), code, n, d, zc.data_ptr(),
                                 slab.data_ptr(), m,
                                 None if zv is None else zv.data_ptr(),
                                 labels.data_ptr(), out.data_ptr(),
@@ -246,10 +249,13 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
 
 
 def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int]:
-    """The assignment kernel's launch shape for x ([n, 64] on the card) and
-    m seeds: grid, blocks per SM, threads per block, dynamic shared-memory
-    bytes, bytes of X held on chip per block (its ring of tiles)."""
+    """The assignment kernel's launch shape for x ([n, d] on the card, d =
+    64 or 128) and m seeds: grid, blocks per SM, threads per block, dynamic
+    shared-memory bytes, bytes of X held on chip per block (its ring of
+    tiles)."""
+    _check_shapes("assign_labels", m, x.shape[1])
     return _build.plan(x.device, "uoc_assign_labels_plan",
                        _build.dtype_code(x, "assign_labels"), x.shape[0], m,
+                       x.shape[1],
                        names=("grid", "blocks_per_sm", "threads",
                               "smem_bytes", "x_on_chip_bytes"))
