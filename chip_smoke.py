@@ -208,6 +208,33 @@ Phases (any failure exits non-zero; no exception is caught):
      seeds exact or parting below SEED_GAP, and parity's kernel route's
      labels equal to the plain route's but at certified near-ties.  One
      {"cat": {...}} line.
+ 2d. (run after phase 2c, on phase 8b's render cache) the JAX repo's
+     COLOR, DEPTH and RGB-D early-fusion recipes, one tower each (the
+     image; the XYZ image; both as 6 channels).  (a) each kernel against
+     its plain version at the frame (n = 480*640, d = 64) with no depth
+     mask, as a COLOR frame's stage 1 runs the assignment, in both modes
+     with phase 2's checks, tolerances and times beside the bound, and the
+     whole clustering with filter_threshold 0, kernel route against plain
+     route; (b) for each modality, stage 1 through Segmentor.segment_sample
+     with the network of experiments/cfgs/seg_resnet34_8s_embedding_
+     cosine_<modality>_tabletop.yml (fixed-seed init) at 480x640 in both
+     modes (COLOR passes no XYZ, so no depth filter; DEPTH no image), the
+     counters set to 0 before each mode's frames and read after (every
+     kernel launched), in parity the kernel route's labels equal to the
+     plain route's on the same embeddings; (c) stage 2 with the network
+     of the modality's crop yml on phase 4's 8-box frame in both modes
+     (the missing modality's crops zeros; COLOR's paste ordered by RoI
+     area; each kernel once per valid crop; parity's kernel route = plain
+     route); (d) tools.test_net.main() with the modality's yml on the
+     committed TableTop tree in both modes (each kernel exactly once a
+     frame and per valid crop); (e) unseenobjectclustering_torch/cfgs/
+     synthetic_240x320_color.yml trained on phase 8b's cache
+     (COLOR_EPOCHS, bf16, device-resident) and, on CAT_FRAMES held-out
+     frames' trained embeddings (clustered without the depth filter),
+     every kernel against its plain version in both modes with the hill
+     climb held to the float64 replay, and parity's kernel route's labels
+     equal to the plain route's but at certified near-ties.  One
+     {"modalities": {...}} line.
   9. data parallelism (unseenobjectclustering_torch.parallel), what one
      card can show of it: (a) world size 1 on NCCL (an all-reduce and an
      all-gather checked): Segmentor.segment_sharded on 4 frames at
@@ -268,7 +295,10 @@ Phases (any failure exits non-zero; no exception is caught):
      bounds in both modes at the frame and both crop shapes; then each
      kernel's width-128 instantiation (name suffixed _d128) with its
      launches on phase 2c's stage 1, stage 2 and test_net runs and its
-     readings from phase 2c (a).
+     readings from phase 2c (a).  The width-64 entries also hold their
+     launches on phase 2d's paths per modality and mode
+     (modality_launches) and their readings at the frame without a depth
+     mask (unfiltered_*, phase 2d (a)).
  11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -481,6 +511,17 @@ CAT_RECIPE_YML = ("unseenobjectclustering_torch/cfgs/"
                   "synthetic_240x320_rgbd_cat.yml")
 CAT_EPOCHS = 10
 CAT_FRAMES = 4
+# phase 2d: the JAX repo's COLOR, DEPTH and RGB-D early-fusion recipes
+# (one tower each: the image, the XYZ image, or both concatenated into 6
+# channels); COLOR clusters stage 1 without the depth filter, so the
+# kernels also run unfiltered at the frame; COLOR_RECIPE_YML trained on
+# phase 8b's render cache for COLOR_EPOCHS epochs, its kernels checked on
+# CAT_FRAMES held-out frames
+MODALITIES = ("color", "depth", "rgbd_early")
+MODALITY_FRAMES = 2  # timed stage-1 frames per modality and mode
+COLOR_RECIPE_YML = ("unseenobjectclustering_torch/cfgs/"
+                    "synthetic_240x320_color.yml")
+COLOR_EPOCHS = 10
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -836,26 +877,29 @@ def check_kernels(mode: str, x32: torch.Tensor,
     return out
 
 
-def check_route(mode: str, x32: torch.Tensor, z_valid: torch.Tensor
-                ) -> dict[str, float]:
+def check_route(mode: str, x32: torch.Tensor,
+                z_valid: torch.Tensor | None) -> dict[str, float]:
     """Phase 2, whole clustering: mean_shift_smart_init with the fused 0.8
     depth filter on the clustered embeddings (several clusters, one of them
     mostly without depth), kernel route against plain route: seeds and
-    labels equal.  Returns both routes' median ms."""
+    labels equal.  Without z_valid (phase 2d: a COLOR frame) the filter is
+    off (filter_threshold 0).  Returns both routes' median ms."""
     sub = 1 if mode == "parity" else int(FAST_CLUSTER["SEED_SUBSAMPLE"])
     kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
               metric="cosine", first_index=777 % -(-N // sub),
               seed_subsample=sub,
               compute_dtype="float32" if mode == "parity" else "bfloat16",
-              z_valid=z_valid, filter_threshold=0.8)
+              z_valid=z_valid,
+              filter_threshold=0.0 if z_valid is None else 0.8)
     got = mean_shift_smart_init(x32, use_pallas=True, **kw)
     rechecked = int(cms.assign_labels_rechecked)
     want = mean_shift_smart_init(x32, use_pallas=False, **kw)
     ids = torch.unique(want.labels)
+    filtered = ("after the depth filter" if z_valid is not None
+                else "without a depth filter")
     print(f"[{mode}] clustering, kernel route vs plain route: "
           f"{int(want.seed_labels.max()) + 1} seed clusters, {len(ids)} label "
-          f"ids after the depth filter, {rechecked} pixels re-checked by the "
-          f"assignment, "
+          f"ids {filtered}, {rechecked} pixels re-checked by the assignment, "
           f"{int((got.labels != want.labels).sum())} pixels differ, max |Z - "
           f"Z_plain| {float((got.seeds - want.seeds).abs().max()):.3e}")
     for name in ("seed_indices", "seed_labels", "labels"):
@@ -891,11 +935,13 @@ def tabletop_frame(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
 
 
 def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
-              where: str = "") -> tuple[dict, dict, torch.Tensor]:
-    """Phase 3 (and 2c's stage 1, at width d, its lines tagged with
-    `where`): both modes through Segmentor.segment_sample, each mode's
-    counters reset just before its frames and read just after; every
-    kernel must have launched in each mode."""
+              where: str = "", frames: int = FRAMES
+              ) -> tuple[dict, dict, torch.Tensor]:
+    """Phase 3 (and 2c's and 2d's stage 1, at width d, its lines tagged
+    with `where`; `frames` timed frames after a warm-up): both modes
+    through Segmentor.segment_sample, each mode's counters reset just
+    before its frames and read just after; every kernel must have launched
+    in each mode."""
     segs = {"parity": Segmentor(cfg, state_dict),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
                               state_dict, model_dtype=torch.bfloat16)}
@@ -906,7 +952,7 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
         tag = where + mode
         rows = []
         reset_counts()
-        for i in range(1 + FRAMES):
+        for i in range(1 + frames):
             res = seg.segment_sample(frame, return_features=(i == 0))
             labels = res.labels
             if labels.shape != (1, H, W) or labels.dtype != np.int32:
@@ -938,7 +984,7 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
                                  f"path: {missing}")
         timings[mode] = {k: 1e3 * float(np.median([r[k] for r in rows]))
                          for k in ("network", "cluster", "stage1")}
-        print(f"[{tag}] stage 1 ms/frame (median of {FRAMES}): "
+        print(f"[{tag}] stage 1 ms/frame (median of {frames}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in timings[mode].items()))
     return counts, timings, features
 
@@ -988,11 +1034,12 @@ def instance_frame(k: int, seed: int
     return np.clip(bgr, 0, 255).astype(np.uint8), depth, labels
 
 
-def stage2_frames(cfg: Config) -> dict[int, tuple]:
+def stage2_frames(cfg: Config, counts: tuple = STAGE2_INSTANCES
+                  ) -> dict[int, tuple]:
     """Per instance count: (image, XYZ, labels) on the card and the labels
     on the host."""
     frames = {}
-    for k in STAGE2_INSTANCES:
+    for k in counts:
         bgr, depth, labels = instance_frame(k, seed=k)
         if len(np.unique(labels)) != k + 1:
             raise AssertionError(f"the {k}-box frame shows "
@@ -1005,14 +1052,15 @@ def stage2_frames(cfg: Config) -> dict[int, tuple]:
 
 
 def refine(seg: Segmentor, frame: tuple, seed: int,
-           timing: dict | None = None) -> np.ndarray:
+           timing: dict | None = None, has_depth: bool = True
+           ) -> np.ndarray:
     """Stage 2 of one frame (_stage2_impl, the fetch and the paste), with
     the frame's boxes as its stage-1 labels; checks the refined labels."""
     img, xyz, labels, labels_np = frame
     t0 = time.perf_counter()
     refined = seg._refine(img, labels, xyz, labels_np,
                           torch.Generator().manual_seed(seed),
-                          has_depth=True, timing=timing)
+                          has_depth=has_depth, timing=timing)
     if timing is not None:
         timing["stage2"] = time.perf_counter() - t0
     if (refined.shape != (H, W) or refined.dtype != np.int32
@@ -3107,17 +3155,27 @@ def crop_shapes() -> list[tuple[int, str]]:
             for side in sorted(set(CROP_SIDES.values()), reverse=True)]
 
 
-def cat_stage2(cfg: Config, state: dict, state_crop: dict) -> dict:
-    """Phase 2c (b), stage 2: a cat stage-1 network and a cat crop network
-    at CROP^2 on phase 4's box frames (the boxes as the stage-1 labels), in
-    both modes with the counters set to 0 before the mode's frames and
-    read after: every kernel exactly once per valid crop; in parity the
-    kernel route's refined labels equal the plain route's."""
+def stage2_modes(tag: str, cfg: Config, state: dict, state_crop: dict,
+                 counts: tuple = STAGE2_INSTANCES) -> dict:
+    """Phase 2c (b) and 2d (c), stage 2: cfg's stage-1 and crop networks at
+    CROP^2 on phase 4's box frames of `counts` boxes (the boxes as the
+    stage-1 labels), the inputs as segment gives them for cfg.INPUT (a
+    missing one is zeros; without XYZ, COLOR, the paste is ordered by RoI
+    area), in both modes with the counters set to 0 before the mode's
+    frames and read after: every kernel exactly once per valid crop; in
+    parity the kernel route's refined labels equal the plain route's."""
     segs = {"parity": Segmentor(cfg, state, state_crop),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)), state,
                               state_crop, model_dtype=torch.bfloat16)}
-    frames = stage2_frames(cfg)
-    out: dict = {"launches": {}, "ms": {}}
+    frames = {}
+    for k, (img, xyz, labels, labels_np) in stage2_frames(cfg,
+                                                          counts).items():
+        zeros = torch.zeros_like(img)
+        frames[k] = (img if cfg.INPUT != "DEPTH" else zeros,
+                     xyz if cfg.INPUT != "COLOR" else zeros, labels,
+                     labels_np)
+    has_depth = cfg.INPUT != "COLOR"
+    out: dict = {"launches": {}, "ms": {}, "refined_instances": {}}
     for mode, seg in segs.items():
         reset_counts()
         ms = {}
@@ -3125,62 +3183,68 @@ def cat_stage2(cfg: Config, state: dict, state_crop: dict) -> dict:
             rows = []
             for i in range(2):  # the first call warms up
                 timing: dict[str, float] = {}
-                refine(seg, frame, seed=i, timing=timing)
+                refine(seg, frame, seed=i, timing=timing,
+                       has_depth=has_depth)
                 rows.append(1e3 * timing["stage2"])
             ms[k] = rows[1]
         crops = 2 * sum(frames)
         out["launches"][mode] = launch_counts()
         out["ms"][mode] = ms
-        print(f"[cat {mode}] stage 2 with the cat crop network, "
-              f"{crops} valid crops: launches {out['launches'][mode]}; ms "
-              f"per frame at {', '.join(map(str, frames))} instances "
+        print(f"[{tag} {mode}] stage 2, {crops} valid crops: launches "
+              f"{out['launches'][mode]}; ms per frame at "
+              f"{', '.join(map(str, frames))} instances "
               + ", ".join(f"{v:.3f}" for v in ms.values()))
         if set(out["launches"][mode].values()) != {crops}:
-            raise AssertionError(f"[cat {mode}] stage 2 launched "
+            raise AssertionError(f"[{tag} {mode}] stage 2 launched "
                                  f"{out['launches'][mode]}, not once per "
                                  f"valid crop ({crops})")
     seg = segs["parity"]
     kernel_kw = seg._ms_kw
     for k, frame in frames.items():
-        got = refine(seg, frame, seed=7)
+        got = refine(seg, frame, seed=7, has_depth=has_depth)
         seg._ms_kw = dict(kernel_kw, use_pallas=False)
-        want = refine(seg, frame, seed=7)
+        want = refine(seg, frame, seed=7, has_depth=has_depth)
         seg._ms_kw = kernel_kw
+        out["refined_instances"][k] = instances(want)
         n_diff = int((got != want).sum())
-        print(f"[cat parity] stage 2, {k} instances, kernel route vs plain "
-              f"route: {len(np.unique(want)) - 1} refined instances, "
-              f"{n_diff} pixels differ")
+        print(f"[{tag} parity] stage 2, {k} instances, kernel route vs "
+              f"plain route: {instances(want)} refined instances, {n_diff} "
+              f"pixels differ")
         if n_diff:
-            raise AssertionError("[cat] stage 2's kernel route differs from "
-                                 "its plain route")
+            raise AssertionError(f"[{tag}] stage 2's kernel route differs "
+                                 "from its plain route")
     return out
 
 
-def cat_trained(work: str, cache: str) -> dict:
-    """Phase 2c (d): CAT_RECIPE_YML trained on phase 8b's render cache
-    (CAT_EPOCHS, --bf16 --device-resident), then on each of CAT_FRAMES
-    held-out frames' 128-D embeddings every kernel against its plain
+def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
+                ) -> dict:
+    """Phase 2c (d) and 2d (e): the stage-1 recipe yml `recipe` trained on
+    phase 8b's render cache (`epochs`, --bf16 --device-resident), then on
+    each of CAT_FRAMES held-out frames' trained embeddings (COLOR: the
+    image alone, and no depth filter) every kernel against its plain
     version in both modes with the hill climb held to the float64 result
     (check_kernels with against_exact: the seeds exact or parting at a
     near-tie below SEED_GAP), and in parity the kernel route against the
     plain route (route_ties: labels equal but at certified near-ties)."""
     snapshots = os.path.join(work, "snapshots")
-    steps, train_s, step_ms = train_recipe("cat trained", CAT_RECIPE_YML,
-                                           NET, CAT_EPOCHS, cache, snapshots)
-    cfg = Config.from_yaml(os.path.join(REPO, CAT_RECIPE_YML))
+    steps, train_s, step_ms = train_recipe(tag, recipe, NET, epochs, cache,
+                                           snapshots)
+    cfg = Config.from_yaml(os.path.join(REPO, recipe))
     seg = build_segmentor(cfg, NET, pretrained=snapshots)
     img, xyz = held_out_frames(cache, CAT_FRAMES, DEV)
     errs: dict[str, float] = {}  # the largest over the frames
     seed_flips, seed_ties, ties, found = [], [], [], []
     for fr in range(CAT_FRAMES):
-        res = seg.segment(img[fr:fr + 1], xyz[fr:fr + 1], refine=False,
-                          return_features=True)
+        res = seg.segment(*modality_inputs(cfg, img[fr:fr + 1],
+                                           xyz[fr:fr + 1]),
+                          refine=False, return_features=True)
         found.append(instances(res.labels[0]))
-        x = torch.from_numpy(res.features[0]).cuda().reshape(-1, CAT_D)
+        x = torch.from_numpy(res.features[0]).cuda()
+        x = x.reshape(-1, x.shape[-1])
         for mode in ("parity", "fast"):
             with contextlib.redirect_stdout(io.StringIO()):
                 checked = check_kernels(
-                    mode, x, None, where=f", cat trained frame {fr}",
+                    mode, x, None, where=f", {tag} frame {fr}",
                     timed=False, against_exact=True, far=False)
             for kernel, r in checked.items():
                 for key in ("max_abs_err", "exact_err", "plain_exact_err"):
@@ -3196,13 +3260,12 @@ def cat_trained(work: str, cache: str) -> dict:
         routes = [mean_shift_smart_init(
             x, torch.Generator().manual_seed(fr),
             **dict(seg._ms_kw, use_pallas=pallas)) for pallas in (True, False)]
-        seed_tie, t = route_ties(f"cat trained parity, frame {fr}", x,
-                                 *routes)
+        seed_tie, t = route_ties(f"{tag} parity, frame {fr}", x, *routes)
         if seed_tie:
             seed_ties.append(dict(frame=fr, **seed_tie))
         if t:
             ties.append(dict(frame=fr, **t))
-    print(f"[cat trained] kernels on the trained 128-D embeddings of "
+    print(f"[{tag}] kernels on the trained {x.shape[-1]}-D embeddings of "
           f"{CAT_FRAMES} held-out frames at {TH}x{TW} (stage-1 instances "
           f"{found}): each kernel equal to its plain version, the seeding "
           f"but at near-ties (mode, frame: step, gap) "
@@ -3217,9 +3280,9 @@ def cat_trained(work: str, cache: str) -> dict:
                        f"{t['bound']:.2e}" for t in ties) or "none"))
     bad = [t for t in ties if t["margin"] > t["bound"]]
     if bad:
-        raise AssertionError(f"[cat trained] the routes differ beyond a "
+        raise AssertionError(f"[{tag}] the routes differ beyond a "
                              f"near-tie: {bad}")
-    return dict(steps=len(steps), epochs=CAT_EPOCHS, train_s=train_s,
+    return dict(steps=len(steps), epochs=epochs, train_s=train_s,
                 step_ms=step_ms, loss=[steps[0]["loss"], steps[-1]["loss"]],
                 frames=CAT_FRAMES, stage1_instances=found, max_abs_err=errs,
                 seed_near_ties=seed_flips or None,
@@ -3238,9 +3301,9 @@ def run_cat(tmp: str, cache: str) -> dict:
     in both modes (run_slice: counters set to 0 before each mode's frames
     and read after, every kernel launched), in parity the kernel route's
     labels equal to the plain route's on the same embeddings, then stage
-    2 with a cat crop network (cat_stage2); (c) tools.test_net with
+    2 with a cat crop network (stage2_modes); (c) tools.test_net with
     CAT_YML on the committed TableTop tree in both modes, each kernel
-    exactly once a frame and once per valid crop; (d) cat_trained on
+    exactly once a frame and once per valid crop; (d) trained_cut on
     phase 8b's render cache (`cache`)."""
     t0 = time.perf_counter()
     work = os.path.join(tmp, "cat")
@@ -3290,7 +3353,7 @@ def run_cat(tmp: str, cache: str) -> dict:
     if n_diff or (step >= 0 and not gap < SEED_GAP):
         raise AssertionError("[cat] the kernel route differs from the plain "
                              "route on the cat network's embeddings")
-    stage2 = cat_stage2(cfg, state, state_crop)
+    stage2 = stage2_modes("cat", cfg, state, state_crop)
 
     paths = {}
     for name, st in (("main", state), ("crop", state_crop)):
@@ -3309,13 +3372,141 @@ def run_cat(tmp: str, cache: str) -> dict:
             exact=True)
     del state, state_crop, net
     torch.cuda.empty_cache()
-    trained = cat_trained(work, cache)
+    trained = trained_cut("cat trained", CAT_RECIPE_YML, CAT_EPOCHS, work,
+                          cache)
     out = dict(checks=checks, crop_checks=crop_checks, kernels_s=kernels_s,
                stage1_launches=counts, stage1_ms=timings, stage2=stage2,
                test_net=tests, trained=trained,
                phase_s=time.perf_counter() - t0)
     print(f"phase 2c {out['phase_s']:.1f} s (kernels {kernels_s:.1f}, "
           f"training {trained['train_s']:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the COLOR, DEPTH and RGB-D early recipes
+# ---------------------------------------------------------------------------
+
+def modality_yml(modality: str, crop: bool = False) -> str:
+    """The JAX repo's tabletop yml of a modality (its crop yml with
+    `crop`)."""
+    return os.path.join(REPO, "experiments", "cfgs",
+                        f"seg_resnet34_8s_embedding_cosine_{modality}"
+                        f"{'_crop' if crop else ''}_tabletop.yml")
+
+
+def modality_inputs(cfg: Config, img, xyz) -> tuple:
+    """(image, XYZ) as the Segmentor of cfg takes them: COLOR passes no
+    XYZ (stage 1 then clusters without the depth filter), DEPTH no image."""
+    return (None if cfg.INPUT == "DEPTH" else img,
+            None if cfg.INPUT == "COLOR" else xyz)
+
+
+def modality_slice(modality: str, work: str, seed: int) -> dict:
+    """Phase 2d (b)-(d) for one modality: its tabletop yml's network
+    (fixed-seed init) through run_slice at 480x640 in both modes, in
+    parity the kernel route's labels equal to the plain route's on the
+    same embeddings (COLOR without the depth filter); its crop yml's
+    network on phase 4's 8-box frame (stage2_modes); tools.test_net with
+    both on the committed TableTop tree in both modes (each kernel exactly
+    once a frame and once per valid crop)."""
+    tag = modality
+    cfg = Config.from_yaml(modality_yml(modality)).replace(MODE="TEST")
+    torch.manual_seed(seed)
+    net = get_network(NET, cfg)
+    towers = 1 + hasattr(net, "fcn_depth")
+    if towers != 1 or net.embedding_dim != D:
+        raise AssertionError(f"[{tag}] {towers} towers, "
+                             f"{net.embedding_dim}-D embeddings")
+    state = net.state_dict()
+    conv1 = state[f"fcn.{net.network_name}.conv1.weight"].shape[1]
+    crop_cfg = Config.from_yaml(modality_yml(modality, crop=True))
+    torch.manual_seed(seed + 1)
+    state_crop = get_network(NET, crop_cfg).state_dict()
+    bgr, depth = tabletop_frame()
+    img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
+                               torch.from_numpy(depth).cuda(),
+                               cfg.pixel_means, *INTR)
+    img, xyz = modality_inputs(cfg, img, xyz)
+    frame = {k: v for k, v in (("image_color", img), ("depth", xyz))
+             if v is not None}
+    print(f"[{tag}] INPUT {cfg.INPUT}, FUSION_TYPE {cfg.TRAIN.FUSION_TYPE}:"
+          f" one tower, conv1 takes {conv1} channels; frame inputs "
+          f"{sorted(frame)}")
+    counts, timings, features = run_slice(cfg, state, frame,
+                                          where=tag + " ",
+                                          frames=MODALITY_FRAMES)
+    z_valid = None if xyz is None else (xyz[..., 2] > 0).reshape(N)
+    kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
+              metric="cosine", first_index=4321, seed_subsample=1,
+              compute_dtype="float32", z_valid=z_valid,
+              filter_threshold=0.0 if z_valid is None else 0.8)
+    feats = features.reshape(N, D)
+    k_route = mean_shift_smart_init(feats, use_pallas=True, **kw)
+    p_route = mean_shift_smart_init(feats, use_pallas=False, **kw)
+    n_diff = int((k_route.labels != p_route.labels).sum())
+    step, gap = seed_gap(feats, k_route.seed_indices, p_route.seed_indices)
+    print(f"[{tag} parity] kernel route vs plain route on the network's "
+          f"embeddings{'' if z_valid is not None else ', unfiltered'}: "
+          f"{n_diff} pixels differ; seeds first differ at step {step} (gap "
+          f"{gap:.3e})")
+    if n_diff or step >= 0:
+        raise AssertionError(f"[{tag}] the kernel route differs from the "
+                             "plain route on the network's embeddings")
+    stage2 = stage2_modes(tag, cfg, state, state_crop,
+                          counts=STAGE2_INSTANCES[:1])
+
+    paths = {}
+    for name, st in (("main", state), ("crop", state_crop)):
+        paths[name] = os.path.join(work, f"{modality}_{name}.pth")
+        torch.save({"model": {"module." + k: v for k, v in st.items()}},
+                   paths[name])
+    tests = {}
+    for mode in ("parity", "fast"):
+        tests[mode], _ = run_test_net(f"{tag} {mode}, tabletop_object_test", [
+            "--dataset", "tabletop_object_test", "--dataset_root", TABLETOP,
+            "--cfg", modality_yml(modality), "--network", NET,
+            "--pretrained", paths["main"], "--pretrained_crop", paths["crop"],
+            "--max_images", str(TABLETOP_FRAMES), "--output-dir",
+            os.path.join(work, "test_net", modality, mode)]
+            + (["--fast"] if mode == "fast" else []), TABLETOP_FRAMES,
+            exact=True)
+    del state, state_crop, net
+    torch.cuda.empty_cache()
+    return dict(input=cfg.INPUT, fusion=cfg.TRAIN.FUSION_TYPE,
+                conv1_channels=conv1, stage1_launches=counts,
+                stage1_ms=timings, stage2=stage2, test_net=tests)
+
+
+def run_modalities(tmp: str, cache: str) -> dict:
+    """Phase 2d: the JAX repo's COLOR, DEPTH and RGB-D early-fusion
+    recipes, each one tower.  (a) each kernel against its plain version at
+    the frame (n = 480*640, d = 64, m = 100) with no depth mask, as a COLOR
+    frame's stage 1 runs them, in both modes (check_kernels: phase 2's
+    checks, tolerances, launch configurations and times beside the bound),
+    and the whole clustering with filter_threshold 0, kernel route against
+    plain route (check_route); (b)-(d) modality_slice for each modality;
+    (e) COLOR_RECIPE_YML trained on phase 8b's render cache (`cache`) and
+    its kernels on held-out frames' trained embeddings (trained_cut)."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "modalities")
+    os.makedirs(work, exist_ok=True)
+    x32, _ = clustered_embeddings(seed=30)
+    checks = {mode: check_kernels(mode, x32, None, where=", unfiltered")
+              for mode in ("parity", "fast")}
+    routes_ms = {mode: check_route(mode, x32, None)
+                 for mode in ("parity", "fast")}
+    del x32
+    kernels_s = time.perf_counter() - t0
+    slices = {m: modality_slice(m, work, seed=30 + 2 * i)
+              for i, m in enumerate(MODALITIES)}
+    trained = trained_cut("color trained", COLOR_RECIPE_YML, COLOR_EPOCHS,
+                          os.path.join(work, "color"), cache)
+    out = dict(checks=checks, cluster_ms=routes_ms, kernels_s=kernels_s,
+               slices=slices, color_trained=trained,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 2d {out['phase_s']:.1f} s (kernels {kernels_s:.1f}, "
+          f"color training {trained['train_s']:.1f})")
     return out
 
 
@@ -3940,29 +4131,27 @@ def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
     return out
 
 
+def readings(r: dict, prefix: str) -> dict:
+    """One kernel's check_kernels reading for the kernels line, its keys
+    prefixed: error, ms, device ms, plain ms and bound."""
+    return {prefix + "max_abs_err": r["max_abs_err"], prefix + "ms": r["ms"],
+            prefix + "device_ms": r["device_ms"],
+            prefix + "plain_ms": r["plain_ms"],
+            prefix + "bound_ms": r["bound"][0],
+            prefix + "bound_by": r["bound"][1]}
+
+
 def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
     """One kernel's readings for the kernels line from check_kernels at the
     frame (checks[mode]) and at each crop side (crop_checks[side][mode]):
     errors, ms, device ms, plain ms and bound in both modes."""
     par, fast = checks["parity"][name], checks["fast"][name]
-    out = dict(
-        max_abs_err=par["max_abs_err"],
-        ms=par["ms"], plain_ms=par["plain_ms"], bound_ms=par["bound"][0],
-        bound_by=par["bound"][1], library_ms=None,
-        device_ms=par["device_ms"], fast_device_ms=fast["device_ms"],
-        fast_max_abs_err=fast["max_abs_err"], fast_ms=fast["ms"],
-        fast_plain_ms=fast["plain_ms"], fast_bound_ms=fast["bound"][0],
-        fast_bound_by=fast["bound"][1])
+    out = dict(library_ms=None, **readings(par, ""),
+               **readings(fast, "fast_"))
     for side, by_mode in crop_checks.items():
         crop = "crop_" if side == CROP else f"crop{side}_"
         for mode, prefix in (("parity", crop), ("fast", "fast_" + crop)):
-            r = by_mode[mode][name]
-            out.update({prefix + "max_abs_err": r["max_abs_err"],
-                        prefix + "ms": r["ms"],
-                        prefix + "device_ms": r["device_ms"],
-                        prefix + "plain_ms": r["plain_ms"],
-                        prefix + "bound_ms": r["bound"][0],
-                        prefix + "bound_by": r["bound"][1]})
+            out.update(readings(by_mode[mode][name], prefix))
     if name == "connected_components":
         out.update(merge_steps=par["merge_steps"],
                    fast_merge_steps=fast["merge_steps"],
@@ -3971,6 +4160,19 @@ def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
                    fast_pairwise_far_ms=fast["far_ms"],
                    fast_pairwise_far_device_ms=fast["far_device_ms"],
                    pairwise_far_merge_steps=par["far_merge_steps"])
+    return out
+
+
+def modality_launches(name: str, modalities: dict) -> dict:
+    """One kernel's launches on phase 2d's paths: per modality and mode,
+    its stage-1 frames, its stage-2 calls and its test_net run."""
+    out = {}
+    for m, r in modalities["slices"].items():
+        for mode in ("parity", "fast"):
+            out[f"{m}/{mode}"] = dict(
+                stage1=r["stage1_launches"][mode][name],
+                stage2=r["stage2"]["launches"][mode][name],
+                test_net=r["test_net"][mode]["launches"][name])
     return out
 
 
@@ -4109,6 +4311,12 @@ def main() -> None:
             print(f"wall after phase 2c {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 2d: the COLOR, DEPTH and RGB-D early recipes; phase
+            # 8b's render cache
+            modalities = run_modalities(tmp, trained["cache"])
+            print(f"wall after phase 2d {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 9: phase 3's weights and timings, phase 8's U-Net,
             # phase 6's render cache, phase 7's OCID tree and phase 8b's
             # trained ResNet
@@ -4163,7 +4371,12 @@ def main() -> None:
                 for crop in CROP_NETS},
             random_crop_refined_launches=two_stage["runs"]["random/parity"][
                 "launches"][name],
-            **kernel_readings(name, checks, crop_checks)))
+            modality_launches=modality_launches(name, modalities),
+            **kernel_readings(name, checks, crop_checks),
+            # phase 2d (a): at the frame without a depth mask
+            **readings(modalities["checks"]["parity"][name], "unfiltered_"),
+            **readings(modalities["checks"]["fast"][name],
+                       "fast_unfiltered_")))
     for name, (source, replaces) in KERNELS.items():
         # the width-128 instantiation: launches on phase 2c's paths
         kernels.append(dict(
@@ -4200,6 +4413,8 @@ def main() -> None:
     print(json.dumps({"two_stage": two_stage}))
     print(json.dumps({"cat": {k: v for k, v in cat.items()
                               if k not in ("checks", "crop_checks")}}))
+    print(json.dumps({"modalities": {k: v for k, v in modalities.items()
+                                     if k != "checks"}}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,9 @@ components (every seed its own cluster, one ball, an overwrite of labeled
 neighbours, a mode tie, pairs just inside and outside epsilon), and the
 four kernels at width 128 (the RGB-D cat fusion's embeddings: each
 kernel's second instantiation) across m, ragged and many tiles, a strided
-seeding view, misaligned rows and the crop shape.  They need a CUDA
+seeding view, misaligned rows and the crop shape, and the assignment and
+the whole clustering route with no depth mask at the frame's 480*640
+pixels (a COLOR frame's stage 1).  They need a CUDA
 device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -391,6 +393,43 @@ def test_kernel_route_on_card_matches_it_on_cpu(card, compute_dtype,
                                  z_valid=torch.from_numpy(z_valid), **kw)
     for name in ("seed_indices", "seed_labels", "labels"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert len(torch.unique(want.labels)) > 2
+
+
+FRAME = 480 * 640
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_assign_kernel_without_a_mask_at_the_frame(card, dtype):
+    """The COLOR recipes cluster stage 1 without the depth filter, so the
+    assignment takes no z_valid at the frame's n = 480*640 pixels: labels
+    and counts equal the plain version's, and the valid counts are the
+    counts."""
+    x = on_card(card, clustered(FRAME, 64, seed=40, k=12)[0], dtype)
+    z = converged(card, x.float(), 100)
+    slab = cms.connected_components_reference(z, 0.04)
+    assert int(slab.max()) > 0
+    (labels, counts, valid), _ = assign_both(x, z, slab)
+    assert torch.equal(valid, counts) and float(counts.sum()) == FRAME
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_unfiltered_route_at_the_frame_matches_plain(card, compute_dtype):
+    """mean_shift_smart_init without z_valid and with filter_threshold 0 (a
+    COLOR frame's stage 1) at n = 480*640, parity (stride-1 seeding) and
+    fast (bf16, stride 8): the kernel route's seeds and labels equal the
+    plain route's on the card."""
+    x = torch.from_numpy(clustered(FRAME, 64, seed=41, k=12)[0]).to(card)
+    sub = 1 if compute_dtype == "float32" else 8
+    kw = dict(num_seeds=100, first_index=777 % -(-FRAME // sub),
+              seed_subsample=sub, compute_dtype=compute_dtype,
+              filter_threshold=0.0)
+    before = cms.assign_labels_launches
+    got = mean_shift_smart_init(x, use_pallas=True, **kw)
+    assert cms.assign_labels_launches == before + 1
+    want = mean_shift_smart_init(x, use_pallas=False, **kw)
+    for name in ("seed_indices", "seed_labels", "labels"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert len(torch.unique(want.labels)) > 2
 
 
