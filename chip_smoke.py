@@ -189,7 +189,12 @@ Phases (any failure exits non-zero; no exception is caught):
      64-D outputs into 128-D embeddings, which the kernels' width-128
      instantiations take.  (a) each kernel against its plain version at
      the frame and both crop shapes in both modes, with phase 2's checks,
-     tolerances, launch configurations and times beside the bound; (b)
+     tolerances, launch configurations and times beside the bound, and
+     the seeding's path (lazy tiles at the parity frame, eager elsewhere),
+     tile size and share of tiles refreshed a step (mean, largest); (a')
+     the lazy seeding in parity on random unit vectors at the frame (seeds
+     equal to the plain version's or parting below SEED_GAP; path, share,
+     times, bound); (b)
      stage 1 through Segmentor.segment_sample with the cat network of
      experiments/cfgs/seg_resnet34_8s_embedding_cosine_rgbd_cat_tabletop
      .yml at 480x640 (fixed-seed init) in both modes, the counters set to
@@ -295,7 +300,8 @@ Phases (any failure exits non-zero; no exception is caught):
      bounds in both modes at the frame and both crop shapes; then each
      kernel's width-128 instantiation (name suffixed _d128) with its
      launches on phase 2c's stage 1, stage 2 and test_net runs and its
-     readings from phase 2c (a).  The width-64 entries also hold their
+     readings from phase 2c (a) (the seeding's also its path, tile and
+     refreshed share per mode, and (a')'s uniform_* readings).  The width-64 entries also hold their
      launches on phase 2d's paths per modality and mode
      (modality_launches) and their readings at the frame without a depth
      mask (unfiltered_*, phase 2d (a)).
@@ -708,6 +714,27 @@ def hill_climb_exact(x: torch.Tensor, z0: torch.Tensor) -> torch.Tensor:
     return z
 
 
+def seed_path(x: torch.Tensor) -> dict:
+    """The seeding kernel's path for x and, on the lazy path, the mean and
+    largest share of its tiles that the last launch refreshed a step
+    (steps 1 on)."""
+    plan = cuda_seeding.launch_config(x)
+    out = dict(seed_path="lazy" if plan["lazy"] else "eager",
+               tile_pixels=plan["tile_pixels"])
+    if plan["lazy"]:
+        out["refreshed_share"] = cuda_seeding.refresh_shares(
+            cuda_seeding.refreshed)
+    return out
+
+
+def path_text(path: dict) -> str:
+    if path["seed_path"] == "eager":
+        return "path eager (every pixel on chip, or d = 64)"
+    mean, top = path["refreshed_share"]
+    return (f"path lazy, {path['tile_pixels']}-pixel tiles, share of tiles "
+            f"refreshed a step mean {mean:.4f}, max {top:.4f}")
+
+
 def check_kernels(mode: str, x32: torch.Tensor,
                   z_valid: torch.Tensor | None, where: str = "",
                   timed: bool = True, against_exact: bool = False,
@@ -753,10 +780,11 @@ def check_kernels(mode: str, x32: torch.Tensor,
         print(f"[{tag}] assign_labels launch (n = {n}): "
               f"{json.dumps(cms.assign_labels_config(x, M))}")
     got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
+    path = seed_path(x_seed)
     want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
     step, gap = seed_gap(x_seed, got_i, want_i)
     print(f"[{tag}] select_seeds: first differing step {step}, "
-          f"min-distance gap there {gap:.3e}")
+          f"min-distance gap there {gap:.3e}; {path_text(path)}")
     if step >= 0 and not ((mode == "fast" or against_exact or d == CAT_D)
                           and gap < SEED_GAP):
         raise AssertionError(f"[{tag}] seeding differs at step {step} "
@@ -769,8 +797,10 @@ def check_kernels(mode: str, x32: torch.Tensor,
     out["select_seeds"] = dict(
         max_abs_err=float((got_s.float() - want_s.float()).abs().max())
         if step < 0 else float(gap), differing_step=step,
-        bound=bound(nbytes, ops, dtype),
-        rereads_ms=(M - 1) * n_seed * d * esize / HBM_BYTES_PER_S * 1e3)
+        bound=bound(nbytes, ops, dtype), **path,
+        # the eager kernel reads X again at every step (the lazy one does not)
+        **({} if path["seed_path"] == "lazy" else dict(
+            rereads_ms=(M - 1) * n_seed * d * esize / HBM_BYTES_PER_S * 1e3)))
 
     z0 = want_s.float()
     got_z = cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS)
@@ -3290,13 +3320,52 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
                 route_near_ties=ties or None)
 
 
+def lazy_checks() -> dict:
+    """Phase 2c (a'): the width-128 seeding's lazy tiles at the frame, in
+    parity on random unit vectors (made on the card from a seed): the
+    kernel against its plain version (seeds equal, or parting at a float32
+    near-tie below SEED_GAP, as on the clustered input), its path and
+    refreshed share, timed beside its bound."""
+    tag = "cat parity, uniform"
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    u = torch.randn(N, CAT_D, device="cuda", generator=gen)
+    u /= u.norm(dim=1, keepdim=True)
+    first = 12345 % N
+    got_s, got_i = cuda_seeding.select_seeds(u, M, first)
+    path = seed_path(u)
+    want_s, want_i = cuda_seeding.select_seeds_reference(u, M, first)
+    step, gap = seed_gap(u, got_i, want_i)
+    print(f"[{tag}] select_seeds: first differing step {step}, min-distance"
+          f" gap there {gap:.3e}; {path_text(path)}")
+    if step >= 0 and not gap < SEED_GAP:
+        raise AssertionError(f"[{tag}] seeding differs at step {step} "
+                             f"(gap {gap:.3e})")
+    call = functools.partial(cuda_seeding.select_seeds, u, M, first)
+    r = dict(max_abs_err=float((got_s - want_s).abs().max()) if step < 0
+             else float(gap), differing_step=step, **path,
+             bound=bound(N * CAT_D * 4 + M * (CAT_D * 4 + 4),
+                         2.0 * (M - 1) * N * CAT_D, torch.float32),
+             ms=time_ms(call, 10),
+             plain_ms=time_ms(functools.partial(
+                 cuda_seeding.select_seeds_reference, u, M, first), 3),
+             device_ms=device_ms(call, KERNEL_NAMES["select_seeds"], 10),
+             queued_ms=queued_ms(call, 10))
+    print(f"[{tag}] select_seeds: kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f} ms, queued {r['queued_ms']:.4f} ms), plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+          f"({r['bound'][1]})")
+    return r
+
+
 def run_cat(tmp: str, cache: str) -> dict:
     """Phase 2c: the JAX repo's rgbd_cat recipes, whose cat fusion
     concatenates the two towers' 64-D outputs into 128-D embeddings, on
     the kernels' width-128 instantiations.  (a) each kernel against its
     plain version at the frame (n = 480*640, m = 100) and both crop
     shapes in both modes, timed beside its bound (check_kernels: the same
-    checks and tolerances as phase 2); (b) stage 1 through
+    checks and tolerances as phase 2; the seeding's path and refreshed
+    share), and the lazy seeding on random unit vectors (lazy_checks); (b)
+    stage 1 through
     Segmentor.segment_sample with the cat network of CAT_YML at 480x640
     in both modes (run_slice: counters set to 0 before each mode's frames
     and read after, every kernel launched), in parity the kernel route's
@@ -3311,6 +3380,7 @@ def run_cat(tmp: str, cache: str) -> dict:
     x32, z_valid = clustered_embeddings(seed=20, d=CAT_D)
     checks = {mode: check_kernels(mode, x32, z_valid, where=", cat")
               for mode in ("parity", "fast")}
+    lazy = lazy_checks()
     del x32, z_valid
     crop_checks = {}
     for seed, (side, where) in enumerate(crop_shapes(), start=21):
@@ -3374,7 +3444,8 @@ def run_cat(tmp: str, cache: str) -> dict:
     torch.cuda.empty_cache()
     trained = trained_cut("cat trained", CAT_RECIPE_YML, CAT_EPOCHS, work,
                           cache)
-    out = dict(checks=checks, crop_checks=crop_checks, kernels_s=kernels_s,
+    out = dict(checks=checks, crop_checks=crop_checks, lazy=lazy,
+               kernels_s=kernels_s,
                stage1_launches=counts, stage1_ms=timings, stage2=stage2,
                test_net=tests, trained=trained,
                phase_s=time.perf_counter() - t0)
@@ -4163,6 +4234,23 @@ def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
     return out
 
 
+def seed_readings(cat: dict) -> dict:
+    """The width-128 seeding's lazy readings for the kernels line: the
+    path and refreshed share at the frame in both modes, and the uniform
+    input's reading."""
+    out = {}
+    for mode, prefix in (("parity", ""), ("fast", "fast_")):
+        r = cat["checks"][mode]["select_seeds"]
+        out.update({prefix + "seed_path": r["seed_path"],
+                    prefix + "tile_pixels": r["tile_pixels"],
+                    prefix + "refreshed_share": r.get("refreshed_share")})
+    uniform = cat["lazy"]
+    out.update(readings(uniform, "uniform_"),
+               uniform_queued_ms=uniform["queued_ms"],
+               uniform_refreshed_share=uniform.get("refreshed_share"))
+    return out
+
+
 def modality_launches(name: str, modalities: dict) -> dict:
     """One kernel's launches on phase 2d's paths: per modality and mode,
     its stage-1 frames, its stage-2 calls and its test_net run."""
@@ -4387,7 +4475,8 @@ def main() -> None:
             fast_stage2_launches=cat["stage2"]["launches"]["fast"][name],
             test_net_launches=cat["test_net"]["parity"]["launches"][name],
             fast_test_net_launches=cat["test_net"]["fast"]["launches"][name],
-            **kernel_readings(name, cat["checks"], cat["crop_checks"])))
+            **kernel_readings(name, cat["checks"], cat["crop_checks"]),
+            **(seed_readings(cat) if name == "select_seeds" else {})))
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
                       routes_ms, "stage2_ms": s2_timings,
                       "stage2_peak_gib": s2_memory}))

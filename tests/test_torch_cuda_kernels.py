@@ -12,7 +12,12 @@ components (every seed its own cluster, one ball, an overwrite of labeled
 neighbours, a mode tie, pairs just inside and outside epsilon), and the
 four kernels at width 128 (the RGB-D cat fusion's embeddings: each
 kernel's second instantiation) across m, ragged and many tiles, a strided
-seeding view, misaligned rows and the crop shape, and the assignment and
+seeding view, misaligned rows and the crop shape, the seeding kernel's
+lazy tiles at width 128 (the frame's clustered and random inputs, random
+inputs certified free of near-ties on which the picks must be exact, an
+exact tie planted across two tiles, 1 and 128 seeds, a strided view, n
+either side of the plan's switch to them, and a 1920x1080 frame, past
+the lazy tiles' limit in float32), and the assignment and
 the whole clustering route with no depth mask at the frame's 480*640
 pixels (a COLOR frame's stage 1).  They need a CUDA
 device and skip without one.  On the machine with the card:
@@ -507,6 +512,174 @@ def test_seeding_kernel_at_width_128(card, dtype, n, stride):
     want_seeds, want_idx = cuda_seeding.select_seeds_reference(x, 40, 5)
     assert_same_seeds(x, idx, want_idx)
     assert seeds.shape == (40, WIDE) and seeds.dtype == dtype
+
+
+def units(n, d, seed):
+    """[n, d] random unit vectors (numpy float32)."""
+    x = np.random.RandomState(seed).randn(n, d)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def shaped(card, n, dtype):
+    """An [n, WIDE] view of one row on the card: the shape a plan reads."""
+    return torch.zeros(1, WIDE, dtype=dtype, device=card).expand(n, WIDE)
+
+
+def lazy_tiles(plan, n):
+    """The lazy tiles of all blocks for n pixels under `plan`."""
+    on_chip = plan["pixels_per_block"] - plan["reread_pixels_per_block"]
+    length, tile = plan["pixels_per_block"], plan["tile_pixels"]
+    return sum(-(-max(0, min(length, n - b * length) - on_chip) // tile)
+               for b in range(plan["grid"]))
+
+
+def seed_lazily(x, num_seeds, first):
+    """The kernel on x (which must take the lazy path) against its plain
+    version; returns the kernel's indices and its refresh counts."""
+    plan = cuda_seeding.launch_config(x)
+    assert plan["lazy"] == 1 and plan["tile_pixels"] == 32
+    before = cuda_seeding.launches
+    seeds, idx = cuda_seeding.select_seeds(x, num_seeds, first)
+    want_seeds, want_idx = cuda_seeding.select_seeds_reference(
+        x, num_seeds, first)
+    assert cuda_seeding.launches == before + 1
+    assert idx.shape == (num_seeds,) and seeds.dtype == x.dtype
+    assert_same_seeds(x, idx, want_idx)
+    counts = cuda_seeding.refreshed
+    assert counts.shape == (num_seeds - 1,)
+    if num_seeds > 1:  # every tile at step 0, no more later
+        assert int(counts[0]) == lazy_tiles(plan, x.shape[0])
+        assert int(counts.max()) == int(counts[0])
+    return idx, counts
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["clustered", "uniform"])
+def test_seeding_lazy_tiles_at_the_frame(card, dtype, kind):
+    """The parity frame's shape at width 128 (n = 480*640, m = 100):
+    clustered embeddings and random unit vectors; most tiles are skipped
+    at most steps on both."""
+    xf = (clustered(FRAME, WIDE, seed=42)[0] if kind == "clustered"
+          else units(FRAME, WIDE, 43))
+    _, counts = seed_lazily(on_card(card, xf, dtype), 100, 12345)
+    mean, _ = cuda_seeding.refresh_shares(counts)
+    assert 0.0 < mean < 0.5
+
+
+def float64_picks(x, num_seeds, first):
+    """The float64 replay of farthest-point seeding on x: its picks, and
+    the least gap over its steps between the two largest min-distances."""
+    x64 = x.double()
+    md = 0.5 * (1.0 - x64 @ x64[first])
+    picks, least = [first], float("inf")
+    for _ in range(1, num_seeds):
+        top = torch.topk(md, 2)
+        least = min(least, float(top.values[0] - top.values[1]))
+        picks.append(int(top.indices[0]))
+        md = torch.minimum(md, 0.5 * (1.0 - x64 @ x64[picks[-1]]))
+    return picks, least
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seeding_lazy_tiles_exact_without_near_ties(card, dtype):
+    """Random unit vectors at the frame whose float64 replay keeps its two
+    largest min-distances at least 1e-6 apart at every step (certified
+    here): no float32 rounding of a dot can part two picks, so the lazy
+    kernel's indices equal the plain version's and the replay's, with no
+    slack; a stale bound or a skipped catch-up would show."""
+    x = on_card(card, units(FRAME, WIDE, 51), dtype)
+    picks, least = float64_picks(x, 100, 12345)
+    assert least >= 1e-6
+    idx, _ = seed_lazily(x, 100, 12345)
+    want = cuda_seeding.select_seeds_reference(x, 100, 12345)[1]
+    assert idx.tolist() == want.tolist() == picks
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seeding_lazy_planted_tie_across_tiles(card, dtype):
+    """u, equally near four orthonormal centers, sits at i and j, the first
+    pixels of block 0's and block 1's first lazy tiles (filled with copies
+    of the first seed, in cluster 0): once every cluster has a seed, u at i
+    and at j tie exactly and the lower index, i, must win."""
+    k, n = 4, FRAME
+    rng = np.random.RandomState(44)
+    centers = np.linalg.qr(rng.randn(WIDE, k))[0].T
+    x = centers[rng.choice(k, size=n)] + 0.3 * rng.randn(n, WIDE) / np.sqrt(
+        WIDE)
+    plan = cuda_seeding.launch_config(shaped(card, n, dtype))
+    length = plan["pixels_per_block"]
+    i = length - plan["reread_pixels_per_block"]
+    j = length + i
+    first = 7
+    x[first] = centers[0] + 0.3 * rng.randn(WIDE) / np.sqrt(WIDE)
+    for lo in (i, j):
+        x[lo:lo + 32] = x[first]
+    x[i] = x[j] = centers.sum(0)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    idx, _ = seed_lazily(on_card(card, x.astype(np.float32), dtype), 40,
+                         first)
+    assert int(idx[k]) == i and j not in idx.tolist()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("num_seeds", [1, 128])
+def test_seeding_lazy_seed_counts(card, dtype, num_seeds):
+    x = on_card(card, clustered(FRAME, WIDE, seed=45)[0], dtype)
+    idx, _ = seed_lazily(x, num_seeds, FRAME - 1)
+    assert int(idx[0]) == FRAME - 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seeding_lazy_strided_view(card, dtype):
+    x = on_card(card, clustered(2 * FRAME, WIDE, seed=46)[0], dtype)[::2]
+    seed_lazily(x, 100, 5)
+
+
+def lazy_switch(card, dtype):
+    """The least n for which the width-128 plan takes the lazy path."""
+    lo, hi = 132 * 256, FRAME  # eager at lo, lazy at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lazy = cuda_seeding.launch_config(shaped(card, mid, dtype))["lazy"]
+        lo, hi = (lo, mid) if lazy else (mid, hi)
+    return hi
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seeding_either_side_of_the_lazy_switch(card, dtype):
+    """One pixel below the switch every pixel is on chip (the eager
+    kernel); at it a block has one or two pixels off chip, in one short
+    lazy tile."""
+    n = lazy_switch(card, dtype)
+    x = on_card(card, clustered(n, WIDE, seed=47)[0], dtype)
+    below = x[:n - 1]
+    plan = cuda_seeding.launch_config(below)
+    assert plan["lazy"] == 0 and plan["reread_pixels_per_block"] == 0
+    _, idx = cuda_seeding.select_seeds(below, 100, 3)
+    assert_same_seeds(below, idx,
+                      cuda_seeding.select_seeds_reference(below, 100, 3)[1])
+    assert cuda_seeding.refreshed is None
+    seed_lazily(x, 100, 3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seeding_at_width_128_past_the_lazy_limit(card, dtype):
+    """A 1920x1080 frame at width 128: in float32 a block's lazy tiles
+    would not fit beside its min-distances in shared memory, so the plan
+    takes the eager kernel, which re-reads its off-chip pixels; in
+    bfloat16 the lazy one.  Both seed as the plain version does."""
+    n = 1920 * 1080
+    x = on_card(card, clustered(n, WIDE, seed=48)[0], dtype)
+    plan = cuda_seeding.launch_config(x)
+    assert plan["reread_pixels_per_block"] > 0
+    assert plan["lazy"] == (dtype == torch.bfloat16)
+    if plan["lazy"]:
+        seed_lazily(x, 100, 5)
+        return
+    _, idx = cuda_seeding.select_seeds(x, 100, 5)
+    assert_same_seeds(x, idx,
+                      cuda_seeding.select_seeds_reference(x, 100, 5)[1])
+    assert cuda_seeding.refreshed is None
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

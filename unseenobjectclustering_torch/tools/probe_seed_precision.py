@@ -11,12 +11,16 @@ port's routes:
                                               select_seeds_kernel), on a
                                               CUDA device only
 
-The JAX tool's other routes have no counterpart here: its blocked `lazy`
-seeding and the VMEM-fit check belong to the TPU kernel, which the port
-does not have.  A route PASSES if every divergence from the float64 replay
-is an fp32 near-tie (exact-distance gap < TIE_GAP); a larger gap means the
-route's distances are wrong, not merely rounded.  The exit code is 1 if a
-route fails.
+The JAX tool's `lazy` route (select_smart_seeds_lazy: stale per-block
+bounds for an X that does not fit on chip) has its counterpart in the
+kernel route: at d = 128, where a block's pixels do not all fit on chip
+(the 480x640 frame), the kernel keeps them in lazy tiles with stale
+bounds; the output names the kernel's path for the input.  The JAX tool's
+`pallas` route is the kernel route's TPU counterpart, and its VMEM-fit
+check belongs to the TPU.  A route PASSES if every divergence from the
+float64 replay is an fp32 near-tie (exact-distance gap < TIE_GAP); a
+larger gap means the route's distances are wrong, not merely rounded.
+The exit code is 1 if a route fails.
 
 Runs on cuda:<--gpu> unless given --device cpu.
 
@@ -77,7 +81,8 @@ def routes(device: torch.device) -> dict[str, Callable]:
 def main(argv: Optional[Sequence[str]] = None,
          x: Optional[np.ndarray] = None) -> dict:
     """Run the audit; returns {"n", "d", "m", "routes": {name:
-    {"divergences", "worst_gap", "pass"}}, "ok"}.  `x` ([n, d] unit
+    {"divergences", "worst_gap", "pass"}}, "ok"} (on the card also
+    "kernel_path", eager or lazy).  `x` ([n, d] unit
     vectors, e.g. a trained network's embeddings) replaces the random
     vectors of --n/--d/--seed."""
     ap = argparse.ArgumentParser(description=__doc__)
@@ -104,6 +109,10 @@ def main(argv: Optional[Sequence[str]] = None,
           flush=True)
 
     out = {"n": n, "d": d, "m": args.m, "routes": {}}
+    if device.type == "cuda":
+        out["kernel_path"] = ("lazy" if cuda_seeding.launch_config(xd)["lazy"]
+                              else "eager")
+        print(f"# kernel path: {out['kernel_path']}", flush=True)
     ok = True
     for name, fn in routes(device).items():
         with torch.inference_mode(), _full_fp32():
