@@ -18,9 +18,13 @@ Phases (any failure exits non-zero; no exception is caught):
      the assignment re-checked exactly; median CUDA-event times of one
      wrapper call and of the plain version (host latency included) beside
      the bound computed from the shapes, and each kernel's own device time
-     from torch.profiler.  Then the whole clustering (mean_shift_smart_init
-     with the 0.8 depth filter) on the stage-1 embeddings, kernel route
-     against plain route, timed.
+     from torch.profiler; beside the hill climb its yardstick (library_ms:
+     one timed run of 10 calls of torch's scaled_dot_product_attention with
+     scale kappa and a row norm, which compute the same function; the
+     backend that ran is named; in parity its Z must be within Z_TOL of the
+     plain version's; the port never calls it).  Then the whole clustering
+     (mean_shift_smart_init with the 0.8 depth filter) on the stage-1
+     embeddings, kernel route against plain route, timed.
   3. stage 1 through Segmentor.segment_sample: seg_resnet34_8s_embedding,
      RGB-D, add fusion, 64-D embeddings, 480x640, weights from a fixed-seed
      init; a few frames in each mode, every launch counter reset just
@@ -301,7 +305,10 @@ Phases (any failure exits non-zero; no exception is caught):
      kernel's width-128 instantiation (name suffixed _d128) with its
      launches on phase 2c's stage 1, stage 2 and test_net runs and its
      readings from phase 2c (a) (the seeding's also its path, tile and
-     refreshed share per mode, and (a')'s uniform_* readings).  The width-64 entries also hold their
+     refreshed share per mode, and (a')'s uniform_* readings).  The
+     hill-climb entries also hold their launch configuration and
+     library_ms (the yardstick above, with its backend) at every shape
+     and mode.  The width-64 entries also hold their
      launches on phase 2d's paths per modality and mode
      (modality_launches) and their readings at the frame without a depth
      mask (unfiltered_*, phase 2d (a)).
@@ -735,6 +742,48 @@ def path_text(path: dict) -> str:
             f"refreshed a step mean {mean:.4f}, max {top:.4f}")
 
 
+def sdpa_hill_climb(x: torch.Tensor, z0: torch.Tensor) -> torch.Tensor:
+    """The hill climb as one PyTorch call an iteration, the yardstick of
+    the hill-climb kernels (library_ms; the port never calls it).
+    softmax(kappa Z X^T) X is exp(kappa Z X^T) X with each row scaled by a
+    positive number, so scaled_dot_product_attention(Z, X, X,
+    scale=kappa) followed by a row normalisation is rownorm(exp(kappa Z
+    X^T) X).  Z is rounded to X's type for each call, as the bf16 kernel
+    rounds it; the inputs are [1, 1, m or n, d]: one batch, one head."""
+    xs = x[None, None]
+    z = z0.float()
+    for _ in range(ITERS):
+        v = torch.nn.functional.scaled_dot_product_attention(
+            z.to(x.dtype)[None, None], xs, xs, scale=KAPPA)[0, 0].float()
+        z = v / v.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    return z
+
+
+def sdpa_yardstick(x: torch.Tensor, z0: torch.Tensor
+                   ) -> tuple[float, str, torch.Tensor]:
+    """The hill climb's yardstick at x's shape, at the least cost: one
+    profiled call (its warm-up, and which of scaled_dot_product_attention's
+    backends ran, from the names of the device kernels it launched), then
+    one call timed with CUDA events (ms).  Returns the ms, the backend and
+    the profiled call's Z."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        z = sdpa_hill_climb(x, z0)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    backend = next((b for b, keys in (("flash", ("flash",)),
+                                      ("cudnn", ("cudnn",)),
+                                      ("efficient", ("fmha", "efficient",
+                                                     "cutlass")))
+                    if any(k in names for k in keys)), "math")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sdpa_hill_climb(x, z0)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), backend, z
+
+
 def check_kernels(mode: str, x32: torch.Tensor,
                   z_valid: torch.Tensor | None, where: str = "",
                   timed: bool = True, against_exact: bool = False,
@@ -886,6 +935,20 @@ def check_kernels(mode: str, x32: torch.Tensor,
         return out
     for name, (call, plain, reps) in calls.items():
         out[name].update(ms=time_ms(call, reps), plain_ms=time_ms(plain, 3))
+    # the yardstick takes up to 0.3 s a call in float32 at the frame on an
+    # H100 (it does not split the keys over blocks): one timed call; in
+    # parity its Z is held to the plain version's
+    lib_ms, backend, lib_z = sdpa_yardstick(x, z0)
+    lib_err = float((lib_z - want_z).abs().max())
+    out["hill_climb"].update(launch=cms.hill_climb_config(x, M),
+                             library_ms=lib_ms, library_backend=backend,
+                             library_err=lib_err)
+    print(f"[{tag}] hill_climb yardstick: scaled_dot_product_attention "
+          f"({backend}) and a row norm, {ITERS} times: {lib_ms:.4f} ms, "
+          f"max |Z - Z_plain| = {lib_err:.3e}")
+    if mode == "parity" and not lib_err <= Z_TOL[mode]:
+        raise AssertionError(f"[{tag}] the hill climb's yardstick is "
+                             f"{lib_err:.3e} from the plain version")
     far_call = functools.partial(cms.connected_components,
                                  inputs["pairwise-far"], EPS)
     out["connected_components"].update(
@@ -4204,12 +4267,18 @@ def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
 
 def readings(r: dict, prefix: str) -> dict:
     """One kernel's check_kernels reading for the kernels line, its keys
-    prefixed: error, ms, device ms, plain ms and bound."""
-    return {prefix + "max_abs_err": r["max_abs_err"], prefix + "ms": r["ms"],
-            prefix + "device_ms": r["device_ms"],
-            prefix + "plain_ms": r["plain_ms"],
-            prefix + "bound_ms": r["bound"][0],
-            prefix + "bound_by": r["bound"][1]}
+    prefixed: error, ms, device ms, plain ms and bound, and where timed
+    (the hill climb) the library call's ms and backend and the launch
+    configuration."""
+    out = {prefix + "max_abs_err": r["max_abs_err"], prefix + "ms": r["ms"],
+           prefix + "device_ms": r["device_ms"],
+           prefix + "plain_ms": r["plain_ms"],
+           prefix + "bound_ms": r["bound"][0],
+           prefix + "bound_by": r["bound"][1]}
+    for key in ("library_ms", "library_backend", "library_err", "launch"):
+        if key in r:
+            out[prefix + key] = r[key]
+    return out
 
 
 def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
@@ -4217,8 +4286,8 @@ def kernel_readings(name: str, checks: dict, crop_checks: dict) -> dict:
     frame (checks[mode]) and at each crop side (crop_checks[side][mode]):
     errors, ms, device ms, plain ms and bound in both modes."""
     par, fast = checks["parity"][name], checks["fast"][name]
-    out = dict(library_ms=None, **readings(par, ""),
-               **readings(fast, "fast_"))
+    out = dict(**readings(par, ""), **readings(fast, "fast_"))
+    out.setdefault("library_ms", None)
     for side, by_mode in crop_checks.items():
         crop = "crop_" if side == CROP else f"crop{side}_"
         for mode, prefix in (("parity", crop), ("fast", "fast_" + crop)):

@@ -1,8 +1,42 @@
 #!/usr/bin/env python3
-"""How accurate the float32 hill-climb kernel is on trained crop embeddings.
+"""How accurate and how fast the hill-climb kernels are.
 
     python3 hill_climb_study.py survey [--out DIR]     # on one NVIDIA GPU
+    python3 hill_climb_study.py time [--parent DIR] [--clocks] [--out FILE]
+        [--crops DIR]                                  # on one NVIDIA GPU
     python3 hill_climb_study.py emulate FILE.npz [--model al2 ...]  # CPU
+
+`time` builds the port's kernels (and prints what ``nvcc -Xptxas -v``
+reports for every hill-climb kernel: registers, spills) and, with
+--parent, the csrc/mean_shift.cu of another checkout (say the parent
+commit, unpacked with ``git archive``) into a library of its own, called
+through the same C entry point.  At every shape the port hill-climbs
+(widths 64 and 128; the 480x640 frame and both crop sides; parity,
+float32, and fast mode, bfloat16), on chip_smoke.py's clustered input and
+on random unit vectors, with m = 100 seeds picked as the port picks them,
+it prints each tree's Z against the float64 replay
+(chip_smoke.hill_climb_exact; in fast mode against the plain version),
+whether this tree's Z is bitwise the same in two runs and as the
+parent's, and device ms in turns (parent, this tree, this tree, parent):
+chip_smoke.queued_ms (CUDA events around 10 queued calls) and
+chip_smoke.device_ms (torch.profiler).  On the clustered parity inputs
+it times the same turns again, each right after the hill climb's
+yardstick (chip_smoke.sdpa_yardstick, as chip_smoke.py's check_kernels
+runs it before the kernels' device times), and prints the yardstick's
+ms, backend and Z against the plain version.  --clocks builds
+mean_shift.cu again with -DHILL_CLOCKS and, on each float32 case at width
+128, splits the launch's time (the clock64 of each block's first consumer
+thread, in microseconds at the card's largest SM clock, summed over the
+10 iterations, the mean over the blocks and the slowest block's): the
+tiles (the wait for the producer's split copies, S, W's exp and split, W
+X, the stage's release), the producer's (the wait for a tile's loads, for
+a free stage, the split, the release and the next load) and the fixed
+cost of an iteration (Z's staging, the partial's store, the first grid
+barrier, the reduction, the second barrier).  --out writes every reading
+as JSON; --crops saves the float32 cases at 128^2 (X, Z0, the float64
+result, this tree's Z and the plan's grid) for `emulate`, and holds the
+emulation, run on the card, to this tree's kernel after one iteration
+under each accumulator model (rn, rz, al0-al4) and after 10 under al2.
 
 `survey` builds csrc/mean_shift.cu once per grouping of the float32 hill
 climb's wgmma steps (-DHILL_BIG_PER_GROUP: 8 = every big step in one
@@ -19,14 +53,16 @@ float64 result without them.  The 128^2 crops where the one-accumulator
 variant strays furthest are saved (X, Z0, the float64 result and each
 variant's Z) to DIR.
 
-`emulate` replays the kernel's float32 arithmetic on the CPU (split TF32
-operands, wgmma steps in the kernel's order and groups, the CUDA cores'
-adds, the block and row reductions) with a model of the tensor cores'
-accumulator, and prints its distance from the saved kernel results and
-from the float64 result.  Models: `rn` and `rz` round each step's exact
-sum once (nearest, toward zero); `alG` aligns each step's terms (the
-accumulator and eight products) to the largest and truncates each one G
-bits below the largest's last bit.
+`emulate` replays the float32 kernels' arithmetic on the CPU (`emulate`
+below: at d = 64 or 128, split TF32 operands, wgmma steps in the kernel's
+order and groups, the CUDA cores' adds, the block and row reductions)
+with a model of the tensor cores' accumulator, and prints its distance
+from the saved kernel results (the survey's d = 64 crops by grouping, or
+`time --crops`'s crops at both widths) and from the float64 result.
+Models: `rn` and `rz` round each step's exact sum once (nearest, toward
+zero); `alG` aligns each step's terms (the accumulator and eight
+products) to the largest, truncates each one G bits below the largest's
+last bit and rounds their sum toward zero.
 """
 
 from __future__ import annotations
@@ -34,15 +70,16 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+import torch
 
 GROUPINGS = {"one": 8, "pairs": 2, "single": 1}  # big steps per group
 EPOCHS = (10, 15, 20)
@@ -55,58 +92,17 @@ EPOCHS = (10, 15, 20)
 def build_variants(out: dict) -> dict:
     """ctypes libraries of the kernels built with each grouping; prints
     the float32 hill climb's registers and spills."""
+    import kernel_study as ks
     from unseenobjectclustering_torch.ops import _build
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, big in GROUPINGS.items():
-        bdir = os.path.join(_build.BUILD_DIR, f"study_{name}")
-        os.makedirs(bdir, exist_ok=True)
-        procs[name] = (bdir, [subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, f"-DHILL_BIG_PER_GROUP={big}",
-             "-Xptxas", "-v", "-c", os.path.join(_build.CSRC, src), "-o",
-             os.path.join(bdir, src + ".o")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for src in _build.SOURCES])
     libs = {}
-    for name, (bdir, ps) in procs.items():
-        logs = [p.communicate()[0] for p in ps]
-        if any(p.returncode for p in ps):
-            raise RuntimeError("\n".join(logs))
-        lines = logs[_build.SOURCES.index("mean_shift.cu")].splitlines()
-        at = next(i for i, line in enumerate(lines)
-                  if "hill_tf32_kernel" in line and "Compiling" in line)
-        regs = " ".join(line.split(":", 1)[-1].strip()
-                        for line in lines[at + 2:at + 4])
-        print(f"[{name}] hill_tf32_kernel: {regs}")
+    for name, big in GROUPINGS.items():
+        libs[name], log = hill_lib(os.path.join(_build.CSRC, "mean_shift.cu"),
+                                   f"libstudy_{name}.so",
+                                   f"-DHILL_BIG_PER_GROUP={big}")
+        regs = " ".join(ks.ptxas_lines(log, "hill_tf32_kernel"))
+        print(f"[{name}] {regs}")
         out.setdefault("ptxas", {})[name] = regs
-        so = os.path.join(bdir, "libstudy.so")
-        subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", so]
-                       + [os.path.join(bdir, s + ".o")
-                          for s in _build.SOURCES], check=True)
-        lib = ctypes.CDLL(so)
-        for entry in ("uoc_hill_climb", "uoc_hill_climb_plan"):
-            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
-        libs[name] = lib
     return libs
-
-
-def hill(lib, x, z0):
-    """The float32 kernel of `lib` on x [n, 64], z0 [m, 64] (chip_smoke's
-    kappa and iterations)."""
-    import torch
-    import chip_smoke as cs
-    from unseenobjectclustering_torch.ops import _build
-    (n, d), m = x.shape, z0.shape[0]
-    plan = (ctypes.c_longlong * 5)()
-    assert lib.uoc_hill_climb_plan(0, n, m, d, ctypes.addressof(plan)) == 0
-    partial = torch.empty((int(plan[0]), m, d), device=x.device)
-    arrived = torch.empty(1, dtype=torch.int32, device=x.device)
-    z = torch.empty((m, d), device=x.device)
-    z0 = z0.float().contiguous()
-    err = lib.uoc_hill_climb(x.data_ptr(), 0, n, d, z0.data_ptr(), m, cs.KAPPA,
-                             cs.ITERS, partial.data_ptr(), arrived.data_ptr(),
-                             z.data_ptr(), _build.stream(x))
-    _build.check(err, "hill_climb (study)")
-    return z
 
 
 def replay_bf16(x, z0, rounding: bool):
@@ -147,9 +143,9 @@ def survey(out_dir: str) -> None:
         exact = cs.hill_climb_exact(x, z0)
         res["speed"][n] = row = {}
         for name, lib in libs.items():
-            z = hill(lib, x, z0)
+            z = call(lib, x, z0)
             row[name] = dict(
-                ms=cs.time_ms(lambda: hill(lib, x, z0), 30),
+                ms=cs.time_ms(lambda: call(lib, x, z0), 30),
                 exact_err=float((z.double() - exact).abs().max()))
         print(f"clustered input, n = {n}: " + json.dumps(row))
 
@@ -209,7 +205,7 @@ def survey(out_dir: str) -> None:
                         z0 = cuda_seeding.select_seeds_reference(
                             x, cs.M, 12345 % n)[0].float()
                         exact = cs.hill_climb_exact(x, z0)
-                        zs = {k: hill(lib, x, z0) for k, lib in libs.items()}
+                        zs = {k: call(lib, x, z0) for k, lib in libs.items()}
                         zs["plain"] = cms.hill_climb_reference(x, z0)
                         row.update({k: float((z.double() - exact).abs().max())
                                     for k, z in zs.items()})
@@ -256,132 +252,380 @@ def survey(out_dir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# emulate (CPU)
+# time (card)
 # ---------------------------------------------------------------------------
 
-F32, F64 = np.float32, np.float64
-KAPPA, ITERS = 20.0, 10
+CLOCK_SHAPE = (160, 16, 16)  # hill_clocks in csrc/mean_shift.cu
 
 
-def rn32(v):
-    return v.astype(F32)
+def hill_lib(src: str, name: str, *defines: str):
+    """csrc/mean_shift.cu of a checkout (src) built with `defines` as a
+    ctypes library with its hill-climb entry points bound; and the build's
+    ptxas report."""
+    import kernel_study as ks
+    from unseenobjectclustering_torch.ops import _build
+    lib, log = ks.shared_lib(src, name, *defines)
+    for entry in ("uoc_hill_climb", "uoc_hill_climb_plan"):
+        getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+    return lib, log
 
 
-def rz32(v):
-    r = v.astype(F32)
-    up = np.abs(r.astype(F64)) > np.abs(v)
-    r[up] = np.nextafter(r[up], F32(0))
-    return r
-
-
-def split_rn(a):
-    """split_tf32_rn: big = tf32(a) by Veltkamp's split, small = a - big
-    rounded to tf32 (nearest, ties away)."""
-    a = a.astype(F32)
-    with np.errstate(over="ignore"):
-        t = a * F32(8193.0)
-        big = t - (t - a)
-    u = (a - big).astype(F32).view(np.uint32)
-    mag = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) & np.uint32(
-        0xFFFFE000)
-    return big.astype(F32), ((u & np.uint32(0x80000000)) | mag).view(F32)
-
-
-def step(acc, terms, model: str):
-    """One wgmma step: acc (float32) plus the step's exact products terms
-    [..., 8] under `model`."""
-    if model == "rn":
-        return rn32(acc.astype(F64) + terms.sum(-1))
-    if model == "rz":
-        return rz32(acc.astype(F64) + terms.sum(-1))
-    bits = int(model[2:])
-    every = np.concatenate([acc.astype(F64)[..., None], terms], -1)
-    top = np.abs(every).max(-1, keepdims=True)
-    quantum = np.exp2(np.floor(np.log2(np.where(top > 0, top, 1.0)))
-                      - 23 - bits)
-    return rz32((np.trunc(every / quantum) * quantum).sum(-1))
-
-
-def grouped(big_per_group: int, products, model: str, shape):
-    """The kernel's order: the 16 small steps and the first big ones in one
-    accumulator, the other big steps in groups, the groups added in
-    float32.  products(kind, k) -> exact terms [..., 8] of step k, kind
-    'sb' (small Z or W x big X), 'bs' or 'bb'."""
-    out = None
-    for g in range(8 // big_per_group):
-        acc = np.zeros(shape, F32)
-        if g == 0:
-            for k in range(8):
-                acc = step(acc, products("sb", k), model)
-                acc = step(acc, products("bs", k), model)
-        for k in range(g * big_per_group, (g + 1) * big_per_group):
-            acc = step(acc, products("bb", k), model)
-        out = acc if out is None else rn32(out.astype(F64) + acc.astype(F64))
-    return out
-
-
-def emulate(x, z0, big_per_group: int, model: str):
-    n, d = x.shape
-    m = z0.shape[0]
-    tiles = -(-n // 128)
-    grid = min(132, tiles)  # one block per SM of the H100, as the plan
-    xp = np.zeros((tiles * 128, d), F32)
-    xp[:n] = x
-    halves = tiles * 2
-    xparts = dict(zip("bs", (p.astype(F64) for p in split_rn(xp))))
-    z = z0.astype(F32)
-    for _ in range(ITERS):
-        zparts = dict(zip("bs", (p.astype(F64) for p in split_rn(z))))
-        s = grouped(big_per_group, lambda kind, k: (
-            zparts[kind[0]][:, None, 8 * k:8 * k + 8]
-            * xparts[kind[1]][None, :, 8 * k:8 * k + 8]), model,
-            (m, xp.shape[0]))
-        w = rn32(np.exp(rn32(KAPPA * s.astype(F64)).astype(F64)))
-        wparts = {k: p.astype(F64).reshape(m, halves, 64).transpose(1, 0, 2)
-                  for k, p in zip("bs", split_rn(w))}
-        xh = {k: p.reshape(halves, 64, d) for k, p in xparts.items()}
-        sums = grouped(big_per_group, lambda kind, k: np.moveaxis(
-            wparts[kind[0]][:, :, 8 * k:8 * k + 8, None]
-            * xh[kind[1]][:, None, 8 * k:8 * k + 8, :], 2, -1), model,
-            (halves, m, d))
-        part = np.zeros((grid, m, d), F32)
-        for b in range(grid):  # each block's tiles, in order
-            for t in range(b, tiles, grid):
-                for h in range(2):
-                    part[b] = rn32(part[b].astype(F64)
-                                   + sums[2 * t + h].astype(F64))
-        v = np.zeros((m, d), F32)
-        for q in range(4):  # reduce_row: 4 groups of blocks, then in order
-            a = np.zeros((m, d), F32)
-            for b in range(q, grid, 4):
-                a = rn32(a.astype(F64) + part[b].astype(F64))
-            v = rn32(v.astype(F64) + a.astype(F64))
-        ss = rn32(v[:, :32].astype(F64) ** 2)
-        ss = rn32(v[:, 32:].astype(F64) ** 2 + ss.astype(F64))
-        for off in (16, 8, 4, 2, 1):
-            ss = rn32(ss.astype(F64) + ss[:, np.arange(32) ^ off].astype(F64))
-        den = np.maximum(np.sqrt(ss[:, :1].astype(F64)).astype(F32),
-                         F32(1e-12))
-        z = rn32(v.astype(F64) / den.astype(F64))
+def call(lib, x, z0, iters=None):
+    """The hill climb of `lib` on x [n, d] (float32 or bfloat16), z0 [m,
+    d], as the port's wrapper calls it (chip_smoke's kappa; its iterations
+    unless `iters`)."""
+    import torch
+    import chip_smoke as cs
+    from unseenobjectclustering_torch.ops import _build
+    (n, d), m = x.shape, z0.shape[0]
+    code = _build.dtype_code(x, "study")
+    z0 = z0.float().contiguous()
+    plan = (ctypes.c_longlong * 5)()
+    assert lib.uoc_hill_climb_plan(code, n, m, d,
+                                   ctypes.addressof(plan)) == 0
+    partial = torch.empty((int(plan[0]), m, d), device=x.device)
+    arrived = torch.empty(1, dtype=torch.int32, device=x.device)
+    z = torch.empty((m, d), device=x.device)
+    err = lib.uoc_hill_climb(x.data_ptr(), code, n, d, z0.data_ptr(), m,
+                             cs.KAPPA, iters or cs.ITERS, partial.data_ptr(),
+                             arrived.data_ptr(), z.data_ptr(),
+                             _build.stream(x))
+    _build.check(err, "hill_climb (study)")
     return z
 
 
+def time_cases() -> list:
+    """(name, x in its working type, z0) at the port's shapes: chip_smoke's
+    clustered inputs of phases 2 (d = 64) and 2c (d = 128), and random
+    unit vectors; the seeds picked as the port picks them (fast mode from
+    every SEED_SUBSAMPLE-th pixel)."""
+    import chip_smoke as cs
+    import kernel_study as ks
+    from unseenobjectclustering_torch.ops import cuda_seeding
+    sub = int(cs.FAST_CLUSTER["SEED_SUBSAMPLE"])
+    out = []
+    for where, d, seed, clustered in ks.clustered_inputs():
+        n = clustered.shape[0]
+        for kind, x32 in (("clustered", clustered),
+                          ("uniform", ks.units(n, d, 40 + seed))):
+            for mode, x in (("parity", x32), ("fast", x32.bfloat16())):
+                xs = x[::1 if mode == "parity" else sub]
+                z0 = cuda_seeding.select_seeds_reference(
+                    xs, cs.M, 12345 % xs.shape[0])[0].float()
+                out.append((f"{where} d{d} {mode} {kind}", x,
+                            z0.contiguous()))
+    return out
+
+
+def clock_split(lib, grid: int) -> dict:
+    """Microseconds by part of the last float32 launch at d = 128 of the
+    clocked library, summed over the iterations: mean over the blocks,
+    slowest block."""
+    import chip_smoke as cs
+    import kernel_study as ks
+    c = ks.clocks(lib, "uoc_hill_clocks", CLOCK_SHAPE)[:grid, :cs.ITERS]
+    c = c.astype(np.float64)
+    out = ks.span_us({
+        "stage_z": c[..., 1] - c[..., 0], "tiles": c[..., 2] - c[..., 1],
+        "tile_s": c[..., 7], "tile_wait_split": c[..., 8],
+        "tile_exp_w": c[..., 9], "tile_wx": c[..., 10],
+        "tile_release": c[..., 11], "producer_wait_load": c[..., 12],
+        "producer_wait_stage": c[..., 13], "producer_split": c[..., 14],
+        "producer_release_load": c[..., 15],
+        "store_partial": c[..., 3] - c[..., 2],
+        "grid_barrier_1": c[..., 4] - c[..., 3],
+        "reduce": c[..., 5] - c[..., 4],
+        "grid_barrier_2": c[..., 6] - c[..., 5]})
+    out["fixed_per_iteration_us"] = sum(out[k]["mean_us"] for k in (
+        "stage_z", "store_partial", "grid_barrier_1", "reduce",
+        "grid_barrier_2")) / cs.ITERS
+    return out
+
+
+def emulation_err(lib, x, z0, grid: int) -> dict:
+    """`emulate` run on the card against the kernel of `lib`: after one
+    iteration under each accumulator model, and after ITERS under al2;
+    the largest difference in Z and how many of Z's values differ."""
+    out = {}
+    for iters, models in ((1, ("rn", "rz", "al0", "al1", "al2", "al3",
+                               "al4")), (ITERS, ("al2",))):
+        z = call(lib, x, z0, iters)
+        for model in models:
+            ze, s_err = emulate(x, z0, grid, model, iters=iters)
+            out[f"{model}_iters_{iters}"] = dict(
+                max_diff=float((ze - z).abs().max()),
+                values_differ=int((ze != z).sum()), of=z.numel(),
+                s_err=s_err)
+    return out
+
+
+def time_trees(parent_dir: str | None, clocks: bool, out_file: str | None,
+               crops: str | None) -> None:
+    import torch
+    import chip_smoke as cs
+    import kernel_study as ks
+    from unseenobjectclustering_torch.ops import _build
+    from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
+    if not torch.cuda.is_available():
+        sys.exit("hill_climb_study: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {"card": cs.card_line(), "cases": {}}
+    print(res["card"])
+    ours = _build.library()
+    src = os.path.join(_build.CSRC, "mean_shift.cu")
+    res["ptxas"] = ks.ptxas(src, "hill_")
+    print("\n".join(res["ptxas"]))
+    parent = None if parent_dir is None else hill_lib(
+        os.path.join(parent_dir, "unseenobjectclustering_torch", "csrc",
+                     "mean_shift.cu"), "libparent_hill.so")[0]
+    clocked = None if not clocks else hill_lib(
+        src, "libhill_clocks.so", "-DHILL_CLOCKS")[0]
+    if crops:
+        os.makedirs(crops, exist_ok=True)
+    ok = True
+    for name, x, z0 in time_cases():
+        n, d = x.shape
+        r = {"plan": cms.hill_climb_config(x, cs.M)}
+        z = call(ours, x, z0)
+        r["deterministic"] = bool(torch.equal(z, call(ours, x, z0)))
+        ok &= r["deterministic"]
+        trees = {"this": z}
+        if parent is not None:
+            trees["parent"] = call(parent, x, z0)
+            r["same_as_parent"] = bool(torch.equal(z, trees["parent"]))
+        plain = cms.hill_climb_reference(x, z0)
+        if x.dtype == torch.float32:
+            exact = cs.hill_climb_exact(x, z0)
+            for who, zt in trees.items():
+                r[f"{who}_exact_err"] = float((zt.double() - exact)
+                                              .abs().max())
+            r["plain_exact_err"] = float((plain.double() - exact)
+                                         .abs().max())
+            ok &= r["this_exact_err"] <= cs.Z_TOL["parity"]
+            if crops and n == 128 * 128:
+                np.savez(os.path.join(crops, name.replace(" ", "_")),
+                         x=x.cpu().numpy(), z0=z0.cpu().numpy(),
+                         z64=exact.cpu().numpy(), this=z.cpu().numpy(),
+                         grid=r["plan"]["grid"])
+                r["emulation"] = emulation_err(ours, x, z0,
+                                               r["plan"]["grid"])
+        else:
+            for who, zt in trees.items():
+                r[f"{who}_plain_err"] = float((zt - plain).abs().max())
+            ok &= r["this_plain_err"] <= cs.Z_TOL["fast"]
+        runs = [("this", ours)]
+        if parent is not None:
+            runs = [("parent", parent), ("this", ours), ("this", ours),
+                    ("parent", parent)]
+        for who, lib in runs:
+            r.setdefault(who, []).append(
+                ks.timed(functools.partial(call, lib, x, z0), "hill_"))
+        if name.endswith("parity clustered"):
+            # the same turns, each after the yardstick as chip_smoke's
+            # check_kernels runs it before the kernels' device_ms
+            for who, lib in runs:
+                lib_ms, backend, lib_z = cs.sdpa_yardstick(x, z0)
+                r.setdefault(f"{who}_after_yardstick", []).append(
+                    ks.timed(functools.partial(call, lib, x, z0), "hill_"))
+            r["yardstick"] = dict(ms=lib_ms, backend=backend, plain_err=float(
+                (lib_z - plain).abs().max()))
+        if clocked is not None and d == cs.CAT_D and x.dtype == torch.float32:
+            zc = call(clocked, x, z0)
+            r["same_as_clocked"] = bool(torch.equal(zc, z))
+            r["clocks"] = clock_split(clocked, r["plan"]["grid"])
+        res["cases"][name] = r
+        print(f"[{name}] n {n}: {json.dumps(r)}", flush=True)
+    if out_file:
+        with open(out_file, "w") as f:
+            json.dump(res, f, indent=1)
+    if not ok:
+        raise SystemExit("a kernel's Z is not deterministic or strays past "
+                         "chip_smoke.Z_TOL")
+
+
+# ---------------------------------------------------------------------------
+# emulate (CPU; tests/test_torch_hill_wide.py holds it to the float64 result)
+# ---------------------------------------------------------------------------
+
+F32, F64 = torch.float32, torch.float64
+KAPPA, ITERS = 20.0, 10
+SMS = 132  # the H100's SMs: the plan's blocks, one an SM
+# per width: pixels per tile, pixels per W X product (a half tile at d =
+# 64), the reducing threads per group of blocks, and the big steps per
+# group of S and of W X
+WIDTHS = {64: dict(tile=128, product=64, per_group=64, s_big=2, w_big=2),
+          128: dict(tile=32, product=32, per_group=32, s_big=4, w_big=2)}
+# |S - S_exact| at d = 128, as the kernel's note bounds it
+S_BOUND_128 = (36 * 2.0 ** -25 + 4 * 2.0 ** -23 + 3 * 2.0 ** -24
+               + 3 * 2.0 ** -22 + 2.0 ** -26 + 2.0 ** -29)
+
+
+def rn32(v):
+    return v.to(F32)
+
+
+def rz32(v):
+    """v (float64) rounded to float32 toward zero."""
+    r = v.to(F32)
+    up = r.to(F64).abs() > v.abs()
+    return torch.where(up, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def split(a):
+    """split_tf32_rn: big = tf32(a) by Veltkamp's split (float32 ops),
+    small = a - big rounded to tf32 (nearest, ties away); both as
+    float64."""
+    a = a.to(F32)
+    t = a * 8193.0
+    big = t - (t - a)
+    u = (a - big).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & 0xFFFFE000
+    small = ((u & 0x80000000) | mag)
+    small = (small - ((small >> 31) << 32)).to(torch.int32).view(F32)
+    return big.to(F64), small.to(F64)
+
+
+def step(acc, terms, model: str):
+    """One wgmma step: acc (float32) plus its 8 exact products terms
+    [..., 8] (float64) under `model`."""
+    if model in ("rn", "rz"):
+        total = acc.to(F64) + terms.sum(-1)
+        return rn32(total) if model == "rn" else rz32(total)
+    every = torch.cat([acc.to(F64)[..., None], terms], -1)
+    top = every.abs().amax(-1, keepdim=True)
+    _, e = torch.frexp(torch.where(top > 0, top, torch.ones_like(top)))
+    quantum = torch.ldexp(torch.ones_like(top),
+                          (e - 1 - 23 - int(model[2:])).to(F64))
+    return rz32((torch.trunc(every / quantum) * quantum).sum(-1))
+
+
+def grouped(chunks, big, products, shape, model, out=None, device="cpu"):
+    """A product of `chunks` k-chunks of 8 in the kernel's order: the small
+    steps and the first `big` big ones in one accumulator, each later group
+    the next `big` big ones in a fresh one; the groups added in order on
+    the CUDA cores (float32, nearest), to `out` where given (a block's W X
+    sum) or to each other.  products(kind, k) -> the exact terms [..., 8]
+    of step k; kind 'sb' (small Z or W times big X), 'bs' or 'bb'."""
+    big = min(big, chunks)
+    for g in range(chunks // big):
+        acc = torch.zeros(shape, dtype=F32, device=device)
+        if g == 0:
+            for k in range(chunks):
+                acc = step(acc, products("sb", k), model)
+                acc = step(acc, products("bs", k), model)
+        for k in range(g * big, (g + 1) * big):
+            acc = step(acc, products("bb", k), model)
+        out = acc if out is None else rn32(out.to(F64) + acc.to(F64))
+    return out
+
+
+def emulate(x, z0, grid=None, model="al2", big=None, iters=ITERS):
+    """The split TF32 hill climb's float32 arithmetic at d = 64
+    (hill_tf32_kernel) or 128 (hill_tf32_wide_kernel), `iters` iterations
+    from z0: each operand split as big + small, S = Z X^T and W X per
+    product of 64 or 32 pixels in wgmma steps in the kernel's order and
+    groups, W = exp(kappa S), each block's sum over its tiles (b, b +
+    grid, ...) in order, the blocks' partials in groups of blocks, the
+    row norm as the reducing warp computes it.  `model` is the tensor
+    cores' accumulator: `rn` and `rz` round each step's exact sum once
+    (nearest, toward zero); `alG` aligns each step's 9 terms (the
+    accumulator and 8 products) to the largest, truncates each one G bits
+    below the largest's last bit and rounds their sum toward zero.  `grid`
+    is the plan's blocks (one an SM by default), `big` the big steps per
+    group of both products in place of the kernel's (the d = 64 survey's
+    builds).  x [n, d], z0 [m, d] float32, on the CPU or the card: there W
+    is torch's float32 exp, which is CUDA's expf as in the kernel, on the
+    CPU the float64 exp rounded to nearest (expf is not correctly
+    rounded).  Returns Z and the largest |S - S_exact| over the
+    iterations."""
+    x = torch.as_tensor(x, dtype=F32)
+    z = torch.as_tensor(z0, dtype=F32, device=x.device)
+    (n, d), m, dev = x.shape, z.shape[0], x.device
+    lay = WIDTHS[d]
+    tile, prod = lay["tile"], lay["product"]
+    tiles = -(-n // tile)
+    grid = grid or min(SMS, tiles)
+    groups = 128 * -(-m // 64) // lay["per_group"]
+    xp = torch.zeros(tiles * tile, d, dtype=F32, device=dev)
+    xp[:n] = x
+    xparts = dict(zip("bs", split(xp)))
+    s_err = 0.0
+    for _ in range(iters):
+        zparts = dict(zip("bs", split(z)))
+        s = grouped(d // 8, big or lay["s_big"], lambda kind, k: (
+            zparts[kind[0]][:, None, 8 * k:8 * k + 8]
+            * xparts[kind[1]][None, :, 8 * k:8 * k + 8]),
+            (m, tiles * tile), model, device=dev)
+        exact = z.to(F64) @ x.to(F64).T
+        s_err = max(s_err, float((s[:, :n].to(F64) - exact).abs().max()))
+        w = rn32(KAPPA * s.to(F64))
+        w = torch.exp(w) if w.is_cuda else rn32(torch.exp(w.to(F64)))
+        wparts = dict(zip("bs", split(w)))
+        part = torch.zeros(grid, m, d, dtype=F32, device=dev)
+        for t0 in range(0, tiles, grid):  # the blocks' next tiles
+            blocks = min(grid, tiles - t0)
+            span = slice(t0 * tile, (t0 + blocks) * tile)
+            for p0 in range(0, tile, prod):
+                wt = {k: v[:, span].reshape(m, blocks, tile)
+                      [:, :, p0:p0 + prod].permute(1, 0, 2)
+                      for k, v in wparts.items()}    # [blocks, m, pixels]
+                xt = {k: v[span].reshape(blocks, tile, d)
+                      [:, p0:p0 + prod].transpose(1, 2)
+                      for k, v in xparts.items()}    # [blocks, d, pixels]
+                part[:blocks] = grouped(
+                    prod // 8, big or lay["w_big"], lambda kind, k: (
+                        wt[kind[0]][:, :, None, 8 * k:8 * k + 8]
+                        * xt[kind[1]][:, None, :, 8 * k:8 * k + 8]),
+                    (blocks, m, d), model, out=part[:blocks], device=dev)
+        v = torch.zeros(m, d, dtype=F32, device=dev)
+        for q in range(groups):  # blocks q, q + groups, ..., then in order
+            a = torch.zeros(m, d, dtype=F32, device=dev)
+            for b in range(q, grid, groups):
+                a = rn32(a.to(F64) + part[b].to(F64))
+            v = rn32(v.to(F64) + a.to(F64))
+        # a reducing lane's dims: l and l + 32 at d = 64, a float4 at 128
+        lanes = (v.reshape(m, 32, 4) if d == 128
+                 else v.reshape(m, 2, 32).transpose(1, 2)).to(F64)
+        ss = rn32(lanes[..., 0] ** 2)
+        for c in range(1, lanes.shape[-1]):  # fmaf: one rounding each
+            ss = rn32(lanes[..., c] ** 2 + ss.to(F64))
+        for off in (16, 8, 4, 2, 1):
+            ss = rn32(ss.to(F64)
+                      + ss[:, torch.arange(32, device=dev) ^ off].to(F64))
+        den = torch.clamp(rn32(torch.sqrt(ss[:, :1].to(F64))), min=1e-12)
+        z = rn32(v.to(F64) / den.to(F64))
+    return z, s_err
+
+
 def emulate_file(path: str, models: list[str]) -> None:
+    """The emulation against the kernel results saved in `path`: the d =
+    64 survey's builds by grouping, or this tree's kernel (`time --crops`,
+    with the plan's grid)."""
     saved = np.load(path)
-    x, z0, z64 = saved["x"], saved["z0"], saved["z64"]
-    for name, big in GROUPINGS.items():
-        if name not in saved:
-            continue
-        kernel = saved[name].astype(F64)
+    x, z0 = torch.from_numpy(saved["x"]), torch.from_numpy(saved["z0"])
+    z64 = torch.from_numpy(saved["z64"]).to(F64)
+    d = x.shape[1]
+    grid = int(saved["grid"]) if "grid" in saved else None
+    runs = {name: big for name, big in GROUPINGS.items() if name in saved}
+    if "this" in saved:
+        runs["this"] = None
+    for name, big in runs.items():
+        kernel = torch.from_numpy(saved[name]).to(F64)
         for model in models:
             t = time.perf_counter()
-            z = emulate(x, z0, big, model).astype(F64)
-            print(f"{os.path.basename(path)} {name} ({big} big steps per "
+            z, s_err = emulate(x, z0, grid, model, big)
+            z = z.to(F64)
+            print(f"{os.path.basename(path)} {name} (d = {d}, "
+                  f"{big or 'the kernel' + chr(39) + 's'} big steps per "
                   f"group), model {model}: emulation - kernel "
-                  f"{np.abs(z - kernel).max():.3e}, emulation - float64 "
-                  f"{np.abs(z - z64).max():.3e}, kernel - float64 "
-                  f"{np.abs(kernel - z64).max():.3e} "
-                  f"({time.perf_counter() - t:.0f} s)", flush=True)
+                  f"{(z - kernel).abs().max():.3e} "
+                  f"({int((z != kernel).sum())} of {z.numel()} values "
+                  f"differ), emulation - float64 "
+                  f"{(z - z64).abs().max():.3e}, kernel - float64 "
+                  f"{(kernel - z64).abs().max():.3e}, largest |S - "
+                  f"S_exact| {s_err:.3e}"
+                  + (f" (bound {S_BOUND_128:.3e})" if d == 128 else "")
+                  + f" ({time.perf_counter() - t:.0f} s)", flush=True)
 
 
 def main(argv=None) -> None:
@@ -389,12 +633,20 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser("survey")
     sv.add_argument("--out", default="chiprun_out/hill_climb_study")
+    tm = sub.add_parser("time")
+    tm.add_argument("--parent", default=None)
+    tm.add_argument("--clocks", action="store_true")
+    tm.add_argument("--out", default=None)
+    tm.add_argument("--crops", default=None,
+                    help="a directory for the 128^2 float32 crops")
     em = sub.add_parser("emulate")
     em.add_argument("file")
     em.add_argument("--model", nargs="+", default=["al2"])
     args = ap.parse_args(argv)
     if args.cmd == "survey":
         survey(args.out)
+    elif args.cmd == "time":
+        time_trees(args.parent, args.clocks, args.out, args.crops)
     else:
         emulate_file(args.file, args.model)
 

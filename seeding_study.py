@@ -41,43 +41,13 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
+import kernel_study as ks
 from unseenobjectclustering_torch.ops import _build, cuda_seeding
-
-REPS = 10
-
-
-def nvcc(args: list[str]) -> str:
-    out = subprocess.run([_build._nvcc(), *args], capture_output=True,
-                         text=True)
-    if out.returncode:
-        raise RuntimeError(out.stdout + out.stderr)
-    return out.stdout + out.stderr
-
-
-def ptxas_lines() -> list[str]:
-    """Registers and spills of each select_seeds_kernel of this tree."""
-    log = nvcc([*_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                os.path.join(_build.CSRC, "seeding.cu"), "-o", os.devnull])
-    lines, name = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and ("registers" in line or "spill" in line):
-            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
-    return lines
-
-
-def shared_lib(src: str, name: str, *defines: str) -> ctypes.CDLL:
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(_build.BUILD_DIR, name)
-    nvcc([*_build.NVCC_FLAGS, *defines, "-shared", src, "-o", path])
-    return ctypes.CDLL(path)
 
 
 def parent_seeder(lib: ctypes.CDLL):
@@ -135,58 +105,34 @@ def clocked_seeder(lib: ctypes.CDLL):
 def phase_split(lib: ctypes.CDLL, grid: int, steps: int) -> dict:
     """Microseconds by phase of the last lazy launch of the clocked
     library, summed over the steps: mean over the blocks, slowest block."""
-    torch.cuda.synchronize()
-    buf = np.zeros((160, 128, 6), dtype=np.int64)
-    lib.uoc_seed_clocks.argtypes = [ctypes.c_void_p]
-    assert lib.uoc_seed_clocks(buf.ctypes.data) == 0
-    c = buf[:grid, :steps].astype(np.float64)
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    spans = {"stage_block_bests": c[..., 1] - c[..., 0],
-             "on_chip_threshold_list": c[..., 2] - c[..., 1],
-             "refreshes": c[..., 3] - c[..., 2],
-             "reduce": c[..., 4] - c[..., 3],
-             "grid_barrier": np.concatenate(
-                 [c[:, 1:, 0] - c[:, :-1, 4], np.zeros((grid, 1))], 1)}
-    out = {"sm_mhz": mhz}
-    for name, v in spans.items():
-        out[name] = {"mean_us": float(v.mean(0).sum() / mhz),
-                     "slowest_us": float(v.max(0).sum() / mhz)}
+    c = ks.clocks(lib, "uoc_seed_clocks", (160, 128, 6))[:grid, :steps]
+    c = c.astype(np.float64)
+    out = ks.span_us({
+        "stage_block_bests": c[..., 1] - c[..., 0],
+        "on_chip_threshold_list": c[..., 2] - c[..., 1],
+        "refreshes": c[..., 3] - c[..., 2],
+        "reduce": c[..., 4] - c[..., 3],
+        "grid_barrier": np.concatenate(
+            [c[:, 1:, 0] - c[:, :-1, 4], np.zeros((grid, 1))], 1)})
     per_warp = np.ceil(c[..., 5] / 8)  # tiles of the busiest warp
     out["tiles_per_warp"] = {"mean": float(per_warp.mean(0).sum()),
                              "slowest": float(per_warp.max(0).sum())}
     return out
 
 
-def units(n: int, d: int, seed: int) -> torch.Tensor:
-    x = np.random.RandomState(seed).randn(n, d)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    return torch.from_numpy(x.astype(np.float32)).cuda()
-
-
 def cases() -> list[tuple[str, torch.Tensor]]:
     """(name, x in its working type and stride) at the port's shapes: the
     inputs of chip_smoke.py's phases 2 (d = 64) and 2c (d = 128)."""
     sub = int(cs.FAST_CLUSTER["SEED_SUBSAMPLE"])
-    shapes = [(cs.N, "frame")] + [(side * side, f"crop {side}")
-                                  for side, _ in cs.crop_shapes()]
     out = []
-    for d, seeds in ((cs.D, (0, 2, 3)), (cs.CAT_D, (20, 21, 22))):
-        for (n, where), seed in zip(shapes, seeds):
-            x = cs.clustered_embeddings(seed=seed, n=n, d=d)[0]
-            out += [(f"{where} d{d} parity", x),
-                    (f"{where} d{d} fast", x.bfloat16()[::sub])]
-            if d == cs.CAT_D and n == cs.N:
-                out += [(f"{where} d{d} parity uniform", units(n, d, 48)),
-                        (f"{where} d{d} bf16 stride 1", x.bfloat16())]
+    for where, d, _, x in ks.clustered_inputs():
+        out += [(f"{where} d{d} parity", x),
+                (f"{where} d{d} fast", x.bfloat16()[::sub])]
+        if d == cs.CAT_D and x.shape[0] == cs.N:
+            out += [(f"{where} d{d} parity uniform",
+                     ks.units(x.shape[0], d, 48)),
+                    (f"{where} d{d} bf16 stride 1", x.bfloat16())]
     return out
-
-
-def timed(fn) -> dict:
-    return {"queued_ms": cs.queued_ms(fn, REPS),
-            "device_ms": cs.device_ms(fn, "select_seeds_kernel", REPS)}
 
 
 def main() -> None:
@@ -198,17 +144,19 @@ def main() -> None:
     out = {"card": cs.card_line(), "cases": {}}
     print(out["card"])
     _build.library()
-    out["ptxas"] = ptxas_lines()
+    out["ptxas"] = ks.ptxas(os.path.join(_build.CSRC, "seeding.cu"),
+                            "select_seeds_kernel")
     print("\n".join(out["ptxas"]))
     parent = None
     if args.parent:
-        parent = parent_seeder(shared_lib(os.path.join(
+        parent = parent_seeder(ks.shared_lib(os.path.join(
             args.parent, "unseenobjectclustering_torch", "csrc",
-            "seeding.cu"), "libparent_seeding.so"))
+            "seeding.cu"), "libparent_seeding.so")[0])
     clocked = None
     if args.clocks:
-        clocked_lib = shared_lib(os.path.join(_build.CSRC, "seeding.cu"),
-                                 "libseed_clocks.so", "-DSEED_CLOCKS")
+        clocked_lib, _ = ks.shared_lib(
+            os.path.join(_build.CSRC, "seeding.cu"), "libseed_clocks.so",
+            "-DSEED_CLOCKS")
         clocked = clocked_seeder(clocked_lib)
     ok = True
     for name, x in cases():
@@ -249,7 +197,8 @@ def main() -> None:
         else:
             runs = [("this", ours)]
         for who, fn in runs:
-            r.setdefault(who, []).append(timed(fn))
+            r.setdefault(who, []).append(
+                ks.timed(fn, "select_seeds_kernel"))
         if clocked is not None and plan["lazy"]:
             r["same_as_clocked"] = bool(torch.equal(clocked(x, m, first),
                                                     idx))

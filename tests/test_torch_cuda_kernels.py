@@ -477,21 +477,31 @@ WIDE = 128
 
 def test_launch_configs_at_width_128(card):
     """The width-128 instantiations at the frame: seeding 256 threads a
-    block, every SM, X held on chip; the float32 hill climb's warpgroups
-    and 32-pixel tiles, the bf16 hill climb's one half of 7 warps; the
-    float32 assignment one warpgroup a block, the bf16 two; every block
-    resident at once."""
+    block, every SM, X held on chip; the float32 hill climb's two consumer
+    warpgroups and one producer warpgroup, one block an SM, with Z's small
+    part (64 KB), two stages of a 32-pixel tile's four split copies, two
+    raw tiles in flight and the stages' four mbarriers (230,432 bytes of
+    shared memory), the bf16 hill climb's one half of 7 warps; the float32
+    assignment one warpgroup a block, the bf16 two; every block resident
+    at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     x = torch.zeros(480 * 640, WIDE, device=card)
     seed = cuda_seeding.launch_config(x)
     assert seed["threads"] == 256 and seed["grid"] == sms
     assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * WIDE * 4
-    for dtype, threads, assign_threads in zip(DTYPES, (2 * 128, 7 * 32),
+    for dtype, threads, assign_threads in zip(DTYPES, (3 * 128, 7 * 32),
                                               (128, 256)):
         hill = cms.hill_climb_config(x.to(dtype), 100)
         assert hill["threads"] == threads
         assert 1 <= hill["grid"] <= hill["blocks_per_sm"] * sms
         assert hill["smem_bytes"] <= 232448
+        if dtype == torch.float32:
+            assert hill["blocks_per_sm"] == 1 and hill["grid"] == sms
+            assert hill["smem_bytes"] == (4 * (128 * WIDE + 2 * 4 * 32 * WIDE
+                                               + 2 * 32 * (WIDE + 4))
+                                          + 8 * 4)
+            assert cms.hill_climb_config(x, 64)["threads"] == 2 * 128
+            assert hill["x_on_chip_bytes"] == 4 * (2 + 2 * 4) * 32 * WIDE
         assign = cms.assign_labels_config(x.to(dtype), 100)
         assert assign["threads"] == assign_threads
         assert assign["blocks_per_sm"] >= 1
@@ -683,12 +693,23 @@ def test_seeding_at_width_128_past_the_lazy_limit(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m", [(100, 20), (3001, 1), (3001, 65),
-                                 (70001, 100), (20000, 128)])
+@pytest.mark.parametrize("n,m", [
+    (100, 20), (3001, 1), (3001, 65), (70001, 100), (20000, 128),
+    (1, 1),                 # one pixel: one block of one ragged tile
+    (33, 33),               # two blocks, the second's tile of one pixel
+    (32 * 132 + 17, 64),    # one tile a block but block 0's two, ragged
+    (32 * 132 * 3, 100),    # three tiles a block: iterations start on
+                            # either ring slot and stage
+    (128 * 128, 65),        # the 128^2 crop: about 4 tiles a block
+    (224 * 224 + 9, 100),   # about 12 tiles a block, ragged
+    (480 * 640 - 3, 128),   # the frame: 73 tiles a block, ragged
+])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_hill_climb_kernel_at_width_128(card, dtype, n, m, misaligned):
-    """Ragged against the float32 kernel's 32-pixel tiles and the bf16
-    kernel's 128, one and two warpgroups, many tiles a block."""
+    """Ragged against the float32 kernel's 32-pixel tiles (loaded two ahead
+    into a ring of two, split one ahead into two stages) and the bf16
+    kernel's 128; m = 1 to 128 (one and two warpgroups, 64 and 65 either
+    side); a block with one tile, with a few and with many."""
     x = on_card(card, clustered(n, WIDE, seed=32)[0], dtype, misaligned)
     pick = np.random.RandomState(33).choice(n, m, replace=False)
     z0 = x[torch.from_numpy(pick).to(card)].float()
@@ -698,6 +719,21 @@ def test_hill_climb_kernel_at_width_128(card, dtype, n, m, misaligned):
     assert cms.hill_climb_launches == before + 1
     assert got.shape == (m, WIDE)
     assert float((got - want).abs().max()) <= Z_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hill_climb_kernel_is_deterministic_at_width_128(card, dtype):
+    """At the 224^2 crop the blocks' partials are summed in a fixed order:
+    two runs on the same input give bitwise the same Z."""
+    n, m = 224 * 224, 100
+    x = on_card(card, clustered(n, WIDE, seed=35)[0], dtype)
+    pick = np.random.RandomState(36).choice(n, m, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    first = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    assert torch.equal(first, cms.hill_climb(x, z0, kappa=20.0,
+                                             max_iters=10))
+    want = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
+    assert float((first - want).abs().max()) <= Z_ATOL[dtype]
 
 
 @pytest.mark.parametrize("m", [1, 33, 65, 100, 128])

@@ -140,10 +140,11 @@ __device__ __forceinline__ void mma_similarity(
 //    split_tf32_rn), and each product is small*big + big*small + big*big
 //    with fp32 accumulators.  The tensor cores add each wgmma step to the
 //    accumulator after aligning every term to the largest and truncating
-//    it toward zero two bits below the largest one's last (the rule whose
-//    emulation in hill_climb_study.py reproduces this kernel): an error
-//    that grows with the accumulator and the steps it takes, always of one
-//    sign per term.  exp(kappa S) multiplies an error in S by kappa, and a
+//    it toward zero about two bits below the largest one's last (of the
+//    rules that hill_climb_study.py's emulation tried, this one comes
+//    nearest both float32 kernels on the card: within a few ulps of Z
+//    after one iteration, not bitwise): an error that grows with the
+//    accumulator and the steps it takes, always of one sign per term.  exp(kappa S) multiplies an error in S by kappa, and a
 //    seed that rests on few pixels moves with every error in W X.  So each
 //    product sums its 16 small steps (tiny terms) first and then its 8 big
 //    steps in groups of kBigPerGroup, every group in a fresh accumulator,
@@ -162,28 +163,61 @@ __device__ __forceinline__ void mma_similarity(
 //    columns (t, t+4) of W X by storing the pixels of each group of 8 in
 //    the order 0, 2, 4, 6, 1, 3, 5, 7 in the second layout: the sum over
 //    pixels does not depend on their order.
-//  * float32 X at d = 128 (hill_tf32_wide_kernel).  Z's split fragments
-//    would take 128 registers a thread and the accumulator of W X 64 more,
-//    past the 255 a thread may hold, and a 64-pixel half's four split
-//    copies 128 KB of shared memory.  So Z's two split copies sit in
-//    shared memory (128 KB, the [dim/4][seed/8] core-matrix layout of the
-//    assignment's Z) and S = Z X^T reads both operands from there (wgmma
-//    m64n32k8, A and B by descriptor); tiles are 32 pixels (four split
-//    copies, 64 KB; a ring of two raw tiles, 33 KB; 225 KB in all, the
-//    reduction's scratch on the split copies); W X runs as two m64n64
-//    products, one per 64 dims, A = W from registers.  The accumulation
-//    rule is the same: each product sums its small steps first and then
-//    its big steps in groups of kBigPerGroup, each group in a fresh
-//    accumulator, added on the CUDA cores.  S then takes 32 small and 16
-//    big steps (8 groups of 2), W X 8 small and 4 big (2 groups).  The
-//    bound on S's error grows with the groups: each group's 2 big steps
-//    truncate 9 terms each at most 2^-25 of |S| <= 1 (the small steps'
-//    terms are 2^-10 smaller), and the CUDA cores round each group's add
-//    to nearest, so |S - S_exact| < 8 * 18 * 2^-25 + 7 * 2^-24 + 2^-21,
-//    about 5e-6, against 2.8e-6 at d = 64 (4 groups) and the plain
-//    float32 version's 128 * 2^-24 = 7.6e-6.  W X's error per tile is
-//    no larger than at d = 64, and its accumulator takes as many CUDA-core
-//    adds (two groups per 32-pixel tile, four per 64-pixel half before).
+//  * float32 X at d = 128 (hill_tf32_wide_kernel), for the RGB-D cat
+//    fusion's embeddings.  Bound on the H100: 4*m*n*d flops per iteration,
+//    tripled by the split (157 GFLOP for 10 iterations at m = 100, n =
+//    307200: 0.95 ms at 495 TFLOP/s of TF32; 1.22 ms for the 128 seed
+//    rows that two m64 warpgroups compute).  The design, by what it buys:
+//    - Registers.  Z's split fragments (128 registers a thread) and the
+//      W X accumulator (64) do not both fit, so Z's big part stays in
+//      registers as A fragments (64) and its small part sits in shared
+//      memory (64 KB, the [dim/4][seed/8] core-matrix layout of the
+//      assignment's Z): two of S's three products read only X (1 KB a
+//      wgmma step) from shared memory.
+//    - Overlap.  The block is ceil(m/64) consumer warpgroups, which own the
+//      seeds and run the products, and one producer warpgroup.  Each
+//      producer warp loads 8 pixels of every 32-pixel tile by cp.async two
+//      tiles ahead (a ring of two raw tiles, 33 KB) and splits them into
+//      one of two stages of the tile's four split copies (64 KB each: big
+//      and small in the two K-major layouts wgmma reads), signalling the
+//      stage's full mbarrier; the consumers run the tile's S (m64n32k8, 48
+//      steps), W's exp and split and W X (four m64n32 products, one per 32
+//      dims, A = W from registers), then signal its empty mbarrier.  So the
+//      split runs on the CUDA cores beside the tensor cores, and the only
+//      handshakes a tile are the two mbarriers, where the kernel before
+//      split each tile between two block barriers with the tensor cores
+//      idle.  setmaxnreg gives the consumers 216 registers, the producer
+//      72 (230,432 bytes of shared memory, one block an SM).
+//    - The fixed cost of an iteration.  The consumers copy Z in with
+//      coalesced 16-byte loads and split their own fragments in place (no
+//      block-wide re-split), store their partial through shared memory as
+//      whole rows, and reduce each row from float4s of the blocks'
+//      partials in 8 groups of blocks (fixed order: the same result run to
+//      run); the grid barriers span the consumers, and the producer splits
+//      the next iteration's first tiles meanwhile.
+//    The accumulation rule is the d = 64 kernel's with larger groups in S:
+//    each product sums its small steps first and then its big steps in
+//    groups, each group in a fresh accumulator, added on the CUDA cores.
+//    S takes 32 small and 16 big steps, in groups of kWideBigPerGroup = 4
+//    (4 groups), each W X product 8 small and 4 big (2 groups of 2), each
+//    group added on the CUDA cores to the block's sum.  S's error: a step
+//    truncates each of its 9 terms by less than 2^-25 of the largest one
+//    and rounds its sum toward zero, by less than 2^-23 of the sum; in
+//    the group over dims J every term and partial sum is at most |z_J|
+//    |x_J| (Cauchy-Schwarz on the dims of J), and the sum of |z_J| |x_J|
+//    over the groups is at most |z||x| = 1.  So the 16 big steps'
+//    truncations add up to less than 4 * 9 * 2^-25 and their roundings to
+//    4 * 2^-23; the 32 small steps' (every term and sum at most 2^-10) to
+//    32 * (9 * 2^-35 + 2^-33) < 2^-26; the small sum that group 0's big
+//    steps start from adds 4 * (9 * 2^-35 + 2^-33) < 2^-29.  The CUDA
+//    cores' 3 adds round to nearest, at most 3 * 2^-24, and the split
+//    drops small * small and rounds the small parts, 3 * 2^-22.  So |S -
+//    S_exact| < 36 * 2^-25 + 4 * 2^-23 + 3 * 2^-24 + 3 * 2^-22 + 2^-26 +
+//    2^-29, about 2.5e-6 (the same argument gives 1.9e-6 for groups of
+//    2, which the kernel before kept, and whose note gave 5e-6), against
+//    the plain float32 version's 128 * 2^-24 = 7.6e-6.  W X's error per
+//    tile is no larger than at d = 64, and its accumulator takes as many
+//    CUDA-core adds (two groups per 32-pixel tile).
 //  * bfloat16 X: mma.sync m16n8k16 (hill_bf16_kernel), two halves of
 //    ceil(m/16) warps, each half owning 64 pixels of a tile; Z is rounded
 //    to bf16 for the first product and W before the second, as the TPU
@@ -208,12 +242,14 @@ template <int kD>
 constexpr int kRedFloats = 16 * kD;   // per-group sums of a reduced row
 constexpr int kCore = 128;            // bytes of a core matrix (8 x 16 B)
 constexpr int kHalfWords = kHalfTile * 64;  // one split copy of a half, d = 64
-// float32 at d = 128 (a ring of kTf32Stages raw tiles): pixels per tile,
-// one split copy of a tile and of Z, in words
+// float32 at d = 128: pixels per tile, one split copy of a tile and Z's
+// small part in words, stages of split copies, raw tiles in flight
 constexpr int kWideD = 128;
 constexpr int kWideTile = 32;
 constexpr int kWideTileWords = kWideTile * kWideD;
 constexpr int kWideZWords = kMaxSeeds * kWideD;
+constexpr int kWideStages = 2;
+constexpr int kWideRaw = 2;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -352,48 +388,58 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// The whole block: kPx pixels of a landed raw tile from xs ([kPx][kD + 4]
-// floats) -> big and small copies in the two layouts of `buf` (4 x kPx x
-// kD words):
+// Pass e (0 <= e < kPx * kD / 4) of splitting kPx pixels of a landed raw
+// tile from xs ([kPx][kD + 4] floats) into big and small copies in one of
+// the two layouts of `buf` (4 x kPx x kD words):
 //   first  [dim / 4][pixel / 8] core matrices, row = pixel % 8;
 //   second [pixel / 4][dim / 8] core matrices, row = dim % 8, pixels of
 //          each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7.
 // The core matrices neighbouring along N (pixels, then dims) are adjacent.
-// In each pass 8 neighbouring threads read and write 8 distinct 16-byte
-// bank groups.
+// 8 threads on neighbouring passes read and write 8 distinct 16-byte bank
+// groups.  split_load reads a pass's 4 floats, split_store writes their
+// split parts.
+template <int kD, int kPx, bool kSecond>
+__device__ __forceinline__ float4 split_load(const float* xs, int e) {
+  constexpr int kPitch = kF32Pitch<kD>;
+  if (!kSecond) {
+    const int r = e % 8, kq = (e / 8) % (kD / 4), c = e / (2 * kD);
+    return reinterpret_cast<const float4*>(xs + (8 * c + r) * kPitch)[kq];
+  }
+  const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
+  const float* col = xs + (8 * c + par) * kPitch + n;
+  return make_float4(col[0], col[2 * kPitch], col[4 * kPitch],
+                     col[6 * kPitch]);
+}
+
+template <int kD, int kPx, bool kSecond>
+__device__ __forceinline__ void split_store(unsigned* buf, int e, float4 v) {
+  constexpr int kWords = kPx * kD;
+  uint4* big = reinterpret_cast<uint4*>(buf) + (kSecond ? kWords / 2 : 0);
+  uint4* small = big + kWords / 4;
+  uint4 b, s;
+  split_tf32_rn(v.x, b.x, s.x);
+  split_tf32_rn(v.y, b.y, s.y);
+  split_tf32_rn(v.z, b.z, s.z);
+  split_tf32_rn(v.w, b.w, s.w);
+  int o;
+  if (!kSecond) {
+    const int r = e % 8, kq = (e / 8) % (kD / 4), c = e / (2 * kD);
+    o = (kq * (kPx / 8) + c) * 8 + r;
+  } else {
+    const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
+    o = ((2 * c + par) * (kD / 8) + n / 8) * 8 + n % 8;
+  }
+  big[o] = b;
+  small[o] = s;
+}
+
+// The whole block: every pass of both layouts, the first layout first.
 template <int kD, int kPx>
 __device__ __forceinline__ void split_pixels(const float* xs, unsigned* buf) {
-  constexpr int kPitch = kF32Pitch<kD>;
-  constexpr int kWords = kPx * kD;
-  uint4* pb = reinterpret_cast<uint4*>(buf);     // [pixel][dim], big
-  uint4* ps = pb + kWords / 4;                   // [pixel][dim], small
-  uint4* qb = ps + kWords / 4;                   // [dim][pixel], big
-  uint4* qs = qb + kWords / 4;                   // [dim][pixel], small
-  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x) {
-    const int r = e % 8, kq = (e / 8) % (kD / 4), c = e / (2 * kD);
-    const float4 v =
-        reinterpret_cast<const float4*>(xs + (8 * c + r) * kPitch)[kq];
-    uint4 b, s;
-    split_tf32_rn(v.x, b.x, s.x);
-    split_tf32_rn(v.y, b.y, s.y);
-    split_tf32_rn(v.z, b.z, s.z);
-    split_tf32_rn(v.w, b.w, s.w);
-    const int o = (kq * (kPx / 8) + c) * 8 + r;
-    pb[o] = b;
-    ps[o] = s;
-  }
-  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x) {
-    const int n = e % kD, par = (e / kD) % 2, c = e / (2 * kD);
-    const float* col = xs + (8 * c + par) * kPitch + n;
-    uint4 b, s;
-    split_tf32_rn(col[0], b.x, s.x);
-    split_tf32_rn(col[2 * kPitch], b.y, s.y);
-    split_tf32_rn(col[4 * kPitch], b.z, s.z);
-    split_tf32_rn(col[6 * kPitch], b.w, s.w);
-    const int o = ((2 * c + par) * (kD / 8) + n / 8) * 8 + n % 8;
-    qb[o] = b;
-    qs[o] = s;
-  }
+  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x)
+    split_store<kD, kPx, false>(buf, e, split_load<kD, kPx, false>(xs, e));
+  for (int e = threadIdx.x; e < kPx * kD / 4; e += blockDim.x)
+    split_store<kD, kPx, true>(buf, e, split_load<kD, kPx, true>(xs, e));
 }
 
 // One warp's state and per-tile work, bfloat16 X of width kD.
@@ -557,6 +603,9 @@ __host__ __device__ constexpr int groups_of(int chunks) {
   return chunks / big_per_group(chunks);
 }
 constexpr int kGroups = groups_of(8);  // d = 64: S and W X_h, 8 chunks each
+// The width-128 float32 kernel's S (16 k-chunks) sums its big steps in
+// groups of 4 (see the section's comment).
+constexpr int kWideBigPerGroup = 4;
 
 // out (or out +, with kAdd) = the sum of the kG groups that issue(g, d)
 // puts into d, added in group order on the CUDA cores.  Two accumulators
@@ -734,6 +783,26 @@ __device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t adesc,
       : "l"(adesc), "l"(bdesc), "r"(static_cast<int>(accumulate)));
 }
 
+// As above with a from registers (the m16n8k8 A layout per warp, as
+// wgmma_tf32 takes it).
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const unsigned (&a)[4],
+                                               uint64_t bdesc,
+                                               bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(static_cast<int>(accumulate)));
+}
+
 // Z in shared memory as a K-major operand: [dim / kPer][seed / 8] core
 // matrices (kPer = 4 fp32 or 8 bf16 dims per 16-byte row), row = seed % 8;
 // the word (or element) of seed s, dim j.
@@ -741,109 +810,369 @@ __device__ __forceinline__ int seed_word(int s, int j, int per) {
   return (((j / per) * (kMaxSeeds / 8) + s / 8) * 8 + s % 8) * per + j % per;
 }
 
-// Every thread of the block: Z [m, 128] float32 -> its split copies zb, zs
-// (split_tf32_rn, as the d = 64 kernel splits its fragments) in the
-// seed_word layout, zero past m; consecutive threads write consecutive
-// seeds, so a 16-byte store of 8 threads hits 8 bank groups.
-__device__ __forceinline__ void stage_wide_seeds(const float* z, int m,
-                                                 unsigned* zb, unsigned* zs) {
-  for (int e = threadIdx.x; e < kMaxSeeds * kWideD / 4; e += blockDim.x) {
-    const int s = e % kMaxSeeds, j = 4 * (e / kMaxSeeds);
-    const float4 v =
-        s < m ? __ldcg(reinterpret_cast<const float4*>(z + s * kWideD + j))
-              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    uint4 b, sm;
-    split_tf32_rn(v.x, b.x, sm.x);
-    split_tf32_rn(v.y, b.y, sm.y);
-    split_tf32_rn(v.z, b.z, sm.z);
-    split_tf32_rn(v.w, b.w, sm.w);
-    const int w = seed_word(s, j, 4);
-    *reinterpret_cast<uint4*>(zb + w) = b;
-    *reinterpret_cast<uint4*>(zs + w) = sm;
+// The width-128 float32 kernel's block: ceil(m / 64) consumer warpgroups,
+// which own the seeds and run the products, and one producer warpgroup,
+// which loads and splits the tiles.  setmaxnreg moves registers from the
+// producer to the consumers: the launch gives every thread the kernel's
+// count (168 at 384 threads), the producer keeps kProducerRegs and each
+// consumer takes kConsumerRegs, 2 * 216 + 72 <= 3 * 168.  Named barrier 2
+// spans the consumers.
+constexpr int kWideProducers = 128;
+constexpr int kProducerRegs = 72;
+constexpr int kConsumerRegs = 216;
+
+// Z [m, 128] float32 -> this warp's rows [r0, r0 + 16), split as
+// split_tf32_rn splits them (zero past m): the big parts into zb, the A
+// fragments per k-chunk of 8 dims (rows g, g + 8 and dims t, t + 4 of the
+// chunk, as hill_tf32_kernel holds its Z), the small parts into zsm in the
+// seed_word layout.  The consumers (threads 0 .. consumers - 1) first copy
+// the rows of their warpgroups into zsm with coalesced 16-byte loads (a
+// warp: 8 rows of 64 bytes, its 8-thread phases on 8 distinct bank
+// groups), then each thread splits its own fragments' words in place (a
+// warp's 32 on 32 banks).
+__device__ __forceinline__ void stage_wide_seeds(const float* z, int m, int r0,
+                                                 int lane, int consumers,
+                                                 unsigned (&zb)[kWideD / 8][4],
+                                                 unsigned* zsm) {
+  constexpr int kPer = 16;  // 16-byte loads a consumer thread
+  float4 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * consumers;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    v[i] = s < m ? __ldcg(reinterpret_cast<const float4*>(z + s * kWideD + j))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+  static_assert(kPer * 128 == 64 * (kWideD / 4), "a warpgroup's rows");
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * consumers;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    *reinterpret_cast<float4*>(zsm + seed_word(s, j, 4)) = v[i];
+  }
+  bar_sync<2>(consumers);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kWideD / 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = r0 + g + 8 * (q & 1), j = 8 * kk + t + 4 * (q >> 1);
+      unsigned& w = zsm[seed_word(s, j, 4)];
+      unsigned small;
+      split_tf32_rn(__uint_as_float(w), zb[kk][q], small);
+      w = small;
+    }
+}
+
+// The block's W X sums acc (this warp's m64n32 accumulators, 32 dims
+// each) -> rows < m of partial ([m, 128]) through stage ([128][128]
+// floats): each consumer warp writes float2s at column pairs p ^ 4 (row %
+// 8) (a half warp's 16 on 32 banks), then copies whole rows with coalesced
+// 16-byte stores.
+__device__ __forceinline__ void store_wide_partial(const float (&acc)[4][16],
+                                                   int r0, int m,
+                                                   int consumers, float* stage,
+                                                   float* partial) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = r0 + g + 8 * half, p = 16 * h + 4 * j + t;
+        *reinterpret_cast<float2*>(stage + s * kWideD +
+                                   2 * (p ^ (4 * (s % 8)))) =
+            make_float2(acc[h][4 * j + 2 * half],
+                        acc[h][4 * j + 2 * half + 1]);
+      }
+  bar_sync<2>(consumers);
+  for (int s = warp; s < m; s += consumers / 32)
+    reinterpret_cast<float4*>(partial + s * kWideD)[lane] =
+        *reinterpret_cast<const float4*>(stage + s * kWideD +
+                                         2 * ((2 * lane) ^ (4 * (s % 8))));
+}
+
+// Seed row r of the next Z at d = 128, by the consumers: group q of 32
+// threads sums the partials of blocks q, q + groups, ... in block order (a
+// float4 a thread, kPer loads in flight), then warp 0 adds the groups in
+// order and writes z[r] = v / max(||v||, 1e-12).  red: [consumers / 32][128]
+// floats.
+__device__ __forceinline__ void reduce_row_wide(const float* partial, int m,
+                                                int r, int consumers,
+                                                float* red, float* z) {
+  constexpr int kPer = 18;
+  const int groups = consumers / 32, q = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int blocks = gridDim.x;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int b0 = q; b0 < blocks; b0 += kPer * groups) {
+    float4 v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int b = b0 + i * groups;
+      v[i] = b < blocks
+                 ? __ldcg(reinterpret_cast<const float4*>(
+                              partial +
+                              (static_cast<size_t>(b) * m + r) * kWideD) +
+                          lane)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (b0 + i * groups < blocks) {
+        acc.x += v[i].x;
+        acc.y += v[i].y;
+        acc.z += v[i].z;
+        acc.w += v[i].w;
+      }
+    }
+  }
+  reinterpret_cast<float4*>(red + q * kWideD)[lane] = acc;
+  bar_sync<2>(consumers);
+  if (q == 0) {
+    float4 v = reinterpret_cast<const float4*>(red)[lane];
+    for (int k = 1; k < groups; ++k) {
+      const float4 u = reinterpret_cast<const float4*>(red + k * kWideD)[lane];
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    float ss = fmaf(v.w, v.w, fmaf(v.z, v.z, fmaf(v.y, v.y, v.x * v.x)));
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xFFFFFFFFu, ss, off);
+    const float den = fmaxf(sqrtf(ss), 1e-12f);
+    reinterpret_cast<float4*>(z + r * kWideD)[lane] =
+        make_float4(v.x / den, v.y / den, v.z / den, v.w / den);
+  }
+  bar_sync<2>(consumers);  // red is free again
+}
+
+// uoc::grid_barrier over the consumers only (the producer may still be
+// splitting the next iteration's tiles).
+__device__ __forceinline__ void consumer_grid_barrier(unsigned* arrived,
+                                                      unsigned q,
+                                                      int consumers) {
+  bar_sync<2>(consumers);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+    const unsigned target = q * gridDim.x;
+    while (uoc::load_acquire(arrived) < target) {
+    }
+  }
+  bar_sync<2>(consumers);
+}
+
+// A study build (-DHILL_CLOCKS, hill_climb_study.py) records, for each
+// block and iteration of hill_tf32_wide_kernel, consumer thread 0's
+// clock64 at the iteration's start, after Z is staged, after the tiles,
+// after the partial is stored, after the first grid barrier, after the
+// reduction and after the second barrier (marks 0, 1, 2, 3, 4, 5, 6), and
+// its cycles summed over the tiles in S, in the wait for the producer's
+// split copies, in W's exp and split, in W X and in the release of the
+// stage (7-11); and the first producer thread's cycles summed over the
+// iteration's tiles in the wait for their loads, in the wait for a free
+// stage, in the split and in the release and the next load (12-15).
+#ifdef HILL_CLOCKS
+constexpr int kClockBlocks = 160, kClockIters = 16, kHillMarks = 16;
+__device__ long long hill_clocks[kClockBlocks][kClockIters][kHillMarks];
+__device__ __forceinline__ long long hill_now() { return clock64(); }
+__device__ __forceinline__ void hill_mark(bool me, int it, int at,
+                                          long long value) {
+  if (me && blockIdx.x < kClockBlocks && it < kClockIters)
+    hill_clocks[blockIdx.x][it][at] = value;
+}
+#else
+__device__ __forceinline__ long long hill_now() { return 0; }
+__device__ __forceinline__ void hill_mark(bool, int, int, long long) {}
+#endif
+
+// Producer warp w of the width-128 kernel owns pixels [8 w, 8 w + 8) of
+// every tile: it loads their raw rows itself and splits them (passes 256 w
+// + lane + 32 j of each layout, j < 8, in batches of kSplitBatch whose
+// loads are issued before their stores), so the producer's warps never
+// wait for each other.
+constexpr int kSplitBatch = 4;
+
+template <bool kSecond>
+__device__ __forceinline__ void split_batches(const float* xs, unsigned* buf,
+                                              int e0) {
+#pragma unroll
+  for (int i = 0; i < 8; i += kSplitBatch) {
+    float4 v[kSplitBatch];
+#pragma unroll
+    for (int j = 0; j < kSplitBatch; ++j)
+      v[j] = split_load<kWideD, kWideTile, kSecond>(xs, e0 + 32 * (i + j));
+#pragma unroll
+    for (int j = 0; j < kSplitBatch; ++j)
+      split_store<kWideD, kWideTile, kSecond>(buf, e0 + 32 * (i + j), v[j]);
+  }
+}
+
+__device__ __forceinline__ void split_share(const float* xs, unsigned* buf,
+                                            int w, int lane) {
+  split_batches<false>(xs, buf, 256 * w + lane);
+  split_batches<true>(xs, buf, 256 * w + lane);
 }
 
 // d = 128 (see the section's comment).  x: [n, 128] rows 16-byte aligned;
 // z: [m, 128] float32, Z0 on entry, the result on exit, rows 16-byte
 // aligned; partial: [gridDim.x, m, 128] scratch; arrived as above.
-// blockDim.x = 128 * ceil(m / 64).  Shared memory: Z's split copies, the
-// split copies of one tile (the reduction's scratch between iterations),
-// the ring of raw tiles.
-__global__ void __launch_bounds__(256, 1)
+// blockDim.x = 128 * ceil(m / 64) consumers + kWideProducers.  Shared
+// memory: Z's small part (the consumers' scratch between iterations),
+// kWideStages stages of a tile's four split copies, the ring of kWideRaw
+// raw tiles, and the stages' mbarriers: full[s] (the producer has split a
+// tile into stage s) and empty[s] (every consumer is done with it).  The
+// q-th tile of the launch (q = it * mine + k) is loaded two tiles ahead
+// into ring slot q % kWideRaw and split into stage q % kWideStages; the
+// producer runs on into the next iteration's tiles while the consumers
+// reduce.
+__global__ void __launch_bounds__(256 + kWideProducers, 1)
 hill_tf32_wide_kernel(const float* __restrict__ x, int n, int m, float kappa,
                       int max_iters, float* __restrict__ partial,
                       unsigned* __restrict__ arrived, float* __restrict__ z) {
   constexpr int kD = kWideD;
   constexpr int kPitch = kF32Pitch<kD>;
   constexpr int kRawElems = kWideTile * kPitch;
-  constexpr int kBigS = big_per_group(kD / 8);          // S: 16 chunks
+  constexpr int kStageWords = 4 * kWideTileWords;
+  constexpr int kBigS = kWideBigPerGroup;               // S: 16 chunks
   constexpr int kBigW = big_per_group(kWideTile / 8);   // W X: 4 chunks
+  static_assert((kD / 8) % kBigS == 0, "S's groups");
+  static_assert(kWideRaw == 2 && kWideStages == 2, "loads two tiles ahead");
   extern __shared__ __align__(128) float wide_smem[];
-  unsigned* zb = reinterpret_cast<unsigned*>(wide_smem);
-  unsigned* zsm = zb + kWideZWords;
-  unsigned* split = zsm + kWideZWords;
-  float* red = reinterpret_cast<float*>(split);
-  float* ring = reinterpret_cast<float*>(split + 4 * kWideTileWords);
-  const unsigned* pb = split;                        // [pixel][dim] big
-  const unsigned* ps = split + kWideTileWords;       // [pixel][dim] small
-  const unsigned* qb = split + 2 * kWideTileWords;   // [dim][pixel] big
-  const unsigned* qs = split + 3 * kWideTileWords;   // [dim][pixel] small
-  const int warp = threadIdx.x / 32;
-  const int wg = warp / 4;   // this warpgroup's seeds: [64 wg, 64 wg + 64)
-  const int r0 = 16 * warp;  // rows of this warp's accumulators
+  unsigned* zsm = reinterpret_cast<unsigned*>(wide_smem);
+  unsigned* stages = zsm + kWideZWords;
+  float* ring = reinterpret_cast<float*>(stages + kWideStages * kStageWords);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + kWideRaw * kRawElems);
+  unsigned long long* empty = full + kWideStages;
+  const int consumers = blockDim.x - kWideProducers;
   const int mine = tiles_of_block<kWideTile>(n);
   const int total = max_iters * mine;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      uoc::mbar_init(full + s, kWideProducers);
+      uoc::mbar_init(empty + s, consumers);
+    }
+  }
+  __syncthreads();
+
+  if (static_cast<int>(threadIdx.x) >= consumers) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int t = threadIdx.x - consumers;
+    const int w = t / 32, lane = t % 32;  // pixels [8 w, 8 w + 8) of a tile
+    const auto load = [&](int q) {
+      if (q < total) {
+        const int p0 =
+            (static_cast<int>(blockIdx.x) + (q % mine) * gridDim.x) *
+                kWideTile + 8 * w;
+        float* rows = ring + (q % kWideRaw) * kRawElems + 8 * w * kPitch;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // a row of 512 bytes a step
+          const bool ok = p0 + j < n;
+          cp_async16(rows + j * kPitch + 4 * lane,
+                     ok ? x + static_cast<size_t>(p0 + j) * kD + 4 * lane : x,
+                     ok);
+        }
+      }
+      cp_async_commit();
+    };
+    load(0);
+    load(1);
+    long long spent[4] = {0, 0, 0, 0};  // with HILL_CLOCKS
+    for (int q = 0; q < total; ++q) {
+      const long long c0 = hill_now();
+      cp_async_wait<1>();  // tile q has landed
+      __syncwarp();        // ... for every lane
+      const long long c1 = hill_now();
+      if (q >= kWideStages)  // tile q - 2 is done with
+        uoc::mbar_wait(empty + q % kWideStages,
+                       (q / kWideStages - 1) & 1);
+      const long long c2 = hill_now();
+      split_share(ring + (q % kWideRaw) * kRawElems,
+                  stages + (q % kWideStages) * kStageWords, w, lane);
+      const long long c3 = hill_now();
+      uoc::fence_proxy_async();  // the copies are read by wgmma
+      uoc::mbar_arrive(full + q % kWideStages);
+      __syncwarp();  // the warp's raw rows of tile q are read
+      load(q + kWideRaw);
+      spent[0] += c1 - c0;
+      spent[1] += c2 - c1;
+      spent[2] += c3 - c2;
+      spent[3] += hill_now() - c3;
+      if ((q + 1) % mine == 0) {  // the iteration's last tile
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hill_mark(t == 0, q / mine, 12 + i, spent[i]);
+          spent[i] = 0;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;   // this warpgroup's seeds: [64 wg, 64 wg + 64)
+  const int r0 = 16 * warp;  // rows of this warp's accumulators
   unsigned barriers = 0;
-  // K-chunk kk (8 dims) of this warpgroup's Z rows, and of the tile's X
-  // in the [pixel][dim] layout
-  const auto zdesc = [&](const unsigned* p, int kk) {
-    return smem_desc(p + (2 * kk * (kMaxSeeds / 8) + 8 * wg) * (kCore / 4),
+  // K-chunk kk (8 dims) of this warpgroup's rows of Z's small part, and of
+  // a tile's X in the [pixel][dim] layout
+  const auto zdesc = [&](int kk) {
+    return smem_desc(zsm + (2 * kk * (kMaxSeeds / 8) + 8 * wg) * (kCore / 4),
                      (kMaxSeeds / 8) * kCore, kCore);
   };
   const auto xdesc = [&](const unsigned* p, int kk) {
     return smem_desc(p + 2 * kk * (kWideTile / 8) * (kCore / 4),
                      (kWideTile / 8) * kCore, kCore);
   };
-
-  issue_load<float, kD, kPitch, kTf32Stages, kWideTile>(x, n, 0, mine, total,
-                                                         ring);
   for (int it = 0; it < max_iters; ++it) {
-    // the loop's first fence and barrier publish Z to wgmma
-    stage_wide_seeds(z, m, zb, zsm);
-    float acc[2][32];  // seeds x dims [64 h, 64 h + 64)
+    hill_mark(threadIdx.x == 0, it, 0, hill_now());
+    unsigned zb[kD / 8][4];
+    stage_wide_seeds(z, m, r0, lane, consumers, zb, zsm);
+    uoc::fence_proxy_async();  // Z's small part is read by wgmma
+    bar_sync<2>(consumers);
+    long long spent[5] = {0, 0, 0, 0, 0};  // with HILL_CLOCKS
+    hill_mark(threadIdx.x == 0, it, 1, hill_now());
+    float acc[4][16];  // seeds x dims [32 h, 32 h + 32)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[i / 16][i % 16] = 0.0f;
 
     for (int k = 0; k < mine; ++k) {
       const int q = it * mine + k;
-      cp_async_wait<0>();  // load q has landed
-      __syncthreads();     // ... for every thread; tile q-1 is done with
-      issue_load<float, kD, kPitch, kTf32Stages, kWideTile>(x, n, q + 1, mine,
-                                                            total, ring);
-      split_pixels<kD, kWideTile>(ring + (q % kTf32Stages) * kRawElems,
-                                  split);
-      // Z's and the tile's split copies are read by wgmma (the async proxy)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-
+      long long c0 = hill_now();
+      uoc::mbar_wait(full + q % kWideStages, (q / kWideStages) & 1);
+      long long c1 = hill_now();
+      spent[1] += c1 - c0;
+      const unsigned* pb = stages + (q % kWideStages) * kStageWords;
+      const unsigned* ps = pb + kWideTileWords;      // [pixel][dim] small
+      const unsigned* qb = pb + 2 * kWideTileWords;  // [dim][pixel] big
+      const unsigned* qs = pb + 3 * kWideTileWords;  // [dim][pixel] small
       // S (64 seeds x 32 pixels) = Z X^T: K = dims, 8 per wgmma
       float s[16], spair[2][16];
-      grouped_sum<groups_of(kD / 8), false>(
+      grouped_sum<(kD / 8) / kBigS, false>(
           s, spair, [&](int grp, float (&d)[16]) {
             if (grp == 0) {
 #pragma unroll
               for (int kk = 0; kk < kD / 8; ++kk) {
-                wgmma_tf32_n32(d, zdesc(zsm, kk), xdesc(pb, kk), kk > 0);
-                wgmma_tf32_n32(d, zdesc(zb, kk), xdesc(ps, kk));
+                wgmma_tf32_n32(d, zdesc(kk), xdesc(pb, kk), kk > 0);
+                wgmma_tf32_n32(d, zb[kk], xdesc(ps, kk));
               }
             }
 #pragma unroll
             for (int j = 0; j < kBigS; ++j) {
               const int kk = grp * kBigS + j;
-              wgmma_tf32_n32(d, zdesc(zb, kk), xdesc(pb, kk),
-                             grp == 0 || j > 0);
+              wgmma_tf32_n32(d, zb[kk], xdesc(pb, kk), grp == 0 || j > 0);
             }
           });
+      c0 = hill_now();
+      spent[0] += c0 - c1;
       // W as the A operand over pixel chunks of 8, as in hill_tf32_kernel
       unsigned wb[4][4], ws[4][4];
 #pragma unroll
@@ -852,46 +1181,58 @@ hill_tf32_wide_kernel(const float* __restrict__ x, int n, int m, float kappa,
         for (int i = 0; i < 4; ++i)
           split_tf32_rn(expf(kappa * s[4 * kc + (i & 1) * 2 + (i >> 1)]),
                         wb[kc][i], ws[kc][i]);
-      // acc[h] (64 seeds x 64 dims) += W X_h: K = pixels, 8 per wgmma
+      c1 = hill_now();
+      spent[2] += c1 - c0;
+      // acc[h] (64 seeds x 32 dims) += W X_h: K = pixels, 8 per wgmma
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float pair[2][32];
+      for (int h = 0; h < 4; ++h) {
+        float pair[2][16];
         grouped_sum<groups_of(kWideTile / 8), true>(
-            acc[h], pair, [&](int grp, float (&d)[32]) {
+            acc[h], pair, [&](int grp, float (&d)[16]) {
               const auto desc = [&](const unsigned* p, int kc) {
                 return smem_desc(
-                    p + (2 * kc * (kD / 8) + 8 * h) * (kCore / 4),
+                    p + (2 * kc * (kD / 8) + 4 * h) * (kCore / 4),
                     (kD / 8) * kCore, kCore);
               };
               if (grp == 0) {
 #pragma unroll
                 for (int kc = 0; kc < 4; ++kc) {
-                  wgmma_tf32(d, ws[kc], desc(qb, kc), kc > 0);
-                  wgmma_tf32(d, wb[kc], desc(qs, kc));
+                  wgmma_tf32_n32(d, ws[kc], desc(qb, kc), kc > 0);
+                  wgmma_tf32_n32(d, wb[kc], desc(qs, kc));
                 }
               }
 #pragma unroll
               for (int j = 0; j < kBigW; ++j) {
                 const int kc = grp * kBigW + j;
-                wgmma_tf32(d, wb[kc], desc(qb, kc), grp == 0 || j > 0);
+                wgmma_tf32_n32(d, wb[kc], desc(qb, kc), grp == 0 || j > 0);
               }
             });
       }
       pin_registers(wb);
       pin_registers(ws);
+      c0 = hill_now();
+      spent[3] += c0 - c1;
+      uoc::mbar_arrive(empty + q % kWideStages);  // its wgmmas have finished
+      spent[4] += hill_now() - c0;
     }
+    hill_mark(threadIdx.x == 0, it, 2, hill_now());
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      hill_mark(threadIdx.x == 0, it, 7 + i, spent[i]);
 
-    float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float rows[8][4];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) rows[i / 4][i % 4] = acc[h][i];
-      store_rows<kD>(rows, r0, m, nullptr, out + 64 * h);
-    }
-    next_seeds<kD>(partial, m, red, z, arrived, barriers);
+    // Z's small part is free: every consumer's S has finished
+    bar_sync<2>(consumers);
+    store_wide_partial(acc, r0, m, consumers, wide_smem,
+                       partial + static_cast<size_t>(blockIdx.x) * m * kD);
+    hill_mark(threadIdx.x == 0, it, 3, hill_now());
+    consumer_grid_barrier(arrived, ++barriers, consumers);  // partials written
+    hill_mark(threadIdx.x == 0, it, 4, hill_now());
+    for (int r = blockIdx.x; r < m; r += gridDim.x)
+      reduce_row_wide(partial, m, r, consumers, wide_smem, z);
+    hill_mark(threadIdx.x == 0, it, 5, hill_now());
+    consumer_grid_barrier(arrived, ++barriers, consumers);  // new Z written
+    hill_mark(threadIdx.x == 0, it, 6, hill_now());
   }
-  cp_async_wait<0>();
 }
 
 // As hill_tf32_kernel, for bf16 X on mma.sync; blockDim.x = 32 *
@@ -965,8 +1306,9 @@ size_t hill_tf32_smem_bytes() {
 }
 
 size_t hill_tf32_wide_smem_bytes() {
-  return sizeof(unsigned) * (2 * kWideZWords + 4 * kWideTileWords) +
-         sizeof(float) * kTf32Stages * kWideTile * kF32Pitch<kWideD>;
+  return sizeof(unsigned) * (kWideZWords + kWideStages * 4 * kWideTileWords) +
+         sizeof(float) * kWideRaw * kWideTile * kF32Pitch<kWideD> +
+         sizeof(unsigned long long) * 2 * kWideStages;
 }
 
 template <int kD>
@@ -983,6 +1325,7 @@ size_t hill_bf16_smem_bytes(int groups) {
 struct HillPlan {
   int grid, per_sm, threads, tile;
   size_t smem;
+  long long x_bytes;  // X held on chip per block
 };
 
 template <int kD>
@@ -991,6 +1334,7 @@ cudaError_t plan_hill_bf16(int dev, int m, HillPlan* p) {
   p->threads = 32 * bf16_halves(kD) * groups;
   p->smem = hill_bf16_smem_bytes<kD>(groups);
   p->tile = kHillTile;
+  p->x_bytes = 2LL * kStages * kHillTile * kD;  // the ring of tiles
   return uoc::blocks_per_sm<hill_bf16_kernel<kD>>(
       dev, p->threads, p->smem, hill_bf16_smem_bytes<kD>(kMaxSeeds / 16),
       &p->per_sm);
@@ -1011,12 +1355,25 @@ cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
     p->threads = 128 * ((m + 63) / 64);
     p->smem = hill_tf32_smem_bytes();
     p->tile = kHillTile;
+    // the ring of raw tiles, a tile's four split copies
+    p->x_bytes = 4LL * (kTf32Stages + 4) * kHillTile * d;
     err = uoc::blocks_per_sm<hill_tf32_kernel>(dev, p->threads, p->smem,
                                                p->smem, &p->per_sm);
   } else {
-    p->threads = 128 * ((m + 63) / 64);
+    // the consumers' setmaxnreg.inc waits for registers that the launch
+    // must have given the block: refuse a build that gives fewer
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, hill_tf32_wide_kernel)) !=
+        cudaSuccess)
+      return err;
+    const int groups = (m + 63) / 64;
+    if (attr.numRegs * (groups + 1) < groups * kConsumerRegs + kProducerRegs)
+      return cudaErrorInvalidConfiguration;
+    p->threads = 128 * groups + kWideProducers;
     p->smem = hill_tf32_wide_smem_bytes();
     p->tile = kWideTile;
+    // the ring of raw tiles, the stages of four split copies
+    p->x_bytes = 4LL * (kWideRaw + 4 * kWideStages) * kWideTile * d;
     err = uoc::blocks_per_sm<hill_tf32_wide_kernel>(dev, p->threads, p->smem,
                                                     p->smem, &p->per_sm);
   }
@@ -1324,15 +1681,16 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // read it (< 2^-21 |a_i b_i| each): < 1.3 * 2^-20 over the dot, since
 // sum |a_i b_i| <= |a| |b| = 1.  At d = 64 the accumulator takes 24 wgmma
 // steps (8 k-chunks x 3 products); each step truncates its nine terms (the
-// accumulator and eight products) two bits below the largest one's last,
-// the rule whose emulation reproduces the hill climb's results on the
-// H100: < 24 * 9 * 2^-25.  The float32 plain version's own sum of 64
-// products is within 64 * 2^-24 of the exact dot.  So the kernel's S and
-// the plain version's differ by less than 1.2e-5 < 2^-16 =
-// kRecheckMargin<64> / 2.  At d = 128 the same argument gives 48 steps (16
-// k-chunks x 3 products, one accumulator over both passes), 48 * 9 * 2^-25
-// = 1.29e-5, and the plain version's 128 * 2^-24 = 7.6e-6: with the
-// split's 1.2e-6 less than 2.2e-5 < 2^-15 = kRecheckMargin<128> / 2.
+// accumulator and eight products) two bits below the largest one's last
+// and rounds its sum toward zero (the rule whose emulation comes nearest
+// the hill climb's results on the H100): < 24 * (9 * 2^-25 + 2^-23).  The
+// float32 plain version's own sum of 64 products is within 64 * 2^-24 of
+// the exact dot.  So the kernel's S and the plain version's differ by less
+// than 1.5e-5 < 2^-16 = kRecheckMargin<64> / 2.  At d = 128 the same
+// argument gives 48 steps (16 k-chunks x 3 products, one accumulator over
+// both passes), 48 * (9 * 2^-25 + 2^-23) = 1.86e-5, and the plain
+// version's 128 * 2^-24 = 7.6e-6: with the split's 1.2e-6 less than 2.8e-5
+// < 2^-15 = kRecheckMargin<128> / 2.
 // Where b1 - b2 >= kRecheckMargin the plain version's best seed carries
 // label l1; the other pixels (b1 - b2 < kRecheckMargin, a tie at b1
 // between labels included) are re-checked out of line (recheck): the quad
@@ -1892,9 +2250,7 @@ extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
   out[1] = p.per_sm;
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
-  // the ring of raw tiles, and for float32 the tile's four split copies
-  out[4] = dtype == uoc::kBF16 ? 2LL * kStages * kHillTile * d
-                               : 4LL * (kTf32Stages + 4) * p.tile * d;
+  out[4] = p.x_bytes;
   return 0;
 }
 
@@ -1945,6 +2301,15 @@ extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef HILL_CLOCKS
+// The study build's clocks of the last float32 launch at d = 128:
+// [160][16][16] int64 (see hill_mark).
+extern "C" int uoc_hill_clocks(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, hill_clocks, sizeof(hill_clocks)));
+}
+#endif
 
 // z: [m, d] float32 (d = 64 or 128), rows 16-byte aligned; labels: [m]
 // int32 out; steps: one int32 out, the merge steps taken (the seeds still
