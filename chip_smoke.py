@@ -881,6 +881,10 @@ def check_kernels(mode: str, x32: torch.Tensor,
         lambda: cms.hill_climb_reference(x, z0, kappa=KAPPA,
                                          max_iters=ITERS), 10)
     out["hill_climb"] = dict(max_abs_err=err, bound=bound(nbytes, ops, dtype),
+                             # a design that streams X reads it every
+                             # iteration (the bound above counts it once)
+                             rereads_ms=ITERS * n * d * esize
+                             / HBM_BYTES_PER_S * 1e3,
                              **{f"{k}_err": v for k, v in errs.items()
                                 if k != "plain"})
 
@@ -963,8 +967,9 @@ def check_kernels(mode: str, x32: torch.Tensor,
               f"{r['device_ms']:.4f} ms, queued {r['queued_ms']:.4f} ms), "
               f"plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
-              + (f", X re-read every step {r['rereads_ms']:.4f} ms"
-                 if "rereads_ms" in r else "")
+              + (f", X re-read every "
+                 f"{'iteration' if name == 'hill_climb' else 'step'} "
+                 f"{r['rereads_ms']:.4f} ms" if "rereads_ms" in r else "")
               + (f"; pairwise-far input {r['far_ms']:.4f} ms (device "
                  f"{r['far_device_ms']:.4f} ms)" if "far_ms" in r else ""))
     return out
@@ -4267,15 +4272,17 @@ def run_data_parallel(cfg: Config, state_dict: dict, work: str, tmp: str,
 
 def readings(r: dict, prefix: str) -> dict:
     """One kernel's check_kernels reading for the kernels line, its keys
-    prefixed: error, ms, device ms, plain ms and bound, and where timed
-    (the hill climb) the library call's ms and backend and the launch
-    configuration."""
+    prefixed: error, ms, device ms, plain ms and bound, the time to read X
+    once a step or iteration where the kernel may (the eager seeding, the
+    hill climb), and where timed (the hill climb) the library call's ms
+    and backend and the launch configuration."""
     out = {prefix + "max_abs_err": r["max_abs_err"], prefix + "ms": r["ms"],
            prefix + "device_ms": r["device_ms"],
            prefix + "plain_ms": r["plain_ms"],
            prefix + "bound_ms": r["bound"][0],
            prefix + "bound_by": r["bound"][1]}
-    for key in ("library_ms", "library_backend", "library_err", "launch"):
+    for key in ("rereads_ms", "library_ms", "library_backend", "library_err",
+                "launch"):
         if key in r:
             out[prefix + key] = r[key]
     return out

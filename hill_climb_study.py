@@ -4,6 +4,8 @@
     python3 hill_climb_study.py survey [--out DIR]     # on one NVIDIA GPU
     python3 hill_climb_study.py time [--parent DIR] [--clocks] [--out FILE]
         [--crops DIR]                                  # on one NVIDIA GPU
+    python3 hill_climb_study.py variants EDITS.json [--out FILE]
+                                                       # on one NVIDIA GPU
     python3 hill_climb_study.py emulate FILE.npz [--model al2 ...]  # CPU
 
 `time` builds the port's kernels (and prints what ``nvcc -Xptxas -v``
@@ -24,19 +26,31 @@ it times the same turns again, each right after the hill climb's
 yardstick (chip_smoke.sdpa_yardstick, as chip_smoke.py's check_kernels
 runs it before the kernels' device times), and prints the yardstick's
 ms, backend and Z against the plain version.  --clocks builds
-mean_shift.cu again with -DHILL_CLOCKS and, on each float32 case at width
-128, splits the launch's time (the clock64 of each block's first consumer
+mean_shift.cu again with -DHILL_CLOCKS and, on each case at width 128,
+splits the launch's time (the clock64 of each block's first consumer
 thread, in microseconds at the card's largest SM clock, summed over the
 10 iterations, the mean over the blocks and the slowest block's): the
-tiles (the wait for the producer's split copies, S, W's exp and split, W
-X, the stage's release), the producer's (the wait for a tile's loads, for
-a free stage, the split, the release and the next load) and the fixed
+tiles (float32: the wait for the producer's split copies, S, W's exp and
+split, W X, the stage's release; bfloat16: the wait for a tile to land,
+the next tile's S from its issue, W's exp, the wait for W X, the stage's
+release), the producer's (float32: the wait for a tile's loads, for a
+free stage, the split, the release and the next load; bfloat16, where
+tiles stream: the wait for a free stage, the loads' issue) and the fixed
 cost of an iteration (Z's staging, the partial's store, the first grid
 barrier, the reduction, the second barrier).  --out writes every reading
-as JSON; --crops saves the float32 cases at 128^2 (X, Z0, the float64
-result, this tree's Z and the plan's grid) for `emulate`, and holds the
-emulation, run on the card, to this tree's kernel after one iteration
-under each accumulator model (rn, rz, al0-al4) and after 10 under al2.
+as JSON; --crops saves the width-128 cases at 128^2 (X, Z0, this tree's
+Z, the plan's grid; float32 with the float64 result, bfloat16 with the
+plain version's) for `emulate`, and holds the emulation, run on the card,
+to this tree's kernel: in float32 after one iteration under each
+accumulator model (rn, rz, al0-al4) and after 10 under al2, in bfloat16
+(emulate_bf16) after 10 under rn, rz and al2.
+
+`variants` builds edited copies of csrc/mean_shift.cu (EDITS.json maps a
+name to a list of [old, new] text replacements) and times the bf16 hill
+climb at width 128 of each against this tree's in turns (tree, each copy,
+then the same in reverse) at the frame and both crops on chip_smoke's
+clustered inputs, with each copy's Z against the plain version and what
+ptxas reports of its kernel (registers, spills, serialized wgmmas).
 
 `survey` builds csrc/mean_shift.cu once per grouping of the float32 hill
 climb's wgmma steps (-DHILL_BIG_PER_GROUP: 8 = every big step in one
@@ -58,7 +72,10 @@ below: at d = 64 or 128, split TF32 operands, wgmma steps in the kernel's
 order and groups, the CUDA cores' adds, the block and row reductions)
 with a model of the tensor cores' accumulator, and prints its distance
 from the saved kernel results (the survey's d = 64 crops by grouping, or
-`time --crops`'s crops at both widths) and from the float64 result.
+`time --crops`'s crops at both widths) and from the float64 result; on a
+bfloat16 crop it replays hill_bf16_wide_kernel (`emulate_bf16`: its tile
+schedule, bf16 roundings and steps) and prints its distance from the
+kernel's Z and from the plain version's.
 Models: `rn` and `rz` round each step's exact sum once (nearest, toward
 zero); `alG` aligns each step's terms (the accumulator and eight
 products) to the largest, truncates each one G bits below the largest's
@@ -280,7 +297,7 @@ def call(lib, x, z0, iters=None):
     (n, d), m = x.shape, z0.shape[0]
     code = _build.dtype_code(x, "study")
     z0 = z0.float().contiguous()
-    plan = (ctypes.c_longlong * 5)()
+    plan = (ctypes.c_longlong * 6)()  # a parent's plan may fill only 5
     assert lib.uoc_hill_climb_plan(code, n, m, d,
                                    ctypes.addressof(plan)) == 0
     partial = torch.empty((int(plan[0]), m, d), device=x.device)
@@ -317,21 +334,33 @@ def time_cases() -> list:
     return out
 
 
-def clock_split(lib, grid: int) -> dict:
-    """Microseconds by part of the last float32 launch at d = 128 of the
-    clocked library, summed over the iterations: mean over the blocks,
-    slowest block."""
+def clock_split(lib, grid: int, bf16: bool = False,
+                streams: bool = True) -> dict:
+    """Microseconds by part of the last launch at d = 128 of the clocked
+    library (the float32 kernel, or with `bf16` hill_bf16_wide_kernel,
+    whose producer is read only where some tiles stream), summed over the
+    iterations: mean over the blocks, slowest block."""
     import chip_smoke as cs
     import kernel_study as ks
     c = ks.clocks(lib, "uoc_hill_clocks", CLOCK_SHAPE)[:grid, :cs.ITERS]
     c = c.astype(np.float64)
+    if bf16:
+        tiles = {"tile_wait": c[..., 7], "tile_s": c[..., 8],
+                 "tile_exp_w": c[..., 9], "tile_wx_wait": c[..., 10],
+                 "tile_release": c[..., 11]}
+        if streams:
+            tiles.update(producer_wait_stage=c[..., 12],
+                         producer_issue=c[..., 13])
+    else:
+        tiles = {"tile_s": c[..., 7], "tile_wait_split": c[..., 8],
+                 "tile_exp_w": c[..., 9], "tile_wx": c[..., 10],
+                 "tile_release": c[..., 11], "producer_wait_load": c[..., 12],
+                 "producer_wait_stage": c[..., 13],
+                 "producer_split": c[..., 14],
+                 "producer_release_load": c[..., 15]}
     out = ks.span_us({
         "stage_z": c[..., 1] - c[..., 0], "tiles": c[..., 2] - c[..., 1],
-        "tile_s": c[..., 7], "tile_wait_split": c[..., 8],
-        "tile_exp_w": c[..., 9], "tile_wx": c[..., 10],
-        "tile_release": c[..., 11], "producer_wait_load": c[..., 12],
-        "producer_wait_stage": c[..., 13], "producer_split": c[..., 14],
-        "producer_release_load": c[..., 15],
+        **tiles,
         "store_partial": c[..., 3] - c[..., 2],
         "grid_barrier_1": c[..., 4] - c[..., 3],
         "reduce": c[..., 5] - c[..., 4],
@@ -413,6 +442,18 @@ def time_trees(parent_dir: str | None, clocks: bool, out_file: str | None,
             for who, zt in trees.items():
                 r[f"{who}_plain_err"] = float((zt - plain).abs().max())
             ok &= r["this_plain_err"] <= cs.Z_TOL["fast"]
+            if crops and n == 128 * 128 and d == cs.CAT_D:
+                np.savez(os.path.join(crops, name.replace(" ", "_")),
+                         x=x.float().cpu().numpy(), z0=z0.cpu().numpy(),
+                         plain=plain.cpu().numpy(), this=z.cpu().numpy(),
+                         grid=r["plan"]["grid"], bf16=True)
+                r["emulation"] = {}
+                for model in ("rn", "rz", "al2"):
+                    ze = emulate_bf16(x, z0, r["plan"]["grid"], model)
+                    r["emulation"][model] = dict(
+                        max_diff=float((ze - z).abs().max()),
+                        values_differ=int((ze != z).sum()), of=z.numel(),
+                        plain_diff=float((ze - plain).abs().max()))
         runs = [("this", ours)]
         if parent is not None:
             runs = [("parent", parent), ("this", ours), ("this", ours),
@@ -429,10 +470,13 @@ def time_trees(parent_dir: str | None, clocks: bool, out_file: str | None,
                     ks.timed(functools.partial(call, lib, x, z0), "hill_"))
             r["yardstick"] = dict(ms=lib_ms, backend=backend, plain_err=float(
                 (lib_z - plain).abs().max()))
-        if clocked is not None and d == cs.CAT_D and x.dtype == torch.float32:
+        if clocked is not None and d == cs.CAT_D:
             zc = call(clocked, x, z0)
             r["same_as_clocked"] = bool(torch.equal(zc, z))
-            r["clocks"] = clock_split(clocked, r["plan"]["grid"])
+            bf16 = x.dtype == torch.bfloat16
+            r["clocks"] = clock_split(
+                clocked, r["plan"]["grid"], bf16,
+                r["plan"]["x_resident_bytes"] < x.numel() * x.element_size())
         res["cases"][name] = r
         print(f"[{name}] n {n}: {json.dumps(r)}", flush=True)
     if out_file:
@@ -441,6 +485,68 @@ def time_trees(parent_dir: str | None, clocks: bool, out_file: str | None,
     if not ok:
         raise SystemExit("a kernel's Z is not deterministic or strays past "
                          "chip_smoke.Z_TOL")
+
+
+def time_variants(edits_file: str, out_file: str | None) -> None:
+    """Edited copies of this tree's csrc/mean_shift.cu against the tree, in
+    turns: the bf16 hill climb at width 128 on chip_smoke's clustered
+    inputs at the frame and both crops (device ms, Z against the plain
+    version), and what ptxas says of each copy's hill_bf16_wide_kernel
+    (registers, spills, its Potential Performance Loss notes)."""
+    import torch
+    import chip_smoke as cs
+    import kernel_study as ks
+    from unseenobjectclustering_torch.ops import _build
+    from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
+    from unseenobjectclustering_torch.ops import cuda_seeding
+    if not torch.cuda.is_available():
+        sys.exit("hill_climb_study: no CUDA device is available")
+    with open(edits_file) as f:
+        variants = json.load(f)  # {name: [[old, new], ...]}
+    src = os.path.join(_build.CSRC, "mean_shift.cu")
+    with open(src) as f:
+        text = f.read()
+    res: dict = {"card": cs.card_line(), "ptxas": {}, "cases": {}}
+    print(res["card"])
+    libs = {"tree": _build.library()}
+    work = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(work, exist_ok=True)
+    for name, edits in variants.items():
+        t = text
+        for old, new in edits:
+            if old not in t:
+                raise SystemExit(f"variant {name}: no {old[:60]!r}")
+            t = t.replace(old, new)
+        path = os.path.join(work, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(t)
+        libs[name], log = hill_lib(path, f"libvariant_{name}.so",
+                                   f"-I{_build.CSRC}")
+        res["ptxas"][name] = ks.ptxas_lines(log, "hill_bf16_wide") + sorted(
+            {line.split("Loss: ")[-1][:100] for line in log.splitlines()
+             if "Potential Performance Loss" in line
+             and "hill_bf16_wide" in line})
+        print(name, json.dumps(res["ptxas"][name]), flush=True)
+    sub = int(cs.FAST_CLUSTER["SEED_SUBSAMPLE"])
+    for where, d, _, x32 in ks.clustered_inputs():
+        if d != cs.CAT_D:
+            continue
+        x = x32.bfloat16()
+        xs = x[::sub]
+        z0 = cuda_seeding.select_seeds_reference(
+            xs, cs.M, 12345 % xs.shape[0])[0].float().contiguous()
+        plain = cms.hill_climb_reference(x, z0)
+        row = {name: {"plain_err": float((call(lib, x, z0) - plain)
+                                         .abs().max()), "device_ms": []}
+               for name, lib in libs.items()}
+        for name in list(libs) + list(libs)[::-1]:
+            row[name]["device_ms"].append(cs.device_ms(
+                functools.partial(call, libs[name], x, z0), "hill_", ks.REPS))
+        res["cases"][where] = row
+        print(where, json.dumps(row), flush=True)
+    if out_file:
+        with open(out_file, "w") as f:
+            json.dump(res, f, indent=1)
 
 
 # ---------------------------------------------------------------------------
@@ -577,32 +683,168 @@ def emulate(x, z0, grid=None, model="al2", big=None, iters=ITERS):
                         wt[kind[0]][:, :, None, 8 * k:8 * k + 8]
                         * xt[kind[1]][:, None, :, 8 * k:8 * k + 8]),
                     (blocks, m, d), model, out=part[:blocks], device=dev)
-        v = torch.zeros(m, d, dtype=F32, device=dev)
-        for q in range(groups):  # blocks q, q + groups, ..., then in order
-            a = torch.zeros(m, d, dtype=F32, device=dev)
-            for b in range(q, grid, groups):
-                a = rn32(a.to(F64) + part[b].to(F64))
-            v = rn32(v.to(F64) + a.to(F64))
-        # a reducing lane's dims: l and l + 32 at d = 64, a float4 at 128
-        lanes = (v.reshape(m, 32, 4) if d == 128
-                 else v.reshape(m, 2, 32).transpose(1, 2)).to(F64)
-        ss = rn32(lanes[..., 0] ** 2)
-        for c in range(1, lanes.shape[-1]):  # fmaf: one rounding each
-            ss = rn32(lanes[..., c] ** 2 + ss.to(F64))
-        for off in (16, 8, 4, 2, 1):
-            ss = rn32(ss.to(F64)
-                      + ss[:, torch.arange(32, device=dev) ^ off].to(F64))
-        den = torch.clamp(rn32(torch.sqrt(ss[:, :1].to(F64))), min=1e-12)
-        z = rn32(v.to(F64) / den.to(F64))
+        z = next_seeds(part, groups)
     return z, s_err
+
+
+def next_seeds(part, groups):
+    """The blocks' partials part [grid, m, d] (float32) summed as the
+    reducing threads sum them (group q adds blocks q, q + groups, ... in
+    order, then the groups are added in order) and each row normalized as
+    the reducing warp does it."""
+    grid, m, d = part.shape
+    dev = part.device
+    v = torch.zeros(m, d, dtype=F32, device=dev)
+    for q in range(groups):  # blocks q, q + groups, ..., then in order
+        a = torch.zeros(m, d, dtype=F32, device=dev)
+        for b in range(q, grid, groups):
+            a = rn32(a.to(F64) + part[b].to(F64))
+        v = rn32(v.to(F64) + a.to(F64))
+    # a reducing lane's dims: l and l + 32 at d = 64, a float4 at 128
+    lanes = (v.reshape(m, 32, 4) if d == 128
+             else v.reshape(m, 2, 32).transpose(1, 2)).to(F64)
+    ss = rn32(lanes[..., 0] ** 2)
+    for c in range(1, lanes.shape[-1]):  # fmaf: one rounding each
+        ss = rn32(lanes[..., c] ** 2 + ss.to(F64))
+    for off in (16, 8, 4, 2, 1):
+        ss = rn32(ss.to(F64)
+                  + ss[:, torch.arange(32, device=dev) ^ off].to(F64))
+    den = torch.clamp(rn32(torch.sqrt(ss[:, :1].to(F64))), min=1e-12)
+    return rn32(v.to(F64) / den.to(F64))
+
+
+# hill_bf16_wide_kernel (bfloat16 at d = 128, csrc/mean_shift.cu): pixels
+# per tile, tiles a block keeps in shared memory for the whole launch,
+# stages of the ring that the other tiles stream through
+BW_TILE, BW_RESIDENT, BW_STAGES = 64, 8, 5
+# its exponent's factor, kappa log2(e) rounded to float32 once
+K2 = float(torch.tensor(KAPPA, dtype=torch.float32)
+           * torch.tensor(1.44269504088896341, dtype=torch.float32))
+
+
+def bw_tile(it: int, k: int, resident: int, streamed: int) -> int:
+    """bw_tile of the kernel: the block's own index of the k-th tile it
+    sums in iteration `it` (its kept tiles first, then its streamed ones,
+    ascending on even iterations and descending on odd ones)."""
+    if k < resident:
+        return k
+    j = k - resident
+    return resident + (streamed - 1 - j if it & 1 else j)
+
+
+def bf16_wide_schedule(n: int, grid: int, it: int) -> list:
+    """The tiles that each of the kernel's `grid` blocks sums in iteration
+    `it`, in its order: per block a list of (tile, place), tile t holding
+    pixels [64 t, 64 t + 64) and place ("kept", k) for the block's k-th
+    resident slot or ("stage", s) for the ring stage that the producer
+    loads it into (the q-th streamed tile of the launch, q = it * streamed
+    + j, goes to stage q % BW_STAGES)."""
+    tiles = -(-n // BW_TILE)
+    out = []
+    for b in range(grid):
+        mine = (tiles - b + grid - 1) // grid
+        res = min(mine, BW_RESIDENT)
+        streamed = mine - res
+        out.append([(b + bw_tile(it, k, res, streamed) * grid,
+                     ("kept", k) if k < res else
+                     ("stage", (it * streamed + k - res) % BW_STAGES))
+                    for k in range(mine)])
+    return out
+
+
+def bf16_wide_resident_bytes(n: int, grid: int) -> int:
+    """wide_bf16_resident_bytes of the kernel: the bytes of X that the
+    blocks keep in shared memory for the whole launch."""
+    return sum(2 * 128 * min(BW_TILE, n - BW_TILE * t)
+               for block in bf16_wide_schedule(n, grid, 0)
+               for t, (kind, _) in block if kind == "kept")
+
+
+def bf16(v):
+    """v rounded to bfloat16 (nearest even), as float64."""
+    return v.to(torch.bfloat16).to(F64)
+
+
+def emulate_bf16(x, z0, grid=None, model="al2", iters=ITERS, chunk=16):
+    """hill_bf16_wide_kernel's arithmetic (bfloat16 X at d = 128), `iters`
+    iterations from z0: S = bf16(Z) X^T in wgmma steps of 16 dims (exact
+    products of bf16 values, each step added to the accumulator under
+    `model`, as in `emulate`), W = bf16(2^(K2 S)) with K2 S rounded to
+    float32 (the kernel's ex2.approx, at most 2 ulp off, taken as exact:
+    2^y rounded to float32 on the CPU, torch's exp2 on the card), each
+    block's W X over its tiles in the kernel's schedule
+    (bf16_wide_schedule: a tile's four steps of 16 pixels in order, the
+    block's tiles in its order for the iteration), the partials summed and
+    the rows normalized as the kernel's consumers do (next_seeds, 4 groups
+    of blocks a consumer warpgroup).  `grid` is the plan's blocks (one an
+    SM by default); `chunk` the blocks emulated at once.  x [n, 128]
+    (bfloat16 values, any float dtype), z0 [m, 128]; W's exp as in
+    `emulate`.  Returns Z (float32)."""
+    x = torch.as_tensor(x).to(F64)
+    z = torch.as_tensor(z0, dtype=F32, device=x.device)
+    (n, d), m, dev = x.shape, z.shape[0], x.device
+    tiles = -(-n // BW_TILE)
+    grid = grid or min(SMS, tiles)
+    groups = 4 * -(-m // 64)
+    xp = torch.zeros(tiles * BW_TILE, d, dtype=F64, device=dev)
+    xp[:n] = bf16(x)
+    xt = xp.reshape(tiles, BW_TILE, d)
+    for it in range(iters):
+        zb = bf16(z.to(F64))
+        s = torch.zeros(m, tiles * BW_TILE, dtype=F32, device=dev)
+        for p0 in range(0, tiles * BW_TILE, 4096):
+            cols = slice(p0, p0 + 4096)
+            acc = torch.zeros(m, xp[cols].shape[0], dtype=F32, device=dev)
+            for kk in range(d // 16):
+                dims = slice(16 * kk, 16 * kk + 16)
+                acc = step(acc, zb[:, None, dims] * xp[None, cols, dims],
+                           model)
+            s[:, cols] = acc
+        y = rn32(K2 * s.to(F64))
+        w = torch.exp2(y) if y.is_cuda else rn32(torch.exp2(y.to(F64)))
+        wt = bf16(w.to(F64)).reshape(m, tiles, BW_TILE)
+        sched = bf16_wide_schedule(n, grid, it)
+        part = torch.zeros(grid, m, d, dtype=F32, device=dev)
+        for b0 in range(0, grid, chunk):
+            blocks = sched[b0:b0 + chunk]
+            acc = torch.zeros(len(blocks), m, d, dtype=F32, device=dev)
+            for k in range(max(len(bl) for bl in blocks)):
+                has = torch.tensor([k < len(bl) for bl in blocks],
+                                   device=dev)
+                tl = torch.tensor([bl[min(k, len(bl) - 1)][0]
+                                   for bl in blocks], device=dev)
+                for kc in range(BW_TILE // 16):
+                    px = slice(16 * kc, 16 * kc + 16)
+                    ws = wt[:, tl, px].permute(1, 0, 2)       # [B, m, 16]
+                    xs = xt[tl, px].transpose(1, 2)           # [B, d, 16]
+                    new = step(acc, ws[:, :, None, :] * xs[:, None], model)
+                    acc = torch.where(has[:, None, None], new, acc)
+            part[b0:b0 + len(blocks)] = acc
+        z = next_seeds(part, groups)
+    return z
 
 
 def emulate_file(path: str, models: list[str]) -> None:
     """The emulation against the kernel results saved in `path`: the d =
     64 survey's builds by grouping, or this tree's kernel (`time --crops`,
-    with the plan's grid)."""
+    with the plan's grid; float32, or bfloat16 at d = 128, held to the
+    plain version)."""
     saved = np.load(path)
     x, z0 = torch.from_numpy(saved["x"]), torch.from_numpy(saved["z0"])
+    if "bf16" in saved:
+        kernel = torch.from_numpy(saved["this"])
+        plain = torch.from_numpy(saved["plain"])
+        for model in models:
+            t = time.perf_counter()
+            z = emulate_bf16(x, z0, int(saved["grid"]), model)
+            print(f"{os.path.basename(path)} (bfloat16, d = 128), model "
+                  f"{model}: emulation - kernel "
+                  f"{(z - kernel).abs().max():.3e} "
+                  f"({int((z != kernel).sum())} of {z.numel()} values "
+                  f"differ), emulation - plain {(z - plain).abs().max():.3e}"
+                  f", kernel - plain {(kernel - plain).abs().max():.3e} "
+                  f"({time.perf_counter() - t:.0f} s)", flush=True)
+        return
     z64 = torch.from_numpy(saved["z64"]).to(F64)
     d = x.shape[1]
     grid = int(saved["grid"]) if "grid" in saved else None
@@ -639,6 +881,9 @@ def main(argv=None) -> None:
     tm.add_argument("--out", default=None)
     tm.add_argument("--crops", default=None,
                     help="a directory for the 128^2 float32 crops")
+    va = sub.add_parser("variants")
+    va.add_argument("edits", help="JSON: {name: [[old, new], ...]}")
+    va.add_argument("--out", default=None)
     em = sub.add_parser("emulate")
     em.add_argument("file")
     em.add_argument("--model", nargs="+", default=["al2"])
@@ -647,6 +892,8 @@ def main(argv=None) -> None:
         survey(args.out)
     elif args.cmd == "time":
         time_trees(args.parent, args.clocks, args.out, args.crops)
+    elif args.cmd == "variants":
+        time_variants(args.edits, args.out)
     else:
         emulate_file(args.file, args.model)
 

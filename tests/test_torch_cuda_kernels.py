@@ -481,7 +481,12 @@ def test_launch_configs_at_width_128(card):
     warpgroups and one producer warpgroup, one block an SM, with Z's small
     part (64 KB), two stages of a 32-pixel tile's four split copies, two
     raw tiles in flight and the stages' four mbarriers (230,432 bytes of
-    shared memory), the bf16 hill climb's one half of 7 warps; the float32
+    shared memory), nothing kept on chip across iterations; the bf16 hill
+    climb's two consumer warpgroups and one producer warpgroup, one block
+    an SM, with a 1 KB alignment margin, a ring of five and eight resident
+    64-pixel tiles of 16 KB, the reduction's 4 KB and 18 mbarriers
+    (218,256 bytes), each block keeping 8 tiles for the whole launch
+    (22% of X at the frame, all of it at both crops); the float32
     assignment one warpgroup a block, the bf16 two; every block resident
     at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
@@ -489,19 +494,30 @@ def test_launch_configs_at_width_128(card):
     seed = cuda_seeding.launch_config(x)
     assert seed["threads"] == 256 and seed["grid"] == sms
     assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * WIDE * 4
-    for dtype, threads, assign_threads in zip(DTYPES, (3 * 128, 7 * 32),
-                                              (128, 256)):
+    for dtype, assign_threads in zip(DTYPES, (128, 256)):
         hill = cms.hill_climb_config(x.to(dtype), 100)
-        assert hill["threads"] == threads
-        assert 1 <= hill["grid"] <= hill["blocks_per_sm"] * sms
+        assert hill["threads"] == 3 * 128
+        assert cms.hill_climb_config(x.to(dtype), 64)["threads"] == 2 * 128
         assert hill["smem_bytes"] <= 232448
+        assert hill["blocks_per_sm"] == 1 and hill["grid"] == sms
         if dtype == torch.float32:
-            assert hill["blocks_per_sm"] == 1 and hill["grid"] == sms
             assert hill["smem_bytes"] == (4 * (128 * WIDE + 2 * 4 * 32 * WIDE
                                                + 2 * 32 * (WIDE + 4))
                                           + 8 * 4)
-            assert cms.hill_climb_config(x, 64)["threads"] == 2 * 128
             assert hill["x_on_chip_bytes"] == 4 * (2 + 2 * 4) * 32 * WIDE
+            assert hill["x_resident_bytes"] == 0
+        else:
+            tile = 64 * WIDE * 2
+            assert hill["smem_bytes"] == (1024 + (5 + 8) * tile + 4 * 8 * WIDE
+                                          + 8 * (2 * 5 + 8))
+            assert hill["x_on_chip_bytes"] == (5 + 8) * tile
+            # every block holds 36 or 37 tiles at the frame, 8 of them kept
+            assert hill["x_resident_bytes"] == sms * 8 * tile
+            for side in (224, 128):  # 6 or 2 tiles a block: all kept
+                crop = x[:side * side].to(dtype)
+                plan = cms.hill_climb_config(crop, 100)
+                assert plan["grid"] == sms
+                assert plan["x_resident_bytes"] == side * side * WIDE * 2
         assign = cms.assign_labels_config(x.to(dtype), 100)
         assert assign["threads"] == assign_threads
         assert assign["blocks_per_sm"] >= 1
@@ -703,13 +719,23 @@ def test_seeding_at_width_128_past_the_lazy_limit(card, dtype):
     (128 * 128, 65),        # the 128^2 crop: about 4 tiles a block
     (224 * 224 + 9, 100),   # about 12 tiles a block, ragged
     (480 * 640 - 3, 128),   # the frame: 73 tiles a block, ragged
+    # against the bf16 kernel's 64-pixel tiles: 8 kept on chip a block,
+    # the rest streamed through a ring of five stages
+    (64 * 100 + 5, 100),          # fewer tiles than SMs, the last ragged
+    (64 * 132 * 8, 64),           # 8 tiles a block, all kept, none streamed
+    (64 * (132 * 8 + 5) + 3, 1),  # 6 blocks stream one tile, the rest none
+    (64 * 132 * 11 + 17, 65),     # 3 or 4 streamed a block: iterations
+    (64 * 132 * 10 + 192, 128),   # start on every stage (3 and 2 streamed)
 ])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_hill_climb_kernel_at_width_128(card, dtype, n, m, misaligned):
     """Ragged against the float32 kernel's 32-pixel tiles (loaded two ahead
     into a ring of two, split one ahead into two stages) and the bf16
-    kernel's 128; m = 1 to 128 (one and two warpgroups, 64 and 65 either
-    side); a block with one tile, with a few and with many."""
+    kernel's 64-pixel tiles (8 a block kept in shared memory for the whole
+    launch, the rest streamed through a ring of five stages, in turn up
+    and down); m = 1 to 128 (one and two warpgroups, 64 and 65 either
+    side); a block with one tile, with a few and with many; blocks that
+    keep every tile and blocks that stream some."""
     x = on_card(card, clustered(n, WIDE, seed=32)[0], dtype, misaligned)
     pick = np.random.RandomState(33).choice(n, m, replace=False)
     z0 = x[torch.from_numpy(pick).to(card)].float()

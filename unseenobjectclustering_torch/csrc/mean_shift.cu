@@ -2,23 +2,26 @@
 // over the converged seeds, and the fused pixel assignment + histograms.
 //
 // Replace the TPU kernels in unseenobjectclustering_tpu/ops/pallas_mean_shift.py:
-//   hill_tf32_kernel,
-//   hill_bf16_kernel    <- _hill_climb_kernel / hill_climb_pallas
+//   hill_tf32_kernel, hill_tf32_wide_kernel,
+//   hill_bf16_kernel, hill_bf16_wide_kernel
+//                       <- _hill_climb_kernel / hill_climb_pallas
 //   cc_kernel           <- _cc_kernel / connected_components_pallas
 //   assign_tf32_kernel,
 //   assign_bf16_kernel  <- _assign_kernel / assign_labels_pallas
 //
 // The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
 // of every recipe) or d = 128 (2 * NUM_UNITS: the RGB-D cat fusion), each
-// width its own instantiation; the C entry points take d and refuse any
-// other width.  The hill climb and the assignment stream X through a
-// cp.async ring of pixel tiles and run their products on the tensor cores
-// in both modes: float32 as split TF32 on wgmma (about fp32 accuracy),
-// bfloat16 on mma.sync (hill climb) or wgmma (assignment).  The assignment
+// width its own instantiation or kernel; the C entry points take d and
+// refuse any other width.  The hill climb and the assignment stream X
+// through a ring of pixel tiles (cp.async, or TMA for the bf16 hill climb
+// at d = 128) and run their products on the tensor cores in both modes:
+// float32 as split TF32 on wgmma (about fp32 accuracy), bfloat16 on
+// mma.sync (hill climb at d = 64) or wgmma (the rest).  The assignment
 // re-checks the few pixels whose best two labels are nearly tied with the
 // exact fp32 FMA chain; see its section.  What changes with the width is
 // said in each section.
 #include <math.h>
+#include <cuda.h>  // CUtensorMap
 #include <stdint.h>
 
 #include <algorithm>
@@ -30,7 +33,7 @@ namespace {
 constexpr int kMaxSeeds = 128;
 
 // bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
-// bf16 hill climb: the products of bf16 values
+// bf16 hill climb at d = 64: the products of bf16 values
 // are exact and the sums fp32, in the tensor cores' order.  Warp w owns
 // seed rows [16w, 16w + 16) and keeps their Z fragments in registers.  X
 // tiles sit in shared memory as bf16 with a row pitch of d + 8 elements
@@ -218,26 +221,76 @@ __device__ __forceinline__ void mma_similarity(
 //    the plain float32 version's 128 * 2^-24 = 7.6e-6.  W X's error per
 //    tile is no larger than at d = 64, and its accumulator takes as many
 //    CUDA-core adds (two groups per 32-pixel tile).
-//  * bfloat16 X: mma.sync m16n8k16 (hill_bf16_kernel), two halves of
-//    ceil(m/16) warps, each half owning 64 pixels of a tile; Z is rounded
-//    to bf16 for the first product and W before the second, as the TPU
-//    kernel did.  The halves' sums are added in shared memory.  At d = 128
-//    a warp's Z fragments and accumulators double (96 registers), past the
-//    128 a thread may hold at 512 threads, so there is one half of
-//    ceil(m/16) warps (at most 256 threads), each warp taking both 64-pixel
-//    halves of every tile in turn.
+//  * bfloat16 X at d = 64: mma.sync m16n8k16 (hill_bf16_kernel), two
+//    halves of ceil(m/16) warps, each half owning 64 pixels of a tile; Z is
+//    rounded to bf16 for the first product and W before the second, as the
+//    TPU kernel did.  The halves' sums are added in shared memory.
+//  * bfloat16 X at d = 128 (hill_bf16_wide_kernel), for the RGB-D cat
+//    fusion's embeddings in fast mode.  Bounds on the H100 (989 TFLOP/s of
+//    bf16, 3.35 TB/s), m = 100, 10 iterations: operations 4*m*n*d, 157 GFLOP
+//    at the 480x640 frame (0.159 ms; 0.203 for the 128 seed rows that two
+//    m64 warpgroups compute), 25.7 at 224^2 (0.026; 0.033), 8.4 at 128^2
+//    (0.0085; 0.011); and X re-read every iteration: 78.6 MB at the frame,
+//    786 MB over 10 iterations (0.235 ms, the binding bound there: the
+//    50 MB L2 does not hold X), 12.8 MB at 224^2 and 4.2 MB at 128^2 (in
+//    L2).  The design, by what it buys:
+//    - Tensor-core rate.  The block is ceil(m/64) consumer warpgroups, each
+//      owning 64 seed rows with bf16(Z) as wgmma A fragments in registers
+//      (8 k-chunks of 16 dims, 32 registers), and a producer warpgroup.
+//      Its first thread loads each 64-pixel tile by TMA as two boxes
+//      of 64 pixels x 64 dims (128-byte rows, 128-byte swizzle) into a
+//      ring of kBWStages stages with full and empty mbarriers.  A consumer
+//      runs S = Z X^T as 8 wgmma m64n64k16 with B = the tile read K-major,
+//      turns the accumulators into W = bf16(exp(kappa S)) as A fragments in
+//      registers (the m64 accumulator layout is the A layout), and runs acc
+//      += W X as 4 wgmma m64n128k16 with B = the same tile read MN-major
+//      (the transpose flag of 16-bit types): the tile lands once, in one
+//      layout.  The producer is a whole warpgroup (registers are given
+//      out by warpgroups: a lone producer warp left 168 a thread and
+//      spills), so setmaxnreg gives the consumers 232 and it keeps 40.
+//    - Overlap.  A consumer issues the next tile's S before this tile's W X
+//      and computes the next W on the CUDA cores while W X runs on the
+//      tensor cores; the two warpgroups interleave freely (taking turns
+//      on named barriers gained nothing).  exp is taken as ex2.approx(k2
+//      S), k2 = kappa log2(e) rounded to fp32: a MUFU op and a multiply
+//      where expf takes about ten instructions (on the H100, 0.46 ms at
+//      the frame with expf against 0.34).  The two W buffers swap roles
+//      over a loop of two tiles a turn: a copy between them let ptxas
+//      serialize the wgmmas (0.43 ms).
+//    - The fixed cost of an iteration.  Each consumer warp loads its Z
+//      rows with 16-byte loads (a row's 16 dims of a k-chunk over 4 lanes)
+//      and builds its fragments with shuffles, with no block-wide staging;
+//      the accumulators go straight to the block's partial as float2s
+//      (whole 32-byte sectors); each row of the next Z is reduced by every
+//      consumer, a float4 a lane, in groups of blocks (reduce_row_wide);
+//      the grid barriers span the consumers while the producer loads the
+//      next iteration's first tiles.
+//    - Bytes.  A block keeps its first kBWResident tiles in shared memory
+//      for the whole launch (22% of X at the frame: 17.3 MB over 132
+//      SMs; all of X at both crops), loaded once; the rest stream through
+//      the ring, in ascending order on even iterations and descending on
+//      odd ones, so that an iteration starts on the tiles that the last
+//      one read last, which L2 still holds.
+//    Rounding: Z to bf16 (nearest even) for S; S summed by the tensor
+//    cores in fp32 (products of bf16 are exact); W = bf16(2^(k2 S)) with
+//    k2 S rounded to fp32; W X summed in fp32.  Before W's rounding to
+//    bf16, its error against exp(kappa S) is below 2.1e-6 of W: k2's
+//    rounding (2^-24 of |k2 S| <= 28.9, times ln 2: 1.2e-6), k2 S's
+//    (2^-20 absolute: 6.6e-7) and ex2.approx's own (2 ulp, 2.4e-7), where
+//    the plain version's expf(kappa S) is within about 1.2e-6; both are
+//    far below bf16's half ulp, 2^-9 of W, so only the few W that lie that
+//    close to a rounding boundary round the other way.  The order of
+//    every sum is fixed, so the same input gives bitwise the same Z: a
+//    block's tiles in the order above (its resident tiles, then its
+//    streamed ones), each tile's 16-pixel k-steps in order; the blocks'
+//    partials in reduce_row_wide's groups.
 // ---------------------------------------------------------------------------
 constexpr int kHillTile = 128;        // pixels per X tile
 constexpr int kHalfTile = kHillTile / 2;
 constexpr int kStages = 3;            // bf16 X tiles in flight per block
 constexpr int kTf32Stages = 2;        // float32 X tiles in flight per block
-// bf16 hill climb: halves of a block, its most threads
-__host__ __device__ constexpr int bf16_halves(int d) {
-  return d == 64 ? 2 : 1;
-}
-__host__ __device__ constexpr int bf16_threads(int d) {
-  return bf16_halves(d) * 32 * (kMaxSeeds / 16);
-}
+// bf16 hill climb at d = 64: two halves of at most kMaxSeeds / 16 warps
+constexpr int kBf16Threads = 2 * 32 * (kMaxSeeds / 16);
 template <int kD>
 constexpr int kRedFloats = 16 * kD;   // per-group sums of a reduced row
 constexpr int kCore = 128;            // bytes of a core matrix (8 x 16 B)
@@ -442,9 +495,9 @@ __device__ __forceinline__ void split_pixels(const float* xs, unsigned* buf) {
     split_store<kD, kPx, true>(buf, e, split_load<kD, kPx, true>(xs, e));
 }
 
-// One warp's state and per-tile work, bfloat16 X of width kD.
-template <int kD>
+// One warp's state and per-tile work, bfloat16 X of width 64.
 struct HillBF16 {
+  static constexpr int kD = 64;
   static constexpr int kPitch = kMmaPitch<kD>;
   unsigned za[kD / 16][4];  // A fragments of bf16(Z), per k-chunk of 16
 
@@ -454,7 +507,7 @@ struct HillBF16 {
   __device__ __forceinline__ void load_seeds(const float* z, int m, int r0,
                                              int lane, __nv_bfloat16* zs) {
     // 16 rows per warp of a half
-    const int rows = blockDim.x / (2 * bf16_halves(kD));
+    const int rows = blockDim.x / 4;
     for (int e = threadIdx.x; e < rows * kD; e += blockDim.x) {
       const int s = e / kD, j = e % kD;
       zs[s * kPitch + j] =
@@ -978,6 +1031,12 @@ __device__ __forceinline__ void consumer_grid_barrier(unsigned* arrived,
 // stage (7-11); and the first producer thread's cycles summed over the
 // iteration's tiles in the wait for their loads, in the wait for a free
 // stage, in the split and in the release and the next load (12-15).
+// hill_bf16_wide_kernel records marks 0-6 the same way, its consumer
+// thread 0's cycles summed over the tiles in the wait for a tile to land,
+// from issuing the next tile's S and this tile's W X to the end of S, in
+// W's exp, in the wait for W X and in the release of the stage (7-11), and
+// its producer thread's cycles in the wait for a free stage and in
+// issuing the loads (12, 13).
 #ifdef HILL_CLOCKS
 constexpr int kClockBlocks = 160, kClockIters = 16, kHillMarks = 16;
 __device__ long long hill_clocks[kClockBlocks][kClockIters][kHillMarks];
@@ -1235,23 +1294,22 @@ hill_tf32_wide_kernel(const float* __restrict__ x, int n, int m, float kappa,
   }
 }
 
-// As hill_tf32_kernel, for bf16 X on mma.sync; blockDim.x = 32 *
-// bf16_halves(kD) * ceil(m / 16).  Shared memory: the ring of tiles, the
-// second half's sums [16 * groups][kD] (two halves only), the reduction
-// scratch, bf16(Z) [16 * groups][kD + 8].
-template <int kD>
-__global__ void __launch_bounds__(bf16_threads(kD), 1)
+// As hill_tf32_kernel, for bf16 X of width 64 on mma.sync; blockDim.x =
+// 64 * ceil(m / 16).  Shared memory: the ring of tiles, the second half's
+// sums [16 * groups][kD], the reduction scratch, bf16(Z) [16 * groups][kD
+// + 8].
+__global__ void __launch_bounds__(kBf16Threads, 1)
 hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
                  float kappa, int max_iters, float* __restrict__ partial,
                  unsigned* __restrict__ arrived, float* __restrict__ z) {
-  constexpr int kHalves = bf16_halves(kD);
+  constexpr int kD = 64;
   constexpr int kPitch = kMmaPitch<kD>;
   constexpr int kStageElems = kHillTile * kPitch;
   extern __shared__ __align__(16) float bf16_smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(bf16_smem);
   float* other = bf16_smem + kStages * kStageElems / 2;
-  const int groups = blockDim.x / (32 * kHalves);
-  float* red = other + (kHalves - 1) * 16 * groups * kD;
+  const int groups = blockDim.x / 64;
+  float* red = other + 16 * groups * kD;
   __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(red + kRedFloats<kD>);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int half = warp / groups;
@@ -1265,7 +1323,7 @@ hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
     issue_load<__nv_bfloat16, kD, kPitch, kStages, kHillTile>(x, n, q, mine,
                                                               total, ring);
   for (int it = 0; it < max_iters; ++it) {
-    HillBF16<kD> w;
+    HillBF16 w;
     w.load_seeds(z, m, r0, lane, zs);
     float acc[kD / 8][4];
 #pragma unroll
@@ -1279,25 +1337,478 @@ hill_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n, int m,
       __syncthreads();  // ... for every thread; tile q-1 is done with
       issue_load<__nv_bfloat16, kD, kPitch, kStages, kHillTile>(
           x, n, q + kStages - 1, mine, total, ring);
-      // a warp takes its half of the tile, or with one half both in turn
-#pragma unroll
-      for (int h = 0; h < 2 / kHalves; ++h)
-        w.tile(ring + (q % kStages) * kStageElems, half + h, lane, kappa,
-               acc);
+      // a warp takes its half of the tile
+      w.tile(ring + (q % kStages) * kStageElems, half, lane, kappa, acc);
     }
 
     float* out = partial + static_cast<size_t>(blockIdx.x) * m * kD;
-    if (kHalves == 2) {
-      // the two halves' sums, added in a fixed order, are the partial
-      if (half == 1) store_rows<kD>(acc, r0, 16 * groups, nullptr, other);
-      __syncthreads();
-      if (half == 0) store_rows<kD>(acc, r0, m, other, out);
-    } else {
-      store_rows<kD>(acc, r0, m, nullptr, out);
-    }
+    // the two halves' sums, added in a fixed order, are the partial
+    if (half == 1) store_rows<kD>(acc, r0, 16 * groups, nullptr, other);
+    __syncthreads();
+    if (half == 0) store_rows<kD>(acc, r0, m, other, out);
     next_seeds<kD>(partial, m, red, z, arrived, barriers);
   }
   cp_async_wait<0>();
+}
+
+// bfloat16 at d = 128 (hill_bf16_wide_kernel; see the section's comment):
+// pixels per tile, dims per TMA box (one 128-byte swizzled row a pixel),
+// the bytes of a box and of a tile, the ring's stages, the tiles a block
+// keeps in shared memory for the whole launch, the producer's threads (a
+// warpgroup, so that setmaxnreg can give its registers to the consumers:
+// the launch gives every thread the kernel's count, 168 at 384 threads,
+// and 2 * kBWConsumerRegs + kBWProducerRegs <= 3 * 168).
+constexpr int kBWTile = 64;
+constexpr int kBWBox = 64;
+constexpr int kBWBoxBytes = kBWTile * kBWBox * 2;
+constexpr int kBWTileBytes = 2 * kBWBoxBytes;
+constexpr int kBWStages = 5;
+constexpr int kBWResident = 8;
+constexpr int kBWProducer = 128;
+constexpr int kBWThreads = 2 * 128 + kBWProducer;
+constexpr int kBWProducerRegs = 40;
+constexpr int kBWConsumerRegs = 232;
+
+// d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 16 bf16
+// from registers, the m16n8k16 A layout per warp) * b (16 x 64 bf16,
+// K-major in shared memory, described by desc); with accumulate false, d
+// = a * b.  Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t desc,
+                                           bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(static_cast<int>(accumulate)));
+}
+
+// d (64 x 128, fp32, the m64n128 accumulator layout) += a (64 x 16 bf16
+// from registers) * b (16 x 128 bf16, MN-major in shared memory: the
+// transpose flag).  Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16_n128_mn(float (&d)[64],
+                                                   const unsigned (&a)[4],
+                                                   uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The descriptor of an operand in shared memory with the 128-byte swizzle
+// (atoms of 8 rows of 128 bytes, 1024-byte aligned): p its start (an
+// atom's, or 32 bytes a k-step into a K-major atom), lbo the bytes between
+// atoms along M/N (MN-major; unused K-major), sbo the bytes between 8-row
+// groups.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned p, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((p >> 4) & 0x3FFFu) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Box {c0 (dims), c1 (pixels)} of the tensor map -> shared memory at dst,
+// completing on bar; rows past n land as zeros.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
+                                             int c0, int c1, void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The k-th tile (0 <= k < resident + streamed) that a block sums in
+// iteration it, as the block's own tile index i (the tile blockIdx.x + i *
+// gridDim.x): its resident tiles 0 .. resident - 1 first, then its
+// streamed ones, ascending on even iterations and descending on odd ones.
+__device__ __forceinline__ int bw_tile(int it, int k, int resident,
+                                       int streamed) {
+  if (k < resident) return k;
+  const int j = k - resident;
+  return resident + ((it & 1) ? streamed - 1 - j : j);
+}
+
+// Z [m, 128] float32 -> bf16(Z) rows [r0, r0 + 16) as wgmma A fragments
+// per k-chunk of 16 dims (zero past m).  Lane (g, t) loads dims [16 kk +
+// 4 t, + 4) of rows r0 + g and r0 + g + 8 (a row's 64 bytes over 4 lanes)
+// and takes the pairs that its fragments hold, (2 t, 2 t + 1) and (2 t +
+// 8, 2 t + 9), from lanes 4 g + t / 2 and 4 g + 2 + t / 2.
+__device__ __forceinline__ void load_wide_bf16_seeds(const float* z, int m,
+                                                     int r0, int lane,
+                                                     unsigned (&za)[8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  float4 v[8][2];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      v[kk][h] = r < m ? __ldcg(reinterpret_cast<const float4*>(
+                             z + r * kWideD + 16 * kk + 4 * t))
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  const int lo = 4 * g + t / 2, hi = lo + 2;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned p0 = pack_bf16(v[kk][h].x, v[kk][h].y);
+      const unsigned p1 = pack_bf16(v[kk][h].z, v[kk][h].w);
+      const unsigned x0 = __shfl_sync(0xFFFFFFFFu, p0, lo);
+      const unsigned x1 = __shfl_sync(0xFFFFFFFFu, p1, lo);
+      const unsigned y0 = __shfl_sync(0xFFFFFFFFu, p0, hi);
+      const unsigned y1 = __shfl_sync(0xFFFFFFFFu, p1, hi);
+      za[kk][h] = (t & 1) ? x1 : x0;
+      za[kk][2 + h] = (t & 1) ? y1 : y0;
+    }
+}
+
+// S (64 seeds x 64 pixels) = Z X^T over the tile at shared address xs:
+// k-chunk kk is dims [16 kk, 16 kk + 16), 32 bytes into box kk / 4's rows.
+__device__ __forceinline__ void bw_similarity(float (&s)[32],
+                                              const unsigned (&za)[8][4],
+                                              unsigned xs) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_bf16(s, za[kk],
+               sw128_desc(xs + (kk / 4) * kBWBoxBytes + (kk % 4) * 32, 0,
+                          1024),
+               kk > 0);
+}
+
+// 2^a on the MUFU (flushes denormal results to 0; at most 2 ulp off).
+__device__ __forceinline__ float ex2_approx(float a) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(a));
+  return r;
+}
+
+// W = bf16(exp(kappa S)) = bf16(2^(k2 S)), k2 = kappa log2(e) rounded to
+// float32 once, as the A operand over pixel chunks of 16 (the m64n64
+// accumulator's columns 16 kc + (2 t, 2 t + 1, 2 t + 8, 2 t + 9) are the A
+// fragment's k columns).
+__device__ __forceinline__ void bw_weights(const float (&s)[32], float k2,
+                                           unsigned (&w)[4][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[kc][i] = pack_bf16(ex2_approx(k2 * s[8 * kc + 2 * i]),
+                           ex2_approx(k2 * s[8 * kc + 2 * i + 1]));
+}
+
+
+// acc (64 seeds x 128 dims) += W X over the tile at xs: k-chunk kc is
+// pixels [16 kc, 16 kc + 16), two 8-row groups 1024 bytes apart; its 128
+// dims are the two boxes, kBWBoxBytes apart.
+__device__ __forceinline__ void bw_accumulate(float (&acc)[64],
+                                              const unsigned (&w)[4][4],
+                                              unsigned xs) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    wgmma_bf16_n128_mn(acc, w[kc],
+                       sw128_desc(xs + kc * 2048, kBWBoxBytes, 1024));
+}
+
+// d = 128, bfloat16 X (see the section's comment).  xmap: X [n, 128] as a
+// TMA map of 64 x 64 boxes with the 128-byte swizzle; z: [m, 128] float32,
+// Z0 on entry, the result on exit, rows 16-byte aligned; partial:
+// [gridDim.x, m, 128] scratch; arrived as above.  blockDim.x = 128 *
+// ceil(m / 64) consumers + kBWProducer.  Shared memory (from a 1024-byte
+// boundary): the ring of kBWStages tiles, kBWResident resident tiles, the
+// reduction's [8][128] floats, the mbarriers: full[s] (a tile has landed
+// in stage s), empty[s] (every consumer is done with it), loaded[k]
+// (resident tile k has landed, once).  The q-th streamed tile of the
+// launch (q = it * streamed + j) goes to stage q % kBWStages; the producer
+// runs on into the next iteration's tiles while the consumers reduce.
+__global__ void __launch_bounds__(kBWThreads, 1)
+hill_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap, int n, int m,
+                      float kappa, int max_iters, float* __restrict__ partial,
+                      unsigned* __restrict__ arrived, float* __restrict__ z) {
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  unsigned char* ring = bw_smem + (1024 - smem_addr(bw_smem) % 1024) % 1024;
+  unsigned char* resident_tiles = ring + kBWStages * kBWTileBytes;
+  float* red =
+      reinterpret_cast<float*>(resident_tiles + kBWResident * kBWTileBytes);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(red + 8 * kWideD);
+  unsigned long long* empty = full + kBWStages;
+  unsigned long long* loaded = empty + kBWStages;
+  const int consumers = blockDim.x - kBWProducer;
+  const int mine = tiles_of_block<kBWTile>(n);
+  const int resident = min(mine, kBWResident);
+  const int streamed = mine - resident;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBWStages; ++s) {
+      uoc::mbar_init(full + s, 1);
+      uoc::mbar_init(empty + s, consumers);
+    }
+    for (int k = 0; k < kBWResident; ++k) uoc::mbar_init(loaded + k, 1);
+  }
+  __syncthreads();
+
+  if (static_cast<int>(threadIdx.x) >= consumers) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kBWProducerRegs));
+    if (static_cast<int>(threadIdx.x) != consumers) return;
+    const auto load = [&](int i, unsigned char* dst, void* bar) {
+      const int p0 = (static_cast<int>(blockIdx.x) + i * gridDim.x) * kBWTile;
+      uoc::mbar_expect(bar, kBWTileBytes);
+      tma_load_box(dst, &xmap, 0, p0, bar);
+      tma_load_box(dst + kBWBoxBytes, &xmap, kBWBox, p0, bar);
+    };
+    for (int k = 0; k < resident; ++k)
+      load(k, resident_tiles + k * kBWTileBytes, loaded + k);
+    long long spent[2] = {0, 0};  // with HILL_CLOCKS
+    for (int q = 0; q < max_iters * streamed; ++q) {
+      const int s = q % kBWStages, it = q / streamed;
+      const long long c0 = hill_now();
+      if (q >= kBWStages)  // the stage's last tile is done with
+        uoc::mbar_wait(empty + s, (q / kBWStages - 1) & 1);
+      const long long c1 = hill_now();
+      load(bw_tile(it, resident + q % streamed, resident, streamed),
+           ring + s * kBWTileBytes, full + s);
+      spent[0] += c1 - c0;
+      spent[1] += hill_now() - c1;
+      if ((q + 1) % streamed == 0) {  // the iteration's last tile
+        hill_mark(true, it, 12, spent[0]);
+        hill_mark(true, it, 13, spent[1]);
+        spent[0] = spent[1] = 0;
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kBWConsumerRegs));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp;  // rows of this warp; its warpgroup's: warp / 4
+  const int g = lane >> 2, t = lane & 3;
+  const bool me = threadIdx.x == 0;  // the clocked thread
+  const float k2 = kappa * 1.44269504088896341f;  // kappa log2(e)
+  unsigned barriers = 0;
+  for (int it = 0; it < max_iters; ++it) {
+    hill_mark(me, it, 0, hill_now());
+    unsigned za[8][4];
+    load_wide_bf16_seeds(z, m, r0, lane, za);
+    // every register that a wgmma reads is written before the
+    // wgmma.fence: one written between the fence and the wgmma makes
+    // ptxas serialize the wgmmas
+    pin_registers(za);
+    hill_mark(me, it, 1, hill_now());
+    long long spent[5] = {0, 0, 0, 0, 0};  // with HILL_CLOCKS
+    // the k-th tile of this iteration, once it has landed: its address
+    const auto tile_at = [&](int k) {
+      const long long c0 = hill_now();
+      unsigned char* xs;
+      if (k < resident) {
+        uoc::mbar_wait(loaded + k, 0);
+        xs = resident_tiles + k * kBWTileBytes;
+      } else {
+        const int q = it * streamed + k - resident;
+        uoc::mbar_wait(full + q % kBWStages, (q / kBWStages) & 1);
+        xs = ring + (q % kBWStages) * kBWTileBytes;
+      }
+      spent[0] += hill_now() - c0;
+      return smem_addr(xs);
+    };
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    pin_registers(acc);
+    // tile k is done with: free its stage
+    const auto release = [&](int k) {
+      const long long c0 = hill_now();
+      if (k >= resident)
+        uoc::mbar_arrive(empty + (it * streamed + k - resident) % kBWStages);
+      spent[4] += hill_now() - c0;
+    };
+    float s[32];
+    unsigned w[4][4], next[4][4];
+    unsigned xs = tile_at(0);
+    wgmma_fence();
+    bw_similarity(s, za, xs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_registers(s);
+    bw_weights(s, k2, w);
+    pin_registers(w);
+    // Tile k: the next tile's S is issued before this tile's W X (wc), and
+    // the next W (wn) is computed on the CUDA cores while W X runs on the
+    // tensor cores.  The loop takes two tiles a turn so that the two W
+    // buffers swap roles without a copy: ptxas serializes the wgmmas when
+    // a register that one reads may be written while it runs, which a copy
+    // between them allowed (see the section's comment).
+    const auto step = [&](int k, unsigned (&wc)[4][4], unsigned (&wn)[4][4]) {
+      const unsigned xn = tile_at(k + 1);
+      const long long c0 = hill_now();
+      wgmma_fence();
+      bw_similarity(s, za, xn);
+      wgmma_commit();
+      bw_accumulate(acc, wc, xs);
+      wgmma_commit();
+      wgmma_wait<1>();  // the next tile's S has finished
+      pin_registers(s);
+      const long long c1 = hill_now();
+      bw_weights(s, k2, wn);
+      const long long c2 = hill_now();
+      wgmma_wait<0>();  // this tile's W X has finished
+      pin_registers(acc);
+      pin_registers(wc);
+      pin_registers(wn);
+      spent[1] += c1 - c0;
+      spent[2] += c2 - c1;
+      spent[3] += hill_now() - c2;
+      release(k);
+      xs = xn;
+    };
+    // the last tile's W X
+    const auto last = [&](unsigned (&wc)[4][4]) {
+      const long long c0 = hill_now();
+      wgmma_fence();
+      bw_accumulate(acc, wc, xs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_registers(acc);
+      pin_registers(wc);
+      spent[3] += hill_now() - c0;
+      release(mine - 1);
+    };
+    int k = 0;
+    for (; k + 2 < mine; k += 2) {
+      step(k, w, next);
+      step(k + 1, next, w);
+    }
+    if (k + 2 == mine) {
+      step(k, w, next);
+      last(next);
+    } else {
+      last(w);
+    }
+    hill_mark(me, it, 2, hill_now());
+#pragma unroll
+    for (int i = 0; i < 5; ++i) hill_mark(me, it, 7 + i, spent[i]);
+
+    // the block's partial: rows < m of the accumulators, as float2s
+    float* out = partial + static_cast<size_t>(blockIdx.x) * m * kWideD;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        if (r < m)
+          *reinterpret_cast<float2*>(out + r * kWideD + 8 * j + 2 * t) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    hill_mark(me, it, 3, hill_now());
+    consumer_grid_barrier(arrived, ++barriers, consumers);  // partials written
+    hill_mark(me, it, 4, hill_now());
+    for (int r = blockIdx.x; r < m; r += gridDim.x)
+      reduce_row_wide(partial, m, r, consumers, red, z);
+    hill_mark(me, it, 5, hill_now());
+    consumer_grid_barrier(arrived, ++barriers, consumers);  // new Z written
+    hill_mark(me, it, 6, hill_now());
+  }
+}
+
+size_t hill_bf16_wide_smem_bytes() {
+  return 1024 + static_cast<size_t>(kBWStages + kBWResident) * kBWTileBytes +
+         sizeof(float) * 8 * kWideD +
+         sizeof(unsigned long long) * (2 * kBWStages + kBWResident);
+}
+
+// X [n, 128] bf16 (16-byte aligned) as hill_bf16_wide_kernel's TMA map:
+// boxes of 64 dims x 64 pixels, 128-byte swizzle, zeros past n.  The
+// driver's encoder is reached through the runtime (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t wide_bf16_map(const void* x, int n, CUtensorMap* map) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kWideD),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {kWideD * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {kBWBox, kBWTile};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Bytes of X that hill_bf16_wide_kernel's `grid` blocks keep on chip for
+// the whole launch: each block's first kBWResident tiles.
+long long wide_bf16_resident_bytes(int n, int grid) {
+  const int tiles = (n + kBWTile - 1) / kBWTile;
+  long long bytes = 0;
+  for (int b = 0; b < grid; ++b) {
+    const int mine = (tiles - b + grid - 1) / grid;
+    for (int i = 0; i < std::min(mine, kBWResident); ++i)
+      bytes += 2LL * kWideD * std::min(kBWTile, n - (b + i * grid) * kBWTile);
+  }
+  return bytes;
 }
 
 size_t hill_tf32_smem_bytes() {
@@ -1311,32 +1822,31 @@ size_t hill_tf32_wide_smem_bytes() {
          sizeof(unsigned long long) * 2 * kWideStages;
 }
 
-template <int kD>
 size_t hill_bf16_smem_bytes(int groups) {
-  return sizeof(__nv_bfloat16) * kStages * kHillTile * kMmaPitch<kD> +
-         sizeof(float) * (bf16_halves(kD) - 1) * 16 * groups * kD +
-         sizeof(float) * kRedFloats<kD> +
-         sizeof(__nv_bfloat16) * 16 * groups * kMmaPitch<kD>;
+  return sizeof(__nv_bfloat16) * kStages * kHillTile * kMmaPitch<64> +
+         sizeof(float) * 16 * groups * 64 + sizeof(float) * kRedFloats<64> +
+         sizeof(__nv_bfloat16) * 16 * groups * kMmaPitch<64>;
 }
 
-// The launch shape: ceil(m/64) warpgroups per block (float32) or
-// bf16_halves(d) halves of ceil(m/16) warps (bfloat16), as many blocks as
-// can be resident at once (at most one per X tile); the tile's pixels.
+// The launch shape: ceil(m/64) warpgroups per block (at d = 128 one
+// more, the producer), or for bfloat16 at d = 64 two halves of ceil(m/16)
+// warps, as many blocks as can be resident at once (at most one per X
+// tile); the tile's pixels.
 struct HillPlan {
   int grid, per_sm, threads, tile;
   size_t smem;
-  long long x_bytes;  // X held on chip per block
+  long long x_bytes;         // X held on chip per block
+  long long resident_bytes;  // X kept on chip for the whole launch, grid
 };
 
-template <int kD>
 cudaError_t plan_hill_bf16(int dev, int m, HillPlan* p) {
   const int groups = (m + 15) / 16;
-  p->threads = 32 * bf16_halves(kD) * groups;
-  p->smem = hill_bf16_smem_bytes<kD>(groups);
+  p->threads = 64 * groups;
+  p->smem = hill_bf16_smem_bytes(groups);
   p->tile = kHillTile;
-  p->x_bytes = 2LL * kStages * kHillTile * kD;  // the ring of tiles
-  return uoc::blocks_per_sm<hill_bf16_kernel<kD>>(
-      dev, p->threads, p->smem, hill_bf16_smem_bytes<kD>(kMaxSeeds / 16),
+  p->x_bytes = 2LL * kStages * kHillTile * 64;  // the ring of tiles
+  return uoc::blocks_per_sm<hill_bf16_kernel>(
+      dev, p->threads, p->smem, hill_bf16_smem_bytes(kMaxSeeds / 16),
       &p->per_sm);
 }
 
@@ -1348,9 +1858,27 @@ cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
-  if (dtype == uoc::kBF16) {
-    err = d == 64 ? plan_hill_bf16<64>(dev, m, p)
-                  : plan_hill_bf16<128>(dev, m, p);
+  p->resident_bytes = 0;
+  if (dtype == uoc::kBF16 && d == 64) {
+    err = plan_hill_bf16(dev, m, p);
+  } else if (dtype == uoc::kBF16) {
+    // setmaxnreg as for the float32 kernel below
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, hill_bf16_wide_kernel)) !=
+        cudaSuccess)
+      return err;
+    const int groups = (m + 63) / 64;
+    if (attr.numRegs * (groups + 1) <
+        groups * kBWConsumerRegs + kBWProducerRegs)
+      return cudaErrorInvalidConfiguration;
+    p->threads = 128 * groups + kBWProducer;
+    p->smem = hill_bf16_wide_smem_bytes();
+    p->tile = kBWTile;
+    // the ring, the resident tiles
+    p->x_bytes = static_cast<long long>(kBWStages + kBWResident) *
+                 kBWTileBytes;
+    err = uoc::blocks_per_sm<hill_bf16_wide_kernel>(dev, p->threads, p->smem,
+                                                    p->smem, &p->per_sm);
   } else if (d == 64) {
     p->threads = 128 * ((m + 63) / 64);
     p->smem = hill_tf32_smem_bytes();
@@ -1380,6 +1908,8 @@ cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
   if (err != cudaSuccess) return err;
   const int num_tiles = (n + p->tile - 1) / p->tile;
   p->grid = std::max(1, std::min(p->per_sm * sms, num_tiles));
+  if (dtype == uoc::kBF16 && d == 128)
+    p->resident_bytes = wide_bf16_resident_bytes(n, p->grid);
   return cudaSuccess;
 }
 
@@ -1729,31 +2259,6 @@ struct AssignShape {
       sizeof(T) * kStages * kTile * kPitch +
       (kF32 ? 2 * sizeof(float) : sizeof(T)) * kMaxSeeds * kD;
 };
-
-// d (64 x 64, fp32, the m64n64 accumulator layout) += a (64 x 16 bf16 from
-// registers, the m16n8k16 A layout per warp) * b (16 x 64 bf16, K-major in
-// shared memory, described by desc).  Asynchronous, as wgmma_tf32.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
-                                           const unsigned (&a)[4],
-                                           uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
 
 // Z in shared memory as the B operand, in the seed_word layout.  float32
 // keeps a big and a small copy, kMaxSeeds * kD words apart.
@@ -2239,7 +2744,8 @@ bool misaligned(const void* p) {
 // The launch configuration uoc_hill_climb uses for n pixels and m seeds of
 // width d (64 or 128; any other width returns cudaErrorInvalidValue): out
 // = [grid, blocks per SM, threads per block, dynamic shared bytes, bytes
-// of X held on chip per block].
+// of X held on chip per block, bytes of X the grid keeps on chip for the
+// whole launch (bfloat16 at d = 128; 0 for the other kernels)].
 extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
                                    long long* out) {
   if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
@@ -2251,6 +2757,7 @@ extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
   out[4] = p.x_bytes;
+  out[5] = p.resident_bytes;
   return 0;
 }
 
@@ -2280,15 +2787,19 @@ extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
     return static_cast<int>(err);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* xf = static_cast<const float*>(x);
-  if (dtype == uoc::kBF16)
-    err = d == 64 ? uoc::launch_cooperative(hill_bf16_kernel<64>, p.grid,
-                                            p.threads, p.smem, s, xb, n, m,
-                                            kappa, max_iters, partial,
-                                            arrived, z)
-                  : uoc::launch_cooperative(hill_bf16_kernel<128>, p.grid,
-                                            p.threads, p.smem, s, xb, n, m,
-                                            kappa, max_iters, partial,
-                                            arrived, z);
+  if (dtype == uoc::kBF16 && d == 128) {
+    // the map goes into the kernel's parameters by value
+    CUtensorMap map;
+    if ((err = wide_bf16_map(x, n, &map)) != cudaSuccess)
+      return static_cast<int>(err);
+    void* argv[] = {&map, &n, &m, &kappa, &max_iters, &partial, &arrived, &z};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(hill_bf16_wide_kernel), dim3(p.grid),
+        dim3(p.threads), argv, p.smem, s);
+  } else if (dtype == uoc::kBF16)
+    err = uoc::launch_cooperative(hill_bf16_kernel, p.grid, p.threads, p.smem,
+                                  s, xb, n, m, kappa, max_iters, partial,
+                                  arrived, z);
   else
     err = d == 64 ? uoc::launch_cooperative(hill_tf32_kernel, p.grid,
                                             p.threads, p.smem, s, xf, n, m,
@@ -2303,7 +2814,7 @@ extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
 }
 
 #ifdef HILL_CLOCKS
-// The study build's clocks of the last float32 launch at d = 128:
+// The study build's clocks of the last launch at d = 128:
 // [160][16][16] int64 (see hill_mark).
 extern "C" int uoc_hill_clocks(long long* out) {
   return static_cast<int>(

@@ -5,12 +5,15 @@ kernels are in ``csrc/mean_shift.cu``:
 
   * hill_climb: one persistent cooperative launch for all iterations;
     one block per SM sums exp(kappa Z X^T) X over its pixel tiles
-    (loaded by cp.async into a ring, products on the tensor cores: split
-    TF32 on wgmma for float32, bf16 on mma.sync for bfloat16; at d = 128
-    in float32 a producer warpgroup splits the tiles for the consumer
-    warpgroups over mbarriers), then a fixed-order reduction of the
-    blocks' partials + row normalization behind a grid-wide barrier; the
-    [m, n] weights never reach device memory.
+    (loaded into a ring, products on the tensor cores: split TF32 on
+    wgmma for float32, bf16 on mma.sync for bfloat16 at d = 64; at d =
+    128 in float32 a producer warpgroup splits the tiles for the consumer
+    warpgroups over mbarriers, and in bfloat16 a producer warpgroup loads
+    them by TMA for consumer warpgroups that run both products on wgmma
+    from the one tile, each block keeping its first tiles in shared memory
+    for the whole launch), then a fixed-order reduction of the blocks'
+    partials + row normalization behind a grid-wide barrier; the [m, n]
+    weights never reach device memory.
   * connected_components: one block; the epsilon-ball adjacency as
     bitmasks (each pair's exact fp32 FMA chain once, a ballot per row), then
     one warp merges with the labels as membership bitmasks in registers,
@@ -138,14 +141,18 @@ def hill_climb_config(x: torch.Tensor, m: int) -> dict[str, int]:
     """The hill-climb kernel's launch shape for x ([n, d] on the card, d =
     64 or 128) and m seeds: grid, blocks per SM, threads per block, dynamic
     shared-memory bytes, bytes of X held on chip per block (its ring of
-    tiles, and for float32 the split-TF32 copies: the current tile's at d
-    = 64, two stages of them at d = 128)."""
+    tiles; for float32 the split-TF32 copies: the current tile's at d = 64,
+    two stages of them at d = 128; for bfloat16 at d = 128 also its
+    resident tiles), and the bytes of X that the grid keeps on chip for the
+    whole launch (bfloat16 at d = 128, else 0: X is read from L2 or device
+    memory every iteration but for these)."""
     _check_shapes("hill_climb", m, x.shape[1])
     return _build.plan(x.device, "uoc_hill_climb_plan",
                        _build.dtype_code(x, "hill_climb"), x.shape[0], m,
                        x.shape[1],
                        names=("grid", "blocks_per_sm", "threads",
-                              "smem_bytes", "x_on_chip_bytes"))
+                              "smem_bytes", "x_on_chip_bytes",
+                              "x_resident_bytes"))
 
 
 # -- connected components ---------------------------------------------------
