@@ -487,14 +487,16 @@ def test_launch_configs_at_width_128(card):
     64-pixel tiles of 16 KB, the reduction's 4 KB and 18 mbarriers
     (218,256 bytes), each block keeping 8 tiles for the whole launch
     (22% of X at the frame, all of it at both crops); the float32
-    assignment one warpgroup a block, the bf16 two; every block resident
-    at once."""
+    assignment (assign_tf32_wide_kernel) two consumer warpgroups and one
+    producer warpgroup, one block an SM, a ring of three 64-pixel tiles of
+    32 KB and Z's split copies (128 KB); the bf16 assignment two
+    warpgroups; every block resident at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     x = torch.zeros(480 * 640, WIDE, device=card)
     seed = cuda_seeding.launch_config(x)
     assert seed["threads"] == 256 and seed["grid"] == sms
     assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * WIDE * 4
-    for dtype, assign_threads in zip(DTYPES, (128, 256)):
+    for dtype, assign_threads in zip(DTYPES, (3 * 128, 256)):
         hill = cms.hill_climb_config(x.to(dtype), 100)
         assert hill["threads"] == 3 * 128
         assert cms.hill_climb_config(x.to(dtype), 64)["threads"] == 2 * 128
@@ -523,6 +525,13 @@ def test_launch_configs_at_width_128(card):
         assert assign["blocks_per_sm"] >= 1
         assert assign["grid"] == assign["blocks_per_sm"] * sms
         assert assign["x_on_chip_bytes"] < assign["smem_bytes"]
+        if dtype == torch.float32:
+            assert assign["blocks_per_sm"] == 1
+            assert assign["stages"] == 3 and assign["tile_pixels"] == 64
+            assert assign["x_on_chip_bytes"] == 3 * 64 * WIDE * 4
+            assert assign["smem_bytes"] == (1024 + 3 * 64 * WIDE * 4
+                                            + 2 * 4 * 128 * WIDE
+                                            + 3 * 4 * 128 + 8 * 9)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -853,3 +862,92 @@ def test_kernel_route_at_width_128_matches_it_on_cpu(card, compute_dtype,
                                  z_valid=torch.from_numpy(z_valid), **kw)
     for name in ("seed_indices", "seed_labels", "labels"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
+# assign_tf32_wide_kernel, the float32 assignment at width 128: a producer
+# warpgroup loads 64-pixel tiles by TMA into a ring of three stages for two
+# consumer warpgroups that take them in turns.
+
+@pytest.mark.parametrize("n", [1, 64 * 132, 224 * 224, FRAME])
+def test_assign_wide_kernel_launch_shape(card, n):
+    """Threads, stages and shared bytes from assign_labels_config: 384
+    threads, at least three stages, at most 227 KB of shared memory, one
+    block an SM and at most one block a tile; the 104-column kernel up to
+    104 seeds, the 128-column one above."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    x = torch.zeros(n, WIDE, device=card)
+    plan = cms.assign_labels_config(x, 100)
+    assert plan["threads"] == 3 * 128 and plan["stages"] >= 3
+    assert plan["smem_bytes"] <= 232448 and plan["blocks_per_sm"] == 1
+    assert plan["grid"] == min(sms, -(-n // plan["tile_pixels"]))
+    for m, cols in ((1, 104), (100, 104), (104, 104), (105, 128), (128, 128)):
+        assert (cms.assign_labels_config(x, m)["kernel"]
+                == f"assign_tf32_wide_kernel<{cols}>")
+
+
+def wide_seeds(card, m, seed):
+    """m float32 seeds hill-climbed from pixels of a 5000-pixel draw around
+    the centers of clustered(., WIDE, seed), and their labels."""
+    pool = torch.from_numpy(clustered(5000, WIDE, seed=seed)[0]).to(card)
+    z = converged(card, pool, m)
+    return z, cms.connected_components_reference(z, 0.04)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 5001, 224 * 224, FRAME])
+@pytest.mark.parametrize("m", [1, 64, 65, 100, 128])
+def test_assign_wide_kernel_shapes(card, n, m):
+    """Pixels from one to the frame against 1 to 128 seeds (the 104- and
+    the 128-column kernel), with a depth mask: labels and both histograms
+    equal to the plain version's."""
+    xf, z_valid = clustered(n, WIDE, seed=50)
+    z, slab = wide_seeds(card, m, 50)
+    (_, counts, _), _ = assign_both(torch.from_numpy(xf).to(card), z, slab,
+                                    torch.from_numpy(z_valid).to(card))
+    assert float(counts.sum()) == n
+
+
+@pytest.mark.parametrize("n", [129, 5001, FRAME])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_assign_wide_kernel_without_a_mask(card, n, misaligned):
+    """No z_valid (a COLOR frame), rows on and off a 16-byte boundary (the
+    wrapper copies rows off it, as the TMA map needs an aligned base): the
+    valid counts are the counts."""
+    xf, _ = clustered(n, WIDE, seed=51)
+    x = on_card(card, xf, torch.float32, misaligned)
+    z, slab = wide_seeds(card, 100, 51)
+    (_, counts, valid), _ = assign_both(x, z, slab)
+    assert torch.equal(valid, counts) and float(counts.sum()) == n
+
+
+@pytest.mark.parametrize("n", [5001, 224 * 224])
+def test_assign_wide_kernel_exact_tie(card, n):
+    """Seed 5 an exact copy of seed 2 under another label: the pixels
+    nearest to them are re-checked and take seed 2's label."""
+    xf, _ = clustered(n, WIDE, seed=52)
+    x = torch.from_numpy(xf).to(card)
+    pick = np.random.RandomState(53).choice(n, 20, replace=False)
+    z = x[torch.from_numpy(pick).to(card)].clone()
+    z[5] = z[2]
+    slab = torch.arange(20, dtype=torch.int32, device=card)
+    (labels, _, _), rechecked = assign_both(x, z, slab)
+    assert rechecked > 0
+    assert int((labels == 2).sum()) > 0 and int((labels == 5).sum()) == 0
+
+
+@pytest.mark.parametrize("n", [5001, 224 * 224, FRAME])
+def test_assign_wide_kernel_rechecks_many_pixels(card, n):
+    """Seeds in pairs under distinct labels, seed 2k + 1 seed 2k scaled by
+    1 + 2e-5: a pixel's two best scores differ by 2e-5 times its score,
+    inside the re-check margin and far above float32 rounding, so most
+    pixels are re-checked, and the exact re-check gives the plain
+    version's labels."""
+    xf, z_valid = clustered(n, WIDE, seed=54)
+    rng = np.random.RandomState(55)
+    z = xf[rng.choice(n, 100, replace=n < 100)].astype(np.float64)
+    z[1::2] = z[0::2] * (1.0 + 2e-5)
+    slab = torch.arange(100, dtype=torch.int32, device=card)
+    _, rechecked = assign_both(
+        torch.from_numpy(xf).to(card),
+        torch.from_numpy(z.astype(np.float32)).to(card), slab,
+        torch.from_numpy(z_valid).to(card))
+    assert rechecked > n // 2

@@ -6,7 +6,7 @@
 //   hill_bf16_kernel, hill_bf16_wide_kernel
 //                       <- _hill_climb_kernel / hill_climb_pallas
 //   cc_kernel           <- _cc_kernel / connected_components_pallas
-//   assign_tf32_kernel,
+//   assign_tf32_kernel, assign_tf32_wide_kernel,
 //   assign_bf16_kernel  <- _assign_kernel / assign_labels_pallas
 //
 // The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
@@ -14,8 +14,9 @@
 // width its own instantiation or kernel; the C entry points take d and
 // refuse any other width.  The hill climb and the assignment stream X
 // through a ring of pixel tiles (cp.async, or TMA for the bf16 hill climb
-// at d = 128) and run their products on the tensor cores in both modes:
-// float32 as split TF32 on wgmma (about fp32 accuracy), bfloat16 on
+// and the float32 assignment at d = 128) and run their products on the
+// tensor cores in both modes: float32 as split TF32 on wgmma (about fp32
+// accuracy), bfloat16 on
 // mma.sync (hill climb at d = 64) or wgmma (the rest).  The assignment
 // re-checks the few pixels whose best two labels are nearly tied with the
 // exact fp32 FMA chain; see its section.  What changes with the width is
@@ -25,6 +26,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <chrono>
+#include <numeric>
 
 #include "common.cuh"
 
@@ -430,6 +433,16 @@ __device__ __forceinline__ void pin_registers(T (&r)[N]) {
 template <int kId>
 __device__ __forceinline__ void bar_sync(int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "r"(threads) : "memory");
+}
+
+// Named barrier `id` (a register): this thread waits until `threads`
+// threads have arrived; named_arrive counts this thread without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The descriptor of a K-major operand in shared memory without swizzle:
@@ -1758,9 +1771,10 @@ size_t hill_bf16_wide_smem_bytes() {
          sizeof(unsigned long long) * (2 * kBWStages + kBWResident);
 }
 
-// X [n, 128] bf16 (16-byte aligned) as hill_bf16_wide_kernel's TMA map:
-// boxes of 64 dims x 64 pixels, 128-byte swizzle, zeros past n.  The
-// driver's encoder is reached through the runtime (no link to libcuda).
+// X [n, 128] (16-byte aligned) as a TMA map of boxes of `box_dims` dims x
+// `box_rows` pixels of `bytes`-byte elements of `type`, 128-byte swizzle
+// (box_dims * bytes = 128), zeros past n.  The driver's encoder is reached
+// through the runtime (no link to libcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -1768,7 +1782,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-cudaError_t wide_bf16_map(const void* x, int n, CUtensorMap* map) {
+cudaError_t wide_rows_map(const void* x, int n, CUtensorMapDataType type,
+                          int bytes, int box_dims, int box_rows,
+                          CUtensorMap* map) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -1787,15 +1803,21 @@ cudaError_t wide_bf16_map(const void* x, int n, CUtensorMap* map) {
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kWideD),
                               static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {kWideD * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {kBWBox, kBWTile};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kWideD) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_dims),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 2, const_cast<void*>(x), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// X [n, 128] bf16 as hill_bf16_wide_kernel's map: boxes of 64 x 64.
+cudaError_t wide_bf16_map(const void* x, int n, CUtensorMap* map) {
+  return wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       sizeof(__nv_bfloat16), kBWBox, kBWTile, map);
 }
 
 // Bytes of X that hill_bf16_wide_kernel's `grid` blocks keep on chip for
@@ -2200,10 +2222,11 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // fragments, issues its wgmmas into the same accumulators and waits, so a
 // thread holds one pass's fragments, at d = 128 as at d = 64.
 //
-// At d = 128, float32: Z's split copies take 128 KB of shared memory, so
-// a block is one warpgroup with 64-pixel tiles and a ring of two (66 KB);
-// bfloat16: Z takes 32 KB, two warpgroups, a ring of two 128-pixel tiles
-// (68 KB), two blocks per SM as at d = 64.  (AssignShape.)
+// At d = 128, bfloat16: Z takes 32 KB, two warpgroups, a ring of two
+// 128-pixel tiles (68 KB), two blocks per SM as at d = 64 (AssignShape).
+// float32 at d = 128 has a kernel of its own, assign_tf32_wide_kernel
+// (below): Z's split copies take 128 KB, so one block fills an SM, and its
+// warpgroups split the work by role instead of by pixels.
 //
 // The re-check margin (kRecheckMargin<d>).  X and Z rows are unit
 // vectors.  Split TF32 drops, per product a_i b_i, small * small (<= 2^-22
@@ -2243,21 +2266,24 @@ template <int kD>
 constexpr float kRecheckMargin =
     kD == 64 ? 3.0517578125e-05f : 6.103515625e-05f;  // 2^-15, 2^-14
 
-// The launch shape of the assignment for X of type T and width kD:
-// warpgroups per block, threads, pixels per tile (64 per warpgroup), X
-// tiles in the ring, the row pitch of a tile in shared memory, and the
-// dynamic shared bytes (the ring, then Z: float32 its two split copies).
+// The launch shape of assign_body for X of type T and width kD (float32
+// only at d = 64): two warpgroups a block, threads, pixels per tile (64
+// per warpgroup), X tiles in the ring, the row pitch of a tile in shared
+// memory, and the dynamic shared bytes (the ring, then Z: float32 its two
+// split copies); no setmaxnreg and no tensor map (AssignWideShape has
+// both).
 template <typename T, int kD>
 struct AssignShape {
   static constexpr bool kF32 = sizeof(T) == 4;
-  static constexpr int kGroups = kF32 && kD == 128 ? 1 : 2;
-  static constexpr int kThreads = 128 * kGroups;
-  static constexpr int kTile = 64 * kGroups;
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 128;
   static constexpr int kStages = kD == 64 ? 4 : 2;
   static constexpr int kPitch = kF32 ? kF32Pitch<kD> : kMmaPitch<kD>;
   static constexpr size_t kSmem =
       sizeof(T) * kStages * kTile * kPitch +
       (kF32 ? 2 * sizeof(float) : sizeof(T)) * kMaxSeeds * kD;
+  static constexpr int kRegs = 0;
+  static constexpr bool kTma = false;
 };
 
 // Z in shared memory as the B operand, in the seed_word layout.  float32
@@ -2683,28 +2709,579 @@ assign_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n,
       assign_bf16_smem);
 }
 
-// The launch shape: AssignShape's block, as many blocks as fit on the card
-// at once (at most one per X tile).
+// ---------------------------------------------------------------------------
+// float32 at d = 128: assign_tf32_wide_kernel, the parity assignment of the
+// RGB-D cat fusion's embeddings (it replaced assign_tf32_kernel<128>, which
+// ran one warpgroup a block through every step in series).
+//
+// Bound on the H100: 2*m*n*d flops three times over (the split's products:
+// 23.6 GFLOP at m = 100, n = 307200: 0.048 ms at 495 TFLOP/s of TF32; 0.050
+// ms for the 104 seed columns that the kernel computes) against one read
+// of X (157 MB, 0.047 ms at 3.35 TB/s): bound by the tensor cores and the
+// bytes about equally.
+//
+// Design, by what it buys:
+//  - Overlap.  The block is two consumer warpgroups and one producer
+//    warpgroup (kAWThreads), one block an SM.  The producer's first thread
+//    loads the block's 64-pixel tiles in order by TMA, each as four boxes
+//    of 64 pixels x 32 dims (128-byte rows, 128-byte swizzle), into a ring
+//    of kAWStages stages.  Consumer c takes the block's tiles c, c + 2, ...,
+//    so one warpgroup's CUDA-core work (the A split, thread_best,
+//    merge_quad, the histograms, a rare re-check) runs while the other's
+//    wgmmas run.  Within a tile a consumer splits the first 64 dims' A
+//    fragments, issues their wgmmas, splits the other 64 dims' while those
+//    run, releases the stage (the tile is in registers) and issues the
+//    rest: the producer can refill a stage about as soon as it landed.
+//  - Turns.  The consumers issue their tiles' wgmmas strictly in tile
+//    order, each tile's two passes back to back (named barriers
+//    kAWTurnBar + c): left free, the two fell into step, each one's
+//    second pass queued behind the other's first, and the tensor cores
+//    idled while both ran their CUDA-core work (on the H100 at the frame
+//    0.0816 ms free, 0.0748 in turns; 224^2 0.0195 -> 0.0173).  A
+//    re-check now delays the other consumer's next issue too (random unit
+//    vectors at 224^2, 86 re-checked pixels: 0.052 ms free, 0.063 in
+//    turns); chip_smoke.py's clustered inputs re-check no pixel.
+//  - Tensor work.  Each k-chunk's product is one wgmma m64nNk8 over the
+//    seeds, N = kN, the seed columns: 104 for m <= 104 (the recipes' 100
+//    seeds), else 128, a kernel each, picked by the launch's plan: one
+//    instruction where assign_tf32_kernel<128> issued an n64 product per
+//    64 seeds, and 19% fewer columns at m = 100 (on the H100 at the
+//    480x640 frame 0.137 ms with two n64 products, 0.101 with one n128,
+//    0.092-0.101 with n104; a branch on m inside one kernel read 0.111).
+//    The m64nN accumulator layout is the m64n128 one's first N / 8
+//    8-column blocks, so acc[2][32] and thread_best serve every kN.
+//  - Handshakes.  Tile k lands in stage k % kAWStages and completes
+//    full[k % kAWStages][k % kAWConsumers], the barrier of its stage and
+//    its consumer:
+//    a consumer then waits on every phase of its own barriers in order
+//    (with one barrier a stage, a consumer sees every other phase of it,
+//    and a parity wait can pass on a phase two behind).  empty[s] counts
+//    the four warps of the tile's consumer; the producer waits on each of
+//    its phases in order.
+//  - Fixed cost.  The consumers stage Z's split copies once, with a
+//    thread's 16 float4 loads and its seed label's in flight at once (a
+//    loop whose loads went one after another took 5.6-8.3 us a block on
+//    the H100; now 3.7-6.2), while the producer's first loads are in
+//    flight; the histograms are flushed once a block.
+//  - Re-checks.  A re-check runs exact_argmax as assign_body's does, on
+//    its pixel's row in global memory (the stage may hold another tile by
+//    then).
+//  - Registers.  setmaxnreg gives the consumers kAWConsumerRegs (acc 64,
+//    two sets of one pass's split fragments 128) and the producer
+//    kAWProducerRegs; 2 * 232 + 40 <= 3 * 168.
+// Shared memory, all of it dynamic (static arrays cost 2,048 bytes where
+// they hold 1,536), from a 1024-byte boundary, which the swizzle needs:
+// the ring, 3 x 32 KB (stage s at 32 KB s, box b of it at 8 KB b); Z big,
+// then Z small, 64 KB each (seed_word layout, as assign_body's); slab and
+// hist[2]; the mbarriers full[3][2] and empty[3]: 1024 + 229,376 + 1,536 +
+// 72 = 232,008 bytes of the 232,448 a block may have.
+// Each pixel's S is summed exactly as assign_tf32_kernel summed it (the
+// same split, the same 48 wgmma steps into each accumulator element in
+// the same order: small * big, big * small, big * big per k-chunk,
+// k-chunks in order; the n-extent changes no element's terms), so
+// kRecheckMargin<128>'s derivation above holds as it stands:
+// |S_kernel - S_plain| < 1.86e-5 + 7.6e-6 + 1.2e-6 < 2.8e-5 < 2^-15.
+// The A fragment of row r (= 16 w + g, or + 8), k-chunk c, k index t (+ 4)
+// is dim 8 c + t (+ 4): in box c / 4, 16-byte chunk 2 (c % 4) (+ 1) of
+// the row, which the swizzle moves to chunk (2 (c % 4) (+ 1)) ^ (r % 8) =
+// ... ^ g: a warp's 32 loads of one k index hit 32 distinct banks.
+// ---------------------------------------------------------------------------
+constexpr int kAWTile = 64;                              // pixels per tile
+constexpr int kAWBox = 32;                               // dims per box
+constexpr int kAWBoxBytes = kAWTile * kAWBox * 4;        // 8 KB
+constexpr int kAWTileBytes = (kWideD / kAWBox) * kAWBoxBytes;  // 32 KB
+constexpr int kAWStages = 3;
+constexpr int kAWConsumers = 2;                          // warpgroups
+constexpr int kAWConsumerThreads = 128 * kAWConsumers;
+constexpr int kAWThreads = kAWConsumerThreads + 128;     // + the producer
+constexpr int kAWProducerRegs = 40;
+constexpr int kAWConsumerRegs = 232;
+// named barriers: 1 spans the consumers; kAWTurnBar + c is consumer c's
+// turn to issue
+constexpr int kAWTurnBar = 2;
+static_assert(kAWTurnBar + kAWConsumers <= 16, "named barriers");
+// tile k completes full[k % kAWStages][k % kAWConsumers]: a barrier's
+// tiles are kAWPeriod apart
+constexpr int kAWPeriod = std::lcm(kAWStages, kAWConsumers);
+static_assert(kAWConsumerThreads >= kMaxSeeds, "a seed's label a thread");
+static_assert(kAWConsumers * 128 * kAWConsumerRegs + 128 * kAWProducerRegs <=
+                  65536, "registers");
+
+// assign_tf32_wide_kernel's block, with AssignShape's members: threads,
+// pixels per tile, stages of the ring and dynamic shared bytes (the layout
+// above); and the registers its setmaxnreg hands out, which the launch
+// must have given the block.
+struct AssignWideShape {
+  static constexpr int kThreads = kAWThreads;
+  static constexpr int kTile = kAWTile;
+  static constexpr int kStages = kAWStages;
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kAWStages) * kAWTileBytes +
+      2 * sizeof(unsigned) * kMaxSeeds * kWideD +
+      3 * sizeof(int) * kMaxSeeds +
+      sizeof(unsigned long long) * kAWStages * (kAWConsumers + 1);
+  static constexpr int kRegs =
+      kAWConsumerThreads * kAWConsumerRegs + 128 * kAWProducerRegs;
+  static constexpr bool kTma = true;  // X by the tensor map, then the rows
+};
+
+// A study build (-DASSIGN_CLOCKS, assign_study.py) records for each block
+// of assign_tf32_wide_kernel: consumer thread 0's clock64 at its start,
+// after Z is staged, after its tiles and after the histograms' flush
+// (marks 0-3); the producer thread's cycles in the wait for free stages
+// and its tiles (4, 5); the dynamic shared memory's address (6); for each
+// consumer c (up to 4), its first thread's clock after its tiles (8 + c)
+// and its cycles summed over its tiles in the wait for a tile, the A split
+// (both passes, with the first pass's wgmma issue), the wgmmas from the
+// second pass's issue to their end, thread_best and merge_quad, the
+// re-check and the labels and histograms (marks 12 + 6 c .. 17 + 6 c).
+constexpr int kAssignClockBlocks = 160, kAssignMarks = 36;
+#ifdef ASSIGN_CLOCKS
+__device__ long long assign_clocks[kAssignClockBlocks][kAssignMarks];
+__device__ __forceinline__ long long aw_now() { return clock64(); }
+__device__ __forceinline__ void aw_mark(bool me, int at, long long value) {
+  if (me && blockIdx.x < kAssignClockBlocks)
+    assign_clocks[blockIdx.x][at] = value;
+}
+#else
+__device__ __forceinline__ long long aw_now() { return 0; }
+__device__ __forceinline__ void aw_mark(bool, int, long long) {}
+#endif
+
+// The consumers (thread tid of kAWConsumerThreads): Z [m, 128] float32
+// (16-byte aligned) -> its split copies in the seed_word layout, zero past
+// m, as stage_assign writes them, with a thread's 16 loads in flight at
+// once (a warp: 8 rows of 64 bytes a load, 8 rows of 16 bytes a store
+// phase, on distinct banks).
+__device__ __forceinline__ void stage_wide_assign(const float* __restrict__ z,
+                                                  int m, unsigned* zs,
+                                                  int tid) {
+  constexpr int kPer = kMaxSeeds * kWideD / 4 / kAWConsumerThreads;
+  static_assert(kPer * kAWConsumerThreads == kMaxSeeds * kWideD / 4, "Z");
+  float4 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = tid + i * kAWConsumerThreads;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    v[i] = s < m ? *reinterpret_cast<const float4*>(z + s * kWideD + j)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = tid + i * kAWConsumerThreads;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    uint4 b, sm;
+    split_tf32(v[i].x, b.x, sm.x);
+    split_tf32(v[i].y, b.y, sm.y);
+    split_tf32(v[i].z, b.z, sm.z);
+    split_tf32(v[i].w, b.w, sm.w);
+    const int w = seed_word(s, j, 4);
+    *reinterpret_cast<uint4*>(zs + w) = b;
+    *reinterpret_cast<uint4*>(zs + kMaxSeeds * kWideD + w) = sm;
+  }
+}
+
+// The split A fragments of k-chunks [8 pass, 8 pass + 8) of the rows row
+// and row + 8 (g = row % 8) of a landed tile (see the note above).
+__device__ __forceinline__ void wide_fragments(const float* tile, int pass,
+                                               int row, int g, int t,
+                                               unsigned (&xb)[8][4],
+                                               unsigned (&xsm)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int c = 8 * pass + kk;
+    const float* r = tile + (c / 4) * (kAWBoxBytes / 4) + row * kAWBox + t;
+    const int lo = ((2 * (c % 4)) ^ g) * 4, hi = ((2 * (c % 4) + 1) ^ g) * 4;
+    const float a[4] = {r[lo], r[8 * kAWBox + lo], r[hi],
+                        r[8 * kAWBox + hi]};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(a[q], xb[kk][q], xsm[kk][q]);
+  }
+}
+
+// acc's first 52 registers (the m64n104 accumulator layout: the m64n128
+// layout's first 13 8-column blocks, seeds [0, 104)) += a * b; as
+// wgmma_tf32.
+__device__ __forceinline__ void wgmma_tf32_n104(float (&acc)[2][32],
+                                               const unsigned (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+      : "+f"(acc[0][0]), "+f"(acc[0][1]), "+f"(acc[0][2]), "+f"(acc[0][3]),
+        "+f"(acc[0][4]), "+f"(acc[0][5]), "+f"(acc[0][6]), "+f"(acc[0][7]),
+        "+f"(acc[0][8]), "+f"(acc[0][9]), "+f"(acc[0][10]), "+f"(acc[0][11]),
+        "+f"(acc[0][12]), "+f"(acc[0][13]), "+f"(acc[0][14]), "+f"(acc[0][15]),
+        "+f"(acc[0][16]), "+f"(acc[0][17]), "+f"(acc[0][18]), "+f"(acc[0][19]),
+        "+f"(acc[0][20]), "+f"(acc[0][21]), "+f"(acc[0][22]), "+f"(acc[0][23]),
+        "+f"(acc[0][24]), "+f"(acc[0][25]), "+f"(acc[0][26]), "+f"(acc[0][27]),
+        "+f"(acc[0][28]), "+f"(acc[0][29]), "+f"(acc[0][30]), "+f"(acc[0][31]),
+        "+f"(acc[1][0]), "+f"(acc[1][1]), "+f"(acc[1][2]), "+f"(acc[1][3]),
+        "+f"(acc[1][4]), "+f"(acc[1][5]), "+f"(acc[1][6]), "+f"(acc[1][7]),
+        "+f"(acc[1][8]), "+f"(acc[1][9]), "+f"(acc[1][10]), "+f"(acc[1][11]),
+        "+f"(acc[1][12]), "+f"(acc[1][13]), "+f"(acc[1][14]), "+f"(acc[1][15]),
+        "+f"(acc[1][16]), "+f"(acc[1][17]), "+f"(acc[1][18]), "+f"(acc[1][19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// acc (the m64n128 accumulator layout, seeds [0, 128)) += a * b; as
+// wgmma_tf32.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&acc)[2][32],
+                                               const unsigned (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(acc[0][0]), "+f"(acc[0][1]), "+f"(acc[0][2]), "+f"(acc[0][3]),
+        "+f"(acc[0][4]), "+f"(acc[0][5]), "+f"(acc[0][6]), "+f"(acc[0][7]),
+        "+f"(acc[0][8]), "+f"(acc[0][9]), "+f"(acc[0][10]), "+f"(acc[0][11]),
+        "+f"(acc[0][12]), "+f"(acc[0][13]), "+f"(acc[0][14]), "+f"(acc[0][15]),
+        "+f"(acc[0][16]), "+f"(acc[0][17]), "+f"(acc[0][18]), "+f"(acc[0][19]),
+        "+f"(acc[0][20]), "+f"(acc[0][21]), "+f"(acc[0][22]), "+f"(acc[0][23]),
+        "+f"(acc[0][24]), "+f"(acc[0][25]), "+f"(acc[0][26]), "+f"(acc[0][27]),
+        "+f"(acc[0][28]), "+f"(acc[0][29]), "+f"(acc[0][30]), "+f"(acc[0][31]),
+        "+f"(acc[1][0]), "+f"(acc[1][1]), "+f"(acc[1][2]), "+f"(acc[1][3]),
+        "+f"(acc[1][4]), "+f"(acc[1][5]), "+f"(acc[1][6]), "+f"(acc[1][7]),
+        "+f"(acc[1][8]), "+f"(acc[1][9]), "+f"(acc[1][10]), "+f"(acc[1][11]),
+        "+f"(acc[1][12]), "+f"(acc[1][13]), "+f"(acc[1][14]), "+f"(acc[1][15]),
+        "+f"(acc[1][16]), "+f"(acc[1][17]), "+f"(acc[1][18]), "+f"(acc[1][19]),
+        "+f"(acc[1][20]), "+f"(acc[1][21]), "+f"(acc[1][22]), "+f"(acc[1][23]),
+        "+f"(acc[1][24]), "+f"(acc[1][25]), "+f"(acc[1][26]), "+f"(acc[1][27]),
+        "+f"(acc[1][28]), "+f"(acc[1][29]), "+f"(acc[1][30]), "+f"(acc[1][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The first kN / 2 registers of acc (seeds [0, kN)) += a * b: one wgmma
+// m64nNk8, N = kN (104 or 128).
+template <int kN>
+__device__ __forceinline__ void wgmma_tf32_seeds(float (&acc)[2][32],
+                                                 const unsigned (&a)[4],
+                                                 uint64_t desc) {
+  static_assert(kN == 104 || kN == 128, "seed columns");
+  if constexpr (kN == 104)
+    wgmma_tf32_n104(acc, a, desc);
+  else
+    wgmma_tf32_n128(acc, a, desc);
+}
+
+// acc += the pass's products against seeds [0, kN): per k-chunk small *
+// big, big * small, big * big, as assign_product.
+template <int kN>
+__device__ __forceinline__ void wide_product(const unsigned* zs, int pass,
+                                             const unsigned (&xb)[8][4],
+                                             const unsigned (&xsm)[8][4],
+                                             float (&acc)[2][32]) {
+  const unsigned* zsm = zs + kMaxSeeds * kWideD;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int o = 2 * (8 * pass + kk) * (kMaxSeeds / 8) * (kCore / 4);
+    const uint64_t db = smem_desc(zs + o, (kMaxSeeds / 8) * kCore, kCore);
+    const uint64_t ds = smem_desc(zsm + o, (kMaxSeeds / 8) * kCore, kCore);
+    wgmma_tf32_seeds<kN>(acc, xsm[kk], db);
+    wgmma_tf32_seeds<kN>(acc, xb[kk], ds);
+    wgmma_tf32_seeds<kN>(acc, xb[kk], db);
+  }
+}
+
+// thread_best over the kN / 8 blocks of 8 seeds that the kernel computes
+// (m <= kN), a count known at compile time: every block's labels are
+// loaded up front and no loop waits on a branch on m; seeds at or past m
+// score -inf.  The same b1, l1 and b2 as thread_best.
+template <int kN>
+__device__ __forceinline__ void thread_best_wide(float (&acc)[2][32], int t,
+                                                 int m, const int* slab,
+                                                 Best (&r)[2]) {
+  constexpr int kBlocks = kN / 8;
+  auto score = [&](int i, int blk, int e) -> float& {
+    return acc[blk / 8][4 * (blk % 8) + 2 * i + e];
+  };
+  const int2* lab2 = reinterpret_cast<const int2*>(slab + 2 * t);
+  int2 lb[kBlocks];
+#pragma unroll
+  for (int blk = 0; blk < kBlocks; ++blk) lb[blk] = lab2[4 * blk];
+  float b[2][4];
+  int l[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      b[i][c] = -INFINITY;
+      l[i][c] = -1;
+    }
+#pragma unroll
+  for (int blk = 0; blk < kBlocks; ++blk)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool real = 8 * blk + 2 * t + e < m;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!real) score(i, blk, e) = -INFINITY;
+        const int c = (2 * blk + e) % 4;
+        if (score(i, blk, e) > b[i][c]) {
+          b[i][c] = score(i, blk, e);
+          l[i][c] = e ? lb[blk].y : lb[blk].x;
+        }
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int c = 1; c < 4; ++c)
+      if (b[i][c] > b[i][0]) {
+        b[i][0] = b[i][c];
+        l[i][0] = l[i][c];
+      }
+    r[i].b1 = b[i][0];
+    r[i].l1 = l[i][0];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[i][c] = -INFINITY;
+  }
+#pragma unroll
+  for (int blk = 0; blk < kBlocks; ++blk)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if ((e ? lb[blk].y : lb[blk].x) != r[i].l1) {
+          const int c = (2 * blk + e) % 4;
+          b[i][c] = fmaxf(b[i][c], score(i, blk, e));
+        }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    r[i].b2 = fmaxf(fmaxf(b[i][0], b[i][1]), fmaxf(b[i][2], b[i][3]));
+}
+
+// xmap: X [n, 128] float32 (16-byte aligned) as boxes of 32 dims x 64
+// pixels, 128-byte swizzle, zeros past n; x: the same rows (the re-check
+// reads them); the rest as assign_body's, m <= kN.  blockDim.x =
+// kAWThreads.
+template <int kN>
+__global__ void __launch_bounds__(kAWThreads, 1)
+assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const float* __restrict__ x, int n,
+                        const float* __restrict__ z,
+                        const int* __restrict__ seed_labels, int m,
+                        const unsigned char* __restrict__ z_valid,
+                        int* __restrict__ labels, float* __restrict__ counts,
+                        float* __restrict__ rechecked) {
+  constexpr int kD = kWideD;
+  extern __shared__ __align__(1024) unsigned char aw_smem[];
+  unsigned char* ring = aw_smem + (1024 - smem_addr(aw_smem) % 1024) % 1024;
+  unsigned* zs = reinterpret_cast<unsigned*>(ring + kAWStages * kAWTileBytes);
+  int* slab = reinterpret_cast<int*>(zs + 2 * kMaxSeeds * kD);
+  auto* hist = reinterpret_cast<int(*)[kMaxSeeds]>(slab + kMaxSeeds);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(slab + 3 * kMaxSeeds);
+  unsigned long long* empty = full + kAWStages * kAWConsumers;
+  const int mine = tiles_of_block<kAWTile>(n);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAWStages; ++s) {
+      for (int c = 0; c < kAWConsumers; ++c)
+        uoc::mbar_init(full + kAWConsumers * s + c, 1);
+      uoc::mbar_init(empty + s, 4);  // the warps of the tile's consumer
+    }
+  }
+  __syncthreads();
+
+  if (static_cast<int>(threadIdx.x) >= kAWConsumerThreads) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kAWProducerRegs));
+    if (static_cast<int>(threadIdx.x) != kAWConsumerThreads) return;
+    long long waited = 0;  // with ASSIGN_CLOCKS
+    for (int k = 0; k < mine; ++k) {
+      const int s = k % kAWStages;
+      const long long c0 = aw_now();
+      if (k >= kAWStages)  // the stage's last tile is in its registers
+        uoc::mbar_wait(empty + s, (k / kAWStages - 1) & 1);
+      waited += aw_now() - c0;
+      void* bar = full + kAWConsumers * s + k % kAWConsumers;
+      const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kAWTile;
+      uoc::mbar_expect(bar, kAWTileBytes);
+#pragma unroll
+      for (int b = 0; b < kD / kAWBox; ++b)
+        tma_load_box(ring + s * kAWTileBytes + b * kAWBoxBytes, &xmap,
+                     b * kAWBox, p0, bar);
+    }
+    aw_mark(true, 4, waited);
+    aw_mark(true, 5, mine);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kAWConsumerRegs));
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int row = 16 * (tid / 32 % 4) + g;  // first pixel of a thread
+  const bool me = tid % 128 == 0;           // a consumer's clocked thread
+  aw_mark(tid == 0, 0, aw_now());
+  aw_mark(tid == 0, 6, smem_addr(aw_smem));
+  // seed tid's label, loaded beside Z
+  const int label = tid < m ? seed_labels[tid] : 0;
+  stage_wide_assign(z, m, zs, tid);
+  if (tid < kMaxSeeds) {
+    slab[tid] = label;
+    hist[0][tid] = hist[1][tid] = 0;
+  }
+  uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
+  bar_sync<1>(kAWConsumerThreads);
+  aw_mark(tid == 0, 1, aw_now());
+
+  long long spent[6] = {0, 0, 0, 0, 0, 0};  // with ASSIGN_CLOCKS
+  for (int k = wg; k < mine; k += kAWConsumers) {
+    const int s = k % kAWStages;
+    const int p0 =
+        (static_cast<int>(blockIdx.x) + k * gridDim.x) * kAWTile + row;
+    // thread t < 2 of the quad owns pixel p0 + 8t; its validity is loaded
+    // before the products, which hide the load
+    const int p = p0 + 8 * t;
+    const bool owner = t < 2 && p < n;
+    const bool valid = owner && (z_valid == nullptr || z_valid[p]);
+    long long c0 = aw_now();
+    uoc::mbar_wait(full + kAWConsumers * s + wg, (k / kAWPeriod) & 1);
+    long long c1 = aw_now();
+    spent[0] += c1 - c0;
+    const float* tile =
+        reinterpret_cast<const float*>(ring + s * kAWTileBytes);
+    float acc[2][32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i / 32][i % 32] = 0.0f;
+    // two sets of split fragments: pass 1's are split while pass 0's
+    // wgmmas run (one set, with a wait between the passes, read 0.092 ms
+    // at the frame against 0.081 on the H100)
+    unsigned xb[2][8][4], xs[2][8][4];
+    wide_fragments(tile, 0, row, g, t, xb[0], xs[0]);
+    // the consumers issue their tiles' wgmmas in turns: tile k's after
+    // tile k - 1's, its two passes back to back
+    if (k > 0) named_sync(kAWTurnBar + wg, 128 * 2);
+    wgmma_fence();
+    wide_product<kN>(zs, 0, xb[0], xs[0], acc);
+    wgmma_commit();
+    wide_fragments(tile, 1, row, g, t, xb[1], xs[1]);
+    __syncwarp();
+    if (lane == 0) uoc::mbar_arrive(empty + s);  // the tile is in registers
+    c0 = aw_now();
+    spent[1] += c0 - c1;
+    wgmma_fence();
+    wide_product<kN>(zs, 1, xb[1], xs[1], acc);
+    wgmma_commit();
+    if (k + 1 < mine)  // tile k + 1's turn
+      named_arrive(kAWTurnBar + (wg + 1) % kAWConsumers, 128 * 2);
+    wgmma_wait();
+    pin_registers(acc[0]);
+    pin_registers(acc[1]);
+    pin_registers(xb);
+    pin_registers(xs);
+    c1 = aw_now();
+    spent[2] += c1 - c0;
+
+    Best r[2];
+    thread_best_wide<kN>(acc, t, m, slab, r);
+    int near = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      merge_quad(r[i]);
+      if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
+        near |= 1 << i;
+    }
+    c0 = aw_now();
+    spent[3] += c0 - c1;
+    int2 l1 = make_int2(r[0].l1, r[1].l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0))
+      l1 = recheck<float, unsigned, kD, kD>(
+          x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab, rechecked,
+          l1);
+    c1 = aw_now();
+    spent[4] += c1 - c0;
+
+    // the owner writes its pixel's label and adds the pixel to the
+    // histograms, aggregated over the warp's lanes of equal label
+    int key = -1, vkey = -1;
+    if (owner) {
+      const int lab = t == 0 ? l1.x : l1.y;
+      labels[p] = lab;
+      if (lab >= 0 && lab < m) {
+        key = lab;
+        if (valid) vkey = lab;
+      }
+    }
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, key);
+    if (key >= 0 && lane == __ffs(same) - 1)
+      atomicAdd(&hist[0][key], __popc(same));
+    const unsigned vsame = __match_any_sync(0xFFFFFFFFu, vkey);
+    if (vkey >= 0 && lane == __ffs(vsame) - 1)
+      atomicAdd(&hist[1][vkey], __popc(vsame));
+    spent[5] += aw_now() - c1;
+  }
+  aw_mark(tid == 0, 2, aw_now());
+  aw_mark(me, 8 + wg, aw_now());
+#pragma unroll
+  for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
+  bar_sync<1>(kAWConsumerThreads);
+  for (int s = tid; s < m; s += kAWConsumerThreads) {
+    if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
+    if (hist[1][s])
+      atomicAdd(&counts[m + s], static_cast<float>(hist[1][s]));
+  }
+  aw_mark(tid == 0, 3, aw_now());
+}
+
+// The launch: the kernel (and its name, for assign_labels_config), its
+// Shape's block, as many blocks as fit on the card at once (at most one
+// per X tile), and whether it takes X's tensor map before its arguments.
 struct AssignPlan {
+  const void* kernel;
+  const char* name;
+  bool tma;
   int grid, per_sm, threads, tile, stages;
   size_t smem;
 };
 
-template <typename T, int kD, auto kKernel>
-cudaError_t plan_assign(int dev, int n, int (&cache)[2], AssignPlan* p) {
-  using Shape = AssignShape<T, kD>;
+template <typename Shape, auto kKernel>
+cudaError_t plan_assign(int dev, int n, const char* name, int (&cache)[2],
+                        AssignPlan* p) {
+  p->kernel = reinterpret_cast<const void*>(kKernel);
+  p->name = name;
+  p->tma = Shape::kTma;
   p->threads = Shape::kThreads;
   p->tile = Shape::kTile;
   p->stages = Shape::kStages;
   p->smem = Shape::kSmem;
   if (cache[1] == 0) {
+    // a block whose setmaxnreg.inc waits for registers that the launch
+    // must have given it: refuse a build that gives fewer
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kKernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * Shape::kThreads < Shape::kRegs)
+      return cudaErrorInvalidConfiguration;
     int per_sm, sms;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = uoc::blocks_per_sm<kKernel>(dev, p->threads, p->smem, p->smem,
                                       &per_sm);
     if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cache[0] = per_sm;
     cache[1] = sms;
   }
@@ -2714,25 +3291,36 @@ cudaError_t plan_assign(int dev, int n, int (&cache)[2], AssignPlan* p) {
   return cudaSuccess;
 }
 
-cudaError_t plan_assign_for(int dtype, int n, int d, AssignPlan* p) {
-  // {blocks per SM, SMs} per device, dtype and width, found at the first
-  // call (0: not yet): the launch asks for its plan on every call
+// The one place that picks the assignment kernel: by dtype, width and (for
+// float32 at d = 128) the seed columns that cover m, 104 for the recipes'
+// 100 seeds.
+cudaError_t plan_assign_for(int dtype, int n, int d, int m, AssignPlan* p) {
+  // {blocks per SM, SMs} per device and kernel, found at the first call
+  // (0: not yet): the launch asks for its plan on every call
   constexpr int kDevices = 64;
-  static int cached[kDevices][2][2][2] = {};
+  static int cached[kDevices][5][2] = {};
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kDevices) return cudaErrorInvalidDevice;
-  const bool bf16 = dtype == uoc::kBF16, wide = d == 128;
-  int(&c)[2] = cached[dev][bf16][wide];
-  if (bf16)
-    return wide ? plan_assign<__nv_bfloat16, 128, assign_bf16_kernel<128>>(
-                      dev, n, c, p)
-                : plan_assign<__nv_bfloat16, 64, assign_bf16_kernel<64>>(
-                      dev, n, c, p);
-  return wide ? plan_assign<float, 128, assign_tf32_kernel<128>>(dev, n, c, p)
-              : plan_assign<float, 64, assign_tf32_kernel<64>>(dev, n, c, p);
+  auto& c = cached[dev];
+  if (dtype == uoc::kBF16)
+    return d == 64
+               ? plan_assign<AssignShape<__nv_bfloat16, 64>,
+                             assign_bf16_kernel<64>>(
+                     dev, n, "assign_bf16_kernel<64>", c[0], p)
+               : plan_assign<AssignShape<__nv_bfloat16, 128>,
+                             assign_bf16_kernel<128>>(
+                     dev, n, "assign_bf16_kernel<128>", c[1], p);
+  if (d == 64)
+    return plan_assign<AssignShape<float, 64>, assign_tf32_kernel<64>>(
+        dev, n, "assign_tf32_kernel<64>", c[2], p);
+  return m <= 104
+             ? plan_assign<AssignWideShape, assign_tf32_wide_kernel<104>>(
+                   dev, n, "assign_tf32_wide_kernel<104>", c[3], p)
+             : plan_assign<AssignWideShape, assign_tf32_wide_kernel<128>>(
+                   dev, n, "assign_tf32_wide_kernel<128>", c[4], p);
 }
 
 bool misaligned(const void* p) {
@@ -2855,20 +3443,47 @@ extern "C" int uoc_connected_components(const float* z, int m, int d,
 // The launch configuration uoc_assign_labels uses for n pixels and m seeds
 // of width d (64 or 128; any other width returns cudaErrorInvalidValue):
 // out = [grid, blocks per SM, threads per block, dynamic shared bytes,
-// bytes of X held on chip per block (its ring of tiles)].
+// bytes of X held on chip per block (its ring of tiles), the ring's
+// stages, pixels per tile].
 extern "C" int uoc_assign_labels_plan(int dtype, int n, int m, int d,
                                       long long* out) {
   if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
   AssignPlan p;
-  const cudaError_t err = plan_assign_for(dtype, n, d, &p);
+  const cudaError_t err = plan_assign_for(dtype, n, d, m, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.per_sm;
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
   out[4] = (dtype == uoc::kBF16 ? 2LL : 4LL) * p.stages * p.tile * d;
+  out[5] = p.stages;
+  out[6] = p.tile;
   return 0;
 }
+
+#ifdef ASSIGN_CLOCKS
+// The study build's clocks of the last assign_tf32_wide_kernel launch:
+// [kAssignClockBlocks][kAssignMarks] int64 (see aw_mark).
+extern "C" int uoc_assign_clocks(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, assign_clocks, sizeof(assign_clocks)));
+}
+
+// The host's microseconds per encode of the tensor map that
+// uoc_assign_labels builds at every float32 d = 128 call (X [n, 128] at
+// x), the mean over reps encodes; -1 if one fails.
+extern "C" double uoc_assign_map_us(const void* x, int n, int reps) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float),
+                      kAWBox, kAWTile, &map) != cudaSuccess)
+      return -1.0;
+  const std::chrono::duration<double, std::micro> spent =
+      std::chrono::steady_clock::now() - t0;
+  return spent.count() / reps;
+}
+#endif
 
 // x: [n, d] row-major float32 or bfloat16 (d = 64 or 128), rows 16-byte
 // aligned; z: [m, d] float32, 16-byte aligned; seed_labels: [m] int32;
@@ -2887,25 +3502,40 @@ extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
   if (misaligned(x) || misaligned(z))
     return static_cast<int>(cudaErrorMisalignedAddress);
   AssignPlan p;
-  cudaError_t err = plan_assign_for(dtype, n, d, &p);
+  cudaError_t err = plan_assign_for(dtype, n, d, m, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
       cudaSuccess)
     return static_cast<int>(err);
   float* rechecked = counts + 2 * m;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* xf = static_cast<const float*>(x);
-  if (dtype == uoc::kBF16 && d == 64)
-    assign_bf16_kernel<64><<<p.grid, p.threads, p.smem, s>>>(
-        xb, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
-  else if (dtype == uoc::kBF16)
-    assign_bf16_kernel<128><<<p.grid, p.threads, p.smem, s>>>(
-        xb, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
-  else if (d == 64)
-    assign_tf32_kernel<64><<<p.grid, p.threads, p.smem, s>>>(
-        xf, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
-  else
-    assign_tf32_kernel<128><<<p.grid, p.threads, p.smem, s>>>(
-        xf, n, z, seed_labels, m, z_valid, labels, counts, rechecked);
+  if (p.tma) {
+    // the map goes into the kernel's parameters by value
+    CUtensorMap map;
+    if ((err = wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                             sizeof(float), kAWBox, kAWTile, &map)) !=
+        cudaSuccess)
+      return static_cast<int>(err);
+    void* argv[] = {&map, &x, &n, &z, &seed_labels, &m,
+                    &z_valid, &labels, &counts, &rechecked};
+    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
+                           p.smem, s);
+  } else {
+    void* argv[] = {&x, &n, &z, &seed_labels, &m,
+                    &z_valid, &labels, &counts, &rechecked};
+    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
+                           p.smem, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The name of the kernel that uoc_assign_labels launches for these
+// arguments, as "assign_tf32_wide_kernel<104>"; null where the plan fails
+// (a width other than 64 or 128, m outside [1, 128]).
+extern "C" const char* uoc_assign_labels_kernel(int dtype, int n, int m,
+                                                int d) {
+  if (m < 1 || m > kMaxSeeds) return nullptr;
+  AssignPlan p;
+  return plan_assign_for(dtype, n, d, m, &p) == cudaSuccess ? p.name
+                                                            : nullptr;
 }

@@ -43,6 +43,10 @@ _SIGNATURES = {
     "uoc_assign_labels": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     "uoc_assign_labels_plan": [_I, _I, _I, _I, _P],
 }
+# entries that return a kernel's name (a C string, null on a failed plan)
+_NAMED = {
+    "uoc_assign_labels_kernel": [_I, _I, _I, _I],
+}
 # The embedding widths the kernels take: NUM_UNITS (64 in every recipe) and
 # 2 * NUM_UNITS (the RGB-D cat fusion); each has its own instantiation.
 WIDTHS = (64, 128)
@@ -116,6 +120,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _NAMED.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_char_p
             lib.uoc_error_string.argtypes = [ctypes.c_int]
             lib.uoc_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -143,6 +151,17 @@ def _plan(device: int, entry: str, args: tuple[int, ...],
     with torch.cuda.device(device):
         check(getattr(library(), entry)(*args, ctypes.addressof(out)), entry)
     return tuple(int(v) for v in out)
+
+
+@functools.lru_cache(maxsize=128)
+def kernel_name(device: torch.device, entry: str, *args: int) -> str:
+    """The name of the kernel that a ``*_kernel`` entry picks for these
+    arguments on `device`."""
+    with torch.cuda.device(device.index):
+        name = getattr(library(), entry)(*args)
+    if name is None:
+        raise ValueError(f"{entry}: no kernel for {args}")
+    return name.decode()
 
 
 def dtype_code(x: torch.Tensor, what: str) -> int:

@@ -19,8 +19,10 @@ kernels are in ``csrc/mean_shift.cu``:
     one warp merges with the labels as membership bitmasks in registers,
     stepping only through the seeds still unlabeled when their turn comes.
   * assign_labels: one persistent launch; each block streams its 128-pixel
-    tiles through a cp.async ring, S = X Z^T on wgmma (split TF32 for
-    float32, bf16 for bfloat16) stays in registers for the argmax, pixels
+    tiles through a cp.async ring (float32 at d = 128: a producer
+    warpgroup loads 64-pixel tiles by TMA for two consumer warpgroups that
+    take them in turns), S = X Z^T on wgmma (split TF32 for float32, bf16
+    for bfloat16) stays in registers for the argmax, pixels
     whose best two labels are within ASSIGN_RECHECK_MARGIN[d] are re-checked
     with the exact fp32 FMA chain, and per-label pixel / valid-depth
     histograms come out of the same X sweep.
@@ -257,14 +259,16 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     return labels, counts, valid_counts
 
 
-def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int]:
-    """The assignment kernel's launch shape for x ([n, d] on the card, d =
-    64 or 128) and m seeds: grid, blocks per SM, threads per block, dynamic
-    shared-memory bytes, bytes of X held on chip per block (its ring of
-    tiles)."""
+def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int | str]:
+    """The assignment kernel's launch for x ([n, d] on the card, d = 64 or
+    128) and m seeds: the kernel's name, grid, blocks per SM, threads per
+    block, dynamic shared-memory bytes, bytes of X held on chip per block
+    (its ring of tiles), the ring's stages and the pixels of a tile."""
     _check_shapes("assign_labels", m, x.shape[1])
-    return _build.plan(x.device, "uoc_assign_labels_plan",
-                       _build.dtype_code(x, "assign_labels"), x.shape[0], m,
-                       x.shape[1],
-                       names=("grid", "blocks_per_sm", "threads",
-                              "smem_bytes", "x_on_chip_bytes"))
+    args = (_build.dtype_code(x, "assign_labels"), x.shape[0], m, x.shape[1])
+    return {"kernel": _build.kernel_name(x.device, "uoc_assign_labels_kernel",
+                                         *args),
+            **_build.plan(x.device, "uoc_assign_labels_plan", *args,
+                          names=("grid", "blocks_per_sm", "threads",
+                                 "smem_bytes", "x_on_chip_bytes", "stages",
+                                 "tile_pixels"))}
