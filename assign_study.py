@@ -23,17 +23,19 @@ chip_smoke.queued_ms (CUDA events around 10 queued calls),
 chip_smoke.device_ms (torch.profiler), and the cost with the host in it
 (host_cost: the median of CUDA events around 200 single calls, and the
 host's time to queue a call).  --clocks builds mean_shift.cu
-again with -DASSIGN_CLOCKS and, on each float32 case at width 128, splits
-assign_tf32_wide_kernel's time (each block's clock64 marks, in
-microseconds at the card's largest SM clock, the mean over the blocks and
-the slowest block's): the fixed cost (Z's staging, the histograms'
-flush), the tiles, and for each consumer warpgroup its tiles' wait for a
-tile, A split (both passes, with the first pass's wgmma issue), the
-wgmmas from the second pass's issue to their end, thread_best and
+again with -DASSIGN_CLOCKS and, on each case at width 128, splits
+assign_tf32_wide_kernel's or assign_bf16_wide_kernel's time (each
+block's clock64 marks, in microseconds at the card's largest SM clock,
+the mean over the blocks and the slowest block's): the fixed cost (Z's
+staging, the histograms' flush), the tiles, and for each consumer
+warpgroup (float32) its tiles' wait for a tile, the A split (both
+passes, with the first pass's wgmma issue) and the wgmmas from the second
+pass's issue to their end, or (bf16) its claim of a tile with the wait
+for it, the wgmmas' issue and the wgmmas to their end, then thread_best and
 merge_quad, the re-check and the labels and histograms, and how much
 later than the first it ends; the producer's wait for free stages; and
-the dynamic shared memory's base address modulo 1024; and the host's
-microseconds per encode of the kernel's tensor map (map_us).  --out
+the dynamic shared memory's base address modulo 1024; and, in float32,
+the host's microseconds per encode of the kernel's tensor map (map_us).  --out
 writes every reading as JSON.
 
 The emulation (`emulate_s`, `emulate_assign`; tests/test_torch_assign_wide.py
@@ -208,17 +210,23 @@ def cases() -> list:
 
 
 def clock_split(lib, plan: dict) -> dict:
-    """Microseconds by part of the last assign_tf32_wide_kernel launch of
-    the clocked library: the mean over the blocks and the slowest
+    """Microseconds by part of the last width-128 assignment launch of the
+    clocked library (assign_tf32_wide_kernel or assign_bf16_wide_kernel,
+    as `plan` names it): the mean over the blocks and the slowest
     block's."""
     import kernel_study as ks
     c = ks.clocks(lib, "uoc_assign_clocks", (160, 36))[:plan["grid"]]
     c = c.astype(np.float64)[:, :, None]  # one step a block
-    parts = ("wait_tile", "split", "wgmma", "best_merge", "recheck",
-             "labels_histograms")
+    # the first two parts: the float32 kernel's wait for a tile and A split
+    # (both passes, with the first pass's wgmma issue); the bf16 kernel's
+    # claim with the wait for the tile, and its wgmmas' issue
+    first = (("wait_tile", "split") if "tf32" in plan["kernel"]
+             else ("claim_wait_tile", "issue"))
+    parts = (*first, "wgmma", "best_merge", "recheck", "labels_histograms")
     spans = {"stage_z": c[:, 1] - c[:, 0], "tiles": c[:, 2] - c[:, 1],
              "flush": c[:, 3] - c[:, 2], "producer_wait_stage": c[:, 4]}
-    for wg in range(plan["threads"] // 128 - 1):
+    # the consumer warpgroups: all but the producer's warps
+    for wg in range((plan["threads"] - 1) // 128):
         spans[f"consumer{wg}_later"] = c[:, 8 + wg] - c[:, 2]
         for i, part in enumerate(parts):
             spans[f"consumer{wg}_{part}"] = c[:, 12 + 6 * wg + i]
@@ -311,12 +319,13 @@ def time_trees(parent_dir: str | None, clocks: bool,
             fn = functools.partial(call, lib, x, z, slab, mask)
             r.setdefault(who, []).append(
                 {**ks.timed(fn, "assign_"), **host_cost(fn)})
-        if clocked is not None and d == WIDE and x.dtype == F32:
+        if clocked is not None and d == WIDE:
             gc = call(clocked, x, z, slab, mask)
             r["same_as_clocked"] = all(torch.equal(a, b) for a, b in
                                        zip(gc[:3], got["this"][:3]))
             r["clocks"] = clock_split(clocked, r["plan"])
-            r["map_us"] = map_us(clocked, x)
+            if x.dtype == F32:
+                r["map_us"] = map_us(clocked, x)
         res["cases"][name] = r
         print(f"[{name}] n {n}: {json.dumps(r)}", flush=True)
     if out_file:

@@ -215,7 +215,8 @@ Phases (any failure exits non-zero; no exception is caught):
      embeddings, every kernel against its plain version in both modes
      with the hill climb held to the float64 replay within Z_TOL, the
      seeds exact or parting below SEED_GAP, and parity's kernel route's
-     labels equal to the plain route's but at certified near-ties.  One
+     labels equal to the plain route's but at certified near-ties; the
+     assignment's pixels re-checked exactly per frame and mode.  One
      {"cat": {...}} line.
  2d. (run after phase 2c, on phase 8b's render cache) the JAX repo's
      COLOR, DEPTH and RGB-D early-fusion recipes, one tower each (the
@@ -305,10 +306,14 @@ Phases (any failure exits non-zero; no exception is caught):
      kernel's width-128 instantiation (name suffixed _d128) with its
      launches on phase 2c's stage 1, stage 2 and test_net runs and its
      readings from phase 2c (a) (the seeding's also its path, tile and
-     refreshed share per mode, and (a')'s uniform_* readings).  The
-     hill-climb entries also hold their launch configuration and
-     library_ms (the yardstick above, with its backend) at every shape
-     and mode.  The width-64 entries also hold their
+     refreshed share per mode, and (a')'s uniform_* readings; the
+     connected components' and the assignment's also the kernel each mode
+     launches: cc_cluster_kernel, assign_tf32_wide_kernel<104>,
+     assign_bf16_wide_kernel<104>).  The hill-climb, connected-components
+     and assignment entries also hold their launch configuration (the
+     latter two with the kernel's name; the cluster's CTAs) at every
+     shape and mode, and the hill climb's library_ms (the yardstick
+     above, with its backend).  The width-64 entries also hold their
      launches on phase 2d's paths per modality and mode
      (modality_launches) and their readings at the frame without a depth
      mask (unfiltered_*, phase 2d (a)).
@@ -559,7 +564,7 @@ def card_line() -> str:
 
 # a name that the profiler reports for each kernel's launches
 KERNEL_NAMES = {"select_seeds": "select_seeds_kernel", "hill_climb": "hill_",
-                "connected_components": "cc_kernel",
+                "connected_components": "cc_",
                 "assign_labels": "assign_"}
 
 
@@ -828,6 +833,8 @@ def check_kernels(mode: str, x32: torch.Tensor,
               f"{json.dumps(cms.hill_climb_config(x, M))}")
         print(f"[{tag}] assign_labels launch (n = {n}): "
               f"{json.dumps(cms.assign_labels_config(x, M))}")
+        print(f"[{tag}] connected_components launch (m = {M}): "
+              f"{json.dumps(cms.connected_components_config(x[:M]))}")
     got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
     path = seed_path(x_seed)
     want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
@@ -934,9 +941,13 @@ def check_kernels(mode: str, x32: torch.Tensor,
         lambda: cms.assign_labels(x, z, slab, z_valid=z_valid),
         lambda: cms.assign_labels_reference(x, z, slab, z_valid=z_valid), 10)
     out["assign_labels"] = dict(max_abs_err=0.0,
-                                bound=bound(nbytes, ops, dtype))
+                                bound=bound(nbytes, ops, dtype),
+                                rechecked=rechecked)
     if not timed:
         return out
+    out["connected_components"].update(
+        launch=cms.connected_components_config(z))
+    out["assign_labels"].update(launch=cms.assign_labels_config(x, M))
     for name, (call, plain, reps) in calls.items():
         out[name].update(ms=time_ms(call, reps), plain_ms=time_ms(plain, 3))
     # the yardstick takes up to 0.3 s a call in float32 at the frame on an
@@ -3323,7 +3334,8 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
     version in both modes with the hill climb held to the float64 result
     (check_kernels with against_exact: the seeds exact or parting at a
     near-tie below SEED_GAP), and in parity the kernel route against the
-    plain route (route_ties: labels equal but at certified near-ties)."""
+    plain route (route_ties: labels equal but at certified near-ties);
+    the assignment's re-checked pixels per frame and mode."""
     snapshots = os.path.join(work, "snapshots")
     steps, train_s, step_ms = train_recipe(tag, recipe, NET, epochs, cache,
                                            snapshots)
@@ -3332,6 +3344,7 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
     img, xyz = held_out_frames(cache, CAT_FRAMES, DEV)
     errs: dict[str, float] = {}  # the largest over the frames
     seed_flips, seed_ties, ties, found = [], [], [], []
+    rechecked = {"parity": [], "fast": []}  # the assignment's, per frame
     for fr in range(CAT_FRAMES):
         res = seg.segment(*modality_inputs(cfg, img[fr:fr + 1],
                                            xyz[fr:fr + 1]),
@@ -3350,6 +3363,7 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
                         k = (f"{mode}/{kernel}" + ("" if key == "max_abs_err"
                                                    else "_" + key[:-4]))
                         errs[k] = max(errs.get(k, 0.0), r[key])
+            rechecked[mode].append(checked["assign_labels"]["rechecked"])
             if checked["select_seeds"]["differing_step"] >= 0:
                 seed_flips.append(dict(
                     mode=mode, frame=fr,
@@ -3376,6 +3390,9 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
           + ", pixels that differ (frame: pixels, largest margin, bound) "
           + (", ".join(f"{t['frame']}: {t['pixels']}, {t['margin']:.2e}, "
                        f"{t['bound']:.2e}" for t in ties) or "none"))
+    print(f"[{tag}] assign_labels pixels re-checked exactly per frame: "
+          f"parity {rechecked['parity']}, fast {rechecked['fast']} (of "
+          f"{x.shape[0]} a frame)")
     bad = [t for t in ties if t["margin"] > t["bound"]]
     if bad:
         raise AssertionError(f"[{tag}] the routes differ beyond a "
@@ -3384,6 +3401,7 @@ def trained_cut(tag: str, recipe: str, epochs: int, work: str, cache: str
                 step_ms=step_ms, loss=[steps[0]["loss"], steps[-1]["loss"]],
                 frames=CAT_FRAMES, stage1_instances=found, max_abs_err=errs,
                 seed_near_ties=seed_flips or None,
+                assign_rechecked=rechecked,
                 route_seed_near_ties=seed_ties or None,
                 route_near_ties=ties or None)
 
@@ -4551,6 +4569,10 @@ def main() -> None:
             fast_stage2_launches=cat["stage2"]["launches"]["fast"][name],
             test_net_launches=cat["test_net"]["parity"]["launches"][name],
             fast_test_net_launches=cat["test_net"]["fast"]["launches"][name],
+            **({"kernel": cat["checks"]["parity"][name]["launch"]["kernel"],
+                "fast_kernel": cat["checks"]["fast"][name]["launch"][
+                    "kernel"]} if name in ("connected_components",
+                                           "assign_labels") else {}),
             **kernel_readings(name, cat["checks"], cat["crop_checks"]),
             **(seed_readings(cat) if name == "select_seeds" else {})))
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":

@@ -19,8 +19,12 @@ exact tie planted across two tiles, 1 and 128 seeds, a strided view, n
 either side of the plan's switch to them, and a 1920x1080 frame, past
 the lazy tiles' limit in float32), and the assignment and
 the whole clustering route with no depth mask at the frame's 480*640
-pixels (a COLOR frame's stage 1).  They need a CUDA
-device and skip without one.  On the machine with the card:
+pixels (a COLOR frame's stage 1).  The connected components run each
+case at both widths (cc_kernel<64>, and cc_cluster_kernel at d = 128; the
+merge steps held to the plain merge's; the d = 128 kernel also against
+the d = 64 one on zero-padded seeds), and the width-128 assignment's
+cases run in both types (assign_tf32_wide_kernel and
+assign_bf16_wide_kernel).  They need a CUDA device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -167,9 +171,24 @@ def test_hill_climb_kernel_many_tiles(card, dtype):
     assert float((got - want).abs().max()) <= Z_ATOL[dtype]
 
 
+def plain_merge_steps(z, eps):
+    """The plain merge's steps: the seeds still unlabeled when their turn
+    comes (the order-dependent loop of ops/mean_shift.connected_components
+    on the same adjacency)."""
+    zz = z.float()
+    adj = (0.5 * (1.0 - zz @ zz.T) <= eps).cpu().numpy()
+    labeled = np.zeros(len(adj), bool)
+    steps = 0
+    for i in range(len(adj)):
+        if not labeled[i]:
+            steps += 1
+            labeled |= adj[i]
+    return steps
+
+
 def cc_both(z, eps=0.04):
-    """The kernel's labels, held equal to the plain version's, and its count
-    of merge steps."""
+    """The kernel's labels and merge steps, held equal to the plain
+    version's."""
     before = cms.connected_components_launches
     got = cms.connected_components(z, eps)
     assert cms.connected_components_launches == before + 1
@@ -177,6 +196,7 @@ def cc_both(z, eps=0.04):
     want = cms.connected_components_reference(z, eps)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
+    assert steps == plain_merge_steps(z, eps)
     return got.tolist(), steps
 
 
@@ -202,59 +222,106 @@ def off_arc(count, seed, d=64):
     return z
 
 
-# m across the kernel's 32-seed words: 1, 31/32/33, 64/65, 127/128
+# Each case at both widths: cc_kernel<64> (one block), cc_cluster_kernel
+# at d = 128 (a cluster of CTAs, each computing its share of the
+# adjacency's items; at m = 100 the 28 items over 8 CTAs, 3 or 4 each).
+WIDTHS = [pytest.param(64, id="d64"), pytest.param(128, id="d128")]
+
+
+# m across the kernel's 32-seed words (1, 31/32/33, 64/65, 127/128) and
+# across the cluster's share of items (m <= 32: at most 4 items, some CTAs
+# without one; 33: 6 items; 64, 65: 12 and 15; 100, 128: 28 and 40 items,
+# up to 5 a CTA)
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("m", [1, 20, 31, 32, 33, 64, 65, 100, 127, 128])
-def test_connected_components_kernel_matches_plain(card, m):
-    x = on_card(card, clustered(4000, 64, seed=4)[0], torch.float32)
+def test_connected_components_kernel_matches_plain(card, m, width):
+    x = on_card(card, clustered(4000, width, seed=4)[0], torch.float32)
     labels, _ = cc_both(converged(card, x, m))
     if m >= 20:
         assert max(labels) > 0  # more than one cluster
 
 
-@pytest.mark.parametrize("m", [33, 65, 100, 127, 128])
-def test_connected_components_kernel_pairwise_far(card, m):
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("m", [1, 33, 65, 100, 127, 128])
+def test_connected_components_kernel_pairwise_far(card, m, width):
     """Every seed its own cluster: a merge step per seed, the most."""
-    z = unit(card, np.random.RandomState(m).randn(m, 64))
+    z = unit(card, np.random.RandomState(m).randn(m, width))
     labels, steps = cc_both(z)
     assert labels == list(range(m)) and steps == m
 
 
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("m", [1, 31, 33, 65, 100, 128])
-def test_connected_components_kernel_one_ball(card, m):
+def test_connected_components_kernel_one_ball(card, m, width):
     """Every pair in one epsilon-ball: every bit of the adjacency set, one
     step."""
     rng = np.random.RandomState(m)
-    z = unit(card, rng.randn(64) + 0.05 * rng.randn(m, 64) / 8.0)
+    z = unit(card, rng.randn(width) + 0.05 * rng.randn(m, width) / 8.0)
     labels, steps = cc_both(z)
     assert labels == [0] * m and steps == 1
 
 
-def test_connected_components_kernel_overwrites_labeled_neighbours(card):
+@pytest.mark.parametrize("width", WIDTHS)
+def test_connected_components_kernel_overwrites_labeled_neighbours(card,
+                                                                   width):
     """Seed 0 (0 deg) labels 15 deg with 0; seed 1 (60 deg) labels 40 and
     45 deg with 1; seed 2 (30 deg) is unlabeled, sees label 0 once and
     label 1 twice, and moves 15 deg to label 1.  34 far seeds follow."""
-    z = unit(card, np.concatenate([on_arc([0, 60, 30, 15, 40, 45]),
-                                   off_arc(34, seed=3)]))
+    z = unit(card, np.concatenate([on_arc([0, 60, 30, 15, 40, 45], width),
+                                   off_arc(34, seed=3, d=width)]))
     labels, steps = cc_both(z)
     assert labels[:6] == [0, 1, 1, 1, 1, 1]
     assert labels[6:] == list(range(2, 36)) and steps == 3 + 34
 
 
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("degrees", [[0, 60, 30, 10, 50], [60, 0, 30, 50, 10]])
-def test_connected_components_kernel_mode_tie_takes_smallest(card, degrees):
+def test_connected_components_kernel_mode_tie_takes_smallest(card, degrees,
+                                                             width):
     """Seed 2 (30 deg) sees labels 0 and 1 once each: it and all its
     neighbours take 0, the smaller, whichever side label 0 is on."""
-    z = unit(card, np.concatenate([on_arc(degrees), off_arc(20, seed=5)]))
+    z = unit(card, np.concatenate([on_arc(degrees, width),
+                                   off_arc(20, seed=5, d=width)]))
     labels, steps = cc_both(z)
     assert labels[:5] == [0, 1, 0, 0, 0] and steps == 3 + 20
 
 
-def test_connected_components_kernel_at_epsilon(card):
+@pytest.mark.parametrize("m", [1, 33, 100, 128])
+def test_connected_components_width_128_is_width_64_padded(card, m):
+    """The d = 128 cluster kernel on seeds whose last 64 dims are 0 has the
+    d = 64 kernel's adjacency bit for bit (each chain's last 64 FMAs add
+    0 exactly): the same labels and merge steps, on clustered seeds and
+    on pairwise-far ones."""
+    x = on_card(card, clustered(4000, 64, seed=8)[0], torch.float32)
+    for z in (converged(card, x, m),
+              unit(card, np.random.RandomState(m).randn(m, 64))):
+        wide = torch.cat([z, torch.zeros_like(z)], dim=1)
+        assert cc_both(wide) == cc_both(z)
+
+
+def test_connected_components_launch_shape(card):
+    """d = 64: cc_kernel<64>, one block; d = 128: cc_cluster_kernel, a
+    cluster of 8 CTAs (the portable most) of 512 threads; the adjacency's
+    items (cc_kernel's: 32 x 32 tiles on or above the diagonal, 8 rows an
+    item) and no CTA staging more rows of Z than there are seeds."""
+    for m, items in ((1, 1), (33, 6), (65, 15), (100, 28), (128, 40)):
+        for d, name, ctas in ((64, "cc_kernel<64>", 1),
+                              (128, "cc_cluster_kernel", 8)):
+            plan = cms.connected_components_config(
+                torch.zeros(m, d, device=card))
+            assert plan["kernel"] == name and plan["ctas"] == ctas
+            assert plan["threads"] == 512 and plan["items"] == items
+            assert plan["smem_bytes"] == 4 * 128 * (d + 4)
+            assert 1 <= plan["rows_staged"] <= m
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_connected_components_kernel_at_epsilon(card, width):
     """16 pairs, each in a plane of its own, at a distance eps (1 -/+
     2.5e-4): within their ball (one label) or just outside it (two).  A
-    random rotation makes every dot a full 64-term chain; its rounding
+    random rotation makes every dot a full-width chain; its rounding
     (about 1e-7) is far below the 1e-5 margin."""
-    eps, d = 0.04, 64
+    eps, d = 0.04, width
     pairs = []
     for k in range(16):
         dist = eps * (1.0 + (-2.5e-4 if k % 2 == 0 else 2.5e-4))
@@ -489,14 +556,16 @@ def test_launch_configs_at_width_128(card):
     (22% of X at the frame, all of it at both crops); the float32
     assignment (assign_tf32_wide_kernel) two consumer warpgroups and one
     producer warpgroup, one block an SM, a ring of three 64-pixel tiles of
-    32 KB and Z's split copies (128 KB); the bf16 assignment two
-    warpgroups; every block resident at once."""
+    32 KB and Z's split copies (128 KB); the bf16 assignment
+    (assign_bf16_wide_kernel) three consumer warpgroups that claim
+    64-pixel tiles of a producer warp's ring of six (16 KB each), one block
+    an SM, and bf16(Z) (32 KB); every block resident at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     x = torch.zeros(480 * 640, WIDE, device=card)
     seed = cuda_seeding.launch_config(x)
     assert seed["threads"] == 256 and seed["grid"] == sms
     assert 0 < seed["x_on_chip_bytes"] < seed["pixels_per_block"] * WIDE * 4
-    for dtype, assign_threads in zip(DTYPES, (3 * 128, 256)):
+    for dtype in DTYPES:
         hill = cms.hill_climb_config(x.to(dtype), 100)
         assert hill["threads"] == 3 * 128
         assert cms.hill_climb_config(x.to(dtype), 64)["threads"] == 2 * 128
@@ -521,17 +590,22 @@ def test_launch_configs_at_width_128(card):
                 assert plan["grid"] == sms
                 assert plan["x_resident_bytes"] == side * side * WIDE * 2
         assign = cms.assign_labels_config(x.to(dtype), 100)
-        assert assign["threads"] == assign_threads
-        assert assign["blocks_per_sm"] >= 1
-        assert assign["grid"] == assign["blocks_per_sm"] * sms
+        assert assign["threads"] == WIDE_THREADS[dtype]
+        assert assign["blocks_per_sm"] == 1 and assign["grid"] == sms
         assert assign["x_on_chip_bytes"] < assign["smem_bytes"]
+        assert assign["tile_pixels"] == 64
         if dtype == torch.float32:
-            assert assign["blocks_per_sm"] == 1
-            assert assign["stages"] == 3 and assign["tile_pixels"] == 64
+            assert assign["stages"] == 3
             assert assign["x_on_chip_bytes"] == 3 * 64 * WIDE * 4
             assert assign["smem_bytes"] == (1024 + 3 * 64 * WIDE * 4
                                             + 2 * 4 * 128 * WIDE
                                             + 3 * 4 * 128 + 8 * 9)
+        else:
+            assert assign["stages"] == 6
+            assert assign["x_on_chip_bytes"] == 6 * 64 * WIDE * 2
+            assert assign["smem_bytes"] == (1024 + 6 * 64 * WIDE * 2
+                                            + 2 * 128 * WIDE
+                                            + 3 * 4 * 128 + 4 * 8 + 8 * 12)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -771,35 +845,6 @@ def test_hill_climb_kernel_is_deterministic_at_width_128(card, dtype):
     assert float((first - want).abs().max()) <= Z_ATOL[dtype]
 
 
-@pytest.mark.parametrize("m", [1, 33, 65, 100, 128])
-def test_connected_components_kernel_at_width_128(card, m):
-    x = on_card(card, clustered(4000, WIDE, seed=34)[0], torch.float32)
-    labels, _ = cc_both(converged(card, x, m))
-    if m >= 33:
-        assert max(labels) > 0
-    z = unit(card, np.random.RandomState(m).randn(m, WIDE))
-    labels, steps = cc_both(z)  # pairwise far: each seed its own
-    assert labels == list(range(m)) and steps == m
-
-
-def test_connected_components_kernel_at_epsilon_width_128(card):
-    """Pairs just inside and just outside eps, each dot a full 128-term
-    chain (a random rotation)."""
-    eps, d = 0.04, WIDE
-    pairs = []
-    for k in range(16):
-        dist = eps * (1.0 + (-2.5e-4 if k % 2 == 0 else 2.5e-4))
-        c = 1.0 - 2.0 * dist
-        a, b = np.zeros(d), np.zeros(d)
-        a[2 * k] = 1.0
-        b[2 * k], b[2 * k + 1] = c, np.sqrt(1.0 - c * c)
-        pairs += [a, b]
-    rot, _ = np.linalg.qr(np.random.RandomState(36).randn(d, d))
-    labels, _ = cc_both(unit(card, np.stack(pairs) @ rot), eps)
-    for k in range(16):
-        assert (labels[2 * k] == labels[2 * k + 1]) == (k % 2 == 0), k
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,m", [(100, 20), (5001, 64), (5001, 65),
                                  (300001, 100), (5001, 128)])
@@ -864,25 +909,34 @@ def test_kernel_route_at_width_128_matches_it_on_cpu(card, compute_dtype,
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
 
 
-# assign_tf32_wide_kernel, the float32 assignment at width 128: a producer
-# warpgroup loads 64-pixel tiles by TMA into a ring of three stages for two
-# consumer warpgroups that take them in turns.
+# The assignment at width 128: assign_tf32_wide_kernel (float32) and
+# assign_bf16_wide_kernel (bfloat16): 64-pixel tiles loaded by TMA into a
+# ring by a producer, consumed by two warpgroups in turns (float32: three
+# stages of 32 KB) or by three warpgroups that claim the block's tiles in
+# order (bf16: six stages of 16 KB).
+WIDE_KERNELS = {torch.float32: "assign_tf32_wide_kernel",
+                torch.bfloat16: "assign_bf16_wide_kernel"}
+# two consumer warpgroups and a producer warpgroup; three consumer
+# warpgroups and a producer warp
+WIDE_THREADS = {torch.float32: 3 * 128, torch.bfloat16: 3 * 128 + 32}
 
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 64 * 132, 224 * 224, FRAME])
-def test_assign_wide_kernel_launch_shape(card, n):
+def test_assign_wide_kernel_launch_shape(card, n, dtype):
     """Threads, stages and shared bytes from assign_labels_config: 384
-    threads, at least three stages, at most 227 KB of shared memory, one
-    block an SM and at most one block a tile; the 104-column kernel up to
-    104 seeds, the 128-column one above."""
+    threads (float32) or 416 (bf16), at least three stages, at most 227 KB
+    of shared memory, one block an SM and at most one block a tile; the
+    104-column kernel up to 104 seeds, the 128-column one above."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    x = torch.zeros(n, WIDE, device=card)
+    x = torch.zeros(n, WIDE, device=card, dtype=dtype)
     plan = cms.assign_labels_config(x, 100)
-    assert plan["threads"] == 3 * 128 and plan["stages"] >= 3
+    assert plan["threads"] == WIDE_THREADS[dtype] and plan["stages"] >= 3
     assert plan["smem_bytes"] <= 232448 and plan["blocks_per_sm"] == 1
     assert plan["grid"] == min(sms, -(-n // plan["tile_pixels"]))
     for m, cols in ((1, 104), (100, 104), (104, 104), (105, 128), (128, 128)):
         assert (cms.assign_labels_config(x, m)["kernel"]
-                == f"assign_tf32_wide_kernel<{cols}>")
+                == f"{WIDE_KERNELS[dtype]}<{cols}>")
 
 
 def wide_seeds(card, m, seed):
@@ -893,40 +947,45 @@ def wide_seeds(card, m, seed):
     return z, cms.connected_components_reference(z, 0.04)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 5001, 224 * 224, FRAME])
-@pytest.mark.parametrize("m", [1, 64, 65, 100, 128])
-def test_assign_wide_kernel_shapes(card, n, m):
-    """Pixels from one to the frame against 1 to 128 seeds (the 104- and
-    the 128-column kernel), with a depth mask: labels and both histograms
+@pytest.mark.parametrize("m", [1, 64, 65, 100, 104, 105, 128])
+def test_assign_wide_kernel_shapes(card, n, m, dtype):
+    """Pixels from one to the frame (n ragged against the 64-pixel tile)
+    against 1 to 128 seeds (the 104- and the 128-column kernel either
+    side of their switch), with a depth mask: labels and both histograms
     equal to the plain version's."""
     xf, z_valid = clustered(n, WIDE, seed=50)
     z, slab = wide_seeds(card, m, 50)
-    (_, counts, _), _ = assign_both(torch.from_numpy(xf).to(card), z, slab,
-                                    torch.from_numpy(z_valid).to(card))
+    (_, counts, _), _ = assign_both(
+        torch.from_numpy(xf).to(card).to(dtype), z, slab,
+        torch.from_numpy(z_valid).to(card))
     assert float(counts.sum()) == n
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [129, 5001, FRAME])
 @pytest.mark.parametrize("misaligned", [False, True])
-def test_assign_wide_kernel_without_a_mask(card, n, misaligned):
+def test_assign_wide_kernel_without_a_mask(card, n, misaligned, dtype):
     """No z_valid (a COLOR frame), rows on and off a 16-byte boundary (the
     wrapper copies rows off it, as the TMA map needs an aligned base): the
     valid counts are the counts."""
     xf, _ = clustered(n, WIDE, seed=51)
-    x = on_card(card, xf, torch.float32, misaligned)
+    x = on_card(card, xf, dtype, misaligned)
     z, slab = wide_seeds(card, 100, 51)
     (_, counts, valid), _ = assign_both(x, z, slab)
     assert torch.equal(valid, counts) and float(counts.sum()) == n
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [5001, 224 * 224])
-def test_assign_wide_kernel_exact_tie(card, n):
+def test_assign_wide_kernel_exact_tie(card, n, dtype):
     """Seed 5 an exact copy of seed 2 under another label: the pixels
     nearest to them are re-checked and take seed 2's label."""
     xf, _ = clustered(n, WIDE, seed=52)
-    x = torch.from_numpy(xf).to(card)
+    x = torch.from_numpy(xf).to(card).to(dtype)
     pick = np.random.RandomState(53).choice(n, 20, replace=False)
-    z = x[torch.from_numpy(pick).to(card)].clone()
+    z = x[torch.from_numpy(pick).to(card)].float()
     z[5] = z[2]
     slab = torch.arange(20, dtype=torch.int32, device=card)
     (labels, _, _), rechecked = assign_both(x, z, slab)
@@ -934,20 +993,25 @@ def test_assign_wide_kernel_exact_tie(card, n):
     assert int((labels == 2).sum()) > 0 and int((labels == 5).sum()) == 0
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [5001, 224 * 224, FRAME])
-def test_assign_wide_kernel_rechecks_many_pixels(card, n):
+def test_assign_wide_kernel_rechecks_many_pixels(card, n, dtype):
     """Seeds in pairs under distinct labels, seed 2k + 1 seed 2k scaled by
     1 + 2e-5: a pixel's two best scores differ by 2e-5 times its score,
     inside the re-check margin and far above float32 rounding, so most
     pixels are re-checked, and the exact re-check gives the plain
-    version's labels."""
+    version's labels.  In bfloat16 seed 2k + 1 is a copy of seed 2k (a
+    2e-5 scaling vanishes in bf16(Z) but where it crosses a rounding
+    boundary, and there it moves a score by far more than the margin):
+    every pixel's two best labels tie exactly, and the re-check gives the
+    lower index, as the plain version's argmax does."""
     xf, z_valid = clustered(n, WIDE, seed=54)
     rng = np.random.RandomState(55)
     z = xf[rng.choice(n, 100, replace=n < 100)].astype(np.float64)
-    z[1::2] = z[0::2] * (1.0 + 2e-5)
+    z[1::2] = z[0::2] * (1.0 + (2e-5 if dtype == torch.float32 else 0.0))
     slab = torch.arange(100, dtype=torch.int32, device=card)
     _, rechecked = assign_both(
-        torch.from_numpy(xf).to(card),
+        torch.from_numpy(xf).to(card).to(dtype),
         torch.from_numpy(z.astype(np.float32)).to(card), slab,
         torch.from_numpy(z_valid).to(card))
     assert rechecked > n // 2

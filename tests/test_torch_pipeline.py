@@ -172,9 +172,9 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
 
 
 def test_port_imports_without_jax(tmp_path):
-    """Every module of the port, chip_smoke and hill_climb_study import
-    with jax, flax, the JAX package, OpenCV and PIL blocked; the training,
-    data and data-parallel slices' modules and the repo tools
+    """Every module of the port, chip_smoke, hill_climb_study and cc_study
+    import with jax, flax, the JAX package, OpenCV and PIL blocked; the
+    training, data and data-parallel slices' modules and the repo tools
     (fast_parity_report, probe_seed_precision, dataset_statistics) are
     among them, and a palette PNG written by PIL reads back (utils/masks
     through utils/png)."""
@@ -197,6 +197,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import hill_climb_study
+import cc_study
 training = {pkg.__name__ + "." + m for m in (
     "engine.train", "ops.augment", "ops.train_pipeline", "data.synthetic",
     "data.resident", "data.loader", "data.factory", "data.datasets",

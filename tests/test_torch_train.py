@@ -40,19 +40,38 @@ LR = 1e-3
 ADAM_LR = 1e-5  # the recipe's
 
 
-def cfg_dict(**train):
-    return {"INPUT": "RGBD", "MODE": "TRAIN",
+# The input recipes: INPUT and the TRAIN keys that set each one apart
+# (cfgs/synthetic_240x320_<recipe>.yml).  COLOR and DEPTH train one
+# 3-channel tower, early one 6-channel tower, add and cat two towers.
+RECIPES = {"rgbd_add": ("RGBD", {}),
+           "color": ("COLOR", {}),
+           "depth": ("DEPTH", {"DEPTH_ARTIFACTS": True}),
+           "early": ("RGBD", {"FUSION_TYPE": "early"}),
+           "cat": ("RGBD", {"FUSION_TYPE": "cat"})}
+
+
+def cfg_dict(recipe="rgbd_add", **train):
+    input_type, keys = RECIPES[recipe]
+    return {"INPUT": input_type, "MODE": "TRAIN",
             "TRAIN": dict({"NUM_UNITS": 8, "EMBEDDING_ALPHA": 0.02,
                            "EMBEDDING_DELTA": 0.5,
                            "EMBEDDING_LAMBDA_INTRA": 10.0,
                            "EMBEDDING_LAMBDA_INTER": 10.0,
                            "LEARNING_RATE": LR, "WEIGHT_DECAY": 5e-4,
-                           "MILESTONES": [2], "GAMMA": 0.1}, **train)}
+                           "MILESTONES": [2], "GAMMA": 0.1}, **keys,
+                          **train)}
 
 
-def configs(**train):
-    d = cfg_dict(**train)
+def configs(recipe="rgbd_add", **train):
+    d = cfg_dict(recipe, **train)
     return jcfg.Config.from_dict(d), tcfg.Config.from_dict(d)
+
+
+def recipe_inputs(cfg, img, xyz):
+    """(img, xyz) as the recipe's network takes them: None for the input
+    it does not read."""
+    return (None if cfg.INPUT == "DEPTH" else img,
+            None if cfg.INPUT == "COLOR" else xyz)
 
 
 def batches(n, b=2, seed=0):
@@ -108,22 +127,29 @@ def assert_states_close(js, ts, lr, steps=3, adam=False):
     assert far <= total // 1000, (far, total)
 
 
-@pytest.mark.parametrize("solver", ["adam", "sgd"])
-def test_three_steps_match_jax(solver):
+@pytest.mark.parametrize("recipe, solver", [
+    pytest.param("rgbd_add", "adam", id="adam"),
+    pytest.param("rgbd_add", "sgd", id="sgd"),
+    pytest.param("color", "adam", id="color"),
+    pytest.param("depth", "adam", id="depth"),
+    pytest.param("early", "adam", id="early"),
+    pytest.param("cat", "adam", id="cat")])
+def test_three_steps_match_jax(recipe, solver):
     """3 Adam steps, or 3 SGD steps across the milestone at step 2: loss
     per step, parameters and BatchNorm buffers (the running variance is
-    the biased one, as flax writes it)."""
+    the biased one, as flax writes it); Adam under every input recipe."""
     lr = ADAM_LR if solver == "adam" else LR
-    jc, tc = configs(LEARNING_RATE=lr)
+    jc, tc = configs(recipe, LEARNING_RATE=lr)
     js = jax_state(jc, solver, steps_per_epoch=1)
     ts = port_state(tc, js, solver, steps_per_epoch=1)
     jstep = jtrain.make_train_step(jc, max_k=8)
     tstep = ttrain.make_train_step(tc, max_k=8)
     for img, xyz, label in batches(3):
-        js, jm = jstep(js, jnp.asarray(img), jnp.asarray(xyz),
-                       jnp.asarray(label))
-        ts, tm = tstep(ts, torch.from_numpy(img), torch.from_numpy(xyz),
-                       torch.from_numpy(label))
+        img, xyz = recipe_inputs(tc, img, xyz)
+        js, jm = jstep(js, *(None if a is None else jnp.asarray(a)
+                             for a in (img, xyz)), jnp.asarray(label))
+        ts, tm = tstep(ts, *(None if a is None else torch.from_numpy(a)
+                             for a in (img, xyz)), torch.from_numpy(label))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=2e-4)
         np.testing.assert_allclose(float(tm["intra"]), float(jm["intra"]),

@@ -125,25 +125,32 @@ def stack(draws):
 
 
 def recipe_draws(key, cfg, bgr, depth_mm, label, crop=False):
-    """The port's draws for a batch, from the JAX recipe's key."""
+    """The port's draws for a batch, from the JAX recipe's key: only the
+    draws the JAX recipe takes for cfg.INPUT (the depth pipeline's for
+    DEPTH and RGBD, and always in the crop recipe; the image's for COLOR
+    and RGBD), each from the key JAX takes it with."""
     b, h, w = depth_mm.shape
     size = int(cfg.TRAIN.SYN_CROP_SIZE) if crop else None
     oh, ow = (size, size) if crop else (h, w)
+    depth = crop or cfg.INPUT in ("DEPTH", "RGBD")
+    color = cfg.INPUT in ("COLOR", "RGBD")
     per = []
     for i, k in enumerate(jax.random.split(key, b)):
         ks = jax.random.split(k, 11 if crop else 9)
         d = {}
-        mult = jax.random.gamma(ks[0], jtp.GAMMA_SHAPE)
-        d["gamma"] = np.asarray(mult)
-        d["ellipses"] = ellipse_draws(ks[1], depth_mm[i].astype(np.float32))
-        if cfg.TRAIN.DEPTH_ARTIFACTS:
-            d["artifacts"] = artifact_draws(ks[10 if crop else 8], h, w)
-        d["gp"] = np.asarray(jax.random.normal(ks[2], (h // 4, w // 4, 3)))
+        if depth:
+            d["gamma"] = np.asarray(jax.random.gamma(ks[0], jtp.GAMMA_SHAPE))
+            d["ellipses"] = ellipse_draws(ks[1],
+                                          depth_mm[i].astype(np.float32))
+            if cfg.TRAIN.DEPTH_ARTIFACTS:
+                d["artifacts"] = artifact_draws(ks[10 if crop else 8], h, w)
+            d["gp"] = np.asarray(jax.random.normal(ks[2],
+                                                   (h // 4, w // 4, 3)))
         c0 = 5 if crop else 3
-        if cfg.TRAIN.CHROMATIC:
+        if color and cfg.TRAIN.CHROMATIC:
             d["chromatic_on"] = u(ks[c0])
             d["chromatic"] = chromatic_draws(ks[c0 + 1])
-        if cfg.TRAIN.ADD_NOISE:
+        if color and cfg.TRAIN.ADD_NOISE:
             d["noise_on"] = u(ks[c0 + 2])
             d["noise"] = noise_draws(ks[c0 + 3], oh, ow)
         if cfg.TRAIN.EMBEDDING_SAMPLING:
@@ -290,8 +297,8 @@ def test_resize_nearest_legacy_matches_jax():
 # both recipes
 # ---------------------------------------------------------------------------
 
-def configs(**train):
-    d = {"INPUT": "RGBD", "MODE": "TRAIN",
+def configs(input_type="RGBD", **train):
+    d = {"INPUT": input_type, "MODE": "TRAIN",
          "TRAIN": dict({"CHROMATIC": True, "ADD_NOISE": True,
                         "EMBEDDING_SAMPLING": True,
                         "EMBEDDING_SAMPLING_NUM": 30}, **train)}
@@ -299,26 +306,54 @@ def configs(**train):
 
 
 def check_recipe(jout, tout):
+    """Labels, XYZ and image of both recipes; an output one recipe leaves
+    out (None) the other leaves out too."""
     (ji, jx, jlab), (ti, tx, tlab) = jout, tout
     np.testing.assert_array_equal(tlab.numpy(), np.asarray(jlab))
-    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-6,
-                               atol=1e-6)
-    np.testing.assert_allclose(ti.numpy(), np.asarray(ji),
-                               atol=IMG_ATOL / 255)
+    assert (tx is None) == (jx is None) and (ti is None) == (ji is None)
+    if jx is not None:
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-6,
+                                   atol=1e-6)
+    if ji is not None:
+        np.testing.assert_allclose(ti.numpy(), np.asarray(ji),
+                                   atol=IMG_ATOL / 255)
 
 
-@pytest.mark.parametrize("artifacts", [False, True])
-def test_full_image_recipe_matches_jax(artifacts):
-    jc, tc = configs(DEPTH_ARTIFACTS=artifacts)
+def draw_shapes(draws):
+    """The tree of a draws dict's names and shapes."""
+    if isinstance(draws, dict):
+        return {k: draw_shapes(v) for k, v in draws.items()}
+    return tuple(draws.shape)
+
+
+def check_replay(draw, draws, bgr):
+    """The replayed draws are exactly the ones the port's own draw takes:
+    the same names and shapes, nothing more and nothing less."""
+    own = draw(torch.Generator().manual_seed(0), t(bgr))
+    assert draw_shapes(draws) == draw_shapes(own)
+
+
+@pytest.mark.parametrize("input_type, artifacts", [
+    pytest.param("RGBD", False, id="False"),
+    pytest.param("RGBD", True, id="True"),
+    pytest.param("COLOR", False, id="COLOR"),
+    pytest.param("DEPTH", True, id="DEPTH")])
+def test_full_image_recipe_matches_jax(input_type, artifacts):
+    """The recipe under every input: RGB-D with and without depth
+    artifacts, COLOR, and DEPTH with artifacts as its recipe trains."""
+    jc, tc = configs(input_type, DEPTH_ARTIFACTS=artifacts)
     bgr, depth, label = scene(9, b=3)
     key = jax.random.PRNGKey(21)
     jout = jax.jit(jtp.make_device_augment(
         jc, fx=INTR[0], fy=INTR[1], px=INTR[2], py=INTR[3]))(
         jnp.asarray(bgr), jnp.asarray(depth), jnp.asarray(label), key)
-    _, apply = ttp.make_device_augment(tc, fx=INTR[0], fy=INTR[1],
-                                       px=INTR[2], py=INTR[3])
+    draw, apply = ttp.make_device_augment(tc, fx=INTR[0], fy=INTR[1],
+                                          px=INTR[2], py=INTR[3])
     draws = recipe_draws(key, tc, bgr, depth, label)
+    check_replay(draw, draws, bgr)
     tout = apply(t(bgr), t(depth.astype(np.int32)), t(label), draws)
+    assert (tout[0] is None) == (input_type == "DEPTH")
+    assert (tout[1] is None) == (input_type == "COLOR")
     check_recipe(jout, tout)
 
 
@@ -330,9 +365,10 @@ def test_crop_recipe_matches_jax():
     jout = jax.jit(jtp.make_device_augment_crop(
         jc, fx=INTR[0], fy=INTR[1], px=INTR[2], py=INTR[3]))(
         jnp.asarray(bgr), jnp.asarray(depth), jnp.asarray(label), key)
-    _, apply = ttp.make_device_augment_crop(tc, fx=INTR[0], fy=INTR[1],
-                                            px=INTR[2], py=INTR[3])
+    draw, apply = ttp.make_device_augment_crop(tc, fx=INTR[0], fy=INTR[1],
+                                               px=INTR[2], py=INTR[3])
     draws = recipe_draws(key, tc, bgr, depth, label, crop=True)
+    check_replay(draw, draws, bgr)
     tout = apply(t(bgr), t(depth.astype(np.int32)), t(label), draws)
     assert tout[0].shape == (3, 24, 24, 3)
     check_recipe(jout, tout)

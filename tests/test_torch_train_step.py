@@ -9,10 +9,12 @@ differently in XLA and in PyTorch).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from test_torch_train import (HW, LR, NET, assert_states_close, batches,
-                              configs, jax_state, port_state)
+from test_torch_train import (HW, LR, NET, RECIPES, assert_states_close,
+                              batches, configs, jax_state, port_state,
+                              recipe_inputs)
 from test_torch_train_pipeline import INTR, recipe_draws, scene
 from unseenobjectclustering_torch.engine import train as ttrain
 from unseenobjectclustering_tpu.engine import train as jtrain
@@ -20,13 +22,15 @@ from unseenobjectclustering_tpu.engine import train as jtrain
 torch.set_num_threads(1)
 
 
-def test_raw_step_matches_jax():
+@pytest.mark.parametrize("recipe", list(RECIPES))
+def test_raw_step_matches_jax(recipe):
     """One whole step on raw scenes: the JAX package's fused augmentation +
     train step against the port's, the port fed the draws of the JAX
-    step's key."""
+    step's key; under every input recipe (DEPTH with its depth
+    artifacts)."""
     train = {"EMBEDDING_SAMPLING": True, "EMBEDDING_SAMPLING_NUM": 30,
              "CHROMATIC": True, "ADD_NOISE": True}
-    jc, tc = configs(**train)
+    jc, tc = configs(recipe, **train)
     bgr, depth, label = scene(12, b=2, h=HW, w=HW)
     js = jax_state(jc, "adam")
     ts = port_state(tc, js, "adam")
@@ -46,8 +50,10 @@ def test_raw_step_matches_jax():
     assert_states_close(js, ts, LR, steps=1, adam=True)
 
 
-def test_resident_step_is_the_raw_step_behind_a_gather():
-    _, tc = configs(EMBEDDING_SAMPLING=True, EMBEDDING_SAMPLING_NUM=30)
+@pytest.mark.parametrize("recipe", ["rgbd_add", "color", "depth"])
+def test_resident_step_is_the_raw_step_behind_a_gather(recipe):
+    _, tc = configs(recipe, EMBEDDING_SAMPLING=True,
+                    EMBEDDING_SAMPLING_NUM=30)
     bgr, depth, label = (torch.from_numpy(a) for a in scene(13, b=4, h=HW,
                                                              w=HW))
     depth = depth.to(torch.int32)
@@ -68,20 +74,24 @@ def test_resident_step_is_the_raw_step_behind_a_gather():
         assert torch.equal(a, b)
 
 
-def test_bf16_step_keeps_float32_state():
+@pytest.mark.parametrize("recipe", ["rgbd_add", "depth"])
+def test_bf16_step_keeps_float32_state(recipe):
     """--bf16: convolutions in bfloat16, parameters, Adam moments,
     BatchNorm statistics and the loss in float32; the loss near the JAX
-    package's bf16 step."""
-    jc, tc = configs()
+    package's bf16 step (RGB-D add, and DEPTH, whose recipe trains on
+    the card with --bf16)."""
+    jc, tc = configs(recipe)
     js = jtrain.create_train_state(jc, network_name=NET, height=HW,
                                    width=HW, model_dtype=jnp.bfloat16)
     ts = port_state(tc, js, "adam", model_dtype=torch.bfloat16)
     img, xyz, label = batches(1, seed=3)[0]
+    img, xyz = recipe_inputs(tc, img, xyz)
     js, jm = jtrain.make_train_step(jc, max_k=8)(
-        js, jnp.asarray(img), jnp.asarray(xyz), jnp.asarray(label))
+        js, *(None if a is None else jnp.asarray(a) for a in (img, xyz)),
+        jnp.asarray(label))
     ts, tm = ttrain.make_train_step(tc, max_k=8)(
-        ts, torch.from_numpy(img), torch.from_numpy(xyz),
-        torch.from_numpy(label))
+        ts, *(None if a is None else torch.from_numpy(a)
+              for a in (img, xyz)), torch.from_numpy(label))
     assert tm["loss"].dtype == torch.float32
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=2e-2)

@@ -5,16 +5,18 @@
 //   hill_tf32_kernel, hill_tf32_wide_kernel,
 //   hill_bf16_kernel, hill_bf16_wide_kernel
 //                       <- _hill_climb_kernel / hill_climb_pallas
-//   cc_kernel           <- _cc_kernel / connected_components_pallas
+//   cc_kernel, cc_cluster_kernel
+//                       <- _cc_kernel / connected_components_pallas
 //   assign_tf32_kernel, assign_tf32_wide_kernel,
-//   assign_bf16_kernel  <- _assign_kernel / assign_labels_pallas
+//   assign_bf16_kernel, assign_bf16_wide_kernel
+//                       <- _assign_kernel / assign_labels_pallas
 //
 // The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
 // of every recipe) or d = 128 (2 * NUM_UNITS: the RGB-D cat fusion), each
 // width its own instantiation or kernel; the C entry points take d and
 // refuse any other width.  The hill climb and the assignment stream X
-// through a ring of pixel tiles (cp.async, or TMA for the bf16 hill climb
-// and the float32 assignment at d = 128) and run their products on the
+// through a ring of pixel tiles (cp.async, or TMA at d = 128 but for the
+// float32 hill climb) and run their products on the
 // tensor cores in both modes: float32 as split TF32 on wgmma (about fp32
 // accuracy), bfloat16 on
 // mma.sync (hill climb at d = 64) or wgmma (the rest).  The assignment
@@ -1947,7 +1949,9 @@ cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
 // adjacency, and one dependent merge step for each seed that is still
 // unlabeled when its turn comes (about one per cluster).
 //
-// Design: one block of 16 warps; Z in dynamic shared memory (kMaxSeeds
+// Design (cc_kernel; at d = 128 cc_cluster_kernel, below, spreads the
+// adjacency over a thread-block cluster and keeps this merge): one block
+// of 16 warps; Z in dynamic shared memory (kMaxSeeds
 // rows of d + 4 floats: 34 KB at d = 64, 66 KB at d = 128, past the 48 KB
 // of static shared memory), the adjacency in static (2 KB).
 //   Adjacency as bitmasks, each pair computed once.  Row i is four uint32
@@ -1989,15 +1993,49 @@ constexpr int kCCWords = kMaxSeeds / 32;
 // row, hit 8 disjoint groups of 4 banks.
 constexpr int kCCRows = 8;  // rows of one work item, run as independent chains
 
+// A study build (-DCC_CLOCKS, cc_study.py) records for each CTA c of a
+// launch (c < kCCClockCtas; one CTA for cc_kernel): clock64 at its start
+// (mark 0), once its rows of Z are staged (1), when warp 0's items are done
+// (2), when the adjacency is complete (3: past the block barrier, or the
+// cluster's second barrier), after the merge (4) and the output (5); the
+// merge steps (6); %globaltimer at the start and at mark 3 (7, 8), which
+// every SM shares; cc_cluster_kernel's warp 0 past the cluster's first
+// barrier (9) and after its words reached the leader (10); the latest
+// warp's items done (11).
+constexpr int kCCClockCtas = 8, kCCMarks = 12;
+#ifdef CC_CLOCKS
+__device__ long long cc_clocks[kCCClockCtas][kCCMarks];
+__device__ __forceinline__ long long cc_now() { return clock64(); }
+__device__ __forceinline__ long long cc_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void cc_mark(bool me, int cta, int at,
+                                        long long value) {
+  if (me && cta < kCCClockCtas) cc_clocks[cta][at] = value;
+}
+__device__ __forceinline__ void cc_mark_latest(int cta, long long value) {
+  if ((threadIdx.x & 31) == 0 && cta < kCCClockCtas)
+    atomicMax(reinterpret_cast<unsigned long long*>(&cc_clocks[cta][11]),
+              static_cast<unsigned long long>(value));
+}
+#else
+__device__ __forceinline__ long long cc_now() { return 0; }
+__device__ __forceinline__ long long cc_ns() { return 0; }
+__device__ __forceinline__ void cc_mark(bool, int, int, long long) {}
+__device__ __forceinline__ void cc_mark_latest(int, long long) {}
+#endif
+
 // Rows [r0, r0 + kCCRows) of row block rb (which holds `rows` seeds)
-// against the 32 seeds of column block cb: the rows' words of block cb, by
-// ballot, and when `mirror` is set each lane's bits over these rows, OR-ed
-// into its column's word of block rb.
+// against the 32 seeds of column block cb: word[r], the same in every lane,
+// is row r0 + r's word of block cb (by ballot); the result is the lane's
+// column j = 32 cb + lane's bits over these rows (bit r0 + r), its word of
+// row block rb in the mirror.
 template <int kD>
-__device__ __forceinline__ void cc_rows(const float* zs,
-                                        unsigned (*adj)[kCCWords], int m,
-                                        float eps, int rb, int rows, int r0,
-                                        int cb, bool mirror) {
+__device__ __forceinline__ unsigned cc_dots(const float* zs, int m, float eps,
+                                            int rb, int rows, int r0, int cb,
+                                            unsigned (&word)[kCCRows]) {
   constexpr int kPitch = kF32Pitch<kD>;
   const int lane = threadIdx.x & 31;
   const int j = 32 * cb + lane;
@@ -2033,15 +2071,31 @@ __device__ __forceinline__ void cc_rows(const float* zs,
       }
     }
   }
-  unsigned own = 0;  // column j's bits over these rows
+  unsigned own = 0;
 #pragma unroll
   for (int r = 0; r < kCCRows; ++r) {
     const bool in = r0 + r < rows && j < m && 0.5f * (1.0f - acc[r]) <= eps;
-    const unsigned word = __ballot_sync(0xffffffffu, in);
-    if (lane == 0 && r0 + r < rows) adj[32 * rb + r0 + r][cb] = word;
+    word[r] = __ballot_sync(0xffffffffu, in);
     own |= static_cast<unsigned>(in) << (r0 + r);
   }
-  if (mirror && own) atomicOr(&adj[j][rb], own);
+  return own;
+}
+
+// cc_dots's words into the block's own adjacency: row r0 + r's word of
+// block cb, and when `mirror` is set each lane's bits over these rows,
+// OR-ed into its column's word of block rb.
+template <int kD>
+__device__ __forceinline__ void cc_rows(const float* zs,
+                                        unsigned (*adj)[kCCWords], int m,
+                                        float eps, int rb, int rows, int r0,
+                                        int cb, bool mirror) {
+  const int lane = threadIdx.x & 31;
+  unsigned word[kCCRows];
+  const unsigned own = cc_dots<kD>(zs, m, eps, rb, rows, r0, cb, word);
+#pragma unroll
+  for (int r = 0; r < kCCRows; ++r)
+    if (lane == 0 && r0 + r < rows) adj[32 * rb + r0 + r][cb] = word[r];
+  if (mirror && own) atomicOr(&adj[32 * cb + lane][rb], own);
 }
 
 // The lowest seed whose bit is set in s, or -1; the four __ffs are
@@ -2056,49 +2110,13 @@ __device__ __forceinline__ int cc_first(const unsigned (&s)[kCCWords]) {
   return first;
 }
 
-// Z's rows in dynamic shared memory, and the kernel that fits it.
-template <int kD>
-constexpr size_t cc_smem_bytes() {
-  return sizeof(float) * kMaxSeeds * kF32Pitch<kD>;
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kCCThreads)
-cc_kernel(const float* __restrict__ z, int m, float eps,
-          int* __restrict__ labels, int* __restrict__ steps) {
-  extern __shared__ __align__(16) float cc_smem[];
-  float* zs = cc_smem;  // [kMaxSeeds][kF32Pitch<kD>]
-  __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-
-  for (int e = t; e < kMaxSeeds * kCCWords; e += kCCThreads)
-    adj[e / kCCWords][e % kCCWords] = 0u;
-  for (int e = t; e < m * (kD / 4); e += kCCThreads)
-    *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kF32Pitch<kD> +
-                               4 * (e % (kD / 4))) =
-        reinterpret_cast<const float4*>(z)[e];
-  __syncthreads();
-
-  // Work items of kCCRows rows of one tile, dealt to the warps in turn.
-  // Only the last block can hold fewer than 32 seeds; off the diagonal it
-  // gives the rows.
-  const int blocks = (m + 31) / 32;
-  const bool short_last = m % 32 != 0;
-  int item = 0;
-  for (int a = 0; a < blocks; ++a)
-    for (int c = a; c < blocks; ++c) {
-      const bool swap = short_last && c == blocks - 1;
-      const int rb = swap ? c : a, cb = swap ? a : c;
-      const int rows = min(32, m - 32 * rb);
-      for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item)
-        if (item % kCCWarps == warp)
-          cc_rows<kD>(zs, adj, m, eps, rb, rows, r0, cb, a != c);
-    }
-  __syncthreads();
-  if (warp != 0) return;
-
-  // The merge, on warp 0.  pending: the seeds neither labeled nor visited;
-  // labeled: the union of the label masks (both the same in every lane).
+// The merge, on one warp, over the complete adjacency (see the note above),
+// and each seed's label out; returns the merge steps.
+__device__ __forceinline__ int cc_merge(unsigned (*adj)[kCCWords], int m,
+                                        int* __restrict__ labels) {
+  const int lane = threadIdx.x & 31;
+  // pending: the seeds neither labeled nor visited; labeled: the union of
+  // the label masks (both the same in every lane)
   unsigned pending[kCCWords], labeled[kCCWords];
   unsigned member[kCCWords][kCCWords];  // [q][w]: label lane + 32 q's seeds
 #pragma unroll
@@ -2185,7 +2203,243 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
     if (32 * w + lane < m)
       labels[32 * w + lane] = labeled[w] >> lane & 1 ? label : -1;
   }
-  if (lane == 0) *steps = n_steps;
+  return n_steps;
+}
+
+// Z's rows in dynamic shared memory, and the kernel that fits it.
+template <int kD>
+constexpr size_t cc_smem_bytes() {
+  return sizeof(float) * kMaxSeeds * kF32Pitch<kD>;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kCCThreads)
+cc_kernel(const float* __restrict__ z, int m, float eps,
+          int* __restrict__ labels, int* __restrict__ steps) {
+  extern __shared__ __align__(16) float cc_smem[];
+  float* zs = cc_smem;  // [kMaxSeeds][kF32Pitch<kD>]
+  __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
+  const int t = threadIdx.x, warp = t >> 5;
+  cc_mark(t == 0, 0, 0, cc_now());
+  cc_mark(t == 0, 0, 7, cc_ns());
+
+  for (int e = t; e < kMaxSeeds * kCCWords; e += kCCThreads)
+    adj[e / kCCWords][e % kCCWords] = 0u;
+  for (int e = t; e < m * (kD / 4); e += kCCThreads)
+    *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kF32Pitch<kD> +
+                               4 * (e % (kD / 4))) =
+        reinterpret_cast<const float4*>(z)[e];
+  __syncthreads();
+  cc_mark(t == 0, 0, 1, cc_now());
+
+  // Work items of kCCRows rows of one tile, dealt to the warps in turn.
+  // Only the last block can hold fewer than 32 seeds; off the diagonal it
+  // gives the rows.
+  const int blocks = (m + 31) / 32;
+  const bool short_last = m % 32 != 0;
+  int item = 0;
+  for (int a = 0; a < blocks; ++a)
+    for (int c = a; c < blocks; ++c) {
+      const bool swap = short_last && c == blocks - 1;
+      const int rb = swap ? c : a, cb = swap ? a : c;
+      const int rows = min(32, m - 32 * rb);
+      for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item)
+        if (item % kCCWarps == warp)
+          cc_rows<kD>(zs, adj, m, eps, rb, rows, r0, cb, a != c);
+    }
+  cc_mark(t == 0, 0, 2, cc_now());
+  cc_mark_latest(0, cc_now());
+  __syncthreads();
+  if (warp != 0) return;
+  cc_mark(t == 0, 0, 3, cc_now());
+  cc_mark(t == 0, 0, 8, cc_ns());
+  const int n_steps = cc_merge(adj, m, labels);
+  cc_mark(t == 0, 0, 4, cc_now());
+  if (t == 0) *steps = n_steps;
+  cc_mark(t == 0, 0, 5, cc_now());
+  cc_mark(t == 0, 0, 6, n_steps);
+}
+
+// ---------------------------------------------------------------------------
+// Connected components at d = 128: cc_cluster_kernel, a thread-block
+// cluster of kCCCluster CTAs (cc_kernel<128>, one block on one SM, spent
+// about a third of its time on the adjacency's 128-long chains, which its
+// 16 warps took in two rounds: 28 items at m = 100).
+//
+// Design.  The host deals the items (cc_kernel's, in its order) to the
+// cluster's warps: item i to CTA i % kCCCluster's warp i / kCCCluster
+// (mod 16), at most 40 items (m = 128) over 128 warps, so each warp runs
+// at most one; and it lists for each CTA the rows of Z that its items read
+// (CCPlan, built once per m and passed by value).  Each CTA stages only
+// those rows, with a thread's loads in flight at once, and runs cc_dots,
+// the same fp32 FMA chains over k = 0..127 in the same order: every bit of
+// the adjacency, and the mirror argument above, stay as they were.  The
+// words go straight into the leader's (CTA 0's) adjacency through
+// distributed shared memory: a row's words by st.shared::cluster (each
+// word has one writer), the mirror's bits by red.shared::cluster.or.
+// Two cluster barriers, each an arrive (release) and a wait (acquire): the
+// first orders the leader's zeroing of its adjacency before any write to
+// it (a CTA arrives once its rows are staged and waits only when its first
+// words are ready, so the chains run across the barrier's latency; it also
+// keeps every CTA's shared memory in place for the writes); the second
+// orders every CTA's writes before the merge.  No CTA exits before the
+// second.  Then the leader's warp 0 runs cc_merge, cc_kernel's merge, on
+// the complete adjacency: the labels and the merge steps are cc_kernel's.
+// The launch (cudaLaunchKernelEx with the cluster attribute) raises the
+// kernel's dynamic shared-memory limit once per device and queries nothing
+// else.
+// ---------------------------------------------------------------------------
+constexpr int kCCCluster = 8;     // CTAs (portable: at most 8)
+constexpr int kCCMaxItems = 40;   // m = 128: 10 tiles of 4 items
+
+// Where a launch computes what, for one m: item i is {rb, rows, r0, cb},
+// with bit 7 of cb set where the tile is off the diagonal (its mirror is
+// written); rows[c] is the set of Z rows that CTA c's items read.
+struct CCPlan {
+  unsigned rows[kCCCluster][kCCWords];
+  unsigned char item[kCCMaxItems][4];
+  int items;
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this CTA's shared memory) in CTA
+// `rank`'s.
+__device__ __forceinline__ unsigned cluster_addr(const void* p,
+                                                 unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_or(unsigned addr, unsigned v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.or.b32 [%0], %1;\n" ::"r"(
+                   addr),
+               "r"(v)
+               : "memory");
+}
+
+// z: [m, 128] float32, rows 16-byte aligned; plan: cc_cluster_plan(m);
+// labels, steps as cc_kernel's.  gridDim.x = kCCCluster, one cluster.
+__global__ void __launch_bounds__(kCCThreads)
+cc_cluster_kernel(const float* __restrict__ z, int m, float eps,
+                  const __grid_constant__ CCPlan plan,
+                  int* __restrict__ labels, int* __restrict__ steps) {
+  constexpr int kD = kWideD;
+  constexpr int kPitch = kF32Pitch<kD>;
+  extern __shared__ __align__(16) float cc_smem[];
+  float* zs = cc_smem;  // [kMaxSeeds][kPitch], the rows of this CTA's items
+  __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned rank = cluster_rank();
+  const int cta = static_cast<int>(rank);
+  cc_mark(t == 0, cta, 0, cc_now());
+  cc_mark(t == 0, cta, 7, cc_ns());
+  static_assert(kCCThreads == kMaxSeeds * kCCWords, "a word a thread");
+  if (rank == 0) (&adj[0][0])[t] = 0u;
+  // this CTA's rows of Z, every load in flight before the first store
+  constexpr int kPer = kMaxSeeds * (kD / 4) / kCCThreads;
+  static_assert(kPer * kCCThreads == kMaxSeeds * (kD / 4), "Z");
+  float4 v[kPer];
+  bool need[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = t + i * kCCThreads, s = e / (kD / 4);
+    need[i] = s < m && (plan.rows[cta][s >> 5] >> (s & 31) & 1u);
+    if (need[i]) v[i] = reinterpret_cast<const float4*>(z)[e];
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = t + i * kCCThreads, s = e / (kD / 4);
+    if (need[i])
+      *reinterpret_cast<float4*>(zs + s * kPitch + 4 * (e % (kD / 4))) = v[i];
+  }
+  __syncthreads();
+  cc_mark(t == 0, cta, 1, cc_now());
+  cluster_arrive();  // the leader's adjacency is zeroed
+
+  bool waited = false;  // uniform over the warp
+  for (int i = cta + kCCCluster * warp; i < plan.items;
+       i += kCCCluster * kCCWarps) {
+    const int rb = plan.item[i][0], rows = plan.item[i][1];
+    const int r0 = plan.item[i][2], cb = plan.item[i][3] & 127;
+    const bool mirror = plan.item[i][3] >> 7;
+    unsigned word[kCCRows];
+    const unsigned own = cc_dots<kD>(zs, m, eps, rb, rows, r0, cb, word);
+    if (!waited) {
+      cluster_wait();
+      waited = true;
+      cc_mark(t == 0, cta, 9, cc_now());
+    }
+#pragma unroll
+    for (int r = 0; r < kCCRows; ++r)
+      if (lane == r && r0 + r < rows)
+        cluster_store(cluster_addr(&adj[32 * rb + r0 + r][cb], 0), word[r]);
+    if (mirror && own) cluster_or(cluster_addr(&adj[32 * cb + lane][rb], 0),
+                                  own);
+    cc_mark(t == 0, cta, 10, cc_now());
+  }
+  cc_mark(t == 0, cta, 2, cc_now());
+  cc_mark_latest(cta, cc_now());
+  if (!waited) cluster_wait();
+  cluster_arrive();  // this CTA's words are in the leader's adjacency
+  cluster_wait();
+  cc_mark(t == 0, cta, 3, cc_now());
+  cc_mark(t == 0, cta, 8, cc_ns());
+  if (rank != 0 || warp != 0) return;
+  const int n_steps = cc_merge(adj, m, labels);
+  cc_mark(t == 0, 0, 4, cc_now());
+  if (t == 0) *steps = n_steps;
+  cc_mark(t == 0, 0, 5, cc_now());
+  cc_mark(t == 0, 0, 6, n_steps);
+}
+
+// The items of cc_kernel's adjacency for m seeds, in its order, and the Z
+// rows each of the cluster's CTAs reads (see cc_cluster_kernel).
+CCPlan cc_cluster_plan(int m) {
+  CCPlan p{};
+  const int blocks = (m + 31) / 32;
+  const bool short_last = m % 32 != 0;
+  auto read = [&](int cta, int s) { p.rows[cta][s >> 5] |= 1u << (s & 31); };
+  int item = 0;
+  for (int a = 0; a < blocks; ++a)
+    for (int c = a; c < blocks; ++c) {
+      const bool swap = short_last && c == blocks - 1;
+      const int rb = swap ? c : a, cb = swap ? a : c;
+      const int rows = std::min(32, m - 32 * rb);
+      for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item) {
+        const int cta = item % kCCCluster;
+        p.item[item][0] = static_cast<unsigned char>(rb);
+        p.item[item][1] = static_cast<unsigned char>(rows);
+        p.item[item][2] = static_cast<unsigned char>(r0);
+        p.item[item][3] = static_cast<unsigned char>(cb | (a != c) << 7);
+        for (int r = r0; r < std::min(r0 + kCCRows, rows); ++r)
+          read(cta, 32 * rb + r);
+        for (int j = 32 * cb; j < std::min(32 * cb + 32, m); ++j)
+          read(cta, j);
+      }
+    }
+  p.items = item;
+  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -2222,11 +2476,10 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
 // fragments, issues its wgmmas into the same accumulators and waits, so a
 // thread holds one pass's fragments, at d = 128 as at d = 64.
 //
-// At d = 128, bfloat16: Z takes 32 KB, two warpgroups, a ring of two
-// 128-pixel tiles (68 KB), two blocks per SM as at d = 64 (AssignShape).
-// float32 at d = 128 has a kernel of its own, assign_tf32_wide_kernel
-// (below): Z's split copies take 128 KB, so one block fills an SM, and its
-// warpgroups split the work by role instead of by pixels.
+// At d = 128 each type has a kernel of its own (below), whose warpgroups
+// split the work by role instead of by pixels: assign_tf32_wide_kernel
+// (Z's split copies take 128 KB, so one block fills an SM) and
+// assign_bf16_wide_kernel (A read by wgmma straight from its TMA stage).
 //
 // The re-check margin (kRecheckMargin<d>).  X and Z rows are unit
 // vectors.  Split TF32 drops, per product a_i b_i, small * small (<= 2^-22
@@ -2266,8 +2519,8 @@ template <int kD>
 constexpr float kRecheckMargin =
     kD == 64 ? 3.0517578125e-05f : 6.103515625e-05f;  // 2^-15, 2^-14
 
-// The launch shape of assign_body for X of type T and width kD (float32
-// only at d = 64): two warpgroups a block, threads, pixels per tile (64
+// The launch shape of assign_body for X of type T and width kD (d = 64;
+// width 128 has the wide kernels below): two warpgroups a block, threads, pixels per tile (64
 // per warpgroup), X tiles in the ring, the row pitch of a tile in shared
 // memory, and the dynamic shared bytes (the ring, then Z: float32 its two
 // split copies); no setmaxnreg and no tensor map (AssignWideShape has
@@ -2277,7 +2530,7 @@ struct AssignShape {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kThreads = 256;
   static constexpr int kTile = 128;
-  static constexpr int kStages = kD == 64 ? 4 : 2;
+  static constexpr int kStages = 4;
   static constexpr int kPitch = kF32 ? kF32Pitch<kD> : kMmaPitch<kD>;
   static constexpr size_t kSmem =
       sizeof(T) * kStages * kTile * kPitch +
@@ -2826,7 +3079,10 @@ struct AssignWideShape {
 };
 
 // A study build (-DASSIGN_CLOCKS, assign_study.py) records for each block
-// of assign_tf32_wide_kernel: consumer thread 0's clock64 at its start,
+// of assign_tf32_wide_kernel (and of assign_bf16_wide_kernel, below, whose
+// consumers' first parts are the claim with the wait for the tile, then
+// the wgmmas' issue and the wgmmas to their end): consumer thread 0's
+// clock64 at its start,
 // after Z is staged, after its tiles and after the histograms' flush
 // (marks 0-3); the producer thread's cycles in the wait for free stages
 // and its tiles (4, 5); the dynamic shared memory's address (6); for each
@@ -3246,6 +3502,405 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(tid == 0, 3, aw_now());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at d = 128: assign_bf16_wide_kernel, the fast mode's assignment
+// of the RGB-D cat fusion's embeddings (it replaced assign_bf16_kernel<128>,
+// assign_body at width 128: two warpgroups a block, each waiting on its own
+// half of 128-pixel tiles in a cp.async ring of two, A through registers by
+// ldmatrix, two n64 products at m = 100, and a warpgroup's argmax never
+// beside its own wgmmas).
+//
+// Bound on the H100: one read of X (78.6 MB at n = 307200: 0.024 ms at
+// 3.35 TB/s) against 2*m*n*d flops (7.9 GFLOP at m = 100: 0.008 ms at 989
+// TFLOP/s of bf16): bound by the bytes.
+//
+// Design: assign_tf32_wide_kernel's producer, TMA tiles and one product a
+// k-chunk, without the split, and with more warps for the CUDA-core work.
+//  - Tiles.  The producer warp's first thread loads the block's 64-pixel
+//    tiles in order by TMA, each as two boxes of 64 pixels x 64 dims
+//    (128-byte rows, the 128-byte swizzle; hill_bf16_wide_kernel's map),
+//    16 KB a tile, into a ring of kABStages stages: tile k in stage k %
+//    kABStages, completing full[s]; it reloads a stage once empty[s] has
+//    the four warps of the consumer that took its last tile.
+//  - Claims.  Three consumer warpgroups claim the block's tiles in order
+//    from a shared counter (atomicAdd by a consumer's leader), so one that
+//    is slow on a tile (a re-check) holds up no other.  A claim waits
+//    until the producer has issued the tile's load (issued): full[s] has
+//    then completed the phases of the stage's earlier tiles, and the
+//    parity (k / kABStages) & 1 names tile k's own phase.  (Without that
+//    wait, a claim could run a whole ring ahead of a tile still in flight
+//    and pass on the phase before it.)
+//  - Tensor work.  Each 16-dim k-chunk is one wgmma m64nNk16, N = kN (104
+//    for m <= 104, else 128; the plan picks the kernel).  A is read
+//    straight from the swizzled stage by a shared-memory descriptor (bf16
+//    wgmma takes A from shared memory; nothing is split or staged in
+//    registers), B is bf16(Z), staged once a block in the seed_word
+//    layout, with a thread's loads and its seed label's in flight at once
+//    while the first tiles load.  A stage is released as soon as its wgmma
+//    group completes.
+//  - thread_best_wide, merge_quad, the histograms and the flush once a
+//    block are the float32 kernel's.  The re-check is exact_argmax on the
+//    pixel's bf16 row in global memory against bf16(Z) widened to fp32, as
+//    assign_body's bf16 re-check and the plain version compute it.
+//  - Why three claiming consumers.  The float32 kernel's two consumers in
+//    turns read 0.0425 ms at the 480x640 frame on the H100: the tensor
+//    work is a tenth of the float32 kernel's, so the consumers' CUDA-core
+//    work (thread_best_wide, merge_quad, the histograms: about 700
+//    instructions a warp a tile) bounds it, and a re-check in one consumer
+//    held up the other's turn (random unit vectors: 0.279 ms, the
+//    assign_body kernel 0.172).  Three consumers read 0.037-0.038; a fourth
+//    (with the producer's loads taken over by the consumers) helps random
+//    inputs at the frame but reads 0.5-0.8 us slower at the crops.
+//  - Registers: 416 threads, at most 152 registers a thread (the kernel
+//    takes 118-119), no setmaxnreg, no spills.
+// The margin.  Each pixel's S is 8 wgmma steps into one accumulator (the 8
+// k-chunks in order), each summing 16 exact bf16 products and the
+// accumulator: the steps and terms that the bf16 bound above counts at d =
+// 128 (the n-extent changes no element's terms; two n64 products made the
+// same 8 steps), so it holds as it stands: 8 steps of 17 terms, 4.1e-6,
+// and the plain version's 128 * 2^-24 = 7.6e-6, below 2^-15 =
+// kRecheckMargin<128> / 2.
+// Shared memory, all of it dynamic, from a 1024-byte boundary (the
+// swizzle's): the ring, kABStages x 16 KB (stage s at 16 KB s, box b of it
+// at 8 KB b); bf16(Z), 32 KB; slab and hist[2]; next, issued and the
+// claims; the mbarriers full[6] and empty[6]: 1024 + 98,304 + 32,768 +
+// 1,536 + 32 + 96 = 133,760 bytes.  Two blocks would fit in shared memory
+// with a ring of four, not in registers (2 x 416 threads x 118).
+// The A operand of k-chunk c is dims [16 c, 16 c + 16): in box c / 4, 32
+// bytes (c % 4) into each pixel's 128-byte row; the descriptor's start
+// address carries that offset and the swizzle moves each 16-byte chunk by
+// the row's index within its 8-row group, as in hill_bf16_wide_kernel.
+// ---------------------------------------------------------------------------
+constexpr int kABStages = 6;
+constexpr int kABConsumers = 3;                          // warpgroups
+constexpr int kABConsumerThreads = 128 * kABConsumers;
+constexpr int kABThreads = kABConsumerThreads + 32;      // + the producer
+// named barrier 1 spans the consumers, kABBar + c consumer c's four warps
+constexpr int kABBar = 2;
+static_assert(kABBar + kABConsumers <= 16, "named barriers");
+static_assert(kABConsumerThreads >= kMaxSeeds, "a seed's label a thread");
+
+struct AssignBF16WideShape {
+  static constexpr int kThreads = kABThreads;
+  static constexpr int kTile = kBWTile;
+  static constexpr int kStages = kABStages;
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kABStages) * kBWTileBytes +
+      sizeof(__nv_bfloat16) * kMaxSeeds * kWideD +
+      3 * sizeof(int) * kMaxSeeds + sizeof(int) * (2 * kABConsumers + 2) +
+      sizeof(unsigned long long) * 2 * kABStages;
+  static constexpr int kRegs = 0;
+  static constexpr bool kTma = true;
+};
+
+// The consumers (thread tid of kABConsumerThreads): Z [m, 128] float32
+// (16-byte aligned) -> bf16(Z) in the seed_word layout, zero past m, as
+// stage_assign writes it, with a thread's loads in flight at once (a
+// warp: 8 rows of 64 bytes a load; a store phase, 8 rows of 8 bytes on
+// distinct banks).
+__device__ __forceinline__ void stage_wide_bf16_assign(
+    const float* __restrict__ z, int m, __nv_bfloat16* zs, int tid) {
+  constexpr int kAll = kMaxSeeds * kWideD / 4;
+  constexpr int kPer = (kAll + kABConsumerThreads - 1) / kABConsumerThreads;
+  float4 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = tid + i * kABConsumerThreads;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    v[i] = e < kAll && s < m
+               ? *reinterpret_cast<const float4*>(z + s * kWideD + j)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = tid + i * kABConsumerThreads;
+    const int s = 8 * (e / (8 * (kWideD / 4))) + e % 8;
+    const int j = 4 * ((e / 8) % (kWideD / 4));
+    if (e < kAll)
+      *reinterpret_cast<uint2*>(zs + seed_word(s, j, 8)) =
+          make_uint2(pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+  }
+}
+
+// acc's first 52 registers (the m64n104 accumulator layout: the m64n128
+// layout's first 13 8-column blocks, seeds [0, 104)) = acc (or 0 where
+// accumulate is false) + a * b: a (64 pixels x 16 dims bf16) and b (16 dims
+// x 104 seeds bf16), both K-major in shared memory (adesc, bdesc).
+// Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16_ss_n104(float (&acc)[2][32],
+                                                  uint64_t adesc,
+                                                  uint64_t bdesc,
+                                                  bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(acc[0][0]), "+f"(acc[0][1]), "+f"(acc[0][2]), "+f"(acc[0][3]),
+        "+f"(acc[0][4]), "+f"(acc[0][5]), "+f"(acc[0][6]), "+f"(acc[0][7]),
+        "+f"(acc[0][8]), "+f"(acc[0][9]), "+f"(acc[0][10]), "+f"(acc[0][11]),
+        "+f"(acc[0][12]), "+f"(acc[0][13]), "+f"(acc[0][14]), "+f"(acc[0][15]),
+        "+f"(acc[0][16]), "+f"(acc[0][17]), "+f"(acc[0][18]), "+f"(acc[0][19]),
+        "+f"(acc[0][20]), "+f"(acc[0][21]), "+f"(acc[0][22]), "+f"(acc[0][23]),
+        "+f"(acc[0][24]), "+f"(acc[0][25]), "+f"(acc[0][26]), "+f"(acc[0][27]),
+        "+f"(acc[0][28]), "+f"(acc[0][29]), "+f"(acc[0][30]), "+f"(acc[0][31]),
+        "+f"(acc[1][0]), "+f"(acc[1][1]), "+f"(acc[1][2]), "+f"(acc[1][3]),
+        "+f"(acc[1][4]), "+f"(acc[1][5]), "+f"(acc[1][6]), "+f"(acc[1][7]),
+        "+f"(acc[1][8]), "+f"(acc[1][9]), "+f"(acc[1][10]), "+f"(acc[1][11]),
+        "+f"(acc[1][12]), "+f"(acc[1][13]), "+f"(acc[1][14]), "+f"(acc[1][15]),
+        "+f"(acc[1][16]), "+f"(acc[1][17]), "+f"(acc[1][18]), "+f"(acc[1][19])
+      : "l"(adesc), "l"(bdesc), "r"(static_cast<int>(accumulate)));
+}
+
+// acc's first 64 registers (the m64n128 accumulator layout: the m64n128
+// layout's first 16 8-column blocks, seeds [0, 128)) = acc (or 0 where
+// accumulate is false) + a * b: a (64 pixels x 16 dims bf16) and b (16 dims
+// x 128 seeds bf16), both K-major in shared memory (adesc, bdesc).
+// Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16_ss_n128(float (&acc)[2][32],
+                                                  uint64_t adesc,
+                                                  uint64_t bdesc,
+                                                  bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(acc[0][0]), "+f"(acc[0][1]), "+f"(acc[0][2]), "+f"(acc[0][3]),
+        "+f"(acc[0][4]), "+f"(acc[0][5]), "+f"(acc[0][6]), "+f"(acc[0][7]),
+        "+f"(acc[0][8]), "+f"(acc[0][9]), "+f"(acc[0][10]), "+f"(acc[0][11]),
+        "+f"(acc[0][12]), "+f"(acc[0][13]), "+f"(acc[0][14]), "+f"(acc[0][15]),
+        "+f"(acc[0][16]), "+f"(acc[0][17]), "+f"(acc[0][18]), "+f"(acc[0][19]),
+        "+f"(acc[0][20]), "+f"(acc[0][21]), "+f"(acc[0][22]), "+f"(acc[0][23]),
+        "+f"(acc[0][24]), "+f"(acc[0][25]), "+f"(acc[0][26]), "+f"(acc[0][27]),
+        "+f"(acc[0][28]), "+f"(acc[0][29]), "+f"(acc[0][30]), "+f"(acc[0][31]),
+        "+f"(acc[1][0]), "+f"(acc[1][1]), "+f"(acc[1][2]), "+f"(acc[1][3]),
+        "+f"(acc[1][4]), "+f"(acc[1][5]), "+f"(acc[1][6]), "+f"(acc[1][7]),
+        "+f"(acc[1][8]), "+f"(acc[1][9]), "+f"(acc[1][10]), "+f"(acc[1][11]),
+        "+f"(acc[1][12]), "+f"(acc[1][13]), "+f"(acc[1][14]), "+f"(acc[1][15]),
+        "+f"(acc[1][16]), "+f"(acc[1][17]), "+f"(acc[1][18]), "+f"(acc[1][19]),
+        "+f"(acc[1][20]), "+f"(acc[1][21]), "+f"(acc[1][22]), "+f"(acc[1][23]),
+        "+f"(acc[1][24]), "+f"(acc[1][25]), "+f"(acc[1][26]), "+f"(acc[1][27]),
+        "+f"(acc[1][28]), "+f"(acc[1][29]), "+f"(acc[1][30]), "+f"(acc[1][31])
+      : "l"(adesc), "l"(bdesc), "r"(static_cast<int>(accumulate)));
+}
+
+// The first kN / 2 registers of acc (seeds [0, kN)) = the product of
+// k-chunk 0 (accumulate false) or acc + it: one wgmma m64nNk16, N = kN.
+template <int kN>
+__device__ __forceinline__ void wgmma_bf16_seeds(float (&acc)[2][32],
+                                                 uint64_t adesc,
+                                                 uint64_t bdesc,
+                                                 bool accumulate) {
+  static_assert(kN == 104 || kN == 128, "seed columns");
+  if constexpr (kN == 104)
+    wgmma_bf16_ss_n104(acc, adesc, bdesc, accumulate);
+  else
+    wgmma_bf16_ss_n128(acc, adesc, bdesc, accumulate);
+}
+
+// xmap: X [n, 128] bfloat16 (16-byte aligned) as boxes of 64 dims x 64
+// pixels, 128-byte swizzle, zeros past n; x: the same rows (the re-check
+// reads them); the rest as assign_body's, m <= kN.  blockDim.x =
+// kABThreads.
+template <int kN>
+__global__ void __launch_bounds__(kABThreads, 1)
+assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __nv_bfloat16* __restrict__ x, int n,
+                        const float* __restrict__ z,
+                        const int* __restrict__ seed_labels, int m,
+                        const unsigned char* __restrict__ z_valid,
+                        int* __restrict__ labels, float* __restrict__ counts,
+                        float* __restrict__ rechecked) {
+  constexpr int kD = kWideD;
+  extern __shared__ __align__(1024) unsigned char ab_smem[];
+  unsigned char* ring = ab_smem + (1024 - smem_addr(ab_smem) % 1024) % 1024;
+  __nv_bfloat16* zs =
+      reinterpret_cast<__nv_bfloat16*>(ring + kABStages * kBWTileBytes);
+  int* slab = reinterpret_cast<int*>(zs + kMaxSeeds * kD);
+  auto* hist = reinterpret_cast<int(*)[kMaxSeeds]>(slab + kMaxSeeds);
+  // the next tile to claim; the tiles whose loads the producer has issued;
+  // each consumer's claims (two alternating slots: a slot is rewritten only
+  // after its readers passed the next claim's barrier)
+  int* next = slab + 3 * kMaxSeeds;
+  volatile int* issued = next + 1;
+  int* claim = next + 2;
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(claim + 2 * kABConsumers);
+  unsigned long long* empty = full + kABStages;
+  const int mine = tiles_of_block<kBWTile>(n);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kABStages; ++s) {
+      uoc::mbar_init(full + s, 1);
+      uoc::mbar_init(empty + s, 4);  // the warps of the tile's consumer
+    }
+    *next = 0;
+    *issued = 0;
+  }
+  __syncthreads();
+
+  if (static_cast<int>(threadIdx.x) >= kABConsumerThreads) {  // producer
+    if (static_cast<int>(threadIdx.x) != kABConsumerThreads) return;
+    long long waited = 0;  // with ASSIGN_CLOCKS
+    for (int k = 0; k < mine; ++k) {
+      const int s = k % kABStages;
+      const long long c0 = aw_now();
+      if (k >= kABStages)  // the stage's last tile's wgmmas are done
+        uoc::mbar_wait(empty + s, (k / kABStages - 1) & 1);
+      waited += aw_now() - c0;
+      const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kBWTile;
+      uoc::mbar_expect(full + s, kBWTileBytes);
+#pragma unroll
+      for (int b = 0; b < kD / kBWBox; ++b)
+        tma_load_box(ring + s * kBWTileBytes + b * kBWBoxBytes, &xmap,
+                     b * kBWBox, p0, full + s);
+      __threadfence_block();
+      *issued = k + 1;
+    }
+    aw_mark(true, 4, waited);
+    aw_mark(true, 5, mine);
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int row = 16 * (tid / 32 % 4) + g;  // first pixel of a thread
+  const bool me = tid % 128 == 0;           // a consumer's leader
+  aw_mark(tid == 0, 0, aw_now());
+  aw_mark(tid == 0, 6, smem_addr(ab_smem));
+  // seed tid's label, loaded beside Z
+  const int label = tid < m ? seed_labels[tid] : 0;
+  stage_wide_bf16_assign(z, m, zs, tid);
+  if (tid < kMaxSeeds) {
+    slab[tid] = label;
+    hist[0][tid] = hist[1][tid] = 0;
+  }
+  uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
+  bar_sync<1>(kABConsumerThreads);
+  aw_mark(tid == 0, 1, aw_now());
+  // B of k-chunk c: its two core-matrix columns of bf16(Z), seeds from 0
+  const unsigned zaddr = smem_addr(zs);
+  auto bdesc = [&](int c) {
+    return static_cast<uint64_t>(((zaddr + c * 4096) >> 4) & 0x3FFFu) |
+           (static_cast<uint64_t>((kMaxSeeds / 8) * kCore >> 4) << 16) |
+           (static_cast<uint64_t>(kCore >> 4) << 32);
+  };
+
+  long long spent[6] = {0, 0, 0, 0, 0, 0};  // with ASSIGN_CLOCKS
+  for (int q = 0;; ++q) {
+    // the consumer's leader claims the block's next tile, and waits until
+    // the producer has issued its load: the stage's barrier has then
+    // completed the phases of the stage's earlier tiles, so the parity below
+    // names this tile's phase and not one two phases back
+    long long c0 = aw_now();
+    if (me) {
+      const int kk = atomicAdd(next, 1);
+      if (kk < mine)
+        while (*issued <= kk) {
+        }
+      claim[2 * wg + (q & 1)] = kk;
+    }
+    named_sync(kABBar + wg, 128);
+    const int k = claim[2 * wg + (q & 1)];
+    if (k >= mine) break;
+    const int s = k % kABStages;
+    const int p0 =
+        (static_cast<int>(blockIdx.x) + k * gridDim.x) * kBWTile + row;
+    // thread t < 2 of the quad owns pixel p0 + 8t; its validity is loaded
+    // before the products, which hide the load
+    const int p = p0 + 8 * t;
+    const bool owner = t < 2 && p < n;
+    const bool valid = owner && (z_valid == nullptr || z_valid[p]);
+    uoc::mbar_wait(full + s, (k / kABStages) & 1);
+    long long c1 = aw_now();
+    spent[0] += c1 - c0;
+    const unsigned tile = smem_addr(ring + s * kBWTileBytes);
+    float acc[2][32];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c)
+      wgmma_bf16_seeds<kN>(
+          acc, sw128_desc(tile + (c / 4) * kBWBoxBytes + (c % 4) * 32, 0,
+                          1024),
+          bdesc(c), c > 0);
+    wgmma_commit();
+    c0 = aw_now();
+    spent[1] += c0 - c1;
+    wgmma_wait();
+    pin_registers(acc[0]);
+    pin_registers(acc[1]);
+    __syncwarp();
+    if (lane == 0) uoc::mbar_arrive(empty + s);  // its wgmmas are done
+    c1 = aw_now();
+    spent[2] += c1 - c0;
+
+    Best r[2];
+    thread_best_wide<kN>(acc, t, m, slab, r);
+    int near = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      merge_quad(r[i]);
+      if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
+        near |= 1 << i;
+    }
+    c0 = aw_now();
+    spent[3] += c0 - c1;
+    int2 l1 = make_int2(r[0].l1, r[1].l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0))
+      l1 = recheck<__nv_bfloat16, __nv_bfloat16, kD, kD>(
+          x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab, rechecked,
+          l1);
+    c1 = aw_now();
+    spent[4] += c1 - c0;
+
+    // the owner writes its pixel's label and adds the pixel to the
+    // histograms, aggregated over the warp's lanes of equal label
+    int key = -1, vkey = -1;
+    if (owner) {
+      const int lab = t == 0 ? l1.x : l1.y;
+      labels[p] = lab;
+      if (lab >= 0 && lab < m) {
+        key = lab;
+        if (valid) vkey = lab;
+      }
+    }
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, key);
+    if (key >= 0 && lane == __ffs(same) - 1)
+      atomicAdd(&hist[0][key], __popc(same));
+    const unsigned vsame = __match_any_sync(0xFFFFFFFFu, vkey);
+    if (vkey >= 0 && lane == __ffs(vsame) - 1)
+      atomicAdd(&hist[1][vkey], __popc(vsame));
+    spent[5] += aw_now() - c1;
+  }
+  aw_mark(tid == 0, 2, aw_now());
+  aw_mark(me, 8 + wg, aw_now());
+#pragma unroll
+  for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
+  bar_sync<1>(kABConsumerThreads);
+  for (int s = tid; s < m; s += kABConsumerThreads) {
+    if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
+    if (hist[1][s])
+      atomicAdd(&counts[m + s], static_cast<float>(hist[1][s]));
+  }
+  aw_mark(tid == 0, 3, aw_now());
+}
+
 // The launch: the kernel (and its name, for assign_labels_config), its
 // Shape's block, as many blocks as fit on the card at once (at most one
 // per X tile), and whether it takes X's tensor map before its arguments.
@@ -3291,28 +3946,32 @@ cudaError_t plan_assign(int dev, int n, const char* name, int (&cache)[2],
   return cudaSuccess;
 }
 
-// The one place that picks the assignment kernel: by dtype, width and (for
-// float32 at d = 128) the seed columns that cover m, 104 for the recipes'
-// 100 seeds.
+// The one place that picks the assignment kernel: by dtype, width and (at
+// d = 128) the seed columns that cover m, 104 for the recipes' 100 seeds.
 cudaError_t plan_assign_for(int dtype, int n, int d, int m, AssignPlan* p) {
   // {blocks per SM, SMs} per device and kernel, found at the first call
   // (0: not yet): the launch asks for its plan on every call
   constexpr int kDevices = 64;
-  static int cached[kDevices][5][2] = {};
+  static int cached[kDevices][6][2] = {};
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kDevices) return cudaErrorInvalidDevice;
   auto& c = cached[dev];
-  if (dtype == uoc::kBF16)
-    return d == 64
-               ? plan_assign<AssignShape<__nv_bfloat16, 64>,
-                             assign_bf16_kernel<64>>(
-                     dev, n, "assign_bf16_kernel<64>", c[0], p)
-               : plan_assign<AssignShape<__nv_bfloat16, 128>,
-                             assign_bf16_kernel<128>>(
-                     dev, n, "assign_bf16_kernel<128>", c[1], p);
+  if (dtype == uoc::kBF16) {
+    if (d == 64)
+      return plan_assign<AssignShape<__nv_bfloat16, 64>,
+                         assign_bf16_kernel<64>>(
+          dev, n, "assign_bf16_kernel<64>", c[0], p);
+    return m <= 104
+               ? plan_assign<AssignBF16WideShape,
+                             assign_bf16_wide_kernel<104>>(
+                     dev, n, "assign_bf16_wide_kernel<104>", c[1], p)
+               : plan_assign<AssignBF16WideShape,
+                             assign_bf16_wide_kernel<128>>(
+                     dev, n, "assign_bf16_wide_kernel<128>", c[5], p);
+  }
   if (d == 64)
     return plan_assign<AssignShape<float, 64>, assign_tf32_kernel<64>>(
         dev, n, "assign_tf32_kernel<64>", c[2], p);
@@ -3413,7 +4072,8 @@ extern "C" int uoc_hill_clocks(long long* out) {
 // z: [m, d] float32 (d = 64 or 128), rows 16-byte aligned; labels: [m]
 // int32 out; steps: one int32 out, the merge steps taken (the seeds still
 // unlabeled when their turn came).  1 <= m <= 128.  One launch on
-// `stream`.
+// `stream`: cc_kernel<64> at d = 64, cc_cluster_kernel (one cluster of
+// kCCCluster CTAs) at d = 128.
 extern "C" int uoc_connected_components(const float* z, int m, int d,
                                         float epsilon, int* labels,
                                         int* steps, void* stream) {
@@ -3424,21 +4084,114 @@ extern "C" int uoc_connected_components(const float* z, int m, int d,
   if (d == 64) {
     cc_kernel<64><<<1, kCCThreads, cc_smem_bytes<64>(), s>>>(z, m, epsilon,
                                                              labels, steps);
-  } else {
-    // past 48 KB of dynamic shared memory: the kernel's limit is raised
-    // once per device
-    int dev, per_sm;
-    cudaError_t err = cudaGetDevice(&dev);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // past 48 KB of dynamic shared memory: the kernel's limit is raised once
+  // per device; the plan is built once per m
+  constexpr int kDevices = 64;
+  static bool raised[kDevices] = {};
+  static CCPlan plans[kMaxSeeds + 1];
+  static bool planned[kMaxSeeds + 1] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(cc_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cc_smem_bytes<128>()));
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = uoc::blocks_per_sm<cc_kernel<128>>(dev, kCCThreads,
-                                             cc_smem_bytes<128>(),
-                                             cc_smem_bytes<128>(), &per_sm);
+    raised[dev] = true;
+  }
+  if (!planned[m]) {
+    plans[m] = cc_cluster_plan(m);
+    planned[m] = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCCCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCCCluster);
+  config.blockDim = dim3(kCCThreads);
+  config.dynamicSmemBytes = cc_smem_bytes<128>();
+  config.stream = s;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, cc_cluster_kernel, z, m, epsilon,
+                           plans[m], labels, steps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch uoc_connected_components makes for m seeds of width d (64 or
+// 128; any other width, or m outside [1, 128], returns
+// cudaErrorInvalidValue): out = [CTAs (the cluster's at d = 128), threads
+// per CTA, dynamic shared bytes, the adjacency's work items, the most Z
+// rows a CTA stages].
+extern "C" int uoc_connected_components_plan(int m, int d, long long* out) {
+  if (m < 1 || m > kMaxSeeds || (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CCPlan p = cc_cluster_plan(m);
+  int most = m;
+  if (d == 128) {
+    most = 0;
+    for (int c = 0; c < kCCCluster; ++c) {
+      int rows = 0;
+      for (int w = 0; w < kCCWords; ++w)
+        rows += __builtin_popcount(p.rows[c][w]);
+      most = std::max(most, rows);
+    }
+  }
+  out[0] = d == 64 ? 1 : kCCCluster;
+  out[1] = kCCThreads;
+  out[2] = static_cast<long long>(d == 64 ? cc_smem_bytes<64>()
+                                          : cc_smem_bytes<128>());
+  out[3] = p.items;
+  out[4] = most;
+  return 0;
+}
+
+// The name of the kernel that uoc_connected_components launches at width
+// d; null for another width.
+extern "C" const char* uoc_connected_components_kernel(int d) {
+  return d == 64 ? "cc_kernel<64>" : d == 128 ? "cc_cluster_kernel" : nullptr;
+}
+
+#ifdef CC_CLOCKS
+// The study build's clocks of the last connected-components launch:
+// [kCCClockCtas][kCCMarks] int64 (see cc_mark), zeroed by
+// uoc_cc_clocks_reset.
+extern "C" int uoc_cc_clocks(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, cc_clocks, sizeof(cc_clocks)));
+}
+
+extern "C" int uoc_cc_clocks_reset() {
+  static const long long zero[kCCClockCtas][kCCMarks] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(cc_clocks, zero, sizeof(zero)));
+}
+
+// cc_kernel, one block, at either width: at d = 128 the design that
+// cc_cluster_kernel replaced, for the study's clocks beside it.
+extern "C" int uoc_cc_one_block(const float* z, int m, int d, float epsilon,
+                                int* labels, int* steps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) {
+    cc_kernel<64><<<1, kCCThreads, cc_smem_bytes<64>(), s>>>(z, m, epsilon,
+                                                             labels, steps);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cc_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(cc_smem_bytes<128>()));
     if (err != cudaSuccess) return static_cast<int>(err);
     cc_kernel<128><<<1, kCCThreads, cc_smem_bytes<128>(), s>>>(
         z, m, epsilon, labels, steps);
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif
 
 // The launch configuration uoc_assign_labels uses for n pixels and m seeds
 // of width d (64 or 128; any other width returns cudaErrorInvalidValue):
@@ -3462,7 +4215,7 @@ extern "C" int uoc_assign_labels_plan(int dtype, int n, int m, int d,
 }
 
 #ifdef ASSIGN_CLOCKS
-// The study build's clocks of the last assign_tf32_wide_kernel launch:
+// The study build's clocks of the last width-128 assignment launch:
 // [kAssignClockBlocks][kAssignMarks] int64 (see aw_mark).
 extern "C" int uoc_assign_clocks(long long* out) {
   return static_cast<int>(
@@ -3511,10 +4264,11 @@ extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
   if (p.tma) {
     // the map goes into the kernel's parameters by value
     CUtensorMap map;
-    if ((err = wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                             sizeof(float), kAWBox, kAWTile, &map)) !=
-        cudaSuccess)
-      return static_cast<int>(err);
+    err = dtype == uoc::kBF16
+              ? wide_bf16_map(x, n, &map)
+              : wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              sizeof(float), kAWBox, kAWTile, &map);
+    if (err != cudaSuccess) return static_cast<int>(err);
     void* argv[] = {&map, &x, &n, &z, &seed_labels, &m,
                     &z_valid, &labels, &counts, &rechecked};
     err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,

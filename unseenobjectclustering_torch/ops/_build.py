@@ -40,12 +40,14 @@ _SIGNATURES = {
     "uoc_hill_climb": [_P, _I, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P],
     "uoc_hill_climb_plan": [_I, _I, _I, _I, _P],
     "uoc_connected_components": [_P, _I, _I, _F, _P, _P, _P],
+    "uoc_connected_components_plan": [_I, _I, _P],
     "uoc_assign_labels": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     "uoc_assign_labels_plan": [_I, _I, _I, _I, _P],
 }
 # entries that return a kernel's name (a C string, null on a failed plan)
 _NAMED = {
     "uoc_assign_labels_kernel": [_I, _I, _I, _I],
+    "uoc_connected_components_kernel": [_I],
 }
 # The embedding widths the kernels take: NUM_UNITS (64 in every recipe) and
 # 2 * NUM_UNITS (the RGB-D cat fusion); each has its own instantiation.

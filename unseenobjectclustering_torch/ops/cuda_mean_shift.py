@@ -14,15 +14,18 @@ kernels are in ``csrc/mean_shift.cu``:
     for the whole launch), then a fixed-order reduction of the blocks'
     partials + row normalization behind a grid-wide barrier; the [m, n]
     weights never reach device memory.
-  * connected_components: one block; the epsilon-ball adjacency as
-    bitmasks (each pair's exact fp32 FMA chain once, a ballot per row), then
-    one warp merges with the labels as membership bitmasks in registers,
-    stepping only through the seeds still unlabeled when their turn comes.
+  * connected_components: the epsilon-ball adjacency as bitmasks (each
+    pair's exact fp32 FMA chain once, a ballot per row; one block at d =
+    64, a thread-block cluster at d = 128 whose CTAs write their words into
+    the leader's shared memory), then one warp merges with the labels as
+    membership bitmasks in registers, stepping only through the seeds
+    still unlabeled when their turn comes.
   * assign_labels: one persistent launch; each block streams its 128-pixel
-    tiles through a cp.async ring (float32 at d = 128: a producer
-    warpgroup loads 64-pixel tiles by TMA for two consumer warpgroups that
-    take them in turns), S = X Z^T on wgmma (split TF32 for float32, bf16
-    for bfloat16) stays in registers for the argmax, pixels
+    tiles through a cp.async ring (at d = 128 a producer loads 64-pixel
+    tiles by TMA: for two consumer warpgroups in turns in float32, for
+    three that claim them in order in bfloat16, whose wgmma reads each
+    tile straight from shared memory), S = X Z^T on wgmma (split TF32 for
+    float32, bf16 for bfloat16) stays in registers for the argmax, pixels
     whose best two labels are within ASSIGN_RECHECK_MARGIN[d] are re-checked
     with the exact fp32 FMA chain, and per-label pixel / valid-depth
     histograms come out of the same X sweep.
@@ -185,6 +188,21 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
     connected_components_launches += 1
     labels, connected_components_steps = out.split((m, 1))
     return labels
+
+
+def connected_components_config(z: torch.Tensor) -> dict[str, int | str]:
+    """The connected-components kernel's launch for z ([m, d] on the card,
+    d = 64 or 128): the kernel's name, its CTAs (one at d = 64; the
+    thread-block cluster's at d = 128), threads per CTA, dynamic
+    shared-memory bytes, the adjacency's work items, and the most Z rows
+    a CTA stages."""
+    m, d = z.shape
+    _check_shapes("connected_components", m, d)
+    return {"kernel": _build.kernel_name(
+                z.device, "uoc_connected_components_kernel", d),
+            **_build.plan(z.device, "uoc_connected_components_plan", m, d,
+                          names=("ctas", "threads", "smem_bytes", "items",
+                                 "rows_staged"))}
 
 
 # -- assignment + histograms ------------------------------------------------
