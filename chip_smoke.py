@@ -28,8 +28,8 @@ Phases (any failure exits non-zero; no exception is caught):
   3. stage 1 through Segmentor.segment_sample: seg_resnet34_8s_embedding,
      RGB-D, add fusion, 64-D embeddings, 480x640, weights from a fixed-seed
      init; a few frames in each mode, every launch counter reset just
-     before each mode's frames and read just after, and every kernel
-     launched in each mode; the outputs checked; in parity mode the kernel
+     before each frame and read just after it, and every kernel launched
+     in each frame of each mode; the outputs checked; in parity mode the kernel
      route's labels held against the plain route's on the same
      embeddings, and stage 1 on the card against stage 1 on the CPU on a
      60x90 window of the frame.
@@ -159,6 +159,28 @@ Phases (any failure exits non-zero; no exception is caught):
      shape (n = 224*224) and on the trained parity embeddings of one
      held-out frame (n = 240*320): the plain route and the seeding kernel
      each PASS against the float64 replay.  One {"trained": {...}} line.
+ 8r. (run after phase 8b, whose render cache it reads) ResNet-50-8s, the
+     JAX package's third backbone: seg_resnet50_8s_embedding (two dilated
+     towers of (3, 4, 6, 3) bottleneck blocks, RGB-D add, 64 units) from a
+     fixed-seed init.  (a) stage 1 on phase 3's 480x640 frame through
+     Segmentor.segment_sample in both modes, a warm-up and R50_FRAMES
+     timed frames, the counters set to 0 before each frame and read after
+     it (every kernel in each frame), unit finite embeddings, labels of
+     shape (1, 480, 640); network, cluster and stage-1 ms and the peak
+     device memory per mode; the parity network against the CPU on a
+     64x96 window within ALT_TOL; kernel route against plain route on the
+     parity frame's embeddings.  (b) tools.test_net.main() with --network
+     seg_resnet50_8s_embedding on phase 7's synthetic tree (SYN_FRAMES
+     frames a mode; each kernel exactly once per frame; the .mat files
+     equal the labels).  (c) one float32 SGD step at 128x160 on the card
+     against the CPU within R50_STEP_TOL (its own limits: ResNet-50's
+     float32 gradients break STEP_TOL's parameter limit), with both
+     planted faults (TF32 on; R50_FAULT_TENSOR's gradient zeroed) breaking
+     it; the recipe's resident step (RECIPE_YML, bf16, batch 16 at
+     240x320) timed by part with its peak memory and idle share; and
+     tools.train_net.main() with --network seg_resnet50_8s_embedding on
+     RECIPE_YML for one epoch of R50_TRAIN_SCENES / 16 steps (no
+     clustering kernel launched).  One {"resnet50": {...}} line.
  8c. trained zoom-in networks: the JAX repo's two crop recipes
      (CROP_NETS: ResNet-34-8s at 224^2 and ResNet-18-8s at 128^2, Adam
      2e-4, batch 16, SYN_CROP with depth artifacts) trained from scratch
@@ -298,7 +320,8 @@ Phases (any failure exits non-zero; no exception is caught):
      not checked here.
  10. one {"kernels": [...]} line: each kernel's launches in the parity
      and fast runs of stage 1, of stage 2, of the stream, of each
-     test_net run, of the alternate networks, of phase 8b's report, of
+     test_net run, of the alternate networks, of phase 8r's stage 1 and
+     test_net runs (resnet50_*), of phase 8b's report, of
      phase 9's sharded stage 1 and evaluation and of its spatial stage 1
      (rank 0's, per network and mode, and at world size 1), of phase 8c's
      two-stage test_net runs per crop network and mode, its times and
@@ -540,6 +563,25 @@ MODALITY_FRAMES = 2  # timed stage-1 frames per modality and mode
 COLOR_RECIPE_YML = ("unseenobjectclustering_torch/cfgs/"
                     "synthetic_240x320_color.yml")
 COLOR_EPOCHS = 10
+# phase 8r: the JAX package's third backbone, ResNet-50-8s (two dilated
+# towers of (3, 4, 6, 3) bottleneck blocks, 2048 channels at 60x80), RGB-D
+# add with 64 units; R50_FRAMES timed stage-1 frames per mode after a
+# warm-up; its card-vs-CPU step with the depth tower's conv1 zeroed as the
+# planted fault; tools.train_net for one epoch of R50_TRAIN_SCENES / 16
+# steps on phase 8b's cache
+R50 = "seg_resnet50_8s_embedding"
+R50_FRAMES = 1
+R50_FAULT_TENSOR = "fcn_depth.resnet50_8s.conv1.weight"
+# ResNet-50's float32 gradients are noisier: its sound card-vs-CPU step
+# reads up to 2.2e-2 / 1.8e-2 / 3.3e-2 (vector / median tensor / largest
+# tensor) and parameters 6.4e-6, which break STEP_TOL's param_atol; its
+# limits lie about 4x above those readings, as STEP_TOL's do, and below
+# both planted faults' on the H100 over three draw seeds (step_study.py;
+# PERF.md, ResNet-50 findings): TF32 at least 0.51 / 0.47 / 0.63 and
+# parameters 7.8e-5, zeroed 0.26 / - / 1.0
+R50_STEP_TOL = dict(STEP_TOL, grad_rel_l2=9e-2, grad_median_rel_l2=7e-2,
+                    param_atol=2.5e-5)
+R50_TRAIN_SCENES = 48
 
 KERNELS = {
     "select_seeds": ("unseenobjectclustering_torch/csrc/seeding.cu",
@@ -1044,25 +1086,38 @@ def tabletop_frame(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
 
 
 def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
-              where: str = "", frames: int = FRAMES
-              ) -> tuple[dict, dict, torch.Tensor]:
-    """Phase 3 (and 2c's and 2d's stage 1, at width d, its lines tagged
-    with `where`; `frames` timed frames after a warm-up): both modes
-    through Segmentor.segment_sample, each mode's counters reset just
-    before its frames and read just after; every kernel must have launched
-    in each mode."""
-    segs = {"parity": Segmentor(cfg, state_dict),
+              where: str = "", frames: int = FRAMES, network_name: str = NET,
+              peaks: dict | None = None) -> tuple[dict, dict, torch.Tensor]:
+    """Phase 3 (and 2c's, 2d's and 8r's stage 1, at width d, with
+    `network_name`, its lines tagged with `where`; `frames` timed frames
+    after a warm-up): both modes through Segmentor.segment_sample, the
+    counters set to 0 just before each frame and read just after it;
+    every kernel must have launched in each frame of each mode.  With
+    `peaks`, each mode's peak device memory over its frames (GiB)."""
+    segs = {"parity": Segmentor(cfg, state_dict, network_name=network_name),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
-                              state_dict, model_dtype=torch.bfloat16)}
+                              state_dict, network_name=network_name,
+                              model_dtype=torch.bfloat16)}
     timings: dict[str, dict] = {}
     counts: dict[str, dict] = {}
     features = None
     for mode, seg in segs.items():
         tag = where + mode
         rows = []
-        reset_counts()
+        counts[mode] = dict.fromkeys(KERNELS, 0)
+        if peaks is not None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         for i in range(1 + frames):
+            reset_counts()
             res = seg.segment_sample(frame, return_features=(i == 0))
+            launched = launch_counts()
+            missing = [k for k, v in launched.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"[{tag}] frame {i}: kernels not "
+                                     f"launched on the main path: {missing}")
+            for k, v in launched.items():
+                counts[mode][k] += v
             labels = res.labels
             if labels.shape != (1, H, W) or labels.dtype != np.int32:
                 raise AssertionError(f"[{tag}] labels {labels.shape} "
@@ -1083,19 +1138,49 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
                       " px")
             else:
                 rows.append(res.timing)
-        counts[mode] = launch_counts()
-        print(f"[{tag}] main-path launches: {counts[mode]}; the last "
-              f"frame's assignment re-checked "
-              f"{int(cms.assign_labels_rechecked)} pixels")
-        missing = [k for k, v in counts[mode].items() if v <= 0]
-        if missing:
-            raise AssertionError(f"[{tag}] kernels not launched on the main "
-                                 f"path: {missing}")
+        print(f"[{tag}] main-path launches ({1 + frames} frames, each "
+              f"kernel in every frame): {counts[mode]}; the last frame's "
+              f"assignment re-checked {int(cms.assign_labels_rechecked)} "
+              "pixels")
         timings[mode] = {k: 1e3 * float(np.median([r[k] for r in rows]))
                          for k in ("network", "cluster", "stage1")}
+        peak = ""
+        if peaks is not None:
+            peaks[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+            peak = f"; peak device memory {peaks[mode]:.2f} GiB"
         print(f"[{tag}] stage 1 ms/frame (median of {frames}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in timings[mode].items()))
+              + ", ".join(f"{k} {v:.3f}" for k, v in timings[mode].items())
+              + peak)
     return counts, timings, features
+
+
+def slice_routes(where: str, features: torch.Tensor, xyz: torch.Tensor
+                 ) -> dict:
+    """Phase 3 (and 8r): the whole parity clustering of a stage-1 frame's
+    embeddings (the 0.8 depth filter on), kernel route against plain
+    route: labels equal and the same seeds picked."""
+    kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
+              metric="cosine", first_index=4321, seed_subsample=1,
+              compute_dtype="float32", filter_threshold=0.8,
+              z_valid=(xyz[..., 2] > 0).reshape(N))
+    feats = features.reshape(N, -1)
+    k_route = mean_shift_smart_init(feats, use_pallas=True, **kw)
+    p_route = mean_shift_smart_init(feats, use_pallas=False, **kw)
+    n_diff = int((k_route.labels != p_route.labels).sum())
+    step, gap = seed_gap(feats, k_route.seed_indices, p_route.seed_indices)
+    out = dict(pixels_differ=n_diff, seeds_differ_at=step,
+               z_max_abs=float((k_route.seeds - p_route.seeds).abs().max()),
+               seed_clusters=int(p_route.seed_labels.max()) + 1,
+               label_ids=len(torch.unique(p_route.labels)))
+    print(f"[{where}parity] kernel route vs plain route on the slice's "
+          f"embeddings: {n_diff} pixels differ; seeds first differ at step "
+          f"{step} (gap {gap:.3e}); max |Z - Z_plain| {out['z_max_abs']:.3e}"
+          f"; {out['seed_clusters']} seed clusters, {out['label_ids']} label"
+          " ids")
+    if n_diff or step >= 0:
+        raise AssertionError("the kernel route differs from the plain "
+                             "route on the slice's embeddings")
+    return out
 
 
 def check_against_cpu(cfg: Config, state_dict: dict, frame: dict) -> None:
@@ -1656,18 +1741,22 @@ def same_state(a, b) -> list[str]:
     return bad
 
 
-def time_recipe(tag: str, yml: str, scenes, model_dtype=None) -> dict:
-    """A recipe's train step, resident, outside the CLI: TIMED_STEPS steps
-    after a warm-up, each split by CUDA events into gather+augmentation,
-    forward+backward and optimizer; the peak device memory over them; one
-    more step under torch.profiler for the device's busy time and idle
-    share (against the median unprofiled step)."""
+def time_recipe(tag: str, yml: str, scenes, model_dtype=None,
+                network_name: str = NET, hw: tuple = (H, W)) -> dict:
+    """A recipe's train step with `network_name`, resident, outside the
+    CLI, on `scenes` rendered at `hw`: TIMED_STEPS steps after a warm-up,
+    each split by CUDA events into gather+augmentation, forward+backward
+    and optimizer; the peak device memory over them; one more step under
+    torch.profiler for the device's busy time and idle share (against the
+    median unprofiled step)."""
     cfg = Config.from_yaml(yml).replace(MODE="TRAIN")
     crop = bool(cfg.TRAIN.SYN_CROP)
-    state = create_train_state(cfg, network_name=NET, solver="adam",
-                               model_dtype=model_dtype, device=DEV)
-    f = 0.5 * W
-    step = make_train_step_resident(cfg, fx=f, fy=f, px=W / 2.0, py=H / 2.0)
+    state = create_train_state(cfg, network_name=network_name,
+                               solver="adam", model_dtype=model_dtype,
+                               device=DEV)
+    h, w = hw
+    f = 0.5 * w
+    step = make_train_step_resident(cfg, fx=f, fy=f, px=w / 2.0, py=h / 2.0)
     idx = torch.arange(TRAIN_SCENES, device=DEV)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1714,7 +1803,7 @@ def time_recipe(tag: str, yml: str, scenes, model_dtype=None) -> dict:
                peak_gib=peak, resident_and_model_gib=base / 2 ** 30,
                device_busy_ms=busy, idle_share=idle,
                shape=[n_img] + ([int(cfg.TRAIN.SYN_CROP_SIZE)] * 2 if crop
-                                else [H, W]))
+                                else [h, w]))
     print(f"[{tag}] train step (median of {TIMED_STEPS} after a warm-up): "
           f"{split['step']:.1f} ms = gather+augmentation "
           f"{split['augment']:.1f} + forward+backward "
@@ -1744,10 +1833,11 @@ def grad_errors(g: dict, ref: dict) -> dict:
                 max_rel_l2=per[worst], worst=worst)
 
 
-def step_against(run: tuple, ref: tuple, g64: dict | None = None) -> dict:
+def step_against(run: tuple, ref: tuple, g64: dict | None = None,
+                 tol: dict = STEP_TOL) -> dict:
     """A card step `run` (loss, gradients, state after the update) against
     the reference step `ref` (the CPU's; phase 9: one process's): its
-    errors (vs_cpu: against ref) and the STEP_TOL limits it breaks."""
+    errors (vs_cpu: against ref) and the limits of `tol` it breaks."""
     loss, grads, state = run
     l_ref, g_ref, s_ref = ref
     row = dict(loss=loss, loss_rel=abs(loss - l_ref) / abs(l_ref),
@@ -1763,9 +1853,9 @@ def step_against(run: tuple, ref: tuple, g64: dict | None = None) -> dict:
              "grad_median_rel_l2": row["vs_cpu"]["median_rel_l2"],
              "grad_max_rel_l2": row["vs_cpu"]["max_rel_l2"],
              "param_atol": row["param_max_abs"]}
-    row["breaks"] = [k for k, v in value.items() if v > STEP_TOL[k]]
-    if not all(torch.allclose(state[k], s_ref[k], rtol=STEP_TOL["stat_rtol"],
-                              atol=STEP_TOL["stat_atol"])
+    row["breaks"] = [k for k, v in value.items() if v > tol[k]]
+    if not all(torch.allclose(state[k], s_ref[k], rtol=tol["stat_rtol"],
+                              atol=tol["stat_atol"])
                for k in s_ref if "running_" in k):
         row["breaks"].append("stat")
     return row
@@ -1777,11 +1867,11 @@ def _grad_line(e: dict) -> str:
             f"({e['worst']})")
 
 
-def small_step_inputs(n: int, draw_seed: int = 7) -> tuple:
-    """The inputs of one float32 SGD step of the stage-1 recipe at
-    SMALL_HW: the config, the dataset, n rendered scenes (CPU tensors),
-    the initial weights (a fixed-seed init), the raw step and the batch's
-    augmentation draws (drawn on the CPU)."""
+def small_step_inputs(n: int, draw_seed: int = 7, net: str = NET) -> tuple:
+    """The inputs of one float32 SGD step of the stage-1 recipe with
+    network `net` at SMALL_HW: the config, the dataset, n rendered scenes
+    (CPU tensors), the initial weights (a fixed-seed init), the raw step
+    and the batch's augmentation draws (drawn on the CPU)."""
     cfg = Config.from_yaml(TRAIN_YML).replace(MODE="TRAIN")
     h, w = SMALL_HW
     ds = SyntheticTabletopDataset(
@@ -1791,7 +1881,7 @@ def small_step_inputs(n: int, draw_seed: int = 7) -> tuple:
         *[ds.get_scene(i) for i in range(n)]))
     depth = depth.to(torch.int32)
     torch.manual_seed(3)
-    init = get_network(NET, cfg).state_dict()
+    init = get_network(net, cfg).state_dict()
     step = make_train_step_raw(cfg, fx=ds.f, fy=ds.f, px=ds.cx, py=ds.cy)
     draws = step.draw(torch.Generator().manual_seed(draw_seed), bgr)
     return cfg, ds, bgr, depth, label, init, step, draws
@@ -1803,12 +1893,13 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def small_step(cfg, init, step, scenes, draws, dev, mesh=None) -> tuple:
-    """One SGD step from `init` on `dev` (with a mesh: this rank's rows of
-    the scenes, the global batch's draws): (loss, gradients, state), on
-    the host."""
+def small_step(cfg, init, step, scenes, draws, dev, mesh=None,
+               net: str = NET) -> tuple:
+    """One SGD step of network `net` from `init` on `dev` (with a mesh:
+    this rank's rows of the scenes, the global batch's draws): (loss,
+    gradients, state), on the host."""
     rows = slice(None) if mesh is None else mesh.batch_slice(len(scenes[0]))
-    state = create_train_state(cfg, network_name=NET, solver="sgd",
+    state = create_train_state(cfg, network_name=net, solver="sgd",
                                state_dict=init, device=dev)
     _, metrics = step(state, *(t[rows].to(dev) for t in scenes),
                       draws=_to(draws, dev), mesh=mesh)
@@ -1819,20 +1910,25 @@ def small_step(cfg, init, step, scenes, draws, dev, mesh=None) -> tuple:
              state.model.state_dict().items()})
 
 
-def check_step_against_cpu(draw_seed: int = 7) -> dict:
-    """One float32 SGD step of the stage-1 recipe at 128x160, batch 2, on
-    the card and on the CPU, from the same weights and the same pinned
-    augmentation draws (drawn on the CPU): loss, gradients (as one vector
-    and tensor by tensor), updated parameters and BatchNorm statistics
-    within STEP_TOL.  Two faults must break it: the card's step with TF32
-    left on, and the card's gradients with one tensor's zeroed.  For
-    scale, every gradient against the same step's in float64."""
+def check_step_against_cpu(draw_seed: int = 7, net: str = NET,
+                           fault_tensor: str = FAULT_TENSOR,
+                           tol: dict = STEP_TOL, gate: bool = True) -> dict:
+    """One float32 SGD step of the stage-1 recipe with network `net` at
+    128x160, batch 2, on the card and on the CPU, from the same weights
+    and the same pinned augmentation draws (drawn on the CPU): loss,
+    gradients (as one vector and tensor by tensor), updated parameters and
+    BatchNorm statistics within `tol`.  Two faults must break it: the
+    card's step with TF32 left on, and the card's gradients with
+    `fault_tensor`'s zeroed.  For scale, every gradient against the same
+    step's in float64.  With gate False (step_study.py) nothing raises:
+    the readings are returned."""
     cfg, ds, bgr, depth, label, init, step, draws = small_step_inputs(
-        2, draw_seed)
+        2, draw_seed, net)
     h, w = SMALL_HW
 
     def run(dev):
-        return small_step(cfg, init, step, (bgr, depth, label), draws, dev)
+        return small_step(cfg, init, step, (bgr, depth, label), draws, dev,
+                          net=net)
 
     cpu = run("cpu")
     card = run(DEV)
@@ -1848,9 +1944,9 @@ def check_step_against_cpu(draw_seed: int = 7) -> dict:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     # fault 2: one small tensor's gradient lost (the depth tower's conv1)
     zeroed = dict(card[1])
-    zeroed[FAULT_TENSOR] = torch.zeros_like(zeroed[FAULT_TENSOR])
+    zeroed[fault_tensor] = torch.zeros_like(zeroed[fault_tensor])
 
-    state64 = create_train_state(cfg, network_name=NET, solver="sgd",
+    state64 = create_train_state(cfg, network_name=net, solver="sgd",
                                  state_dict=init, device="cpu")
     state64.model.double()
     _, apply = make_device_augment(cfg, fx=ds.f, fy=ds.f, px=ds.cx,
@@ -1861,26 +1957,28 @@ def check_step_against_cpu(draw_seed: int = 7) -> dict:
         raise AssertionError("the float64 witness left float64")
     g64 = {k: p.grad for k, p in state64.model.named_parameters()}
 
-    res = dict(draw_seed=draw_seed, loss_cpu=cpu[0],
-               loss_fp64=float(m64["loss"]), tol=STEP_TOL,
-               fault_tensor=FAULT_TENSOR,
+    res = dict(network=net, draw_seed=draw_seed, loss_cpu=cpu[0],
+               loss_fp64=float(m64["loss"]), tol=tol,
+               fault_tensor=fault_tensor,
                cpu_vs_fp64=grad_errors(cpu[1], g64))
-    head = f"[train] step at {h}x{w}, batch 2, draws {draw_seed}:"
+    head = f"[train] {net} step at {h}x{w}, batch 2, draws {draw_seed}:"
     print(f"{head} the CPU's float32 step vs a float64 step: "
           f"{_grad_line(res['cpu_vs_fp64'])}")
     runs = {"card": card, "card_tf32": tf32,
             "card_zeroed_grad": (card[0], zeroed, card[2])}
     for name, run_ in runs.items():
-        row = res[name] = step_against(run_, cpu, g64)
+        row = res[name] = step_against(run_, cpu, g64, tol)
         print(f"{head} {name} vs the CPU: {_grad_line(row['vs_cpu'])}; "
               f"loss {row['loss']:.7f} vs {cpu[0]:.7f}; vs float64 "
               f"{row['vs_fp64']['rel_l2']:.2e} / "
               f"{row['vs_fp64']['median_rel_l2']:.2e}; parameters "
               f"{row['param_max_abs']:.2e}; BatchNorm statistics "
               f"{row['stat_max_abs']:.2e}; breaks {row['breaks']}")
+    if not gate:
+        return res
     if res["card"]["breaks"]:
         raise AssertionError(f"the card's train step differs from the "
-                             f"CPU's beyond {STEP_TOL}: "
+                             f"CPU's beyond {tol}: "
                              f"{res['card']['breaks']}")
     if not res["card_tf32"]["breaks"] or not res["card_zeroed_grad"][
             "breaks"]:
@@ -2102,8 +2200,9 @@ def run_test_net(tag: str, args: list[str], frames: int,
         raise AssertionError(f"[{tag}] {len(rec.results)} frames")
     if exact:
         cap = rec.seg.max_instances
+        refines = rec.seg.model_crop is not None
         for i, (res, got) in enumerate(zip(rec.results, rec.launches)):
-            want = 1 + min(instances(res.labels[0]), cap)
+            want = 1 + (min(instances(res.labels[0]), cap) if refines else 0)
             if set(got.values()) != {want}:
                 raise AssertionError(f"[{tag}] frame {i} launched {got}, "
                                      f"not {want} of each kernel")
@@ -2116,9 +2215,10 @@ def run_test_net(tag: str, args: list[str], frames: int,
                              f"the {frames} frames: {short}")
     for i, res in enumerate(rec.results):
         mat = scipy.io.loadmat(os.path.join(out_dir, "%06d.mat" % i))
+        want_ref = (res.labels if res.labels_refined is None
+                    else res.labels_refined)
         if not (np.array_equal(mat["labels"], res.labels[0])
-                and np.array_equal(mat["labels_refined"],
-                                   res.labels_refined[0])):
+                and np.array_equal(mat["labels_refined"], want_ref[0])):
             raise AssertionError(f"[{tag}] {i:06d}.mat differs from the "
                                  "returned labels")
     found = [len(np.unique(r.labels)) - 1 for r in rec.results]
@@ -2662,17 +2762,7 @@ def run_alternates(frame: dict) -> dict:
                 or np.abs(np.linalg.norm(f, axis=-1) - 1.0).max() > 1e-3
                 or results[-1].labels.shape != (1, H, W)):
             raise AssertionError(f"[{net}] bad embeddings or labels")
-        h, w = ALT_WINDOW
-        window = {k: v[None, H // 2 - h // 2:H // 2 + h // 2,
-                       W // 2 - w // 2:W // 2 + w // 2]
-                  for k, v in frame.items()}
-        cpu = get_network(net, cfg)
-        cpu.load_state_dict(state)
-        cpu.eval()
-        with torch.no_grad():
-            card = seg.model(window["image_color"], window["depth"]).cpu()
-            want = cpu(window["image_color"].cpu(), window["depth"].cpu())
-        err = float((card - want).abs().max())
+        err = window_vs_cpu(net, cfg, state, seg, frame)
         timing = results[-1].timing
         out[net] = dict(batch_norm=bn, network_ms=1e3 * timing["network"],
                         cluster_ms=1e3 * timing["cluster"],
@@ -2681,14 +2771,34 @@ def run_alternates(frame: dict) -> dict:
                         instances=len(np.unique(results[-1].labels)) - 1)
         print(f"[{net}{' batch_norm' if bn else ''}] parity stage 1 at "
               f"{H}x{W}: network {out[net]['network_ms']:.3f} ms, cluster "
-              f"{out[net]['cluster_ms']:.3f} ms; launches {counts}; card vs "
-              f"CPU on a {h}x{w} window: max |embedding diff| {err:.3e}")
-        if not err <= ALT_TOL:
-            raise AssertionError(f"[{net}] the card's embeddings differ from "
-                                 f"the CPU's by {err:.3e}")
-        del seg, cpu
+              f"{out[net]['cluster_ms']:.3f} ms; launches {counts}")
+        del seg
         torch.cuda.empty_cache()
     return out
+
+
+def window_vs_cpu(net: str, cfg: Config, state: dict, seg: Segmentor,
+                  frame: dict) -> float:
+    """Phase 8 (and 8r): the parity Segmentor's network on the card against
+    the same weights on the CPU, on an ALT_WINDOW window of the frame:
+    the largest embedding difference, at most ALT_TOL."""
+    h, w = ALT_WINDOW
+    window = {k: v[None, H // 2 - h // 2:H // 2 + h // 2,
+                   W // 2 - w // 2:W // 2 + w // 2]
+              for k, v in frame.items()}
+    cpu = get_network(net, cfg)
+    cpu.load_state_dict(state)
+    cpu.eval()
+    with torch.no_grad():
+        card = seg.model(window["image_color"], window["depth"]).cpu()
+        want = cpu(window["image_color"].cpu(), window["depth"].cpu())
+    err = float((card - want).abs().max())
+    print(f"[{net}] card vs CPU on a {h}x{w} window of the frame: max "
+          f"|embedding diff| {err:.3e}")
+    if not err <= ALT_TOL:
+        raise AssertionError(f"[{net}] the card's embeddings differ from "
+                             f"the CPU's by {err:.3e}")
+    return err
 
 
 # phase 8b: trained stage 1
@@ -2791,10 +2901,11 @@ def run_probe(tag: str, argv: list[str], x: np.ndarray | None = None
 
 
 def train_recipe(tag: str, recipe: str, net: str, epochs: int, cache: str,
-                 out: str) -> tuple[list[dict], float, float]:
+                 out: str, scenes: int = TRAINED_SCENES
+                 ) -> tuple[list[dict], float, float]:
     """tools.train_net.main on the recipe yml `recipe` (copied to out.yml
     to snapshot once, after `epochs` epochs, in `out`) with --bf16
-    --device-resident on the TRAINED_SCENES scenes of `cache`: every
+    --device-resident on the first `scenes` scenes of `cache`: every
     step's readings, the seconds and the step ms (median of CUDA events
     between consecutive steps); no clustering kernel may launch."""
     with open(os.path.join(REPO, recipe)) as f:
@@ -2808,7 +2919,7 @@ def train_recipe(tag: str, recipe: str, net: str, epochs: int, cache: str,
     t0 = time.perf_counter()
     _, steps = run_train_net(tag, train_args(
         cache, out, "--epochs", str(epochs), "--bf16", yml=yml,
-        scenes=TRAINED_SCENES, net=net))
+        scenes=scenes, net=net))
     train_s = time.perf_counter() - t0
     launched = launch_counts()
     if any(launched.values()):
@@ -2899,6 +3010,105 @@ def run_trained(tmp: str, random_pth: str) -> dict:
                phase_s=time.perf_counter() - t0)
     print(f"phase 8b {out['phase_s']:.1f} s (render {render_s:.1f}, "
           f"train {train_s:.1f}, trained report {report_s:.1f})")
+    return out
+
+
+# phase 8r: ResNet-50-8s, the JAX package's third backbone
+# ---------------------------------------------------------------------------
+
+def resnet50_stage1(frame: dict, work: str) -> dict:
+    """Phase 8r (a) and (b): stage 1 of R50 on phase 3's 480x640 frame in
+    both modes through Segmentor.segment_sample (a warm-up and R50_FRAMES
+    timed frames; every kernel in each frame); the parity network against
+    the CPU on a window; kernel route against plain route on the parity
+    frame's embeddings; then tools.test_net.main() with --network R50 on
+    phase 7's synthetic tree in both modes (each kernel exactly once per
+    frame; the .mat files equal the labels)."""
+    cfg = Config.inference_default(INPUT="RGBD")
+    torch.manual_seed(50)
+    state = get_network(R50, cfg).state_dict()
+    n_params = sum(v.numel() for k, v in state.items()
+                   if "running_" not in k and "num_batches" not in k)
+    print(f"[{R50}] RGB-D add, 64 units, two towers of (3, 4, 6, 3) "
+          f"bottleneck blocks: {n_params} parameters (fixed-seed init)")
+    peaks: dict[str, float] = {}
+    counts, timings, features = run_slice(
+        cfg, state, frame, where="resnet50 ", frames=R50_FRAMES,
+        network_name=R50, peaks=peaks)
+    seg = Segmentor(cfg, state, network_name=R50)
+    err = window_vs_cpu(R50, cfg, state, seg, frame)
+    del seg
+    routes = slice_routes("resnet50 ", features, frame["depth"])
+    del features
+    torch.cuda.empty_cache()
+    pth = os.path.join(work, "resnet50.pth")
+    torch.save({"model": {"module." + k: v for k, v in state.items()}}, pth)
+    runs = {}
+    for mode in ("parity", "fast"):
+        runs[mode], _ = run_test_net(f"resnet50 {mode}, test_net", [
+            "--dataset", "synthetic_tabletop_test", "--dataset_root",
+            os.path.join(work, "scenes"), "--cfg",
+            os.path.join(REPO, TRAIN_YML), "--network", R50, "--pretrained",
+            pth, "--max_images", str(SYN_FRAMES), "--output-dir",
+            os.path.join(work, "test_net", "resnet50", mode)]
+            + (["--fast"] if mode == "fast" else []), SYN_FRAMES,
+            exact=True)
+    torch.cuda.empty_cache()
+    return dict(parameters=n_params, launches=counts, stage1_ms=timings,
+                peak_gib=peaks, card_vs_cpu_max_abs=err, routes=routes,
+                test_net=runs)
+
+
+def resnet50_training(cache: str, out: str) -> dict:
+    """Phase 8r (c): one float32 SGD step of R50 at SMALL_HW on the card
+    against the CPU (R50_STEP_TOL, the planted faults on R50_FAULT_TENSOR);
+    the resident step of RECIPE_YML with R50 timed on phase 8b's scenes at
+    TH x TW (bf16, as the recipe trains); tools.train_net.main() with
+    --network R50 on RECIPE_YML for one epoch of R50_TRAIN_SCENES / 16
+    steps (no clustering kernel launched)."""
+    card_cpu = check_step_against_cpu(net=R50, fault_tensor=R50_FAULT_TENSOR,
+                                      tol=R50_STEP_TOL)
+    scenes = load_resident_scenes(
+        os.path.join(cache, f"synthetic_tabletop_train_{TH}x{TW}_v4"),
+        limit=TRAIN_SCENES, device=DEV)
+    reset_counts()
+    timing = time_recipe("resnet50 bf16", RECIPE_YML, scenes,
+                         torch.bfloat16, network_name=R50, hw=(TH, TW))
+    del scenes
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[resnet50] training launched a clustering "
+                             f"kernel: {launched}")
+    steps, train_s, step_ms = train_recipe(
+        "resnet50 train_net", RECIPE_YML, R50, 1, cache, out,
+        scenes=R50_TRAIN_SCENES)
+    if not glob.glob(os.path.join(out, "*")):
+        raise AssertionError("[resnet50] train_net wrote no snapshot")
+    return dict(card_vs_cpu=card_cpu, timing=timing,
+                train_net=dict(steps=len(steps), train_s=train_s,
+                               step_ms=step_ms,
+                               loss=[steps[0]["loss"], steps[-1]["loss"]]))
+
+
+def run_resnet50(frame: dict, work: str, tmp: str, cache: str) -> dict:
+    """Phase 8r: seg_resnet50_8s_embedding through the port's entry points
+    (resnet50_stage1, resnet50_training); `work` holds phase 7's trees,
+    `cache` is phase 8b's render cache."""
+    t0 = time.perf_counter()
+    out = resnet50_stage1(frame, work)
+    t1 = time.perf_counter()
+    out.update(resnet50_training(cache, os.path.join(tmp, "resnet50")))
+    out.update(stage1_s=t1 - t0, training_s=time.perf_counter() - t1,
+               phase_s=time.perf_counter() - t0)
+    modes = out["stage1_ms"]
+    print(f"[resnet50] stage 1 ms parity / fast: "
+          + " / ".join(f"network {modes[m]['network']:.3f}, cluster "
+                       f"{modes[m]['cluster']:.3f}, stage1 "
+                       f"{modes[m]['stage1']:.3f}, peak "
+                       f"{out['peak_gib'][m]:.2f} GiB"
+                       for m in ("parity", "fast")))
+    print(f"phase 8r {out['phase_s']:.1f} s (stage 1 and test_net "
+          f"{out['stage1_s']:.1f}, training {out['training_s']:.1f})")
     return out
 
 
@@ -4398,26 +4608,7 @@ def main() -> None:
                                cfg.pixel_means, *INTR)
     frame = {"image_color": img, "depth": xyz}
     counts, timings, features = run_slice(cfg, state_dict, frame)
-
-    # parity: kernel route vs plain route on the same embeddings
-    kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
-              metric="cosine", first_index=4321, seed_subsample=1,
-              compute_dtype="float32", filter_threshold=0.8,
-              z_valid=(xyz[..., 2] > 0).reshape(N))
-    feats = features.reshape(N, D)
-    k_route = mean_shift_smart_init(feats, use_pallas=True, **kw)
-    p_route = mean_shift_smart_init(feats, use_pallas=False, **kw)
-    n_diff = int((k_route.labels != p_route.labels).sum())
-    step, gap = seed_gap(feats, k_route.seed_indices, p_route.seed_indices)
-    print(f"[parity] kernel route vs plain route on the slice's embeddings: "
-          f"{n_diff} pixels differ; seeds first differ at step {step} "
-          f"(gap {gap:.3e}); max |Z - Z_plain| "
-          f"{float((k_route.seeds - p_route.seeds).abs().max()):.3e}; "
-          f"{int(p_route.seed_labels.max()) + 1} seed clusters, "
-          f"{len(torch.unique(p_route.labels))} label ids")
-    if n_diff or step >= 0:
-        raise AssertionError("the kernel route differs from the plain "
-                             "route on the slice's embeddings")
+    slice_routes("", features, xyz)
     check_against_cpu(cfg, state_dict, frame)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
@@ -4481,6 +4672,12 @@ def main() -> None:
             print(f"wall after phase 8b {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 8r: ResNet-50-8s on phase 3's frame, phase 7's tree
+            # and phase 8b's render cache
+            resnet50 = run_resnet50(frame, work, tmp, trained["cache"])
+            print(f"wall after phase 8r {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 8c: phase 8b's cache and snapshot, phase 5's .pth of
             # phase 4's random-init crop network
             two_stage = run_two_stage(tmp, trained, paths["crop"])
@@ -4524,6 +4721,12 @@ def main() -> None:
                                 if k.startswith("fast/")},
             alternates_launches={net: r["launches"][name]
                                  for net, r in alternates.items()},
+            resnet50_launches=resnet50["launches"]["parity"][name],
+            fast_resnet50_launches=resnet50["launches"]["fast"][name],
+            resnet50_test_net_launches=resnet50["test_net"]["parity"][
+                "launches"][name],
+            fast_resnet50_test_net_launches=resnet50["test_net"]["fast"][
+                "launches"][name],
             dp_launches=data_parallel["sharded"]["parity"]["launches"][name],
             fast_dp_launches=data_parallel["sharded"]["fast"]["launches"][
                 name],
@@ -4597,6 +4800,7 @@ def main() -> None:
     print(json.dumps({"data_no_opencv": no_opencv}))
     print(json.dumps({"alternates": alternates}))
     print(json.dumps({"trained": trained}))
+    print(json.dumps({"resnet50": resnet50}))
     print(json.dumps({"two_stage": two_stage}))
     print(json.dumps({"cat": {k: v for k, v in cat.items()
                               if k not in ("checks", "crop_checks")}}))

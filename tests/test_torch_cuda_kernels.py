@@ -24,7 +24,9 @@ case at both widths (cc_kernel<64>, and cc_cluster_kernel at d = 128; the
 merge steps held to the plain merge's; the d = 128 kernel also against
 the d = 64 one on zero-padded seeds), and the width-128 assignment's
 cases run in both types (assign_tf32_wide_kernel and
-assign_bf16_wide_kernel).  They need a CUDA device and skip without one.  On the machine with the card:
+assign_bf16_wide_kernel).  One 480x640 frame goes through stage 1 of the
+full-depth ResNet-50-8s network in each mode, every kernel launched.
+They need a CUDA device and skip without one.  On the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -42,9 +44,13 @@ import numpy as np
 import pytest
 import torch
 
+from unseenobjectclustering_torch.config import FAST_CLUSTER, Config
+from unseenobjectclustering_torch.engine.pipeline import Segmentor
+from unseenobjectclustering_torch.models import get_network
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
 from unseenobjectclustering_torch.ops.mean_shift import mean_shift_smart_init
+from unseenobjectclustering_torch.ops.preprocess import preprocess_rgbd
 
 pytestmark = pytest.mark.cuda
 
@@ -1015,3 +1021,46 @@ def test_assign_wide_kernel_rechecks_many_pixels(card, n, dtype):
         torch.from_numpy(z.astype(np.float32)).to(card), slab,
         torch.from_numpy(z_valid).to(card))
     assert rechecked > n // 2
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_resnet50_frame_launches_every_kernel(card, mode):
+    """Stage 1 of seg_resnet50_8s_embedding (two dilated ResNet-50 towers,
+    RGB-D add, 64 units, a fixed-seed init) on one 480x640 frame made with
+    numpy from a seed, through Segmentor.segment_sample: finite unit
+    embeddings, labels of shape (1, 480, 640) within the seed ids, and
+    each of the four kernels launched once."""
+    h, w = 480, 640
+    cfg = Config.inference_default(INPUT="RGBD")
+    torch.manual_seed(50)
+    state = get_network("seg_resnet50_8s_embedding", cfg).state_dict()
+    fast = mode == "fast"
+    seg = Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)) if fast else cfg,
+                    state, network_name="seg_resnet50_8s_embedding",
+                    model_dtype=torch.bfloat16 if fast else None,
+                    device=card)
+    rng = np.random.RandomState(50)
+    bgr = np.full((h, w, 3), 100, np.uint8)
+    depth = np.tile(np.linspace(1.5, 0.9, h, dtype=np.float32)[:, None],
+                    (1, w))
+    for _ in range(6):
+        y, x = rng.randint(40, h - 120), rng.randint(40, w - 160)
+        bgr[y:y + 80, x:x + 120] = rng.randint(0, 256, size=3)
+        depth[y:y + 80, x:x + 120] -= rng.uniform(0.05, 0.3)
+    depth[rng.rand(h, w) < 0.02] = 0.0
+    img, xyz = preprocess_rgbd(torch.from_numpy(bgr).to(card),
+                               torch.from_numpy(depth).to(card),
+                               cfg.pixel_means, 615.0, 615.0, w / 2.0,
+                               h / 2.0)
+    cuda_seeding.launches = cms.hill_climb_launches = 0
+    cms.connected_components_launches = cms.assign_labels_launches = 0
+    res = seg.segment_sample({"image_color": img, "depth": xyz},
+                             return_features=True)
+    assert (cuda_seeding.launches, cms.hill_climb_launches,
+            cms.connected_components_launches,
+            cms.assign_labels_launches) == (1, 1, 1, 1)
+    f = res.features
+    assert f.shape == (1, h, w, 64) and np.isfinite(f).all()
+    np.testing.assert_allclose(np.linalg.norm(f, axis=-1), 1.0, atol=1e-3)
+    assert res.labels.shape == (1, h, w) and res.labels.dtype == np.int32
+    assert 0 <= res.labels.min() and res.labels.max() <= 100

@@ -7,7 +7,13 @@ both networks run on the same numpy frame.
 
 Tolerance: embeddings within atol 1e-4 at float32 — convolutions sum in a
 different order in XLA and in PyTorch.
+
+The full-depth ResNet-50-8s towers (47.3 M parameters for two) take their
+variables from numpy at the shapes flax's init traces (numpy_variables):
+running flax's init of them costs tens of seconds on the CPU.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +23,7 @@ import torch
 
 from unseenobjectclustering_torch import config as tcfg
 from unseenobjectclustering_torch.models import (NETWORK_FACTORIES,
+                                                 cast_convs, compute_convs_in,
                                                  get_network)
 from unseenobjectclustering_torch.models import resnet as tresnet
 from unseenobjectclustering_torch.models.segnet import SEGNET
@@ -51,6 +58,34 @@ def randomize_bn(variables, seed=0):
     return tree
 
 
+def numpy_variables(jmodel, *inputs, seed=0):
+    """Variables of the shapes jmodel.init gives for `inputs` (traced with
+    jax.eval_shape, not run), filled from numpy: He-normal kernels, biases
+    and BatchNorm offsets 0.1 * N(0, 1), then randomize_bn."""
+    shapes = jax.eval_shape(
+        lambda key: jmodel.init(key, *inputs, train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(leaf):
+        if len(leaf.shape) == 4:  # [kh, kw, in, out]
+            std = np.sqrt(2.0 / np.prod(leaf.shape[:3]))
+            return (std * rng.randn(*leaf.shape)).astype(np.float32)
+        return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+
+    return randomize_bn(jax.tree_util.tree_map(fill, shapes), seed=seed)
+
+
+@pytest.fixture(scope="module")
+def resnet50_variables():
+    """One set of full-depth two-tower ResNet-50-8s variables with 64 units
+    (add and cat fusion share their shapes)."""
+    img, xyz = frame()
+    jmodel = JSEGNET(network_name="resnet50_8s", input_type="RGBD",
+                     fusion_type="add", num_units=64)
+    return numpy_variables(jmodel, jnp.asarray(img), jnp.asarray(xyz))
+
+
 def frame(seed=0):
     rng = np.random.RandomState(seed)
     img = rng.randn(1, H, W, 3).astype(np.float32)
@@ -58,26 +93,45 @@ def frame(seed=0):
     return img, xyz
 
 
-@pytest.mark.parametrize("input_type,fusion", [("RGBD", "add"),
-                                               ("RGBD", "early"),
-                                               ("RGBD", "cat"),
-                                               ("COLOR", "add")])
-def test_segnet_embeddings_match_through_the_carry(input_type, fusion):
-    kw = dict(network_name="resnet18_8s", input_type=input_type,
-              fusion_type=fusion, num_units=8)
+@pytest.mark.parametrize("arch,input_type,fusion", [
+    pytest.param("resnet18_8s", "RGBD", "add", id="RGBD-add"),
+    pytest.param("resnet18_8s", "RGBD", "early", id="RGBD-early"),
+    pytest.param("resnet18_8s", "RGBD", "cat", id="RGBD-cat"),
+    pytest.param("resnet18_8s", "COLOR", "add", id="COLOR-add"),
+    pytest.param("resnet50_8s", "RGBD", "add", id="resnet50_8s-RGBD-add"),
+    pytest.param("resnet50_8s", "RGBD", "cat", id="resnet50_8s-RGBD-cat")])
+def test_segnet_embeddings_match_through_the_carry(arch, input_type, fusion,
+                                                   request):
+    """ResNet-18-8s with 8 units under each input and fusion, and the
+    full-depth ResNet-50-8s (bottleneck blocks: conv3/bn3 and layer 1's
+    64 -> 256 downsample) with 64 units, RGB-D add and cat."""
+    full = arch == "resnet50_8s"
+    kw = dict(network_name=arch, input_type=input_type, fusion_type=fusion,
+              num_units=64 if full else 8)
     jmodel = JSEGNET(**kw)
     img, xyz = frame()
     chans = 6 if (input_type, fusion) == ("RGBD", "early") else 3
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img),
-                            jnp.asarray(xyz), train=False)
-    variables = randomize_bn(variables)
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(img),
-                                   jnp.asarray(xyz), train=False))
+    if full:
+        variables = request.getfixturevalue("resnet50_variables")
+    else:
+        variables = randomize_bn(jmodel.init(
+            jax.random.PRNGKey(0), jnp.asarray(img), jnp.asarray(xyz),
+            train=False))
+    apply = functools.partial(jmodel.apply, train=False)
+    want = np.asarray((jax.jit(apply) if full else apply)(
+        variables, jnp.asarray(img), jnp.asarray(xyz)))
 
     tmodel = SEGNET(**kw)
-    tmodel.load_state_dict(state_dict_from_flax(variables, "resnet18_8s"),
+    tmodel.load_state_dict(state_dict_from_flax(variables, arch),
                            strict=True)
-    assert tmodel.fcn.resnet18_8s.conv1.weight.shape[1] == chans
+    tower = getattr(tmodel.fcn, arch)
+    assert tower.conv1.weight.shape[1] == chans
+    if full:
+        block = tower.layer1[0]
+        assert block.conv3.weight.shape == (256, 64, 1, 1)
+        assert block.downsample[0].weight.shape == (256, 64, 1, 1)
+        assert len(tower.layer3) == 6 and tower.layer4[0].conv2.dilation == (
+            4, 4)
     with torch.no_grad():
         got = tmodel.eval()(torch.from_numpy(img),
                             torch.from_numpy(xyz)).numpy()
@@ -192,3 +246,25 @@ def test_bf16_network_matches_the_jax_bf16_network(seed):
     assert got.dtype == want.dtype == np.float32
     assert np.abs(got - want).max() <= 2e-2
     assert (got * want).sum(-1).min() >= 0.9995
+
+
+def test_bf16_reaches_every_bottleneck_conv():
+    """ResNet-50-8s in bfloat16: compute_convs_in (training's --bf16) sets
+    every convolution's compute dtype, conv3 and layer 1's downsample
+    conv included, and cast_convs (fast mode) rounds every convolution's
+    weights; BatchNorm stays float32 under both."""
+    cfg = tcfg.Config.inference_default(INPUT="RGBD")
+    net = get_network("seg_resnet50_8s_embedding", cfg)
+    block = net.fcn.resnet50_8s.layer1[0]
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert block.conv3 in convs and block.downsample[0] in convs
+    compute_convs_in(net, torch.bfloat16)
+    assert all(m.compute_dtype == torch.bfloat16 for m in convs)
+    out = block.conv3(torch.zeros(1, 64, 4, 4))
+    assert out.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    compute_convs_in(net, None)
+    cast_convs(net, torch.bfloat16)
+    assert all(m.weight.dtype == torch.bfloat16 for m in convs)
+    assert block.bn3.weight.dtype == block.downsample[1].running_var.dtype \
+        == torch.float32

@@ -29,12 +29,14 @@ from unseenobjectclustering_tpu import config as jcfg
 from unseenobjectclustering_tpu.models import get_network as jax_get_network
 from unseenobjectclustering_tpu.ops import mean_shift as jms
 from unseenobjectclustering_tpu.ops import preprocess as jpre
+from test_torch_models import numpy_variables
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 32, 48
 NET = "seg_resnet18_8s_embedding"
+NET_R50 = "seg_resnet50_8s_embedding"
 OVERRIDES = dict(INPUT="RGBD", TRAIN={"NUM_UNITS": 8},
                  CLUSTER={"NUM_SEEDS": 20})
 INTR = (40.0, 40.0, W / 2.0, H / 2.0)
@@ -63,8 +65,22 @@ def jax_weights():
     return cfg, model, variables
 
 
-def test_stage1_slice_matches_jax(jax_weights):
-    jcfg_, jmodel, variables = jax_weights
+@pytest.fixture(scope="module")
+def jax_weights_resnet50():
+    """The full-depth ResNet-50-8s network with numpy-filled variables
+    (test_torch_models.numpy_variables: flax's init of two full towers
+    costs tens of seconds on the CPU)."""
+    cfg = jcfg.Config.inference_default(**OVERRIDES)
+    model = jax_get_network(NET_R50, cfg)
+    zeros = jnp.zeros((1, H, W, 3), jnp.float32)
+    return cfg, model, numpy_variables(model, zeros, zeros, seed=4)
+
+
+def check_stage1_slice(jcfg_, jmodel, variables, arch, net):
+    """The JAX stage 1 against the port's Segmentor (first seed pinned to
+    5): embeddings within 1e-4; the port's clustering of the JAX
+    embeddings gives the JAX seeds and labels exactly, and so do the
+    Segmentor's labels; no kernel launched on the CPU."""
     bgr, depth = scene()
     means = jcfg_.pixel_means
     img, xyz = jpre.preprocess_rgbd(jnp.asarray(bgr), jnp.asarray(depth),
@@ -80,8 +96,8 @@ def test_stage1_slice_matches_jax(jax_weights):
         **ms_kw)
 
     cfg = tcfg.Config.inference_default(**OVERRIDES)
-    seg = Segmentor(cfg, state_dict_from_flax(variables, "resnet18_8s"),
-                    network_name=NET, device="cpu")
+    seg = Segmentor(cfg, state_dict_from_flax(variables, arch),
+                    network_name=net, device="cpu")
     assert seg._ms_kw == {k: v for k, v in ms_kw.items()
                           if k != "first_index"}
     t_img, t_xyz = tpre.preprocess_rgbd(torch.from_numpy(bgr),
@@ -105,9 +121,22 @@ def test_stage1_slice_matches_jax(jax_weights):
     assert len(np.unique(np.asarray(want.labels))) > 1
     np.testing.assert_allclose(got.seeds.numpy(), np.asarray(want.seeds),
                                atol=1e-5)
+    # and the Segmentor's own labels, from its own embeddings, are JAX's
+    np.testing.assert_array_equal(labels.reshape(-1).numpy(),
+                                  np.asarray(want.labels))
     assert (cuda_seeding.launches, cms.hill_climb_launches,
             cms.connected_components_launches,
             cms.assign_labels_launches) == (0, 0, 0, 0)
+
+
+def test_stage1_slice_matches_jax(jax_weights):
+    check_stage1_slice(*jax_weights, "resnet18_8s", NET)
+
+
+def test_stage1_slice_matches_jax_resnet50(jax_weights_resnet50):
+    """The same slice through the full-depth ResNet-50-8s (bottleneck
+    blocks, layers (3, 4, 6, 3)): the labels equal JAX's."""
+    check_stage1_slice(*jax_weights_resnet50, "resnet50_8s", NET_R50)
 
 
 def test_segment_crops_back_frames_that_are_not_multiples_of_16(jax_weights):
@@ -172,12 +201,14 @@ def test_segmentor_without_device_needs_a_card(jax_weights):
 
 
 def test_port_imports_without_jax(tmp_path):
-    """Every module of the port, chip_smoke, hill_climb_study and cc_study
-    import with jax, flax, the JAX package, OpenCV and PIL blocked; the
-    training, data and data-parallel slices' modules and the repo tools
-    (fast_parity_report, probe_seed_precision, dataset_statistics) are
-    among them, and a palette PNG written by PIL reads back (utils/masks
-    through utils/png)."""
+    """Every module of the port, chip_smoke, hill_climb_study, cc_study and
+    step_study import with jax, flax, the JAX package, OpenCV, PIL and
+    matplotlib blocked; the training, data and data-parallel slices'
+    modules and the repo tools (fast_parity_report, probe_seed_precision,
+    dataset_statistics, plot_bar_charts, plot_epochs, view_tabletop_data,
+    annotate_demo_gt, collect_images_realsense) are among them, and a
+    palette PNG written by PIL reads back (utils/masks through
+    utils/png)."""
     from PIL import Image
 
     labels = np.random.RandomState(0).randint(0, 9, (13, 17)).astype(
@@ -189,7 +220,7 @@ def test_port_imports_without_jax(tmp_path):
     code = """
 import pkgutil, sys, importlib
 for name in ("jax", "jaxlib", "flax", "unseenobjectclustering_tpu", "cv2",
-             "PIL"):
+             "PIL", "matplotlib"):
     sys.modules[name] = None
 import unseenobjectclustering_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -198,6 +229,7 @@ for name in names:
 import chip_smoke
 import hill_climb_study
 import cc_study
+import step_study
 training = {pkg.__name__ + "." + m for m in (
     "engine.train", "ops.augment", "ops.train_pipeline", "data.synthetic",
     "data.resident", "data.loader", "data.factory", "data.datasets",
@@ -209,7 +241,9 @@ data = {pkg.__name__ + "." + m for m in (
 training |= {pkg.__name__ + "." + m for m in (
     "parallel", "parallel.mesh", "parallel.distributed")}
 data |= {pkg.__name__ + ".tools." + m for m in (
-    "fast_parity_report", "probe_seed_precision", "dataset_statistics")}
+    "fast_parity_report", "probe_seed_precision", "dataset_statistics",
+    "plot_bar_charts", "plot_epochs", "view_tabletop_data",
+    "annotate_demo_gt", "collect_images_realsense")}
 assert training | data <= set(names), (training | data) - set(names)
 assert len(names) >= 35, names
 import numpy as np

@@ -85,28 +85,30 @@ def batches(n, b=2, seed=0):
     return out
 
 
-def jax_state(jc, solver, **kw):
-    return jtrain.create_train_state(jc, network_name=NET, solver=solver,
+def jax_state(jc, solver, net=NET, **kw):
+    return jtrain.create_train_state(jc, network_name=net, solver=solver,
                                      height=HW, width=HW, **kw)
 
 
-def port_state(tc, js, solver, **kw):
+def port_state(tc, js, solver, net=NET, arch=ARCH, **kw):
     variables = jax.tree_util.tree_map(
         np.asarray, {"params": js.params, "batch_stats": js.batch_stats})
     return ttrain.create_train_state(
-        tc, network_name=NET, solver=solver,
-        state_dict=state_dict_from_flax(variables, ARCH), device="cpu",
+        tc, network_name=net, solver=solver,
+        state_dict=state_dict_from_flax(variables, arch), device="cpu",
         **kw)
 
 
-def assert_states_close(js, ts, lr, steps=3, adam=False):
+def assert_states_close(js, ts, lr, steps=3, adam=False, arch=ARCH,
+                        params=True):
     """Parameters and BatchNorm buffers of the two states.  Under Adam a
     parameter whose gradient is within rounding of 0 moves by up to lr
     either way (m / sqrt(v) is +-1 for any |g| >> eps), so there at most
-    1 in 1000 parameters may differ, by no more than 2 * lr * steps."""
+    1 in 1000 parameters may differ, by no more than 2 * lr * steps.  With
+    params=False only the BatchNorm buffers."""
     want = state_dict_from_flax(jax.tree_util.tree_map(
         np.asarray, {"params": js.params, "batch_stats": js.batch_stats}),
-        ARCH)
+        arch)
     got = ts.model.state_dict()
     tol = 1e-6 + 2e-2 * lr
     far, total = 0, 0
@@ -117,6 +119,8 @@ def assert_states_close(js, ts, lr, steps=3, adam=False):
         if "running_" in key:
             np.testing.assert_allclose(g, w.numpy(), atol=1e-4, rtol=1e-4,
                                        err_msg=key)
+        elif not params:
+            continue
         elif adam:
             diff = np.abs(g - w.numpy())
             assert diff.max() <= 2 * lr * steps, key

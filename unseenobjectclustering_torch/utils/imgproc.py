@@ -15,6 +15,7 @@ names the path that was replicated.
   filter2d_u8            cv2.filter2D(img, -1, k) with a 1 x k or k x 1
                          float32 kernel, BORDER_REFLECT_101
   fill_ellipse           cv2.ellipse(..., thickness=-1), full arc
+  fill_poly              cv2.fillPoly(img, [pts], color) of one contour
   rotation_matrix_2d     cv2.getRotationMatrix2D
   warp_affine_nearest    cv2.warpAffine(..., flags=INTER_NEAREST),
                          BORDER_CONSTANT 0
@@ -566,6 +567,132 @@ def fill_ellipse(img: np.ndarray, center, axes, angle, color) -> np.ndarray:
     if len(v) == 1:
         v = [(cx, cy), (cx, cy)]
     _fill_convex(img, v, color)
+    return img
+
+
+def _line8(img, p1, p2, color) -> None:
+    """Line with LINE_8 between two points on the image: LineIterator's
+    8-connected Bresenham walk, left to right."""
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:
+        dx, dy = -dx, -dy
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - (dy + dy)
+    x, y = x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = color
+        step = err < 0
+        err += -(dy + dy) + (dx + dx if step else 0)
+        if vert:
+            y += sy
+            x += sx if step else 0
+        else:
+            x += sx
+            y += sy if step else 0
+
+
+class _PolyEdge:
+    __slots__ = ("y0", "y1", "x", "dx", "next")
+
+    def __init__(self, y0=0, y1=0, x=0, dx=0):
+        self.y0, self.y1, self.x, self.dx = y0, y1, x, dx
+        self.next = None
+
+
+def _fill_edges(img, edges: list, color) -> None:
+    """FillEdgeCollection with LINE_8 for edges on the image: the active
+    edge list walked row by row, spans filled between its pairs (their
+    fixed-point ends rounded inwards), then bubble-sorted by x."""
+    total = len(edges)
+    if total < 2:
+        return
+    y_max = max(e.y1 for e in edges)
+    edges = sorted(edges, key=lambda e: (e.y0, e.x, e.dx))
+    edges.append(_PolyEdge(y0=2 ** 31 - 1))
+    head = _PolyEdge()
+    i = 0
+    e = edges[0]
+    for y in range(e.y0, y_max):
+        draw = False
+        prelast, last = head, head.next
+        while last is not None or e.y0 == y:
+            if last is not None and last.y1 == y:
+                prelast.next = last = last.next
+                continue
+            keep_prelast = prelast
+            if last is not None and (e.y0 > y or last.x < e.x):
+                prelast, last = last, last.next
+            elif i < total:
+                prelast.next = e
+                e.next = last
+                prelast = e
+                i += 1
+                e = edges[i]
+            else:
+                break
+            if draw:
+                a, b = sorted((keep_prelast.x, prelast.x))
+                # the span's ends rounded inwards
+                img[y, (a + _XY_ONE - 1) >> _XY_SHIFT:(b >> _XY_SHIFT) + 1] \
+                    = color
+                keep_prelast.x += keep_prelast.dx
+                prelast.x += prelast.dx
+            draw = not draw
+        # bubble sort of the active list by x (stable)
+        keep = None
+        while True:
+            prelast, last = head, head.next
+            exchanged = None
+            while last is not keep and last.next is not None:
+                te = last.next
+                if last.x > te.x:
+                    prelast.next = te
+                    last.next = te.next
+                    te.next = last
+                    prelast = te
+                    exchanged = prelast
+                else:
+                    prelast, last = last, te
+            if exchanged is None:
+                break
+            keep = exchanged
+            if keep is head.next or keep is head:
+                break
+
+
+def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
+    """cv2.fillPoly(img, [pts], color) in place (and returned), bit for
+    bit, for one contour of integer [x, y] vertices that all lie on the
+    canvas, of any shape (non-convex, self-intersecting, degenerate):
+    LINE_8, shift 0; each edge drawn by Line (LineIterator's 8-connected
+    walk) and collected as a fixed-point PolyEdge, then
+    FillEdgeCollection's scanline fill.  A vertex off the canvas raises
+    ValueError (cv2 clips such polygons in a way not replicated here)."""
+    h, w = img.shape[:2]
+    v = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    off = [p for p in v if not (0 <= p[0] < w and 0 <= p[1] < h)]
+    if off:
+        raise ValueError(f"fill_poly takes vertices on the {w}x{h} canvas, "
+                         f"not {off[:3]}")
+    edges = []
+    x0, y0 = v[-1]
+    for x1, y1 in v:
+        _line8(img, (x0, y0), (x1, y1), color)
+        if y0 != y1:
+            dx = _c_div((x1 - x0) << _XY_SHIFT, y1 - y0)
+            if y0 < y1:
+                edges.append(_PolyEdge(y0, y1, x0 << _XY_SHIFT, dx))
+            else:
+                edges.append(_PolyEdge(y1, y0, x1 << _XY_SHIFT, dx))
+        x0, y0 = x1, y1
+    _fill_edges(img, edges, color)
     return img
 
 
