@@ -267,6 +267,29 @@ Phases (any failure exits non-zero; no exception is caught):
      climb held to the float64 replay, and parity's kernel route's labels
      equal to the plain route's but at certified near-ties.  One
      {"modalities": {...}} line.
+ 2w. (run after phase 2d) widths 1..128 and up to 256 seeds, the shapes
+     the JAX package's Pallas kernels take past the recipes': (a) each
+     kernel against its plain version at the frame on clustered
+     embeddings at (d, m) = WIDE_CASES (16, 32 and 96 with 100 to 256
+     seeds; on the card at width 64 or 128 with zero columns) and at the
+     224^2 crop at WIDE_CROP_CASES, in both modes, with phase 2's checks
+     and tolerances (seeds, seed labels and pixel labels equal in float32,
+     the seeds parting only at a float32 near-tie below SEED_GAP; the hill
+     climb launched once per group of at most 128 seeds, the assignment
+     once per pass), times beside the bound of the unpadded work; on
+     WIDE_LABELS's 200 clusters, more than 128 seed labels, from each
+     kernel and from the whole route (kernel route = plain route); (b) WIDE_CONFIGS, the rgbd_add yml with
+     NUM_UNITS 32 and NUM_SEEDS 256 (d = 32) and the rgbd_cat yml with
+     NUM_UNITS 48 (d = 96), fixed-seed inits, stage 1 at 480x640 through
+     Segmentor.segment_sample in both modes (the counters set to 0 before
+     each frame and read after: every kernel in each frame, the hill
+     climb once per group), in parity the kernel route's labels equal to
+     the plain route's on the same embeddings, and for the first stage 2
+     on phase 4's 8-box frame in both modes (each kernel once per valid
+     crop, the hill climb once per group; parity's kernel route = plain
+     route); the ms of the copy that pads a frame's X to the kernel
+     width (made once per clustering), beside its bound.  One
+     {"widths": {...}} line.
   9. data parallelism (unseenobjectclustering_torch.parallel), what one
      card can show of it: (a) world size 1 on NCCL (an all-reduce and an
      all-gather checked): Segmentor.segment_sharded on 4 frames at
@@ -339,7 +362,15 @@ Phases (any failure exits non-zero; no exception is caught):
      above, with its backend).  The width-64 entries also hold their
      launches on phase 2d's paths per modality and mode
      (modality_launches) and their readings at the frame without a depth
-     mask (unfiltered_*, phase 2d (a)).
+     mask (unfiltered_*, phase 2d (a)).  Then each kernel's phase-2w
+     entries: name suffixed _d32_m256 (configuration (a): its stage-1 and
+     stage-2 launches, the readings at the frame and the crop at d = 32
+     with 256 seeds) and _d96_m100 (configuration (b): its stage-1
+     launches, the readings at the frame at d = 96 with 100 seeds, and
+     with the prefix m256_ at the frame and the crop with 256 seeds); the
+     connected components' and the assignment's also the kernel each mode
+     launches (cc_kernel<d, 256> and the assignment's two passes past
+     128 seeds).
  11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -610,6 +641,15 @@ KERNEL_NAMES = {"select_seeds": "select_seeds_kernel", "hill_climb": "hill_",
                 "assign_labels": "assign_"}
 
 
+def per_clustering(num_seeds: int) -> dict[str, int]:
+    """Each kernel's launches in one clustering of num_seeds seeds: one,
+    but the hill climb's one per group of seeds and the assignment's one
+    per pass past 128 seeds."""
+    return {**dict.fromkeys(KERNELS, 1),
+            "hill_climb": cms.hill_climb_groups(num_seeds)[0],
+            "assign_labels": cms.assign_passes(num_seeds)}
+
+
 def launch_counts() -> dict[str, int]:
     return {"select_seeds": cuda_seeding.launches,
             "hill_climb": cms.hill_climb_launches,
@@ -640,10 +680,12 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, name: str, reps: int, tries: int = 3) -> float:
-    """Device time per launch of the CUDA kernels whose name holds `name`
-    (torch.profiler) over reps calls of fn (one launch each), after one
-    warm-up call: the kernel's own time, without the host latency that
+def device_ms(fn, name: str, reps: int, tries: int = 3,
+              per_call: int = 1) -> float:
+    """Device time per call of fn of the CUDA kernels whose name holds
+    `name` (torch.profiler) over reps calls of fn (per_call launches each:
+    the hill climb past 128 seeds launches once per group), after one
+    warm-up call: the kernels' own time, without the host latency that
     time_ms includes.  The time is averaged over the launches the window
     recorded: the profiler drops some launches' device events now and then
     (the width-128 seeding kernel read 1.61 and 0.08 ms where its CUDA
@@ -664,10 +706,10 @@ def device_ms(fn, name: str, reps: int, tries: int = 3) -> float:
         us = sum(e.device_time_total for e in events)
         count = sum(e.count for e in events)
         if us > 0:
-            if count != reps:
-                print(f"device_ms: {count} of {reps} launches of {name} "
-                      "recorded; averaged over those")
-            return us / count / 1e3
+            if count != reps * per_call:
+                print(f"device_ms: {count} of {reps * per_call} launches "
+                      f"of {name} recorded; averaged over those")
+            return us / count * per_call / 1e3
         print(f"device_ms: a profiler window without {name}'s device "
               "events; profiling again")
     ms = queued_ms(fn, reps)
@@ -727,10 +769,11 @@ def clustered_embeddings(seed: int = 0, k: int = 12, n: int = N, d: int = D
             torch.from_numpy(z_valid).cuda())
 
 
-def pairwise_far_seeds(seed: int = 1, d: int = D) -> torch.Tensor:
-    """[M, d] random unit seeds, every pair far outside EPS (cosine
-    distance about 0.5): each seed is its own cluster."""
-    z = np.random.RandomState(seed).randn(M, d)
+def pairwise_far_seeds(seed: int = 1, d: int = D, m: int = M
+                       ) -> torch.Tensor:
+    """[m, d] random unit seeds, every pair far outside EPS (cosine
+    distance about 0.5 at d = 64): each seed is its own cluster."""
+    z = np.random.RandomState(seed).randn(m, d)
     z /= np.linalg.norm(z, axis=1, keepdims=True)
     return torch.from_numpy(z.astype(np.float32)).cuda()
 
@@ -834,10 +877,11 @@ def sdpa_yardstick(x: torch.Tensor, z0: torch.Tensor
 def check_kernels(mode: str, x32: torch.Tensor,
                   z_valid: torch.Tensor | None, where: str = "",
                   timed: bool = True, against_exact: bool = False,
-                  far: bool = True) -> dict[str, dict]:
-    """Phase 2 for one mode at x32's shape ([n, d]): every kernel against
-    its plain version, and with `timed` each one's times beside its
-    bound.  z_valid (the stage-1 depth mask) goes to the assignment when
+                  far: bool = True, m: int = M) -> dict[str, dict]:
+    """Phase 2 for one mode at x32's shape ([n, d]) and m seeds: every
+    kernel against its plain version, and with `timed` each one's times
+    beside its bound (the work of width d: the kernels run a narrower d
+    with zero columns up to 64 or 128).  z_valid (the stage-1 depth mask) goes to the assignment when
     given; stage 2 has none.  The seeds must be equal, but in fast mode,
     with `against_exact` (trained embeddings) and at width CAT_D (the
     kernel's sequential 128-term float32 chains and the plain version's
@@ -854,8 +898,12 @@ def check_kernels(mode: str, x32: torch.Tensor,
     version is itself up to 2.5e-5 from it); in fast mode no farther from it
     than the plain version, plus Z_TOL (both round Z and W to bf16 and
     are up to 2e-2 from it; where a rounding falls differently the two
-    part by up to 1.1e-3).  `far` adds the connected components on
-    pairwise-far seeds, an input that does not depend on x32."""
+    part by up to 1.1e-3).  The seeds may part that way at every width
+    but D, CAT_D's reason holding at any width whose chains and cuBLAS
+    sums may round apart.  `far` adds the connected components on
+    pairwise-far seeds, an input that does not depend on x32 (at width d
+    it asks for m clusters).  The hill climb's launches (one per group
+    of seeds past 128) are held to its plan's."""
     dtype = torch.float32 if mode == "parity" else torch.bfloat16
     sub = 1 if mode == "parity" else int(FAST_CLUSTER["SEED_SUBSAMPLE"])
     x = x32.to(dtype)
@@ -872,36 +920,42 @@ def check_kernels(mode: str, x32: torch.Tensor,
         print(f"[{tag}] select_seeds launch (n = {n_seed}): "
               f"{json.dumps(cuda_seeding.launch_config(x_seed))}")
         print(f"[{tag}] hill_climb launch (n = {n}): "
-              f"{json.dumps(cms.hill_climb_config(x, M))}")
+              f"{json.dumps(cms.hill_climb_config(x, m))}")
         print(f"[{tag}] assign_labels launch (n = {n}): "
-              f"{json.dumps(cms.assign_labels_config(x, M))}")
-        print(f"[{tag}] connected_components launch (m = {M}): "
-              f"{json.dumps(cms.connected_components_config(x[:M]))}")
-    got_s, got_i = cuda_seeding.select_seeds(x_seed, M, first)
+              f"{json.dumps(cms.assign_labels_config(x, m))}")
+        print(f"[{tag}] connected_components launch (m = {m}): "
+              f"{json.dumps(cms.connected_components_config(x[:m]))}")
+    got_s, got_i = cuda_seeding.select_seeds(x_seed, m, first)
     path = seed_path(x_seed)
-    want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, M, first)
+    want_s, want_i = cuda_seeding.select_seeds_reference(x_seed, m, first)
     step, gap = seed_gap(x_seed, got_i, want_i)
     print(f"[{tag}] select_seeds: first differing step {step}, "
           f"min-distance gap there {gap:.3e}; {path_text(path)}")
-    if step >= 0 and not ((mode == "fast" or against_exact or d == CAT_D)
+    if step >= 0 and not ((mode == "fast" or against_exact or d != D)
                           and gap < SEED_GAP):
         raise AssertionError(f"[{tag}] seeding differs at step {step} "
                              f"(gap {gap:.3e})")
-    ops = 2.0 * (M - 1) * n_seed * d
-    nbytes = n_seed * d * esize + M * (d * esize + 4)
+    ops = 2.0 * (m - 1) * n_seed * d
+    nbytes = n_seed * d * esize + m * (d * esize + 4)
     calls["select_seeds"] = (
-        lambda: cuda_seeding.select_seeds(x_seed, M, first),
-        lambda: cuda_seeding.select_seeds_reference(x_seed, M, first), 10)
+        lambda: cuda_seeding.select_seeds(x_seed, m, first),
+        lambda: cuda_seeding.select_seeds_reference(x_seed, m, first), 10)
     out["select_seeds"] = dict(
         max_abs_err=float((got_s.float() - want_s.float()).abs().max())
         if step < 0 else float(gap), differing_step=step,
         bound=bound(nbytes, ops, dtype), **path,
         # the eager kernel reads X again at every step (the lazy one does not)
         **({} if path["seed_path"] == "lazy" else dict(
-            rereads_ms=(M - 1) * n_seed * d * esize / HBM_BYTES_PER_S * 1e3)))
+            rereads_ms=(m - 1) * n_seed * d * esize / HBM_BYTES_PER_S * 1e3)))
 
     z0 = want_s.float()
+    before = cms.hill_climb_launches
     got_z = cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS)
+    groups = cms.hill_climb_config(x, m)["launches"]
+    if cms.hill_climb_launches - before != groups:
+        raise AssertionError(f"[{tag}] hill_climb launched "
+                             f"{cms.hill_climb_launches - before} times, "
+                             f"not once per group ({groups})")
     want_z = cms.hill_climb_reference(x, z0, kappa=KAPPA, max_iters=ITERS)
     err = float((got_z - want_z).abs().max())
     errs = {"plain": err}
@@ -923,8 +977,8 @@ def check_kernels(mode: str, x32: torch.Tensor,
     if not held <= Z_TOL[mode]:
         raise AssertionError(f"[{tag}] hill_climb {held:.3e} {what} > "
                              f"{Z_TOL[mode]}")
-    ops = ITERS * 4.0 * M * n * d
-    nbytes = n * d * esize + 2 * M * d * 4
+    ops = ITERS * 4.0 * m * n * d
+    nbytes = n * d * esize + 2 * m * d * 4
     calls["hill_climb"] = (
         lambda: cms.hill_climb(x, z0, kappa=KAPPA, max_iters=ITERS),
         lambda: cms.hill_climb_reference(x, z0, kappa=KAPPA,
@@ -940,7 +994,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
     z = want_z
     inputs = {"clustered": z}
     if far:
-        inputs["pairwise-far"] = pairwise_far_seeds(d=d)
+        inputs["pairwise-far"] = pairwise_far_seeds(d=d, m=m)
     cc = {}  # input -> (plain labels, merge steps)
     for name, zin in inputs.items():
         got_l = cms.connected_components(zin, EPS)
@@ -953,19 +1007,26 @@ def check_kernels(mode: str, x32: torch.Tensor,
         if not torch.equal(got_l, want_l):
             raise AssertionError(f"[{tag}] connected components differ on "
                                  f"the {name} input")
-    if far and int(cc["pairwise-far"][0].max()) + 1 != M:
+    if far and int(cc["pairwise-far"][0].max()) + 1 != m:
         raise AssertionError(f"[{tag}] pairwise-far seeds were merged")
     calls["connected_components"] = (
         lambda: cms.connected_components(z, EPS),
         lambda: cms.connected_components_reference(z, EPS), 20)
     out["connected_components"] = dict(
         max_abs_err=0.0,
-        bound=bound(M * d * 4 + M * 4, 2.0 * M * M * d, torch.float32),
+        bound=bound(m * d * 4 + m * 4, 2.0 * m * m * d, torch.float32),
         merge_steps=cc["clustered"][1],
-        far_merge_steps=cc["pairwise-far"][1] if far else None)
+        far_merge_steps=cc["pairwise-far"][1] if far else None,
+        clusters=int(cc["clustered"][0].max()) + 1)
 
     slab = cc["clustered"][0]
+    before = cms.assign_labels_launches
     got_a = cms.assign_labels(x, z, slab, z_valid=z_valid)
+    passes = cms.assign_passes(m)
+    if cms.assign_labels_launches - before != passes:
+        raise AssertionError(f"[{tag}] assign_labels launched "
+                             f"{cms.assign_labels_launches - before} times, "
+                             f"not once per pass ({passes})")
     rechecked = int(cms.assign_labels_rechecked)
     want_a = cms.assign_labels_reference(x, z, slab, z_valid=z_valid)
     for name, g, w in zip(("labels", "counts", "valid_counts"), got_a,
@@ -976,9 +1037,9 @@ def check_kernels(mode: str, x32: torch.Tensor,
                 f"{int((g != w).sum())} entries")
     print(f"[{tag}] assign_labels: labels and both histograms equal; "
           f"{rechecked} pixels re-checked exactly")
-    ops = 2.0 * M * n * d
+    ops = 2.0 * m * n * d
     nbytes = (n * d * esize + n * (4 + (z_valid is not None))
-              + M * (d * 4 + 4 + 8))
+              + m * (d * 4 + 4 + 8))
     calls["assign_labels"] = (
         lambda: cms.assign_labels(x, z, slab, z_valid=z_valid),
         lambda: cms.assign_labels_reference(x, z, slab, z_valid=z_valid), 10)
@@ -989,7 +1050,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
         return out
     out["connected_components"].update(
         launch=cms.connected_components_config(z))
-    out["assign_labels"].update(launch=cms.assign_labels_config(x, M))
+    out["assign_labels"].update(launch=cms.assign_labels_config(x, m))
     for name, (call, plain, reps) in calls.items():
         out[name].update(ms=time_ms(call, reps), plain_ms=time_ms(plain, 3))
     # the yardstick takes up to 0.3 s a call in float32 at the frame on an
@@ -997,7 +1058,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
     # parity its Z is held to the plain version's
     lib_ms, backend, lib_z = sdpa_yardstick(x, z0)
     lib_err = float((lib_z - want_z).abs().max())
-    out["hill_climb"].update(launch=cms.hill_climb_config(x, M),
+    out["hill_climb"].update(launch=cms.hill_climb_config(x, m),
                              library_ms=lib_ms, library_backend=backend,
                              library_err=lib_err)
     print(f"[{tag}] hill_climb yardstick: scaled_dot_product_attention "
@@ -1012,8 +1073,10 @@ def check_kernels(mode: str, x32: torch.Tensor,
         far_ms=time_ms(far_call, 20),
         far_device_ms=device_ms(far_call, KERNEL_NAMES["connected_components"],
                                 10))
+    per_call = {"hill_climb": groups, "assign_labels": passes}
     for name, r in out.items():
-        r["device_ms"] = device_ms(calls[name][0], KERNEL_NAMES[name], 10)
+        r["device_ms"] = device_ms(calls[name][0], KERNEL_NAMES[name], 10,
+                                   per_call=per_call.get(name, 1))
         # device_ms's fallback, read every time so that it stays tried
         r["queued_ms"] = queued_ms(calls[name][0], 10)
         print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms (device "
@@ -1088,12 +1151,16 @@ def tabletop_frame(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
 def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
               where: str = "", frames: int = FRAMES, network_name: str = NET,
               peaks: dict | None = None) -> tuple[dict, dict, torch.Tensor]:
-    """Phase 3 (and 2c's, 2d's and 8r's stage 1, at width d, with
+    """Phase 3 (and 2c's, 2d's, 2w's and 8r's stage 1, at width d, with
     `network_name`, its lines tagged with `where`; `frames` timed frames
     after a warm-up): both modes through Segmentor.segment_sample, the
     counters set to 0 just before each frame and read just after it;
-    every kernel must have launched in each frame of each mode.  With
-    `peaks`, each mode's peak device memory over its frames (GiB)."""
+    every kernel must have launched in each frame of each mode
+    (per_clustering: the hill climb once per group of cfg's seeds, the
+    assignment once per pass).  With `peaks`, each mode's peak device
+    memory over its frames (GiB)."""
+    num_seeds = int(cfg.CLUSTER.NUM_SEEDS)
+    per_frame = per_clustering(num_seeds)
     segs = {"parity": Segmentor(cfg, state_dict, network_name=network_name),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
                               state_dict, network_name=network_name,
@@ -1112,7 +1179,7 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
             reset_counts()
             res = seg.segment_sample(frame, return_features=(i == 0))
             launched = launch_counts()
-            missing = [k for k, v in launched.items() if v <= 0]
+            missing = [k for k, v in launched.items() if v < per_frame[k]]
             if missing:
                 raise AssertionError(f"[{tag}] frame {i}: kernels not "
                                      f"launched on the main path: {missing}")
@@ -1122,7 +1189,7 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
             if labels.shape != (1, H, W) or labels.dtype != np.int32:
                 raise AssertionError(f"[{tag}] labels {labels.shape} "
                                      f"{labels.dtype}")
-            if labels.min() < 0 or labels.max() > M:
+            if labels.min() < 0 or labels.max() > num_seeds:
                 raise AssertionError(f"[{tag}] label ids out of range")
             if i == 0:
                 f = res.features
@@ -1154,15 +1221,19 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
     return counts, timings, features
 
 
-def slice_routes(where: str, features: torch.Tensor, xyz: torch.Tensor
-                 ) -> dict:
-    """Phase 3 (and 8r): the whole parity clustering of a stage-1 frame's
-    embeddings (the 0.8 depth filter on), kernel route against plain
-    route: labels equal and the same seeds picked."""
-    kw = dict(kappa=KAPPA, num_seeds=M, max_iters=ITERS, epsilon=EPS,
+def slice_routes(where: str, features: torch.Tensor,
+                 xyz: torch.Tensor | None, num_seeds: int = M,
+                 z_valid: torch.Tensor | None = None) -> dict:
+    """Phase 3 (and 8r, 2w): the whole parity clustering of a stage-1
+    frame's embeddings (the 0.8 depth filter on, its mask XYZ's z > 0 or
+    z_valid) with num_seeds seeds, kernel route against plain route:
+    labels equal and the same seeds picked."""
+    if z_valid is None:
+        z_valid = (xyz[..., 2] > 0).reshape(N)
+    kw = dict(kappa=KAPPA, num_seeds=num_seeds, max_iters=ITERS, epsilon=EPS,
               metric="cosine", first_index=4321, seed_subsample=1,
               compute_dtype="float32", filter_threshold=0.8,
-              z_valid=(xyz[..., 2] > 0).reshape(N))
+              z_valid=z_valid)
     feats = features.reshape(N, -1)
     k_route = mean_shift_smart_init(feats, use_pallas=True, **kw)
     p_route = mean_shift_smart_init(feats, use_pallas=False, **kw)
@@ -1177,7 +1248,9 @@ def slice_routes(where: str, features: torch.Tensor, xyz: torch.Tensor
           f"{step} (gap {gap:.3e}); max |Z - Z_plain| {out['z_max_abs']:.3e}"
           f"; {out['seed_clusters']} seed clusters, {out['label_ids']} label"
           " ids")
-    if n_diff or step >= 0:
+    # the labels equal; the seeds too, or, at a width but D (as
+    # check_kernels), parting at a float32 near-tie
+    if n_diff or (step >= 0 and not (feats.shape[1] != D and gap < SEED_GAP)):
         raise AssertionError("the kernel route differs from the plain "
                              "route on the slice's embeddings")
     return out
@@ -3476,13 +3549,16 @@ def crop_shapes() -> list[tuple[int, str]]:
 
 def stage2_modes(tag: str, cfg: Config, state: dict, state_crop: dict,
                  counts: tuple = STAGE2_INSTANCES) -> dict:
-    """Phase 2c (b) and 2d (c), stage 2: cfg's stage-1 and crop networks at
-    CROP^2 on phase 4's box frames of `counts` boxes (the boxes as the
-    stage-1 labels), the inputs as segment gives them for cfg.INPUT (a
-    missing one is zeros; without XYZ, COLOR, the paste is ordered by RoI
-    area), in both modes with the counters set to 0 before the mode's
-    frames and read after: every kernel exactly once per valid crop; in
-    parity the kernel route's refined labels equal the plain route's."""
+    """Phase 2c (b), 2d (c) and 2w (a), stage 2: cfg's stage-1 and crop
+    networks at CROP^2 on phase 4's box frames of `counts` boxes (the boxes
+    as the stage-1 labels), the inputs as segment gives them for cfg.INPUT
+    (a missing one is zeros; without XYZ, COLOR, the paste is ordered by
+    RoI area), in both modes with the counters set to 0 before the mode's
+    frames and read after: every kernel exactly once per valid crop
+    (per_clustering: the hill climb once per group of cfg's seeds, the
+    assignment once per pass); in parity the kernel route's refined labels
+    equal the plain route's."""
+    per_crop = per_clustering(int(cfg.CLUSTER.NUM_SEEDS))
     segs = {"parity": Segmentor(cfg, state, state_crop),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)), state,
                               state_crop, model_dtype=torch.bfloat16)}
@@ -3513,10 +3589,11 @@ def stage2_modes(tag: str, cfg: Config, state: dict, state_crop: dict,
               f"{out['launches'][mode]}; ms per frame at "
               f"{', '.join(map(str, frames))} instances "
               + ", ".join(f"{v:.3f}" for v in ms.values()))
-        if set(out["launches"][mode].values()) != {crops}:
+        if out["launches"][mode] != {k: crops * v
+                                     for k, v in per_crop.items()}:
             raise AssertionError(f"[{tag} {mode}] stage 2 launched "
-                                 f"{out['launches'][mode]}, not once per "
-                                 f"valid crop ({crops})")
+                                 f"{out['launches'][mode]}, not "
+                                 f"{per_crop} per valid crop ({crops})")
     seg = segs["parity"]
     kernel_kw = seg._ms_kw
     for k, frame in frames.items():
@@ -3874,6 +3951,139 @@ def run_modalities(tmp: str, cache: str) -> dict:
                phase_s=time.perf_counter() - t0)
     print(f"phase 2d {out['phase_s']:.1f} s (kernels {kernels_s:.1f}, "
           f"color training {trained['train_s']:.1f})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2w: widths 1..128 and up to 256 seeds
+# ---------------------------------------------------------------------------
+
+# phase 2w: the shapes the JAX package's Pallas kernels take past the
+# recipes' (they pad any width and seed count): each kernel at width d (on
+# the card at 64 or 128 with zero columns) and m seeds against its plain
+# version on clustered embeddings, (d, m, timed) at the frame and (d, m)
+# timed at the CROP^2 crop; WIDE_LABELS's (d, m, clusters) labels more than
+# 128 seeds; and two configurations copied from the repo's ymls with only
+# the head width (TRAIN.NUM_UNITS) and the seed count (CLUSTER.NUM_SEEDS)
+# changed, (yml, units, seeds, stage-2 box counts): (a) the RGB-D add
+# recipe at d = 32 with 256 seeds, stage 1 and stage 2 at 8 boxes; (b) the
+# RGB-D cat recipe at 2 x 48 = 96, stage 1
+WIDE_CASES = ((32, 256, True), (96, 256, True), (96, 100, True),
+              (16, 129, False), (16, 200, False))
+WIDE_CROP_CASES = ((32, 256), (96, 256))
+WIDE_LABELS = (32, 256, 200)
+WIDE_CONFIGS = {"a": (TRAIN_YML, 32, 256, (8,)), "b": (CAT_YML, 48, 100, ())}
+
+
+def run_widths() -> dict:
+    """Phase 2w: (i) every kernel against its plain version at WIDE_CASES
+    and WIDE_CROP_CASES in both modes, with phase 2's checks and
+    tolerances (check_kernels: seeds, seed labels and pixel labels equal in
+    float32, bf16 within phase 2's gates; the hill climb once per group),
+    timed beside the bound of the unpadded work, and on WIDE_LABELS's
+    clusters, which must give more than 128 seed labels, kernel by kernel
+    and through the whole route (slice_routes); (ii) the two
+    WIDE_CONFIGS at 480x640 through Segmentor.segment_sample in both modes
+    (run_slice: every kernel in each frame), their embeddings of the
+    configured width, the parity kernel route's labels equal to the plain
+    route's (slice_routes), and for (a) stage 2 on phase 4's 8-box frame
+    (stage2_modes: each kernel once per valid crop, the hill climb once per
+    group).  Also the ms of the copy that pads a frame's X to the kernel
+    width, beside its bound."""
+    t0 = time.perf_counter()
+    modes = ("parity", "fast")
+    checks: dict = {}
+    for d, m, timed in WIDE_CASES:
+        x32, z_valid = clustered_embeddings(seed=30 + d, d=d)
+        checks[f"d{d}_m{m}"] = {
+            mode: check_kernels(mode, x32, z_valid, timed=timed, far=timed,
+                                where=f", d = {d}, m = {m}", m=m)
+            for mode in modes}
+        del x32, z_valid
+    crop_checks: dict = {}
+    for d, m in WIDE_CROP_CASES:
+        x_crop, _ = clustered_embeddings(seed=40 + d, n=CROP * CROP, d=d)
+        crop_checks[f"d{d}_m{m}"] = {
+            mode: check_kernels(mode, x_crop, None, m=m,
+                                where=f", {CROP}^2, d = {d}, m = {m}")
+            for mode in modes}
+        del x_crop
+    # the padding copy that mean_shift_smart_init makes of a frame's X
+    # (once for all four kernels), beside its bound: X read once, the
+    # padded X written once
+    pad = {}
+    for d in sorted({d for d, _, _ in WIDE_CASES}):
+        width = _build.kernel_width("pad", d)
+        for mode, dtype in (("parity", torch.float32),
+                            ("fast", torch.bfloat16)):
+            x = torch.zeros(N, d, dtype=dtype, device="cuda")
+            nbytes = N * (d + width) * x.element_size()
+            pad[f"{mode}_d{d}"] = dict(
+                ms=time_ms(lambda: _build.pad_columns(x, width), 10),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            del x
+    print("[2w] X padded to the kernel width at the frame, ms (bound): "
+          + ", ".join(f"{k} {v['ms']:.4f} ({v['bound_ms']:.4f})"
+                      for k, v in pad.items()))
+    d, m, k = WIDE_LABELS
+    x32, z_valid = clustered_embeddings(seed=50, k=k, d=d)
+    labels = {mode: check_kernels(mode, x32, z_valid, timed=False, far=False,
+                                  where=f", {k} clusters, d = {d}, m = {m}",
+                                  m=m)
+              for mode in modes}
+    # the whole route on them: kernel route = plain route with more than
+    # 128 seed labels
+    label_routes = slice_routes(f"2w ({k} clusters) ", x32, None,
+                                num_seeds=m, z_valid=z_valid)
+    del x32, z_valid
+    clusters = {mode: r["connected_components"]["clusters"]
+                for mode, r in labels.items()}
+    clusters["route"] = label_routes["seed_clusters"]
+    print(f"[2w] {k} clusters, d = {d}, m = {m}: seed labels {clusters}")
+    if min(clusters.values()) <= 128:
+        raise AssertionError(f"[2w] {clusters} seed labels, not more than "
+                             "128")
+    kernels_s = time.perf_counter() - t0
+
+    bgr, depth = tabletop_frame()
+    configs = {}
+    for name, (yml, units, seeds, boxes) in WIDE_CONFIGS.items():
+        cfg = Config.from_yaml(os.path.join(REPO, yml)).replace(
+            MODE="TEST", TRAIN=dict(NUM_UNITS=units),
+            CLUSTER=dict(NUM_SEEDS=seeds))
+        torch.manual_seed(60)
+        net = get_network(NET, cfg)
+        d = net.embedding_dim
+        state = net.state_dict()
+        print(f"[2w ({name})] {os.path.basename(yml)} with NUM_UNITS "
+              f"{units}, NUM_SEEDS {seeds}: {d}-D embeddings")
+        if d > 128 or d in _build.WIDTHS:
+            raise AssertionError(f"[2w ({name})] {d}-D embeddings")
+        img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
+                                   torch.from_numpy(depth).cuda(),
+                                   cfg.pixel_means, *INTR)
+        frame = {"image_color": img, "depth": xyz}
+        counts, timings, features = run_slice(cfg, state, frame, d=d,
+                                              where=f"2w ({name}) ")
+        out = dict(d=d, seeds=seeds, stage1_launches=counts,
+                   stage1_ms=timings,
+                   routes=slice_routes(f"2w ({name}) ", features, xyz,
+                                       num_seeds=seeds))
+        if boxes:
+            torch.manual_seed(61)
+            state_crop = get_network(NET, cfg).state_dict()
+            out["stage2"] = stage2_modes(f"2w ({name})", cfg, state,
+                                         state_crop, counts=boxes)
+            del state_crop
+        configs[name] = out
+        del state, net, features
+        torch.cuda.empty_cache()
+    out = dict(checks=checks, crop_checks=crop_checks, pad=pad,
+               labels=labels, label_routes=label_routes, clusters=clusters,
+               configs=configs,
+               kernels_s=kernels_s,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 2w {out['phase_s']:.1f} s (kernels {kernels_s:.1f})")
     return out
 
 
@@ -4696,6 +4906,11 @@ def main() -> None:
             print(f"wall after phase 2d {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 2w: widths 1..128 and up to 256 seeds
+            widths = run_widths()
+            print(f"wall after phase 2w {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 9: phase 3's weights and timings, phase 8's U-Net,
             # phase 6's render cache, phase 7's OCID tree and phase 8b's
             # trained ResNet
@@ -4778,6 +4993,34 @@ def main() -> None:
                                            "assign_labels") else {}),
             **kernel_readings(name, cat["checks"], cat["crop_checks"]),
             **(seed_readings(cat) if name == "select_seeds" else {})))
+    for name, (source, replaces) in KERNELS.items():
+        # phase 2w: configuration (a) at d = 32 with 256 seeds and (b) at
+        # d = 96 with 100 seeds (the readings at 256 seeds beside it)
+        for key, config in (("d32_m256", "a"), ("d96_m100", "b")):
+            c = widths["configs"][config]
+            checks_2w = widths["checks"][key]
+            crop_2w = ({CROP: widths["crop_checks"][key]}
+                       if key in widths["crop_checks"] else {})
+            entry = dict(
+                name=f"{name}_{key}", route="cuda", source=source,
+                replaces=replaces,
+                launches=c["stage1_launches"]["parity"][name],
+                fast_launches=c["stage1_launches"]["fast"][name],
+                **kernel_readings(name, checks_2w, crop_2w))
+            if "stage2" in c:
+                entry.update(
+                    stage2_launches=c["stage2"]["launches"]["parity"][name],
+                    fast_stage2_launches=c["stage2"]["launches"]["fast"][
+                        name])
+            if name in ("connected_components", "assign_labels"):
+                entry.update(
+                    kernel=checks_2w["parity"][name]["launch"]["kernel"],
+                    fast_kernel=checks_2w["fast"][name]["launch"]["kernel"])
+            if key == "d96_m100":
+                entry.update({"m256_" + k: v for k, v in kernel_readings(
+                    name, widths["checks"]["d96_m256"],
+                    {CROP: widths["crop_checks"]["d96_m256"]}).items()})
+            kernels.append(entry)
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
                       routes_ms, "stage2_ms": s2_timings,
                       "stage2_peak_gib": s2_memory}))
@@ -4807,6 +5050,7 @@ def main() -> None:
     print(json.dumps({"modalities": {k: v for k, v in modalities.items()
                                      if k != "checks"}}))
     print(json.dumps({"data_parallel": data_parallel}))
+    print(json.dumps({"widths": widths}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,12 @@ exact tie planted across two tiles, 1 and 128 seeds, a strided view, n
 either side of the plan's switch to them, and a 1920x1080 frame, past
 the lazy tiles' limit in float32), and the assignment and
 the whole clustering route with no depth mask at the frame's 480*640
-pixels (a COLOR frame's stage 1).  The connected components run each
+pixels (a COLOR frame's stage 1), and the widths and seed counts past the
+recipes' (d = 16, 32 and 96 on the instantiations at 64 and 128 with zero
+columns, up to 256 seeds: the hill climb in launches of equal rows, each
+row bitwise independent of the others in float32, cc_kernel<d, 256> and
+the assignment's two passes; the JAX tests' own shapes; the raises past width
+128 and 256 seeds, before any launch).  The connected components run each
 case at both widths (cc_kernel<64>, and cc_cluster_kernel at d = 128; the
 merge steps held to the plain merge's; the d = 128 kernel also against
 the d = 64 one on zero-padded seeds), and the width-128 assignment's
@@ -346,10 +351,11 @@ def test_connected_components_kernel_at_epsilon(card, width):
 
 def assign_both(x, z, slab, zv=None):
     """The kernel's and the plain version's (labels, counts, valid_counts),
-    and the kernel's count of re-checked pixels."""
+    and the kernel's count of re-checked pixels; one launch a pass."""
     before = cms.assign_labels_launches
     got = cms.assign_labels(x, z, slab, z_valid=zv)
-    assert cms.assign_labels_launches == before + 1
+    assert cms.assign_labels_launches == before + cms.assign_passes(
+        z.shape[0])
     rechecked = int(cms.assign_labels_rechecked)
     want = cms.assign_labels_reference(x, z, slab, z_valid=zv)
     for g, w in zip(got, want):
@@ -528,17 +534,32 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card, monkeypatch):
         cuda_seeding.select_seeds(x.half(), 4, 0)
     with pytest.raises(ValueError):
         cuda_seeding.select_seeds(x, 4, 256)
-    with pytest.raises(ValueError, match="width 64 or 128"):
-        cuda_seeding.select_seeds(x[:, :32], 4, 0)
-    with pytest.raises(ValueError):
-        cms.hill_climb(x, torch.randn(129, 64, device=card))
-    with pytest.raises(ValueError):
-        cms.hill_climb(x[:, :32], x[:4, :32])
-    with pytest.raises(ValueError, match="width 64 or 128"):
-        cms.connected_components(torch.randn(8, 96, device=card), 0.04)
-    with pytest.raises(ValueError):
-        cms.assign_labels(x[:, :32], x[:4, :32],
-                          torch.zeros(4, dtype=torch.int32, device=card))
+    # past the widths and seeds the kernels take: a ValueError, never the
+    # plain version
+    wide = torch.randn(256, 129, device=card)
+    launched = (cuda_seeding.launches, cms.hill_climb_launches,
+                cms.connected_components_launches,
+                cms.assign_labels_launches)
+    for call in (lambda: cuda_seeding.select_seeds(wide, 4, 0),
+                 lambda: cms.hill_climb(wide, wide[:4]),
+                 lambda: cms.connected_components(wide[:8], 0.04),
+                 lambda: cms.assign_labels(wide, wide[:4], slab),
+                 lambda: mean_shift_smart_init(wide, num_seeds=4,
+                                               first_index=0)):
+        with pytest.raises(ValueError, match="widths 1..128, got 129"):
+            call()
+    many = torch.randn(257, 64, device=card)
+    slab257 = torch.zeros(257, dtype=torch.int32, device=card)
+    for call in (lambda: cms.hill_climb(x, many),
+                 lambda: cms.connected_components(many, 0.04),
+                 lambda: cms.assign_labels(x, many, slab257),
+                 lambda: mean_shift_smart_init(x, num_seeds=257,
+                                               first_index=0)):
+        with pytest.raises(ValueError, match="1..256 seeds, got m=257"):
+            call()
+    assert launched == (cuda_seeding.launches, cms.hill_climb_launches,
+                        cms.connected_components_launches,
+                        cms.assign_labels_launches)
     with pytest.raises(ValueError):
         cms.assign_labels(x, x[:4], torch.zeros(4, dtype=torch.int32))
 
@@ -1064,3 +1085,242 @@ def test_resnet50_frame_launches_every_kernel(card, mode):
     np.testing.assert_allclose(np.linalg.norm(f, axis=-1), 1.0, atol=1e-3)
     assert res.labels.shape == (1, h, w) and res.labels.dtype == np.int32
     assert 0 <= res.labels.min() and res.labels.max() <= 100
+
+
+# -- widths 1..128 and up to 256 seeds ----------------------------------------
+# A width below 64, or between 64 and 128, runs on the instantiation at 64
+# or 128 with zero columns appended; past 128 seeds the hill climb runs in
+# launches of at most 128 equal rows, the connected components on
+# cc_kernel<d, 256> and the assignment in two passes (each against at most
+# 128 seeds on the tensor cores).
+
+NARROW = [16, 32, 96]
+MANY = [1, 7, 129, 200, 256]
+
+
+def launches():
+    return (cuda_seeding.launches, cms.hill_climb_launches,
+            cms.connected_components_launches, cms.assign_labels_launches)
+
+
+def kernels_against_plain(x, m, first, stride, z_valid=None):
+    """Every kernel against its plain version on x: the seeds (at `stride`)
+    up to a near-tie, Z within Z_ATOL, the seed labels and merge steps, the
+    pixel labels and both histograms; each wrapper launching its kernel
+    (the hill climb once per group, the assignment once per pass).
+    Returns the plain seed labels."""
+    d = x.shape[1]
+    before = launches()
+    x_seed = x[::stride]
+    seeds, idx = cuda_seeding.select_seeds(x_seed, m, first)
+    want_seeds, want_idx = cuda_seeding.select_seeds_reference(x_seed, m,
+                                                               first)
+    assert seeds.shape == (m, d)
+    assert_same_seeds(x_seed, idx, want_idx)
+    z0 = want_seeds.float()
+    got_z = cms.hill_climb(x, z0, kappa=20.0, max_iters=10)
+    want_z = cms.hill_climb_reference(x, z0, kappa=20.0, max_iters=10)
+    assert got_z.shape == (m, d) and got_z.is_contiguous()
+    assert float((got_z - want_z).abs().max()) <= Z_ATOL[x.dtype]
+    labels, _ = cc_both(want_z)
+    slab = torch.tensor(labels, dtype=torch.int32, device=x.device)
+    assign_both(x, want_z, slab, z_valid)
+    groups = cms.hill_climb_config(x, m)["launches"]
+    assert groups == (1 if m <= 128 else 2)
+    assert cms.assign_labels_config(x, m)["launches"] == groups
+    assert launches() == tuple(b + k for b, k in
+                               zip(before, (1, groups, 1, groups)))
+    return labels
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,m", [(500, 16, 10), (501, 16, 10),
+                                   (2000, 64, 32)])
+def test_kernels_at_the_jax_tests_shapes(card, dtype, n, d, m):
+    """The shapes of the JAX package's own kernel tests
+    (tests/test_pallas_seeding.py, tests/test_mean_shift.py)."""
+    xf, z_valid = clustered(n, d, seed=60)
+    kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype), m, 3, 1,
+                          torch.from_numpy(z_valid).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", MANY)
+@pytest.mark.parametrize("d", NARROW)
+def test_kernels_at_narrow_widths_and_many_seeds(card, dtype, d, m):
+    """Each kernel at width d (on the card at 64 or 128) and m seeds, in
+    both modes (bf16 seeding at stride 8), with a depth mask."""
+    xf, z_valid = clustered(20000, d, seed=61)
+    kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype), m, 5,
+                          1 if dtype == torch.float32 else 8,
+                          torch.from_numpy(z_valid).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [32, 96])
+def test_kernels_label_more_than_128_seeds(card, dtype, d):
+    """256 seeds over 200 well-separated clusters: more than 128 seed
+    labels, the 8-word masks' upper half, and pixel labels past 128."""
+    xf, z_valid = clustered(60000, d, seed=62, k=200)
+    labels = kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype),
+                                   256, 7, 1,
+                                   torch.from_numpy(z_valid).to(card))
+    assert len(set(labels)) > 128
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("m", [129, 160, 200, 255, 256])
+def test_connected_components_many_seeds(card, m, width):
+    """cc_kernel<width, 256>: converged seeds, then pairwise-far seeds (a
+    merge step per seed: labels 0..m-1) and one ball (one step)."""
+    x = on_card(card, clustered(4000, width, seed=63)[0], torch.float32)
+    assert cms.connected_components_config(x[:m])["kernel"] == (
+        f"cc_kernel<{width}, 256>")
+    labels, _ = cc_both(converged(card, x, m))
+    assert max(labels) > 0
+    labels, steps = cc_both(unit(card, np.random.RandomState(m).randn(
+        m, width)))
+    assert labels == list(range(m)) and steps == m
+    base = np.random.RandomState(m + 1).randn(width)
+    z = base + 1e-3 * np.random.RandomState(m + 2).randn(m, width)
+    labels, steps = cc_both(unit(card, z))
+    assert labels == [0] * m and steps == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 255, 257, 5001, 224 * 224, FRAME])
+@pytest.mark.parametrize("m", [129, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_assign_two_pass_shapes(card, dtype, n, m, d):
+    """The assignment's two passes from one pixel to the frame (ragged
+    against the tiles), with and without a depth mask: labels and
+    histograms equal to the plain version's, two launches."""
+    xf, z_valid = clustered(n, d, seed=64)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pool = torch.from_numpy(clustered(5000, d, seed=64)[0]).to(card)
+    z = converged(card, pool, m)
+    slab = cms.connected_components_reference(z, 0.04)
+    width = 64 if d <= 64 else 128
+    kernel = {(torch.float32, 64): "assign_tf32_kernel<64, {}>",
+              (torch.bfloat16, 64): "assign_bf16_kernel<64, {}>",
+              (torch.float32, 128): "assign_tf32_wide_kernel<128, {}>",
+              (torch.bfloat16, 128): "assign_bf16_wide_kernel<128, {}>"}[
+                  dtype, width]
+    assert cms.assign_labels_config(x, m)["kernel"] == (
+        f"{kernel.format(1)} + {kernel.format(2)}")
+    assert cms.assign_passes(m) == 2
+    for zv in (torch.from_numpy(z_valid).to(card), None):
+        (_, counts, _), _ = assign_both(x, z, slab, zv)
+        assert float(counts.sum()) == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_assign_two_pass_tie_takes_the_lower_seed(card, dtype, d):
+    """Seed 140 (pass 2) an exact copy of seed 2 (pass 1) under another
+    label: the merged scores tie across labels, so every pixel nearest to
+    them is re-checked and takes seed 2's label, as the plain argmax
+    does.  The seeds are 200 distinct pixels (converged seeds of one
+    cluster can round to one bf16 row, and then a lower seed takes the
+    tie)."""
+    xf, _ = clustered(5001, d, seed=65)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(66).choice(5001, 200, replace=False)
+    z = x.float()[torch.from_numpy(pick).to(card)]
+    z[140] = z[2]
+    slab = torch.arange(200, dtype=torch.int32, device=card)
+    (labels, _, _), rechecked = assign_both(x, z, slab)
+    assert int((labels == 2).sum()) > 0 and int((labels == 140).sum()) == 0
+    assert rechecked >= int((labels == 2).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [129, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_assign_two_pass_near_ties(card, dtype, m, d):
+    """Random unit pixels and seeds, every seed its own label: many pixels'
+    best two seeds are near-tied, some across the passes, and re-checked
+    against all m seeds; labels and histograms equal to the plain
+    version's."""
+    rng = np.random.RandomState(m + d)
+    x = unit(card, rng.randn(30000, d)).to(dtype)
+    z = unit(card, rng.randn(m, d))
+    slab = torch.arange(m, dtype=torch.int32, device=card)
+    _, rechecked = assign_both(x, z, slab)
+    assert rechecked > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_hill_climb_row_does_not_depend_on_its_launch(card, dtype, d):
+    """A seed's converged row is the same whichever rows share its launch
+    (of the same number of rows): the first 64 rows of A = z0[:128], in A
+    and beside 64 other seeds, and in A reversed; bitwise in float32, and
+    within Z_ATOL in bf16.  So the groups of a launch past 128 seeds each
+    give the rows that any launch of their size would."""
+    xf, _ = clustered(30000, d, seed=66)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(67).choice(30000, 192, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    a = cms.hill_climb(x, z0[:128])
+    mixed = cms.hill_climb(x, torch.cat([z0[:64], z0[128:]]))
+    flipped = cms.hill_climb(x, z0[:128].flip(0)).flip(0)
+    for other in (mixed[:64], flipped[:64]):
+        err = float((other - a[:64]).abs().max())
+        if dtype == torch.float32:
+            assert torch.equal(other, a[:64]), err
+        else:
+            assert err <= Z_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [129, 200, 256])
+def test_hill_climb_groups_are_launches_of_equal_rows(card, dtype, m):
+    """Past 128 seeds the wrapper climbs each group in a launch of its own,
+    every group of the same rows (the last padded): Z equals its groups
+    climbed alone (the last with its pad row), bitwise."""
+    xf, _ = clustered(20000, 64, seed=68)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(69).choice(20000, m, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    groups, rows = cms.hill_climb_groups(m)
+    before = cms.hill_climb_launches
+    z = cms.hill_climb(x, z0)
+    assert cms.hill_climb_launches == before + groups
+    padded = torch.cat([z0, z0[-1:].expand(groups * rows - m, 64)])
+    parts = torch.cat([cms.hill_climb(x, padded[g * rows:(g + 1) * rows])
+                       for g in range(groups)])
+    assert torch.equal(z, parts[:m])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,m", [(16, 100), (32, 256), (96, 100),
+                                 (96, 200)])
+def test_route_at_narrow_widths_and_many_seeds(card, compute_dtype, d, m):
+    """mean_shift_smart_init on the card at width d and m seeds (X padded
+    once for all four kernels), with the 0.8 depth filter, against its
+    plain route: seeds, seed labels and labels equal, Z of width d; each
+    kernel launched (the hill climb once per group).  12 clusters for 100
+    seeds, 200 past 128 seeds (as tests/test_torch_widths.py), so that the
+    picks after the clusters' first do not sit at float32 near-ties."""
+    xf, z_valid = clustered(FRAME, d, seed=70, k=12 if m <= 128 else 200)
+    x = torch.from_numpy(xf).to(card)
+    zv = torch.from_numpy(z_valid).to(card)
+    sub = 1 if compute_dtype == "float32" else 8
+    kw = dict(num_seeds=m, first_index=777 % -(-FRAME // sub),
+              seed_subsample=sub, compute_dtype=compute_dtype,
+              z_valid=zv, filter_threshold=0.8)
+    before = launches()
+    got = mean_shift_smart_init(x, use_pallas=True, **kw)
+    groups = 1 if m <= 128 else 2
+    assert launches() == tuple(b + k for b, k in
+                               zip(before, (1, groups, 1, groups)))
+    want = mean_shift_smart_init(x, use_pallas=False, **kw)
+    assert got.seeds.shape == (m, d)
+    diff = (got.seed_indices != want.seed_indices).nonzero().flatten()
+    assert_same_seeds(x[::sub], got.seed_indices // sub,
+                      want.seed_indices // sub)
+    assert diff.numel() == 0, diff.tolist()
+    for name in ("seed_labels", "labels"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert len(torch.unique(want.labels)) > 2

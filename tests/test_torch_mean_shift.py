@@ -124,11 +124,18 @@ def test_connected_components_overwrites_labeled_neighbours():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# the kernels' seeds a row and a mask: 8 words of 32 (cc_kernel<d, 256>;
+# the kernels of m <= 128 keep 4, whose upper words would be zero here)
+WORDS = 8
+SEEDS = 32 * WORDS
+
+
 def _words(bits):
-    """[..., 128] bool -> [..., 4] int64 holding uint32 words: bit b of word
-    w is entry 32 w + b, as the connected-components kernel stores a row."""
+    """[..., 256] bool -> [..., 8] int64 holding uint32 words: bit b of word
+    w is entry 32 w + b, as the connected-components kernels store a row."""
     shifts = torch.arange(32, dtype=torch.int64)
-    return (bits.reshape(*bits.shape[:-1], 4, 32).long() << shifts).sum(-1)
+    return (bits.reshape(*bits.shape[:-1], WORDS, 32).long()
+            << shifts).sum(-1)
 
 
 def _popcount(v):
@@ -141,7 +148,7 @@ def _popcount(v):
 
 def _lowest(words):
     """The lowest entry whose bit is set, or -1 (__ffs over the words)."""
-    for w in range(4):
+    for w in range(WORDS):
         v = int(words[w]) & 0xFFFFFFFF
         if v:
             return 32 * w + (v & -v).bit_length() - 1
@@ -156,18 +163,18 @@ def bitmask_merge(adj):
     mode by the maximum of the keys (count << 8) | (255 - label).  Returns
     (labels [m] int32, steps)."""
     m = adj.shape[0]
-    bits = torch.zeros(m, 128, dtype=torch.bool)
+    bits = torch.zeros(m, SEEDS, dtype=torch.bool)
     bits[:, :m] = adj
-    rows = _words(bits)                                  # [m, 4]
-    member = torch.zeros(128, 4, dtype=torch.int64)      # label l's seeds
-    pending = _words(torch.arange(128) < m)
-    labeled = torch.zeros(4, dtype=torch.int64)
-    tie = 255 - torch.arange(128)
+    rows = _words(bits)                                  # [m, 8]
+    member = torch.zeros(SEEDS, WORDS, dtype=torch.int64)  # label l's seeds
+    pending = _words(torch.arange(SEEDS) < m)
+    labeled = torch.zeros(WORDS, dtype=torch.int64)
+    tie = 255 - torch.arange(SEEDS)
     num_labels = steps = 0
     i = _lowest(pending)
     while i >= 0:
         a = rows[i]
-        pending = pending & ~a & ~_words(torch.arange(128) == i)
+        pending = pending & ~a & ~_words(torch.arange(SEEDS) == i)
         seen = bool((a & labeled).any())
         labeled = labeled | a
         key = int(((_popcount(member & a).sum(1) << 8) | tie).max())
@@ -189,9 +196,9 @@ def bitmask_merge(adj):
     def bit(words):
         return (words[seed // 32] >> (seed % 32)) & 1
 
-    ids = torch.arange(128)
+    ids = torch.arange(SEEDS)
     label = sum(bit(member[(ids >> p) & 1 == 1].sum(0)) << p
-                for p in range(7))
+                for p in range(8))
     return torch.where(bit(labeled) == 1, label, -1).int(), steps
 
 
@@ -221,7 +228,8 @@ def reference_loop(adj):
     return labels, steps
 
 
-MERGE_SIZES = [1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128]
+MERGE_SIZES = [1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 200,
+               255, 256]
 
 
 @pytest.mark.parametrize("m", MERGE_SIZES)
@@ -343,22 +351,33 @@ def test_assign_labels_matches_pallas_at_width_128(dtype, with_valid):
 
 def test_kernel_shape_checks_take_widths_64_and_128():
     """The checks the wrappers make before a launch on a CUDA tensor (and
-    the launch plans before they reach the library) pass widths 64 and 128
-    and refuse any other, naming both."""
-    for d in (64, 128):
-        _build.check_width("select_seeds", d)
-        cms._check_shapes("hill_climb", M, d)
-    for d in (16, 32, 96, 256):
-        for check in (lambda: _build.check_width("select_seeds", d),
-                      lambda: cms._check_shapes("assign_labels", M, d),
-                      lambda: cuda_seeding.launch_config(torch.zeros(8, d)),
-                      lambda: cms.hill_climb_config(torch.zeros(8, d), M),
-                      lambda: cms.assign_labels_config(torch.zeros(8, d),
-                                                       M)):
-            with pytest.raises(ValueError, match="width 64 or 128, got"):
-                check()
+    the launch plans before they reach the library): widths 1..128, each
+    served by the instantiation at 64 (d <= 64) or 128, and 1..256 seeds
+    pass; width 129 and 257 seeds raise, naming the range."""
+    for d in range(1, 129):
+        width = 64 if d <= 64 else 128
+        assert _build.kernel_width("select_seeds", d) == width
+        assert cms.check_shapes("hill_climb", M, d) == width
+    for m in range(1, 257):
+        assert cms.check_shapes("assign_labels", m, 16) == 64
+    for check in (lambda: _build.kernel_width("select_seeds", 129),
+                  lambda: cms.check_shapes("assign_labels", M, 129),
+                  lambda: cuda_seeding.launch_config(torch.zeros(8, 129)),
+                  lambda: cms.hill_climb_config(torch.zeros(8, 129), M),
+                  lambda: cms.assign_labels_config(torch.zeros(8, 129), M),
+                  lambda: cms.connected_components_config(
+                      torch.zeros(M, 129))):
+        with pytest.raises(ValueError, match="widths 1..128, got 129"):
+            check()
+    for check in (lambda: cms.check_shapes("hill_climb", 257, 64),
+                  lambda: cms.hill_climb_config(torch.zeros(8, 64), 257),
+                  lambda: cms.assign_labels_config(torch.zeros(8, 64), 257),
+                  lambda: cms.connected_components_config(
+                      torch.zeros(257, 64))):
+        with pytest.raises(ValueError, match="1..256 seeds, got m=257"):
+            check()
     with pytest.raises(ValueError, match="seeds"):
-        cms._check_shapes("hill_climb", cms.MAX_SEEDS + 1, 128)
+        cms.check_shapes("hill_climb", 0, 64)
 
 
 @pytest.mark.parametrize("subsample", [1, 8])

@@ -14,7 +14,13 @@
 // The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
 // of every recipe) or d = 128 (2 * NUM_UNITS: the RGB-D cat fusion), each
 // width its own instantiation or kernel; the C entry points take d and
-// refuse any other width.  The hill climb and the assignment stream X
+// refuse any other width (the wrappers pad a narrower embedding with zero
+// columns).  Past 128 seeds, up to 256: the hill climb runs in groups of
+// at most 128 (one launch each, from the wrapper); the connected
+// components run cc_kernel<d, 256> (rows and label masks of 8 words); the
+// assignment runs its kernel of the width twice over X (passes 1 and 2,
+// each against at most 128 seeds), which the entry points pick only there.
+// The hill climb and the assignment stream X
 // through a ring of pixel tiles (cp.async, or TMA at d = 128 but for the
 // float32 hill climb) and run their products on the
 // tensor cores in both modes: float32 as split TF32 on wgmma (about fp32
@@ -36,6 +42,10 @@
 namespace {
 
 constexpr int kMaxSeeds = 128;
+// Past kMaxSeeds, up to kMaxSeedsMany seeds: the hill climb runs in groups
+// of kMaxSeeds, the connected components on cc_kernel<kD, kMaxSeedsMany>, the
+// assignment in two passes (see each).
+constexpr int kMaxSeedsMany = 2 * kMaxSeeds;
 
 // bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
 // bf16 hill climb at d = 64: the products of bf16 values
@@ -2081,12 +2091,12 @@ __device__ __forceinline__ unsigned cc_dots(const float* zs, int m, float eps,
   return own;
 }
 
-// cc_dots's words into the block's own adjacency: row r0 + r's word of
-// block cb, and when `mirror` is set each lane's bits over these rows,
-// OR-ed into its column's word of block rb.
-template <int kD>
+// cc_dots's words into the block's own adjacency (rows of kWords words):
+// row r0 + r's word of block cb, and when `mirror` is set each lane's bits
+// over these rows, OR-ed into its column's word of block rb.
+template <int kD, int kWords>
 __device__ __forceinline__ void cc_rows(const float* zs,
-                                        unsigned (*adj)[kCCWords], int m,
+                                        unsigned (*adj)[kWords], int m,
                                         float eps, int rb, int rows, int r0,
                                         int cb, bool mirror) {
   const int lane = threadIdx.x & 31;
@@ -2098,52 +2108,70 @@ __device__ __forceinline__ void cc_rows(const float* zs,
   if (mirror && own) atomicOr(&adj[32 * cb + lane][rb], own);
 }
 
-// The lowest seed whose bit is set in s, or -1; the four __ffs are
-// independent, so there is no branch.
-__device__ __forceinline__ int cc_first(const unsigned (&s)[kCCWords]) {
+// The lowest seed whose bit is set in s, or -1; the __ffs are independent,
+// so there is no branch.
+template <int kWords>
+__device__ __forceinline__ int cc_first(const unsigned (&s)[kWords]) {
   int first = -1;
 #pragma unroll
-  for (int w = kCCWords - 1; w >= 0; --w) {
+  for (int w = kWords - 1; w >= 0; --w) {
     const int f = __ffs(s[w]);
     first = f ? 32 * w + f - 1 : first;
   }
   return first;
 }
 
-// The merge, on one warp, over the complete adjacency (see the note above),
+// The merge, on one warp, over the complete adjacency of rows of kWords
+// words (see the note above; lane l holds labels l + 32 q for q < kWords),
 // and each seed's label out; returns the merge steps.
-__device__ __forceinline__ int cc_merge(unsigned (*adj)[kCCWords], int m,
+template <int kWords>
+__device__ __forceinline__ int cc_merge(unsigned (*adj)[kWords], int m,
                                         int* __restrict__ labels) {
+  constexpr int kSeeds = 32 * kWords;
+  constexpr int kVecs = kWords / 4;  // 16-byte loads a row
+  static_assert(kSeeds <= 256, "the keys hold a label in 8 bits");
   const int lane = threadIdx.x & 31;
   // pending: the seeds neither labeled nor visited; labeled: the union of
   // the label masks (both the same in every lane)
-  unsigned pending[kCCWords], labeled[kCCWords];
-  unsigned member[kCCWords][kCCWords];  // [q][w]: label lane + 32 q's seeds
+  unsigned pending[kWords], labeled[kWords];
+  unsigned member[kWords][kWords];  // [q][w]: label lane + 32 q's seeds
 #pragma unroll
-  for (int w = 0; w < kCCWords; ++w) {
+  for (int w = 0; w < kWords; ++w) {
     const int left = m - 32 * w;
     pending[w] = left >= 32 ? 0xffffffffu : left > 0 ? (1u << left) - 1u : 0u;
     labeled[w] = 0u;
 #pragma unroll
-    for (int q = 0; q < kCCWords; ++q) member[q][w] = 0u;
+    for (int q = 0; q < kWords; ++q) member[q][w] = 0u;
   }
   const uint4* balls = reinterpret_cast<const uint4*>(&adj[0][0]);
   int num_labels = 0, n_steps = 0;
   int i = 0;  // m >= 1: seed 0 is the first step
-  uint4 row = balls[0];
+  uint4 row[kVecs];
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) row[v] = balls[v];
   while (true) {
-    const unsigned ball[kCCWords] = {row.x, row.y, row.z, row.w};
+    unsigned ball[kWords];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      ball[4 * v] = row[v].x;
+      ball[4 * v + 1] = row[v].y;
+      ball[4 * v + 2] = row[v].z;
+      ball[4 * v + 3] = row[v].w;
+    }
     // i and its neighbours leave the pending set, whose lowest seed is the
     // next step (every seed below it is labeled or visited); its row is
     // loaded while this step runs
 #pragma unroll
-    for (int w = 0; w < kCCWords; ++w)
+    for (int w = 0; w < kWords; ++w)
       pending[w] &= ~(ball[w] | (w == i >> 5 ? 1u << (i & 31) : 0u));
     const int next = cc_first(pending);
-    const uint4 next_row = balls[next & (kMaxSeeds - 1)];
+    uint4 next_row[kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v)
+      next_row[v] = balls[(next & (kSeeds - 1)) * kVecs + v];
     bool seen = false;  // some neighbour of i is labeled
 #pragma unroll
-    for (int w = 0; w < kCCWords; ++w) {
+    for (int w = 0; w < kWords; ++w) {
       seen |= (ball[w] & labeled[w]) != 0u;
       labeled[w] |= ball[w];
     }
@@ -2153,10 +2181,10 @@ __device__ __forceinline__ int cc_merge(unsigned (*adj)[kCCWords], int m,
       // best count is at least 1); the neighbours leave their labels
       unsigned key = 0;
 #pragma unroll
-      for (int q = 0; q < kCCWords; ++q) {
+      for (int q = 0; q < kWords; ++q) {
         int count = 0;
 #pragma unroll
-        for (int w = 0; w < kCCWords; ++w)
+        for (int w = 0; w < kWords; ++w)
           count += __popc(ball[w] & member[q][w]);
         key = max(key, static_cast<unsigned>(count) << 8 |
                            static_cast<unsigned>(255 - lane - 32 * q));
@@ -2164,67 +2192,84 @@ __device__ __forceinline__ int cc_merge(unsigned (*adj)[kCCWords], int m,
       key = __reduce_max_sync(0xffffffffu, key);
       label = 255 - static_cast<int>(key & 255u);
 #pragma unroll
-      for (int q = 0; q < kCCWords; ++q)
+      for (int q = 0; q < kWords; ++q)
 #pragma unroll
-        for (int w = 0; w < kCCWords; ++w) member[q][w] &= ~ball[w];
+        for (int w = 0; w < kWords; ++w) member[q][w] &= ~ball[w];
     } else {
       ++num_labels;  // every count is 0: a new label
     }
     const bool mine = (label & 31) == lane;
 #pragma unroll
-    for (int q = 0; q < kCCWords; ++q) {
+    for (int q = 0; q < kWords; ++q) {
       const unsigned take = mine && label >> 5 == q ? 0xffffffffu : 0u;
 #pragma unroll
-      for (int w = 0; w < kCCWords; ++w) member[q][w] |= ball[w] & take;
+      for (int w = 0; w < kWords; ++w) member[q][w] |= ball[w] & take;
     }
     ++n_steps;
     if (next < 0) break;
     i = next;
-    row = next_row;
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) row[v] = next_row[v];
   }
 
   // Seed 32 w + lane's label, bit by bit: bits 0-4 of a label are its
-  // owner's lane, bits 5-6 its slot q.  A seed outside `labeled` is in no
-  // label's mask.
+  // owner's lane, the bits above its slot q.  A seed outside `labeled` is
+  // in no label's mask.
 #pragma unroll
-  for (int w = 0; w < kCCWords; ++w) {
+  for (int w = 0; w < kWords; ++w) {
     if (32 * w >= m) break;
-    const unsigned held =
-        member[0][w] | member[1][w] | member[2][w] | member[3][w];
+    unsigned held = 0u;
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) held |= member[q][w];
     int label = 0;
 #pragma unroll
     for (int p = 0; p < 5; ++p)
       label |= ((__reduce_or_sync(0xffffffffu, lane >> p & 1 ? held : 0u) >>
                  lane) & 1) << p;
-    label |= ((__reduce_or_sync(0xffffffffu, member[1][w] | member[3][w]) >>
-               lane) & 1) << 5;
-    label |= ((__reduce_or_sync(0xffffffffu, member[2][w] | member[3][w]) >>
-               lane) & 1) << 6;
+#pragma unroll
+    for (int p = 0; (1 << p) < kWords; ++p) {
+      unsigned slot = 0u;  // the seeds of every label whose slot has bit p
+#pragma unroll
+      for (int q = 0; q < kWords; ++q)
+        if (q >> p & 1) slot |= member[q][w];
+      label |= ((__reduce_or_sync(0xffffffffu, slot) >> lane) & 1) << (5 + p);
+    }
     if (32 * w + lane < m)
       labels[32 * w + lane] = labeled[w] >> lane & 1 ? label : -1;
   }
   return n_steps;
 }
 
-// Z's rows in dynamic shared memory, and the kernel that fits it.
-template <int kD>
+// Z's rows in dynamic shared memory, and the kernel that fits it, for up to
+// kSeeds seeds: kMaxSeeds (cc_kernel<64>, the recipes' 100 seeds), or
+// kMaxSeedsMany past that, at d = 64 and 128 (cc_kernel<kD, 256>).  At 256
+// the rows and the label masks are 8 words: Z's rows take 68 KB at d = 64
+// and 132 KB at d = 128, the adjacency 8 KB, up to 36 tiles of 4 items go
+// over the 16 warps, and the merge's lane l holds labels l + 32 q, q < 8,
+// as 64 registers of masks; the mode's key (count << 8) | (255 - label)
+// holds every label below 256, and the steps visit the same seeds in the
+// same order, so the labels and the merge steps are the reference loop's.
+// A narrower Z comes zero-padded to 64 or 128 columns, which leaves every
+// fp32 FMA chain, and so every bit of the adjacency, as it is.
+template <int kD, int kSeeds = kMaxSeeds>
 constexpr size_t cc_smem_bytes() {
-  return sizeof(float) * kMaxSeeds * kF32Pitch<kD>;
+  return sizeof(float) * kSeeds * kF32Pitch<kD>;
 }
 
-template <int kD>
+template <int kD, int kSeeds = kMaxSeeds>
 __global__ void __launch_bounds__(kCCThreads)
 cc_kernel(const float* __restrict__ z, int m, float eps,
           int* __restrict__ labels, int* __restrict__ steps) {
+  constexpr int kWords = kSeeds / 32;
   extern __shared__ __align__(16) float cc_smem[];
-  float* zs = cc_smem;  // [kMaxSeeds][kF32Pitch<kD>]
-  __shared__ __align__(16) unsigned adj[kMaxSeeds][kCCWords];
+  float* zs = cc_smem;  // [kSeeds][kF32Pitch<kD>]
+  __shared__ __align__(16) unsigned adj[kSeeds][kWords];
   const int t = threadIdx.x, warp = t >> 5;
   cc_mark(t == 0, 0, 0, cc_now());
   cc_mark(t == 0, 0, 7, cc_ns());
 
-  for (int e = t; e < kMaxSeeds * kCCWords; e += kCCThreads)
-    adj[e / kCCWords][e % kCCWords] = 0u;
+  for (int e = t; e < kSeeds * kWords; e += kCCThreads)
+    adj[e / kWords][e % kWords] = 0u;
   for (int e = t; e < m * (kD / 4); e += kCCThreads)
     *reinterpret_cast<float4*>(zs + (e / (kD / 4)) * kF32Pitch<kD> +
                                4 * (e % (kD / 4))) =
@@ -2589,6 +2634,26 @@ __device__ __forceinline__ float seed_value(const __nv_bfloat16* zs, int s,
   return __bfloat162float(zs[seed_word(s, j, 8)]);
 }
 
+// The same values from Z [m, kD] float32 in global memory, for X of type
+// T: Z itself (float32: big + small is Z exactly), or bf16(Z) widened
+// (rounded to nearest even, as stage_assign rounds it).
+template <typename T>
+struct GlobalSeeds {
+  const float* z;
+};
+
+template <int kD>
+__device__ __forceinline__ float seed_value(const GlobalSeeds<float>* zs,
+                                            int s, int j) {
+  return zs->z[s * kD + j];
+}
+
+template <int kD>
+__device__ __forceinline__ float seed_value(
+    const GlobalSeeds<__nv_bfloat16>* zs, int s, int j) {
+  return __bfloat162float(__float2bfloat16_rn(zs->z[s * kD + j]));
+}
+
 // S of the warpgroup's 64 pixels (xs: their rows in the ring) against the
 // seeds: acc[nh] holds seeds [64 nh, 64 nh + 64).  Split TF32, the hill
 // climb's order: small * big, big * small, big * big per k-chunk of 8;
@@ -2752,25 +2817,81 @@ __device__ __forceinline__ void thread_best(float (&acc)[2][32], int t, int m,
     r[i].b2 = fmaxf(fmaxf(b[i][0], b[i][1]), fmaxf(b[i][2], b[i][3]));
 }
 
-// The four threads of a quad (disjoint seed sets) merge: the larger b1
-// wins (either on a tie); b2 takes the loser's b2 when the labels agree and
-// the loser's b1 when they differ.  b1 and b2 come out the same on all four
-// threads, exact over the quad's seeds for the l1 each holds.
+// r and the Best (ob1, ob2, ol1) of a disjoint set of seeds merge: the
+// larger b1 wins (r's on a tie); b2 takes the loser's b2 when the labels
+// agree and the loser's b1 when they differ.  Exact over the union.
+__device__ __forceinline__ void merge_best(Best& r, float ob1, float ob2,
+                                           int ol1) {
+  const bool other = ob1 > r.b1;
+  const float loser = ol1 == r.l1 ? (other ? r.b2 : ob2)
+                                  : (other ? r.b1 : ob1);
+  r.b2 = fmaxf(other ? ob2 : r.b2, loser);
+  if (other) {
+    r.b1 = ob1;
+    r.l1 = ol1;
+  }
+}
+
+// The four threads of a quad (disjoint seed sets) merge (merge_best): b1
+// and b2 come out the same on all four threads, exact over the quad's seeds
+// for the l1 each holds.
 __device__ __forceinline__ void merge_quad(Best& r) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     const float ob1 = __shfl_xor_sync(0xFFFFFFFFu, r.b1, off);
     const float ob2 = __shfl_xor_sync(0xFFFFFFFFu, r.b2, off);
     const int ol1 = __shfl_xor_sync(0xFFFFFFFFu, r.l1, off);
-    const bool other = ob1 > r.b1;
-    const float loser = ol1 == r.l1 ? (other ? r.b2 : ob2)
-                                    : (other ? r.b1 : ob1);
-    r.b2 = fmaxf(other ? ob2 : r.b2, loser);
-    if (other) {
-      r.b1 = ob1;
-      r.l1 = ol1;
-    }
+    merge_best(r, ob1, ob2, ol1);
   }
+}
+
+// Two passes, for 129 to 256 seeds: kPass 1 and 2 of each assignment
+// kernel (kPass 0 is the one pass of m <= 128, the recipes').  A kernel
+// holds Z for at most kMaxSeeds seeds in shared memory (the float32 d =
+// 128 kernel's split copies take 128 KB of it; 256 seeds would take 256
+// KB), so past 128 the launch runs it twice over X, each pass one product
+// of at most 128 seed columns on the tensor cores.  Pass 1 takes seeds
+// [0, 128) and stores each pixel's quad-merged Best in `part` (b1, b2, l1
+// as one float4 a pixel).  Pass 2 takes seeds [128, m) and merges the
+// stored Best into its own (merge_best: exact over the union, so b1 - b2
+// is what one product over all m seeds would give) before the margin
+// test; then as one pass: the re-check (exact_argmax over all m seeds,
+// read from Z in global memory through GlobalSeeds), the labels, and
+// histograms of up to kMaxSeedsMany labels.  Pass 1 writes no labels and
+// no counts.  Every score keeps its kernel's steps and terms, so
+// kRecheckMargin<kD> holds as derived; a narrower embedding's zero columns
+// add exact zeros to both the products and the re-check's chains.
+template <int kPass>
+constexpr int kHistSeeds = kPass == 2 ? kMaxSeedsMany : kMaxSeeds;
+
+// The seeds of one pass: their rows of Z, their labels and their count.
+struct PassSeeds {
+  const float* z;
+  const int* labels;
+  int m;
+};
+
+template <int kPass, int kD>
+__device__ __forceinline__ PassSeeds pass_seeds(const float* z,
+                                                const int* labels, int m) {
+  if constexpr (kPass == 2)
+    return {z + kMaxSeeds * kD, labels + kMaxSeeds, m - kMaxSeeds};
+  else if constexpr (kPass == 1)
+    return {z, labels, kMaxSeeds};
+  else
+    return {z, labels, m};
+}
+
+// Pass 1: pixel p's Best into part; pass 2: part's into r.
+__device__ __forceinline__ void store_part(float4* part, int p,
+                                           const Best& r) {
+  part[p] = make_float4(r.b1, r.b2, __int_as_float(r.l1), 0.0f);
+}
+
+__device__ __forceinline__ void merge_part(const float4* part, int p,
+                                           Best& r) {
+  const float4 o = part[p];
+  merge_best(r, o.x, o.y, __float_as_int(o.z));
 }
 
 // The exact argmax for one pixel (xrow: its row in the ring): thread t of
@@ -2830,22 +2951,26 @@ __device__ __noinline__ int2 recheck(const T* xrow, const Z* zs, int m, int t,
 // x: [n, kD] rows 16-byte aligned (float32, or bf16); z: [m, kD]
 // float32; seed_labels: [m]; z_valid: [n] or null; labels: [n] out;
 // counts: [2 m] float32 (zeroed) += the block's histograms; rechecked: +=
-// the pixels this block re-checked (float32, an exact integer below 2^24).
-// The block's shape is AssignShape<T, kD>.
-template <typename T, typename Z, int kD>
+// the pixels this block re-checked (float32, an exact integer below 2^24);
+// part: [n] (passes 1 and 2; null in pass 0).  The block's shape is
+// AssignShape<T, kD>.
+template <typename T, typename Z, int kD, int kPass>
 __device__ __forceinline__ void assign_body(
     const T* __restrict__ x, int n, const float* __restrict__ z,
     const int* __restrict__ seed_labels, int m,
     const unsigned char* __restrict__ z_valid, int* __restrict__ labels,
-    float* __restrict__ counts, float* __restrict__ rechecked, T* ring) {
+    float* __restrict__ counts, float* __restrict__ rechecked,
+    float4* __restrict__ part, T* ring) {
   using Shape = AssignShape<T, kD>;
   constexpr int kPitch = Shape::kPitch;
   constexpr int kTile = Shape::kTile;
   constexpr int kRing = Shape::kStages;
   constexpr int kStageElems = kTile * kPitch;
+  constexpr int kHist = kHistSeeds<kPass>;
+  const PassSeeds ps = pass_seeds<kPass, kD>(z, seed_labels, m);
   Z* zs = reinterpret_cast<Z*>(ring + kRing * kStageElems);
   __shared__ __align__(16) int slab[kMaxSeeds];
-  __shared__ int hist[2][kMaxSeeds];
+  __shared__ int hist[2][kHist];
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int half = threadIdx.x / 128;            // warpgroup
   const int row = 16 * (threadIdx.x / 32 % 4) + g;  // first pixel of a thread
@@ -2865,9 +2990,9 @@ __device__ __forceinline__ void assign_body(
 
 #pragma unroll
   for (int q = 0; q < kRing - 1; ++q) issue(q);
-  stage_assign<kD>(z, m, zs);
-  for (int s = threadIdx.x; s < kMaxSeeds; s += blockDim.x) {
-    slab[s] = s < m ? seed_labels[s] : 0;
+  stage_assign<kD>(ps.z, ps.m, zs);
+  for (int s = threadIdx.x; s < kHist; s += blockDim.x) {
+    if (s < kMaxSeeds) slab[s] = s < ps.m ? ps.labels[s] : 0;
     hist[0][s] = hist[1][s] = 0;
   }
   // Z is read by wgmma (the async proxy)
@@ -2893,20 +3018,33 @@ __device__ __forceinline__ void assign_body(
     const bool owner = t < 2 && p < n;
     const bool valid = owner && (z_valid == nullptr || z_valid[p]);
     float acc[2][32];
-    assign_product<kD>(xs, zs, m, acc);
+    assign_product<kD>(xs, zs, ps.m, acc);
     Best r[2];
-    thread_best(acc, t, m, slab, r);
+    thread_best(acc, t, ps.m, slab, r);
     int near = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
+      if constexpr (kPass == 2)
+        if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
     }
+    if constexpr (kPass == 1) {
+      if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
+      continue;
+    }
     int2 l1 = make_int2(r[0].l1, r[1].l1);
-    if (__any_sync(0xFFFFFFFFu, near != 0))
-      l1 = recheck<T, Z, kD, kPitch>(xs + row * kPitch, zs, m, t, near, slab,
-                                     rechecked, l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0)) {
+      if constexpr (kPass == 2) {
+        const GlobalSeeds<T> all{z};
+        l1 = recheck<T, GlobalSeeds<T>, kD, kPitch>(
+            xs + row * kPitch, &all, m, t, near, seed_labels, rechecked, l1);
+      } else {
+        l1 = recheck<T, Z, kD, kPitch>(xs + row * kPitch, zs, m, t, near,
+                                       slab, rechecked, l1);
+      }
+    }
 
     // the owner writes its pixel's label and adds the pixel to the
     // histograms, aggregated over the warp's lanes of equal label
@@ -2927,6 +3065,7 @@ __device__ __forceinline__ void assign_body(
       atomicAdd(&hist[1][vkey], __popc(vsame));
   }
   cp_async_wait<0>();
+  if constexpr (kPass == 1) return;
   __syncthreads();
   for (int s = threadIdx.x; s < m; s += blockDim.x) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -2935,30 +3074,31 @@ __device__ __forceinline__ void assign_body(
   }
 }
 
-template <int kD>
+template <int kD, int kPass = 0>
 __global__ void __launch_bounds__(AssignShape<float, kD>::kThreads, 1)
 assign_tf32_kernel(const float* __restrict__ x, int n,
                    const float* __restrict__ z,
                    const int* __restrict__ seed_labels, int m,
                    const unsigned char* __restrict__ z_valid,
                    int* __restrict__ labels, float* __restrict__ counts,
-                   float* __restrict__ rechecked) {
+                   float* __restrict__ rechecked, float4* __restrict__ part) {
   extern __shared__ __align__(128) float assign_f32_smem[];
-  assign_body<float, unsigned, kD>(x, n, z, seed_labels, m, z_valid, labels,
-                                   counts, rechecked, assign_f32_smem);
+  assign_body<float, unsigned, kD, kPass>(x, n, z, seed_labels, m, z_valid,
+                                          labels, counts, rechecked, part,
+                                          assign_f32_smem);
 }
 
-template <int kD>
+template <int kD, int kPass = 0>
 __global__ void __launch_bounds__(AssignShape<__nv_bfloat16, kD>::kThreads, 2)
 assign_bf16_kernel(const __nv_bfloat16* __restrict__ x, int n,
                    const float* __restrict__ z,
                    const int* __restrict__ seed_labels, int m,
                    const unsigned char* __restrict__ z_valid,
                    int* __restrict__ labels, float* __restrict__ counts,
-                   float* __restrict__ rechecked) {
+                   float* __restrict__ rechecked, float4* __restrict__ part) {
   extern __shared__ __align__(128) __nv_bfloat16 assign_bf16_smem[];
-  assign_body<__nv_bfloat16, __nv_bfloat16, kD>(
-      x, n, z, seed_labels, m, z_valid, labels, counts, rechecked,
+  assign_body<__nv_bfloat16, __nv_bfloat16, kD, kPass>(
+      x, n, z, seed_labels, m, z_valid, labels, counts, rechecked, part,
       assign_bf16_smem);
 }
 
@@ -3053,9 +3193,10 @@ constexpr int kAWConsumerRegs = 232;
 // turn to issue
 constexpr int kAWTurnBar = 2;
 static_assert(kAWTurnBar + kAWConsumers <= 16, "named barriers");
-// tile k completes full[k % kAWStages][k % kAWConsumers]: a barrier's
-// tiles are kAWPeriod apart
-constexpr int kAWPeriod = std::lcm(kAWStages, kAWConsumers);
+// tile k completes full[k % stages][k % kAWConsumers]: a barrier's tiles
+// are kAWPeriod<stages> apart
+template <int kStages>
+constexpr int kAWPeriod = std::lcm(kStages, kAWConsumers);
 static_assert(kAWConsumerThreads >= kMaxSeeds, "a seed's label a thread");
 static_assert(kAWConsumers * 128 * kAWConsumerRegs + 128 * kAWProducerRegs <=
                   65536, "registers");
@@ -3063,16 +3204,18 @@ static_assert(kAWConsumers * 128 * kAWConsumerRegs + 128 * kAWProducerRegs <=
 // assign_tf32_wide_kernel's block, with AssignShape's members: threads,
 // pixels per tile, stages of the ring and dynamic shared bytes (the layout
 // above); and the registers its setmaxnreg hands out, which the launch
-// must have given the block.
+// must have given the block.  Pass 2's histograms of 256 labels (1 KB
+// more) leave no room for a third stage: its ring has two (200,240 bytes).
+template <int kPass = 0>
 struct AssignWideShape {
   static constexpr int kThreads = kAWThreads;
   static constexpr int kTile = kAWTile;
-  static constexpr int kStages = kAWStages;
+  static constexpr int kStages = kPass == 2 ? 2 : kAWStages;
   static constexpr size_t kSmem =
-      1024 + static_cast<size_t>(kAWStages) * kAWTileBytes +
+      1024 + static_cast<size_t>(kStages) * kAWTileBytes +
       2 * sizeof(unsigned) * kMaxSeeds * kWideD +
-      3 * sizeof(int) * kMaxSeeds +
-      sizeof(unsigned long long) * kAWStages * (kAWConsumers + 1);
+      sizeof(int) * (kMaxSeeds + 2 * kHistSeeds<kPass>) +
+      sizeof(unsigned long long) * kStages * (kAWConsumers + 1);
   static constexpr int kRegs =
       kAWConsumerThreads * kAWConsumerRegs + 128 * kAWProducerRegs;
   static constexpr bool kTma = true;  // X by the tensor map, then the rows
@@ -3330,9 +3473,9 @@ __device__ __forceinline__ void thread_best_wide(float (&acc)[2][32], int t,
 
 // xmap: X [n, 128] float32 (16-byte aligned) as boxes of 32 dims x 64
 // pixels, 128-byte swizzle, zeros past n; x: the same rows (the re-check
-// reads them); the rest as assign_body's, m <= kN.  blockDim.x =
-// kAWThreads.
-template <int kN>
+// reads them); the rest as assign_body's, m <= kN (a pass's seeds).
+// blockDim.x = kAWThreads.
+template <int kN, int kPass = 0>
 __global__ void __launch_bounds__(kAWThreads, 1)
 assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                         const float* __restrict__ x, int n,
@@ -3340,19 +3483,24 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                         const int* __restrict__ seed_labels, int m,
                         const unsigned char* __restrict__ z_valid,
                         int* __restrict__ labels, float* __restrict__ counts,
-                        float* __restrict__ rechecked) {
+                        float* __restrict__ rechecked,
+                        float4* __restrict__ part) {
   constexpr int kD = kWideD;
+  constexpr int kStages = AssignWideShape<kPass>::kStages;
+  constexpr int kPeriod = kAWPeriod<kStages>;
+  constexpr int kHist = kHistSeeds<kPass>;
+  const PassSeeds ps = pass_seeds<kPass, kD>(z, seed_labels, m);
   extern __shared__ __align__(1024) unsigned char aw_smem[];
   unsigned char* ring = aw_smem + (1024 - smem_addr(aw_smem) % 1024) % 1024;
-  unsigned* zs = reinterpret_cast<unsigned*>(ring + kAWStages * kAWTileBytes);
+  unsigned* zs = reinterpret_cast<unsigned*>(ring + kStages * kAWTileBytes);
   int* slab = reinterpret_cast<int*>(zs + 2 * kMaxSeeds * kD);
-  auto* hist = reinterpret_cast<int(*)[kMaxSeeds]>(slab + kMaxSeeds);
+  auto* hist = reinterpret_cast<int(*)[kHist]>(slab + kMaxSeeds);
   unsigned long long* full =
-      reinterpret_cast<unsigned long long*>(slab + 3 * kMaxSeeds);
-  unsigned long long* empty = full + kAWStages * kAWConsumers;
+      reinterpret_cast<unsigned long long*>(slab + kMaxSeeds + 2 * kHist);
+  unsigned long long* empty = full + kStages * kAWConsumers;
   const int mine = tiles_of_block<kAWTile>(n);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kAWStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       for (int c = 0; c < kAWConsumers; ++c)
         uoc::mbar_init(full + kAWConsumers * s + c, 1);
       uoc::mbar_init(empty + s, 4);  // the warps of the tile's consumer
@@ -3366,10 +3514,10 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     if (static_cast<int>(threadIdx.x) != kAWConsumerThreads) return;
     long long waited = 0;  // with ASSIGN_CLOCKS
     for (int k = 0; k < mine; ++k) {
-      const int s = k % kAWStages;
+      const int s = k % kStages;
       const long long c0 = aw_now();
-      if (k >= kAWStages)  // the stage's last tile is in its registers
-        uoc::mbar_wait(empty + s, (k / kAWStages - 1) & 1);
+      if (k >= kStages)  // the stage's last tile is in its registers
+        uoc::mbar_wait(empty + s, (k / kStages - 1) & 1);
       waited += aw_now() - c0;
       void* bar = full + kAWConsumers * s + k % kAWConsumers;
       const int p0 = (static_cast<int>(blockIdx.x) + k * gridDim.x) * kAWTile;
@@ -3393,19 +3541,17 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(tid == 0, 0, aw_now());
   aw_mark(tid == 0, 6, smem_addr(aw_smem));
   // seed tid's label, loaded beside Z
-  const int label = tid < m ? seed_labels[tid] : 0;
-  stage_wide_assign(z, m, zs, tid);
-  if (tid < kMaxSeeds) {
-    slab[tid] = label;
-    hist[0][tid] = hist[1][tid] = 0;
-  }
+  const int label = tid < ps.m ? ps.labels[tid] : 0;
+  stage_wide_assign(ps.z, ps.m, zs, tid);
+  if (tid < kMaxSeeds) slab[tid] = label;
+  if (tid < kHist) hist[0][tid] = hist[1][tid] = 0;
   uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
   bar_sync<1>(kAWConsumerThreads);
   aw_mark(tid == 0, 1, aw_now());
 
   long long spent[6] = {0, 0, 0, 0, 0, 0};  // with ASSIGN_CLOCKS
   for (int k = wg; k < mine; k += kAWConsumers) {
-    const int s = k % kAWStages;
+    const int s = k % kStages;
     const int p0 =
         (static_cast<int>(blockIdx.x) + k * gridDim.x) * kAWTile + row;
     // thread t < 2 of the quad owns pixel p0 + 8t; its validity is loaded
@@ -3414,7 +3560,7 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     const bool owner = t < 2 && p < n;
     const bool valid = owner && (z_valid == nullptr || z_valid[p]);
     long long c0 = aw_now();
-    uoc::mbar_wait(full + kAWConsumers * s + wg, (k / kAWPeriod) & 1);
+    uoc::mbar_wait(full + kAWConsumers * s + wg, (k / kPeriod) & 1);
     long long c1 = aw_now();
     spent[0] += c1 - c0;
     const float* tile =
@@ -3452,21 +3598,35 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     spent[2] += c1 - c0;
 
     Best r[2];
-    thread_best_wide<kN>(acc, t, m, slab, r);
+    thread_best_wide<kN>(acc, t, ps.m, slab, r);
     int near = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
+      if constexpr (kPass == 2)
+        if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
+    }
+    if constexpr (kPass == 1) {
+      if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
+      continue;
     }
     c0 = aw_now();
     spent[3] += c0 - c1;
     int2 l1 = make_int2(r[0].l1, r[1].l1);
-    if (__any_sync(0xFFFFFFFFu, near != 0))
-      l1 = recheck<float, unsigned, kD, kD>(
-          x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab, rechecked,
-          l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0)) {
+      if constexpr (kPass == 2) {
+        const GlobalSeeds<float> all{z};
+        l1 = recheck<float, GlobalSeeds<float>, kD, kD>(
+            x + static_cast<size_t>(p0) * kD, &all, m, t, near, seed_labels,
+            rechecked, l1);
+      } else {
+        l1 = recheck<float, unsigned, kD, kD>(
+            x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab,
+            rechecked, l1);
+      }
+    }
     c1 = aw_now();
     spent[4] += c1 - c0;
 
@@ -3493,6 +3653,7 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(me, 8 + wg, aw_now());
 #pragma unroll
   for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
+  if constexpr (kPass == 1) return;
   bar_sync<1>(kAWConsumerThreads);
   for (int s = tid; s < m; s += kAWConsumerThreads) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -3580,6 +3741,7 @@ constexpr int kABBar = 2;
 static_assert(kABBar + kABConsumers <= 16, "named barriers");
 static_assert(kABConsumerThreads >= kMaxSeeds, "a seed's label a thread");
 
+template <int kPass = 0>
 struct AssignBF16WideShape {
   static constexpr int kThreads = kABThreads;
   static constexpr int kTile = kBWTile;
@@ -3587,7 +3749,8 @@ struct AssignBF16WideShape {
   static constexpr size_t kSmem =
       1024 + static_cast<size_t>(kABStages) * kBWTileBytes +
       sizeof(__nv_bfloat16) * kMaxSeeds * kWideD +
-      3 * sizeof(int) * kMaxSeeds + sizeof(int) * (2 * kABConsumers + 2) +
+      sizeof(int) * (kMaxSeeds + 2 * kHistSeeds<kPass>) +
+      sizeof(int) * (2 * kABConsumers + 2) +
       sizeof(unsigned long long) * 2 * kABStages;
   static constexpr int kRegs = 0;
   static constexpr bool kTma = true;
@@ -3717,9 +3880,9 @@ __device__ __forceinline__ void wgmma_bf16_seeds(float (&acc)[2][32],
 
 // xmap: X [n, 128] bfloat16 (16-byte aligned) as boxes of 64 dims x 64
 // pixels, 128-byte swizzle, zeros past n; x: the same rows (the re-check
-// reads them); the rest as assign_body's, m <= kN.  blockDim.x =
-// kABThreads.
-template <int kN>
+// reads them); the rest as assign_body's, m <= kN (a pass's seeds).
+// blockDim.x = kABThreads.
+template <int kN, int kPass = 0>
 __global__ void __launch_bounds__(kABThreads, 1)
 assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                         const __nv_bfloat16* __restrict__ x, int n,
@@ -3727,18 +3890,21 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                         const int* __restrict__ seed_labels, int m,
                         const unsigned char* __restrict__ z_valid,
                         int* __restrict__ labels, float* __restrict__ counts,
-                        float* __restrict__ rechecked) {
+                        float* __restrict__ rechecked,
+                        float4* __restrict__ part) {
   constexpr int kD = kWideD;
+  constexpr int kHist = kHistSeeds<kPass>;
+  const PassSeeds ps = pass_seeds<kPass, kD>(z, seed_labels, m);
   extern __shared__ __align__(1024) unsigned char ab_smem[];
   unsigned char* ring = ab_smem + (1024 - smem_addr(ab_smem) % 1024) % 1024;
   __nv_bfloat16* zs =
       reinterpret_cast<__nv_bfloat16*>(ring + kABStages * kBWTileBytes);
   int* slab = reinterpret_cast<int*>(zs + kMaxSeeds * kD);
-  auto* hist = reinterpret_cast<int(*)[kMaxSeeds]>(slab + kMaxSeeds);
+  auto* hist = reinterpret_cast<int(*)[kHist]>(slab + kMaxSeeds);
   // the next tile to claim; the tiles whose loads the producer has issued;
   // each consumer's claims (two alternating slots: a slot is rewritten only
   // after its readers passed the next claim's barrier)
-  int* next = slab + 3 * kMaxSeeds;
+  int* next = slab + kMaxSeeds + 2 * kHist;
   volatile int* issued = next + 1;
   int* claim = next + 2;
   unsigned long long* full =
@@ -3785,12 +3951,10 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(tid == 0, 0, aw_now());
   aw_mark(tid == 0, 6, smem_addr(ab_smem));
   // seed tid's label, loaded beside Z
-  const int label = tid < m ? seed_labels[tid] : 0;
-  stage_wide_bf16_assign(z, m, zs, tid);
-  if (tid < kMaxSeeds) {
-    slab[tid] = label;
-    hist[0][tid] = hist[1][tid] = 0;
-  }
+  const int label = tid < ps.m ? ps.labels[tid] : 0;
+  stage_wide_bf16_assign(ps.z, ps.m, zs, tid);
+  if (tid < kMaxSeeds) slab[tid] = label;
+  if (tid < kHist) hist[0][tid] = hist[1][tid] = 0;
   uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
   bar_sync<1>(kABConsumerThreads);
   aw_mark(tid == 0, 1, aw_now());
@@ -3851,21 +4015,35 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     spent[2] += c1 - c0;
 
     Best r[2];
-    thread_best_wide<kN>(acc, t, m, slab, r);
+    thread_best_wide<kN>(acc, t, ps.m, slab, r);
     int near = 0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
+      if constexpr (kPass == 2)
+        if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
+    }
+    if constexpr (kPass == 1) {
+      if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
+      continue;
     }
     c0 = aw_now();
     spent[3] += c0 - c1;
     int2 l1 = make_int2(r[0].l1, r[1].l1);
-    if (__any_sync(0xFFFFFFFFu, near != 0))
-      l1 = recheck<__nv_bfloat16, __nv_bfloat16, kD, kD>(
-          x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab, rechecked,
-          l1);
+    if (__any_sync(0xFFFFFFFFu, near != 0)) {
+      if constexpr (kPass == 2) {
+        const GlobalSeeds<__nv_bfloat16> all{z};
+        l1 = recheck<__nv_bfloat16, GlobalSeeds<__nv_bfloat16>, kD, kD>(
+            x + static_cast<size_t>(p0) * kD, &all, m, t, near, seed_labels,
+            rechecked, l1);
+      } else {
+        l1 = recheck<__nv_bfloat16, __nv_bfloat16, kD, kD>(
+            x + static_cast<size_t>(p0) * kD, zs, m, t, near, slab,
+            rechecked, l1);
+      }
+    }
     c1 = aw_now();
     spent[4] += c1 - c0;
 
@@ -3892,6 +4070,7 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(me, 8 + wg, aw_now());
 #pragma unroll
   for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
+  if constexpr (kPass == 1) return;
   bar_sync<1>(kABConsumerThreads);
   for (int s = tid; s < m; s += kABConsumerThreads) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -3947,28 +4126,74 @@ cudaError_t plan_assign(int dev, int n, const char* name, int (&cache)[2],
 }
 
 // The one place that picks the assignment kernel: by dtype, width and (at
-// d = 128) the seed columns that cover m, 104 for the recipes' 100 seeds.
-cudaError_t plan_assign_for(int dtype, int n, int d, int m, AssignPlan* p) {
+// d = 128) the seed columns that cover m, 104 for the recipes' 100 seeds;
+// past 128 seeds the kernel of the width and dtype in two passes (pass 1
+// or 2; 0 is the one pass of m <= 128), 128 seed columns each at d = 128.
+// A two-pass launch's plans carry the name of both.
+cudaError_t plan_assign_for(int dtype, int n, int d, int m, int pass,
+                            AssignPlan* p) {
   // {blocks per SM, SMs} per device and kernel, found at the first call
   // (0: not yet): the launch asks for its plan on every call
   constexpr int kDevices = 64;
-  static int cached[kDevices][6][2] = {};
+  static int cached[kDevices][14][2] = {};
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (m < 1 || m > kMaxSeedsMany || (pass != 0) != (m > kMaxSeeds) ||
+      pass < 0 || pass > 2)
+    return cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kDevices) return cudaErrorInvalidDevice;
   auto& c = cached[dev];
+  if (pass != 0) {
+    const bool one = pass == 1;
+    if (dtype == uoc::kBF16) {
+      constexpr const char* k64 =
+          "assign_bf16_kernel<64, 1> + assign_bf16_kernel<64, 2>";
+      constexpr const char* k128 =
+          "assign_bf16_wide_kernel<128, 1> + assign_bf16_wide_kernel<128, 2>";
+      if (d == 64)
+        return one ? plan_assign<AssignShape<__nv_bfloat16, 64>,
+                                 assign_bf16_kernel<64, 1>>(dev, n, k64, c[6],
+                                                            p)
+                   : plan_assign<AssignShape<__nv_bfloat16, 64>,
+                                 assign_bf16_kernel<64, 2>>(dev, n, k64, c[7],
+                                                            p);
+      return one ? plan_assign<AssignBF16WideShape<1>,
+                               assign_bf16_wide_kernel<128, 1>>(dev, n, k128,
+                                                                c[8], p)
+                 : plan_assign<AssignBF16WideShape<2>,
+                               assign_bf16_wide_kernel<128, 2>>(dev, n, k128,
+                                                                c[9], p);
+    }
+    constexpr const char* k64 =
+        "assign_tf32_kernel<64, 1> + assign_tf32_kernel<64, 2>";
+    constexpr const char* k128 =
+        "assign_tf32_wide_kernel<128, 1> + assign_tf32_wide_kernel<128, 2>";
+    if (d == 64)
+      return one ? plan_assign<AssignShape<float, 64>,
+                               assign_tf32_kernel<64, 1>>(dev, n, k64, c[10],
+                                                          p)
+                 : plan_assign<AssignShape<float, 64>,
+                               assign_tf32_kernel<64, 2>>(dev, n, k64, c[11],
+                                                          p);
+    return one ? plan_assign<AssignWideShape<1>,
+                             assign_tf32_wide_kernel<128, 1>>(dev, n, k128,
+                                                              c[12], p)
+               : plan_assign<AssignWideShape<2>,
+                             assign_tf32_wide_kernel<128, 2>>(dev, n, k128,
+                                                              c[13], p);
+  }
   if (dtype == uoc::kBF16) {
     if (d == 64)
       return plan_assign<AssignShape<__nv_bfloat16, 64>,
                          assign_bf16_kernel<64>>(
           dev, n, "assign_bf16_kernel<64>", c[0], p);
     return m <= 104
-               ? plan_assign<AssignBF16WideShape,
+               ? plan_assign<AssignBF16WideShape<>,
                              assign_bf16_wide_kernel<104>>(
                      dev, n, "assign_bf16_wide_kernel<104>", c[1], p)
-               : plan_assign<AssignBF16WideShape,
+               : plan_assign<AssignBF16WideShape<>,
                              assign_bf16_wide_kernel<128>>(
                      dev, n, "assign_bf16_wide_kernel<128>", c[5], p);
   }
@@ -3976,10 +4201,40 @@ cudaError_t plan_assign_for(int dtype, int n, int d, int m, AssignPlan* p) {
     return plan_assign<AssignShape<float, 64>, assign_tf32_kernel<64>>(
         dev, n, "assign_tf32_kernel<64>", c[2], p);
   return m <= 104
-             ? plan_assign<AssignWideShape, assign_tf32_wide_kernel<104>>(
+             ? plan_assign<AssignWideShape<>, assign_tf32_wide_kernel<104>>(
                    dev, n, "assign_tf32_wide_kernel<104>", c[3], p)
-             : plan_assign<AssignWideShape, assign_tf32_wide_kernel<128>>(
+             : plan_assign<AssignWideShape<>, assign_tf32_wide_kernel<128>>(
                    dev, n, "assign_tf32_wide_kernel<128>", c[4], p);
+}
+
+// One pass's launch on `s`: the tensor map of X first where the plan's
+// kernel takes one.
+cudaError_t launch_assign(const AssignPlan& p, const void* x, int dtype,
+                          int n, const float* z, const int* seed_labels,
+                          int m, const unsigned char* z_valid, int* labels,
+                          float* counts, float4* part, cudaStream_t s) {
+  float* rechecked = counts + 2 * m;
+  cudaError_t err;
+  if (p.tma) {
+    // the map goes into the kernel's parameters by value
+    CUtensorMap map;
+    err = dtype == uoc::kBF16
+              ? wide_bf16_map(x, n, &map)
+              : wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              sizeof(float), kAWBox, kAWTile, &map);
+    if (err != cudaSuccess) return err;
+    void* argv[] = {&map, &x, &n, &z, &seed_labels, &m,
+                    &z_valid, &labels, &counts, &rechecked, &part};
+    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
+                           p.smem, s);
+  } else {
+    void* argv[] = {&x, &n, &z, &seed_labels, &m,
+                    &z_valid, &labels, &counts, &rechecked, &part};
+    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
+                           p.smem, s);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 bool misaligned(const void* p) {
@@ -4069,18 +4324,65 @@ extern "C" int uoc_hill_clocks(long long* out) {
 }
 #endif
 
+namespace {
+
+// cc_kernel<kD, kMaxSeedsMany> for m in 129..256 on `s`, its dynamic
+// shared-memory limit raised once per device.
+template <int kD>
+cudaError_t launch_cc_many(const float* z, int m, float epsilon, int* labels,
+                           int* steps, cudaStream_t s) {
+  constexpr int kDevices = 64;
+  static bool raised[kDevices] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(
+        cc_kernel<kD, kMaxSeedsMany>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(cc_smem_bytes<kD, kMaxSeedsMany>()));
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  cc_kernel<kD, kMaxSeedsMany>
+      <<<1, kCCThreads, cc_smem_bytes<kD, kMaxSeedsMany>(), s>>>(
+          z, m, epsilon, labels, steps);
+  return cudaGetLastError();
+}
+
+// cc_kernel's work items for m seeds (one per kCCRows rows of each tile on
+// or above the diagonal).
+int cc_items(int m) {
+  const int blocks = (m + 31) / 32;
+  int items = 0;
+  for (int a = 0; a < blocks; ++a)
+    for (int c = a; c < blocks; ++c) {
+      const bool swap = m % 32 != 0 && c == blocks - 1;
+      const int rows = std::min(32, m - 32 * (swap ? c : a));
+      items += (rows + kCCRows - 1) / kCCRows;
+    }
+  return items;
+}
+
+}  // namespace
+
 // z: [m, d] float32 (d = 64 or 128), rows 16-byte aligned; labels: [m]
 // int32 out; steps: one int32 out, the merge steps taken (the seeds still
-// unlabeled when their turn came).  1 <= m <= 128.  One launch on
+// unlabeled when their turn came).  1 <= m <= 256.  One launch on
 // `stream`: cc_kernel<64> at d = 64, cc_cluster_kernel (one cluster of
-// kCCCluster CTAs) at d = 128.
+// kCCCluster CTAs) at d = 128; past 128 seeds cc_kernel<d, 256>.
 extern "C" int uoc_connected_components(const float* z, int m, int d,
                                         float epsilon, int* labels,
                                         int* steps, void* stream) {
-  if (m < 1 || m > kMaxSeeds || (d != 64 && d != 128))
+  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(z)) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m > kMaxSeeds)
+    return static_cast<int>(
+        d == 64 ? launch_cc_many<64>(z, m, epsilon, labels, steps, s)
+                : launch_cc_many<128>(z, m, epsilon, labels, steps, s));
   if (d == 64) {
     cc_kernel<64><<<1, kCCThreads, cc_smem_bytes<64>(), s>>>(z, m, epsilon,
                                                              labels, steps);
@@ -4126,13 +4428,23 @@ extern "C" int uoc_connected_components(const float* z, int m, int d,
 }
 
 // The launch uoc_connected_components makes for m seeds of width d (64 or
-// 128; any other width, or m outside [1, 128], returns
+// 128; any other width, or m outside [1, 256], returns
 // cudaErrorInvalidValue): out = [CTAs (the cluster's at d = 128), threads
 // per CTA, dynamic shared bytes, the adjacency's work items, the most Z
 // rows a CTA stages].
 extern "C" int uoc_connected_components_plan(int m, int d, long long* out) {
-  if (m < 1 || m > kMaxSeeds || (d != 64 && d != 128))
+  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (m > kMaxSeeds) {
+    out[0] = 1;
+    out[1] = kCCThreads;
+    out[2] = static_cast<long long>(
+        d == 64 ? cc_smem_bytes<64, kMaxSeedsMany>()
+                : cc_smem_bytes<128, kMaxSeedsMany>());
+    out[3] = cc_items(m);
+    out[4] = m;
+    return 0;
+  }
   const CCPlan p = cc_cluster_plan(m);
   int most = m;
   if (d == 128) {
@@ -4153,10 +4465,13 @@ extern "C" int uoc_connected_components_plan(int m, int d, long long* out) {
   return 0;
 }
 
-// The name of the kernel that uoc_connected_components launches at width
-// d; null for another width.
-extern "C" const char* uoc_connected_components_kernel(int d) {
-  return d == 64 ? "cc_kernel<64>" : d == 128 ? "cc_cluster_kernel" : nullptr;
+// The name of the kernel that uoc_connected_components launches for m
+// seeds of width d; null for another width or m outside [1, 256].
+extern "C" const char* uoc_connected_components_kernel(int m, int d) {
+  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128)) return nullptr;
+  if (m > kMaxSeeds)
+    return d == 64 ? "cc_kernel<64, 256>" : "cc_kernel<128, 256>";
+  return d == 64 ? "cc_kernel<64>" : "cc_cluster_kernel";
 }
 
 #ifdef CC_CLOCKS
@@ -4193,16 +4508,18 @@ extern "C" int uoc_cc_one_block(const float* z, int m, int d, float epsilon,
 }
 #endif
 
-// The launch configuration uoc_assign_labels uses for n pixels and m seeds
-// of width d (64 or 128; any other width returns cudaErrorInvalidValue):
-// out = [grid, blocks per SM, threads per block, dynamic shared bytes,
-// bytes of X held on chip per block (its ring of tiles), the ring's
-// stages, pixels per tile].
+// The launch configuration uoc_assign_labels (m <= 128) or
+// uoc_assign_labels_two_pass (129..256: pass 2's; pass 1's differs only
+// in the float32 d = 128 ring, three stages) uses for n pixels and m seeds
+// of width d (64 or 128; any other width, or m outside [1, 256], returns
+// cudaErrorInvalidValue): out = [grid, blocks per SM, threads per block,
+// dynamic shared bytes, bytes of X held on chip per block (its ring of
+// tiles), the ring's stages, pixels per tile].
 extern "C" int uoc_assign_labels_plan(int dtype, int n, int m, int d,
                                       long long* out) {
-  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
   AssignPlan p;
-  const cudaError_t err = plan_assign_for(dtype, n, d, m, &p);
+  const cudaError_t err =
+      plan_assign_for(dtype, n, d, m, m > kMaxSeeds ? 2 : 0, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.per_sm;
@@ -4243,8 +4560,8 @@ extern "C" double uoc_assign_map_us(const void* x, int n, int reps) {
 // z_valid: [n] bytes (0 or 1) or null (every pixel valid); labels: [n]
 // int32 out; counts: [2 m + 1] float32 out, zero-filled here: pixels per
 // label, valid pixels per label, then the count of re-checked pixels.
-// m <= 128, n < 2^24 (the float counts stay exact).  One launch on
-// `stream`.
+// 1 <= m <= 128 (past that uoc_assign_labels_two_pass), n < 2^24 (the
+// float counts stay exact).  One launch on `stream`.
 extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
                                  const float* z, const int* seed_labels,
                                  int m, const unsigned char* z_valid,
@@ -4255,41 +4572,52 @@ extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
   if (misaligned(x) || misaligned(z))
     return static_cast<int>(cudaErrorMisalignedAddress);
   AssignPlan p;
-  cudaError_t err = plan_assign_for(dtype, n, d, m, &p);
+  cudaError_t err = plan_assign_for(dtype, n, d, m, 0, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
       cudaSuccess)
     return static_cast<int>(err);
-  float* rechecked = counts + 2 * m;
-  if (p.tma) {
-    // the map goes into the kernel's parameters by value
-    CUtensorMap map;
-    err = dtype == uoc::kBF16
-              ? wide_bf16_map(x, n, &map)
-              : wide_rows_map(x, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                              sizeof(float), kAWBox, kAWTile, &map);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    void* argv[] = {&map, &x, &n, &z, &seed_labels, &m,
-                    &z_valid, &labels, &counts, &rechecked};
-    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
-                           p.smem, s);
-  } else {
-    void* argv[] = {&x, &n, &z, &seed_labels, &m,
-                    &z_valid, &labels, &counts, &rechecked};
-    err = cudaLaunchKernel(p.kernel, dim3(p.grid), dim3(p.threads), argv,
-                           p.smem, s);
-  }
+  return static_cast<int>(launch_assign(p, x, dtype, n, z, seed_labels, m,
+                                        z_valid, labels, counts, nullptr, s));
+}
+
+// uoc_assign_labels for 129 <= m <= 256 seeds: two launches on `stream`,
+// pass 1 against seeds [0, 128) and pass 2 against the rest (see the
+// two-pass note above); part: [n] float4 (16 bytes a pixel, 16-byte
+// aligned), pass 1's results for pass 2.
+extern "C" int uoc_assign_labels_two_pass(
+    const void* x, int dtype, int n, int d, const float* z,
+    const int* seed_labels, int m, const unsigned char* z_valid, int* labels,
+    float* counts, void* part, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= kMaxSeeds || m > kMaxSeedsMany || n >= (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x) || misaligned(z) || misaligned(part))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  AssignPlan p1, p2;
+  cudaError_t err = plan_assign_for(dtype, n, d, m, 1, &p1);
+  if (err == cudaSuccess) err = plan_assign_for(dtype, n, d, m, 2, &p2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  float4* best = static_cast<float4*>(part);
+  err = launch_assign(p1, x, dtype, n, z, seed_labels, m, z_valid, labels,
+                      counts, best, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_assign(p2, x, dtype, n, z, seed_labels, m,
+                                        z_valid, labels, counts, best, s));
 }
 
 // The name of the kernel that uoc_assign_labels launches for these
-// arguments, as "assign_tf32_wide_kernel<104>"; null where the plan fails
-// (a width other than 64 or 128, m outside [1, 128]).
+// arguments, as "assign_tf32_wide_kernel<104>" (past 128 seeds both
+// passes' of uoc_assign_labels_two_pass); null where the plan fails (a
+// width other than 64 or 128, m outside [1, 256]).
 extern "C" const char* uoc_assign_labels_kernel(int dtype, int n, int m,
                                                 int d) {
-  if (m < 1 || m > kMaxSeeds) return nullptr;
   AssignPlan p;
-  return plan_assign_for(dtype, n, d, m, &p) == cudaSuccess ? p.name
-                                                            : nullptr;
+  return plan_assign_for(dtype, n, d, m, m > kMaxSeeds ? 1 : 0, &p) ==
+                 cudaSuccess
+             ? p.name
+             : nullptr;
 }

@@ -42,15 +42,18 @@ _SIGNATURES = {
     "uoc_connected_components": [_P, _I, _I, _F, _P, _P, _P],
     "uoc_connected_components_plan": [_I, _I, _P],
     "uoc_assign_labels": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    "uoc_assign_labels_two_pass": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                                   _P, _P],
     "uoc_assign_labels_plan": [_I, _I, _I, _I, _P],
 }
 # entries that return a kernel's name (a C string, null on a failed plan)
 _NAMED = {
     "uoc_assign_labels_kernel": [_I, _I, _I, _I],
-    "uoc_connected_components_kernel": [_I],
+    "uoc_connected_components_kernel": [_I, _I],
 }
-# The embedding widths the kernels take: NUM_UNITS (64 in every recipe) and
-# 2 * NUM_UNITS (the RGB-D cat fusion); each has its own instantiation.
+# The kernels' instantiated widths: NUM_UNITS (64 in every recipe) and
+# 2 * NUM_UNITS (the RGB-D cat fusion).  A narrower embedding runs on the
+# next of them with zero columns appended (kernel_width, pad_columns).
 WIDTHS = (64, 128)
 
 _lock = threading.Lock()
@@ -176,11 +179,28 @@ def dtype_code(x: torch.Tensor, what: str) -> int:
                     f"got {x.dtype}")
 
 
-def check_width(what: str, d: int) -> None:
-    """Raise unless the kernels take embedding width d."""
-    if d not in WIDTHS:
-        raise ValueError(f"{what}: the kernel takes width "
-                         f"{' or '.join(map(str, WIDTHS))}, got {d}")
+def kernel_width(what: str, d: int) -> int:
+    """The instantiated width that serves embedding width d: 64 for d in
+    1..64, 128 for d in 65..128; raise above 128."""
+    for width in WIDTHS:
+        if 1 <= d <= width:
+            return width
+    raise ValueError(f"{what}: the kernel takes widths 1..{WIDTHS[-1]}, "
+                     f"got {d}")
+
+
+def pad_columns(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x ([n, d], d <= width) with width - d zero columns appended, as one
+    new contiguous tensor; x itself when d == width.  Zero columns are exact
+    for the cosine kernels: every added product is 0 * 0, an fp32 FMA chain
+    over them keeps its value (fmaf(0, 0, acc) = acc), norms do not change,
+    and the hill climb's W X leaves them at 0."""
+    n, d = x.shape
+    if d == width:
+        return x
+    out = x.new_zeros((n, width))
+    out[:, :d] = x
+    return out
 
 
 def on_device(what: str, x: torch.Tensor, *others: torch.Tensor | None

@@ -31,10 +31,27 @@ kernels are in ``csrc/mean_shift.cu``:
     histograms come out of the same X sweep.
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
-on a CUDA tensor (or raises).  The kernels take m <= 128 seeds of width
-d = 64 or 128: NUM_UNITS is 64 in every recipe in experiments/cfgs, and the
-RGB-D cat fusion concatenates two towers' embeddings into 2 * NUM_UNITS.
-The plain versions take any width.
+on a CUDA tensor (or raises).  The kernels are instantiated at widths d =
+64 and 128 (NUM_UNITS is 64 in every recipe in experiments/cfgs, and the
+RGB-D cat fusion concatenates two towers' embeddings into 2 * NUM_UNITS);
+a narrower X and Z run on the next of them with zero columns appended
+(``_build.pad_columns``), which leave every score, norm and Z as they were.
+Up to 128 seeds, the recipes' shapes, each kernel launches once; past 128,
+up to MAX_SEEDS:
+
+  * hill_climb launches once per group of at most GROUP_SEEDS seeds (a
+    row's update reads only X and the row itself; every group has the same
+    number of rows, so each launch has the same plan);
+  * connected_components launches cc_kernel<d, 256> (8-word rows and
+    masks);
+  * assign_labels launches its kernel twice over X, each pass against at
+    most GROUP_SEEDS seeds on the tensor cores: pass 1 stores each pixel's
+    best two scores (and the label of the best) in a scratch of 16 bytes a
+    pixel, pass 2 merges them with its own and finishes (re-check, labels,
+    histograms).
+
+Widths past 128 and more than MAX_SEEDS seeds raise on a CUDA tensor; the
+plain versions take any shape.
 """
 
 from __future__ import annotations
@@ -47,10 +64,15 @@ from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops.mean_shift import (
     connected_components as _connected_components_plain)
 
-MAX_SEEDS = 128
-# the assignment kernel re-checks a pixel exactly where its best score beats
-# every seed of another label by less than this, per width
-# (kRecheckMargin<d> in csrc/mean_shift.cu, where it is derived)
+MAX_SEEDS = 256
+# the seed rows of one hill-climb launch and of one assignment pass
+# (kMaxSeeds in csrc/mean_shift.cu)
+GROUP_SEEDS = 128
+# the wgmma assignment kernels re-check a pixel exactly where its best score
+# beats every seed of another label by less than this, per kernel width
+# (kRecheckMargin<d> in csrc/mean_shift.cu, where it is derived; a narrower
+# embedding's zero columns add exact zeros, so its kernel width's margin
+# holds)
 ASSIGN_RECHECK_MARGIN = {64: 2.0 ** -15, 128: 2.0 ** -14}
 
 # calls that launched each kernel
@@ -64,11 +86,36 @@ connected_components_steps: Optional[torch.Tensor] = None
 assign_labels_rechecked: Optional[torch.Tensor] = None
 
 
-def _check_shapes(what: str, m: int, d: int) -> None:
-    _build.check_width(what, d)
+def check_shapes(what: str, m: int, d: int) -> int:
+    """Raise unless the kernels take m seeds of width d; return the kernel
+    width that serves d."""
+    width = _build.kernel_width(what, d)
     if not 1 <= m <= MAX_SEEDS:
         raise ValueError(f"{what}: the kernel takes 1..{MAX_SEEDS} seeds, "
                          f"got m={m}")
+    return width
+
+
+def prepare(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x ([n, d] on the card) for m seeds through all four kernels: raise
+    unless they take the shape (before any launch), and pad x once to the
+    kernel width that serves d (each wrapper's own padding is then a
+    no-op)."""
+    return _build.pad_columns(x, check_shapes("mean_shift_smart_init", m,
+                                              x.shape[1]))
+
+
+def assign_passes(m: int) -> int:
+    """The assignment's launches for m seeds: 1 up to GROUP_SEEDS, else 2."""
+    return 1 if m <= GROUP_SEEDS else 2
+
+
+def hill_climb_groups(m: int) -> tuple[int, int]:
+    """(launches, rows per launch) of the hill climb for m seeds: one launch
+    up to GROUP_SEEDS, else ceil(m / GROUP_SEEDS) launches of equal rows
+    (the last group padded with copies of its last seed)."""
+    groups = -(-m // GROUP_SEEDS)
+    return groups, -(-m // groups)
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -125,39 +172,49 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
     code = _build.dtype_code(x, "hill_climb")
     n, d = x.shape
     m = z0.shape[0]
-    _check_shapes("hill_climb", m, d)
+    width = check_shapes("hill_climb", m, d)
     lib = _build.library()
-    xc = _rows(x)
-    z0c = z0.to(torch.float32).contiguous()
-    grid = hill_climb_config(xc, m)["grid"]
-    partial = torch.empty((grid, m, d), dtype=torch.float32, device=x.device)
+    xc = _build.pad_columns(_rows(x), width)
+    z0c = _build.pad_columns(z0.to(torch.float32).contiguous(), width)
+    groups, rows = hill_climb_groups(m)
+    if groups > 1:
+        z0c = torch.cat([z0c, z0c[-1:].expand(groups * rows - m, width)])
+    grid = hill_climb_config(xc, rows)["grid"]
+    partial = torch.empty((grid, rows, width), dtype=torch.float32,
+                          device=x.device)
     arrived = torch.empty(1, dtype=torch.int32, device=x.device)
-    z = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    err = lib.uoc_hill_climb(xc.data_ptr(), code, n, d, z0c.data_ptr(), m,
-                             float(kappa), int(max_iters), partial.data_ptr(),
-                             arrived.data_ptr(), z.data_ptr(),
-                             _build.stream(x))
-    _build.check(err, "hill_climb")
-    hill_climb_launches += 1
-    return z
+    z = torch.empty((groups * rows, width), dtype=torch.float32,
+                    device=x.device)
+    for g in range(groups):
+        err = lib.uoc_hill_climb(
+            xc.data_ptr(), code, n, width, z0c[g * rows].data_ptr(), rows,
+            float(kappa), int(max_iters), partial.data_ptr(),
+            arrived.data_ptr(), z[g * rows].data_ptr(), _build.stream(x))
+        _build.check(err, "hill_climb")
+        hill_climb_launches += 1
+    return z if groups == 1 and width == d else z[:m, :d].contiguous()
 
 
 def hill_climb_config(x: torch.Tensor, m: int) -> dict[str, int]:
-    """The hill-climb kernel's launch shape for x ([n, d] on the card, d =
-    64 or 128) and m seeds: grid, blocks per SM, threads per block, dynamic
-    shared-memory bytes, bytes of X held on chip per block (its ring of
-    tiles; for float32 the split-TF32 copies: the current tile's at d = 64,
-    two stages of them at d = 128; for bfloat16 at d = 128 also its
-    resident tiles), and the bytes of X that the grid keeps on chip for the
-    whole launch (bfloat16 at d = 128, else 0: X is read from L2 or device
-    memory every iteration but for these)."""
-    _check_shapes("hill_climb", m, x.shape[1])
-    return _build.plan(x.device, "uoc_hill_climb_plan",
-                       _build.dtype_code(x, "hill_climb"), x.shape[0], m,
-                       x.shape[1],
-                       names=("grid", "blocks_per_sm", "threads",
-                              "smem_bytes", "x_on_chip_bytes",
-                              "x_resident_bytes"))
+    """The hill-climb kernel's launches for x ([n, d] on the card, d <=
+    128: the plan of the width that serves d) and m seeds: the launches and
+    the seed rows of each (hill_climb_groups), then each launch's grid,
+    blocks per SM, threads per block, dynamic shared-memory bytes, bytes of
+    X held on chip per block (its ring of tiles; for float32 the split-TF32
+    copies: the current tile's at d = 64, two stages of them at d = 128;
+    for bfloat16 at d = 128 also its resident tiles), and the bytes of X
+    that the grid keeps on chip for the whole launch (bfloat16 at d = 128,
+    else 0: X is read from L2 or device memory every iteration but for
+    these)."""
+    width = check_shapes("hill_climb", m, x.shape[1])
+    groups, rows = hill_climb_groups(m)
+    return {"launches": groups, "group_rows": rows,
+            **_build.plan(x.device, "uoc_hill_climb_plan",
+                          _build.dtype_code(x, "hill_climb"), x.shape[0],
+                          rows, width,
+                          names=("grid", "blocks_per_sm", "threads",
+                                 "smem_bytes", "x_on_chip_bytes",
+                                 "x_resident_bytes"))}
 
 
 # -- connected components ---------------------------------------------------
@@ -176,13 +233,14 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
     global connected_components_launches, connected_components_steps
     _build.on_device("connected_components", z)
     m, d = z.shape
-    _check_shapes("connected_components", m, d)
+    width = check_shapes("connected_components", m, d)
     lib = _build.library()
-    zc = _rows(_as(z, torch.float32))
+    zc = _build.pad_columns(_rows(_as(z, torch.float32)), width)
     # the labels, then the count of merge steps
     out = torch.empty(m + 1, dtype=torch.int32, device=z.device)
     ptr = out.data_ptr()
-    err = lib.uoc_connected_components(zc.data_ptr(), m, d, float(epsilon),
+    err = lib.uoc_connected_components(zc.data_ptr(), m, width,
+                                       float(epsilon),
                                        ptr, ptr + 4 * m, _build.stream(z))
     _build.check(err, "connected_components")
     connected_components_launches += 1
@@ -192,15 +250,16 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
 
 def connected_components_config(z: torch.Tensor) -> dict[str, int | str]:
     """The connected-components kernel's launch for z ([m, d] on the card,
-    d = 64 or 128): the kernel's name, its CTAs (one at d = 64; the
-    thread-block cluster's at d = 128), threads per CTA, dynamic
-    shared-memory bytes, the adjacency's work items, and the most Z rows
-    a CTA stages."""
+    d <= 128: the launch at the width that serves d): the kernel's name,
+    its CTAs (one at d = 64 and past 128 seeds; the thread-block cluster's
+    at d = 128), threads per CTA, dynamic shared-memory bytes, the
+    adjacency's work items, and the most Z rows a CTA stages."""
     m, d = z.shape
-    _check_shapes("connected_components", m, d)
+    width = check_shapes("connected_components", m, d)
     return {"kernel": _build.kernel_name(
-                z.device, "uoc_connected_components_kernel", d),
-            **_build.plan(z.device, "uoc_connected_components_plan", m, d,
+                z.device, "uoc_connected_components_kernel", m, width),
+            **_build.plan(z.device, "uoc_connected_components_plan", m,
+                          width,
                           names=("ctas", "threads", "smem_bytes", "items",
                                  "rows_staged"))}
 
@@ -253,39 +312,48 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     code = _build.dtype_code(x, "assign_labels")
     n, d = x.shape
     m = seeds.shape[0]
-    _check_shapes("assign_labels", m, d)
+    width = check_shapes("assign_labels", m, d)
     if n >= 2 ** 24:
         raise ValueError(f"assign_labels: the kernel's float32 counts are "
                          f"exact below 2^24 pixels, got n={n}")
     lib = _build.library()
-    xc = _rows(x)
-    zc = _rows(_as(seeds, torch.float32))
+    xc = _build.pad_columns(_rows(x), width)
+    zc = _build.pad_columns(_rows(_as(seeds, torch.float32)), width)
     slab = _as(seed_labels, torch.int32)
     # a bool tensor's bytes are 0 or 1, as the kernel reads them
     zv = None if z_valid is None else _as(z_valid, torch.bool)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     # pixels per label, valid pixels per label, re-checked pixels
     out = torch.empty(2 * m + 1, dtype=torch.float32, device=x.device)
-    err = lib.uoc_assign_labels(xc.data_ptr(), code, n, d, zc.data_ptr(),
-                                slab.data_ptr(), m,
-                                None if zv is None else zv.data_ptr(),
-                                labels.data_ptr(), out.data_ptr(),
-                                _build.stream(x))
+    args = (xc.data_ptr(), code, n, width, zc.data_ptr(), slab.data_ptr(), m,
+            None if zv is None else zv.data_ptr(), labels.data_ptr(),
+            out.data_ptr())
+    passes = assign_passes(m)
+    if passes == 1:
+        err = lib.uoc_assign_labels(*args, _build.stream(x))
+    else:
+        # pass 1's best two scores and best label, a float4 a pixel
+        part = torch.empty((n, 4), dtype=torch.float32, device=x.device)
+        err = lib.uoc_assign_labels_two_pass(*args, part.data_ptr(),
+                                             _build.stream(x))
     _build.check(err, "assign_labels")
-    assign_labels_launches += 1
+    assign_labels_launches += passes
     counts, valid_counts, assign_labels_rechecked = out.split((m, m, 1))
     return labels, counts, valid_counts
 
 
 def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int | str]:
-    """The assignment kernel's launch for x ([n, d] on the card, d = 64 or
-    128) and m seeds: the kernel's name, grid, blocks per SM, threads per
-    block, dynamic shared-memory bytes, bytes of X held on chip per block
-    (its ring of tiles), the ring's stages and the pixels of a tile."""
-    _check_shapes("assign_labels", m, x.shape[1])
-    args = (_build.dtype_code(x, "assign_labels"), x.shape[0], m, x.shape[1])
+    """The assignment kernel's launch for x ([n, d] on the card, d <= 128:
+    the launch at the width that serves d) and m seeds: the kernel's name
+    (past GROUP_SEEDS both passes'), its launches (assign_passes), grid,
+    blocks per SM, threads per block, dynamic shared-memory bytes, bytes
+    of X held on chip per block (its ring of tiles), the ring's stages and
+    the pixels of a tile (past GROUP_SEEDS pass 2's)."""
+    width = check_shapes("assign_labels", m, x.shape[1])
+    args = (_build.dtype_code(x, "assign_labels"), x.shape[0], m, width)
     return {"kernel": _build.kernel_name(x.device, "uoc_assign_labels_kernel",
                                          *args),
+            "launches": assign_passes(m),
             **_build.plan(x.device, "uoc_assign_labels_plan", *args,
                           names=("grid", "blocks_per_sm", "threads",
                                  "smem_bytes", "x_on_chip_bytes", "stages",

@@ -8,9 +8,12 @@ each block's slice of X on chip for all steps, exact fp32 dots, a packed
 barrier per step.  At width 128, where a block's pixels do not all fit on
 chip, the pixels past those are kept in lazy tiles with stale bounds and
 only the tiles that could hold the next argmax are brought up to date
-(``select_seeds_lazy_reference`` models that schedule in torch).  It takes
-widths 64 and 128 (NUM_UNITS, 64 in every recipe, and twice that under the
-RGB-D cat fusion) and raises on another on a CUDA tensor; the plain version
+(``select_seeds_lazy_reference`` models that schedule in torch).  It is
+instantiated at widths 64 and 128 (NUM_UNITS, 64 in every recipe, and twice
+that under the RGB-D cat fusion); a narrower X runs on the next of them
+with zero columns appended (``_build.pad_columns``: every dot's fp32 FMA
+chain keeps its value, so the picks are the unpadded ones), and a width
+past 128 raises on a CUDA tensor.  Any number of seeds.  The plain version
 takes any width.
 """
 
@@ -170,13 +173,14 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
     _build.on_device("select_seeds", x)
     code = _build.dtype_code(x, "select_seeds")
     n, d = x.shape
-    _build.check_width("select_seeds", d)
+    width = _build.kernel_width("select_seeds", d)
     if not 0 <= int(first_index) < n:
         raise ValueError(f"first_index {first_index} out of range [0, {n})")
     if num_seeds < 1:
         raise ValueError("num_seeds must be >= 1")
     lib = _build.library()
     xr = x if x.stride(1) == 1 else x.contiguous()
+    xr = _build.pad_columns(xr, width)
     plan = launch_config(xr)
     lazy = bool(plan["lazy"])
     # the argmax keys, the grid barrier's counter and, on the lazy path,
@@ -188,7 +192,7 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
     # the off-chip pixels of each block, transposed
     xs_t = torch.empty(max(1, plan["scratch_elements"]), dtype=x.dtype,
                        device=x.device)
-    err = lib.uoc_select_seeds(xr.data_ptr(), code, n, d, xr.stride(0),
+    err = lib.uoc_select_seeds(xr.data_ptr(), code, n, width, xr.stride(0),
                                num_seeds, int(first_index), scratch.data_ptr(),
                                idx.data_ptr(), xs_t.data_ptr(),
                                _build.stream(x))
@@ -200,17 +204,18 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
 
 
 def launch_config(x: torch.Tensor) -> dict[str, int]:
-    """The kernel's launch shape for x ([n, d] on the card, d = 64 or
-    128): grid, blocks per SM, threads per block, dynamic shared-memory
-    bytes, bytes of X held on chip by the fullest block (registers and
-    shared memory), pixels per block, pixels per block past those (read
-    from device memory), 1 where those are kept in lazy tiles (d = 128 with
-    such pixels; else 0), the pixels of a lazy tile (0 off that path), and
-    the elements of the scratch that holds those pixels."""
-    _build.check_width("select_seeds", x.shape[1])
+    """The kernel's launch shape for x ([n, d] on the card, d <= 128: the
+    plan of the width that serves d, which x is padded to): grid, blocks
+    per SM, threads per block, dynamic shared-memory bytes, bytes of X
+    held on chip by the fullest block (registers and shared memory),
+    pixels per block, pixels per block past those (read from device
+    memory), 1 where those are kept in lazy tiles (d = 128 with such
+    pixels; else 0), the pixels of a lazy tile (0 off that path), and the
+    elements of the scratch that holds those pixels."""
+    width = _build.kernel_width("select_seeds", x.shape[1])
     return _build.plan(x.device, "uoc_select_seeds_plan",
                        _build.dtype_code(x, "select_seeds"), x.shape[0],
-                       x.shape[1],
+                       width,
                        names=("grid", "blocks_per_sm", "threads",
                               "smem_bytes", "x_on_chip_bytes",
                               "pixels_per_block", "reread_pixels_per_block",

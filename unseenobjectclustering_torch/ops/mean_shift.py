@@ -15,7 +15,9 @@ every phase and the dispatch:
 With ``use_pallas=True`` (cfg.CLUSTER.USE_PALLAS) and the cosine metric,
 the four phases go through the wrappers of the hand-written CUDA kernels
 (ops/cuda_seeding.py, ops/cuda_mean_shift.py), which launch the kernel for a
-CUDA tensor and run their plain version for a CPU tensor.  The euclidean
+CUDA tensor and run their plain version for a CPU tensor; on the card an
+embedding narrower than the kernels' widths (64, 128) is padded with zero
+columns once, for all four.  The euclidean
 branches always run the plain versions here, as in the JAX package.
 
 Argmax/argmin ties resolve to the first index everywhere (torch.argmax and
@@ -249,6 +251,12 @@ def mean_shift_smart_init(x: torch.Tensor,
         (test_dataset.py:183-198).  z_valid is an [n] bool mask.
     """
     xc = x.to(torch.bfloat16) if compute_dtype == "bfloat16" else x
+    d = xc.shape[1]
+    if metric == "cosine" and use_pallas and xc.is_cuda:
+        # a shape the kernels refuse raises before the first launch; X is
+        # padded to the kernels' width once, for all four
+        from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
+        xc = cms.prepare(xc, num_seeds)
     seeds, seed_indices = select_seeds_dispatch(
         xc, num_seeds, generator, metric=metric, use_pallas=use_pallas,
         first_index=first_index, seed_subsample=seed_subsample)
@@ -278,5 +286,6 @@ def mean_shift_smart_init(x: torch.Tensor,
         if z_valid is not None and filter_threshold > 0:
             labels = filter_labels_depth(labels, z_valid, filter_threshold,
                                          max_labels=num_seeds + 1)
-    return MeanShiftResult(labels=labels, seed_indices=seed_indices, seeds=z,
+    return MeanShiftResult(labels=labels, seed_indices=seed_indices,
+                           seeds=z if z.shape[1] == d else z[:, :d],
                            seed_labels=seed_labels)
