@@ -290,6 +290,25 @@ Phases (any failure exits non-zero; no exception is caught):
      route); the ms of the copy that pads a frame's X to the kernel
      width (made once per clustering), beside its bound.  One
      {"widths": {...}} line.
+ 2x. (run after phase 2w) widths 129..256 and up to 512 seeds: (a) each
+     kernel against its plain version at the frame on clustered
+     embeddings at (d, m) = WIDER_CASES (256 with 100 and 512 seeds, 160
+     with 300, on the card at width 256 with zero columns; 64 with 512)
+     and at the 224^2 crop at WIDER_CROP_CASES, in both modes, with phase
+     2's checks and tolerances (the hill climb once per group of at most
+     64 seeds at d = 256, 128 below; the connected components on
+     cc_wide_kernel and the assignment on assign_exact_kernel, one launch
+     each), all timed beside the bound of the unpadded work; on
+     WIDER_LABELS's 600 clusters with 512 seeds, more than 256 seed
+     labels, from each kernel and from the whole route (kernel route =
+     plain route); (b) WIDER_CONFIGS, the rgbd_cat yml with NUM_UNITS 128
+     (two 128-unit heads: d = 256) and the rgbd_add yml with NUM_SEEDS
+     512, fixed-seed inits, stage 1 at 480x640 through
+     Segmentor.segment_sample in both modes (every kernel in each frame,
+     the hill climb once per group), in parity the kernel route's labels
+     equal to the plain route's, and for the first stage 2 on phase 4's
+     8-box frame in both modes (each kernel once per valid crop).  One
+     {"wider": {...}} line.
   9. data parallelism (unseenobjectclustering_torch.parallel), what one
      card can show of it: (a) world size 1 on NCCL (an all-reduce and an
      all-gather checked): Segmentor.segment_sharded on 4 frames at
@@ -370,7 +389,13 @@ Phases (any failure exits non-zero; no exception is caught):
      with the prefix m256_ at the frame and the crop with 256 seeds); the
      connected components' and the assignment's also the kernel each mode
      launches (cc_kernel<d, 256> and the assignment's two passes past
-     128 seeds).
+     128 seeds).  Then each kernel's phase-2x entries: _d256_m100
+     (configuration (c): its stage-1 and stage-2 launches, the readings at
+     the frame and the crop at d = 256 with 100 seeds, with the prefix
+     m512_ at 512 seeds and d160_m300_ at d = 160 with 300) and
+     _d64_m512 (configuration (d): its stage-1 launches, the readings at
+     the frame at d = 64 with 512 seeds); with the kernel each mode
+     launches where it has a name.
  11. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -641,13 +666,13 @@ KERNEL_NAMES = {"select_seeds": "select_seeds_kernel", "hill_climb": "hill_",
                 "assign_labels": "assign_"}
 
 
-def per_clustering(num_seeds: int) -> dict[str, int]:
-    """Each kernel's launches in one clustering of num_seeds seeds: one,
-    but the hill climb's one per group of seeds and the assignment's one
-    per pass past 128 seeds."""
+def per_clustering(num_seeds: int, d: int = D) -> dict[str, int]:
+    """Each kernel's launches in one clustering of num_seeds seeds of width
+    d: one, but the hill climb's one per group of seeds and the
+    assignment's one per pass (two for 129..256 seeds at d <= 128)."""
     return {**dict.fromkeys(KERNELS, 1),
-            "hill_climb": cms.hill_climb_groups(num_seeds)[0],
-            "assign_labels": cms.assign_passes(num_seeds)}
+            "hill_climb": cms.hill_climb_groups(num_seeds, d)[0],
+            "assign_labels": cms.assign_passes(num_seeds, d)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1022,7 +1047,7 @@ def check_kernels(mode: str, x32: torch.Tensor,
     slab = cc["clustered"][0]
     before = cms.assign_labels_launches
     got_a = cms.assign_labels(x, z, slab, z_valid=z_valid)
-    passes = cms.assign_passes(m)
+    passes = cms.assign_passes(m, d)
     if cms.assign_labels_launches - before != passes:
         raise AssertionError(f"[{tag}] assign_labels launched "
                              f"{cms.assign_labels_launches - before} times, "
@@ -1160,7 +1185,7 @@ def run_slice(cfg: Config, state_dict: dict, frame: dict, d: int = D,
     assignment once per pass).  With `peaks`, each mode's peak device
     memory over its frames (GiB)."""
     num_seeds = int(cfg.CLUSTER.NUM_SEEDS)
-    per_frame = per_clustering(num_seeds)
+    per_frame = per_clustering(num_seeds, d)
     segs = {"parity": Segmentor(cfg, state_dict, network_name=network_name),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)),
                               state_dict, network_name=network_name,
@@ -1249,8 +1274,11 @@ def slice_routes(where: str, features: torch.Tensor,
           f"; {out['seed_clusters']} seed clusters, {out['label_ids']} label"
           " ids")
     # the labels equal; the seeds too, or, at a width but D (as
-    # check_kernels), parting at a float32 near-tie
-    if n_diff or (step >= 0 and not (feats.shape[1] != D and gap < SEED_GAP)):
+    # check_kernels) and past 256 seeds (the rgbd_add recipe with 512 seeds
+    # parted at step 258, gap 8.9e-8, on the random-init network's nearly
+    # uniform embeddings, labels equal), parting at a float32 near-tie
+    near_tie_allowed = feats.shape[1] != D or num_seeds > 256
+    if n_diff or (step >= 0 and not (near_tie_allowed and gap < SEED_GAP)):
         raise AssertionError("the kernel route differs from the plain "
                              "route on the slice's embeddings")
     return out
@@ -3548,7 +3576,7 @@ def crop_shapes() -> list[tuple[int, str]]:
 
 
 def stage2_modes(tag: str, cfg: Config, state: dict, state_crop: dict,
-                 counts: tuple = STAGE2_INSTANCES) -> dict:
+                 counts: tuple = STAGE2_INSTANCES, d: int = D) -> dict:
     """Phase 2c (b), 2d (c) and 2w (a), stage 2: cfg's stage-1 and crop
     networks at CROP^2 on phase 4's box frames of `counts` boxes (the boxes
     as the stage-1 labels), the inputs as segment gives them for cfg.INPUT
@@ -3557,8 +3585,8 @@ def stage2_modes(tag: str, cfg: Config, state: dict, state_crop: dict,
     frames and read after: every kernel exactly once per valid crop
     (per_clustering: the hill climb once per group of cfg's seeds, the
     assignment once per pass); in parity the kernel route's refined labels
-    equal the plain route's."""
-    per_crop = per_clustering(int(cfg.CLUSTER.NUM_SEEDS))
+    equal the plain route's (d: the networks' embedding width)."""
+    per_crop = per_clustering(int(cfg.CLUSTER.NUM_SEEDS), d)
     segs = {"parity": Segmentor(cfg, state, state_crop),
             "fast": Segmentor(cfg.replace(CLUSTER=dict(FAST_CLUSTER)), state,
                               state_crop, model_dtype=torch.bfloat16)}
@@ -4084,6 +4112,115 @@ def run_widths() -> dict:
                kernels_s=kernels_s,
                phase_s=time.perf_counter() - t0)
     print(f"phase 2w {out['phase_s']:.1f} s (kernels {kernels_s:.1f})")
+    return out
+
+
+# phase 2x: widths 129..256 and up to 512 seeds, past phase 2w's: each
+# kernel at width d (on the card at 256 with zero columns; up to 128 with
+# more than 256 seeds) and m seeds against its plain version on clustered
+# embeddings, (d, m) at the frame and at the CROP^2 crop, all timed;
+# WIDER_LABELS's (d, m, clusters) labels more than 256 seeds (every pick
+# opens a cluster); and two configurations copied from the repo's ymls with
+# only the head width or the seed count changed, (yml, units, seeds,
+# stage-2 box counts): (c) the RGB-D cat recipe with NUM_UNITS 128 (two
+# 128-unit heads: 256-D embeddings), stage 1 and stage 2 at 8 boxes; (d)
+# the RGB-D add recipe with NUM_SEEDS 512, stage 1
+WIDER_CASES = ((256, 100), (160, 300), (256, 512), (64, 512))
+WIDER_CROP_CASES = ((256, 100), (256, 512))
+WIDER_LABELS = (256, 512, 600)
+WIDER_CONFIGS = {"c": (CAT_YML, 128, 100, (8,)),
+                 "d": (TRAIN_YML, 64, 512, ())}
+
+
+def run_wider() -> dict:
+    """Phase 2x: (i) every kernel against its plain version at WIDER_CASES
+    and WIDER_CROP_CASES in both modes, with phase 2's checks and
+    tolerances (check_kernels: seeds, seed labels and pixel labels equal in
+    float32 but where the seeds part at a float32 near-tie below SEED_GAP,
+    bf16 within phase 2's gates; the hill climb once per group), timed
+    beside the bound of the unpadded work, and on WIDER_LABELS's clusters,
+    which must give more than 256 seed labels, kernel by kernel and through
+    the whole route (slice_routes, kernel route = plain route); (ii) the
+    two WIDER_CONFIGS at 480x640 through Segmentor.segment_sample in both
+    modes (run_slice: every kernel in each frame, the hill climb once per
+    group), their embeddings of the configured width, the parity kernel
+    route's labels equal to the plain route's (slice_routes), and for (c)
+    stage 2 on phase 4's 8-box frame (stage2_modes: each kernel once per
+    valid crop, the hill climb once per group)."""
+    t0 = time.perf_counter()
+    modes = ("parity", "fast")
+    checks: dict = {}
+    for d, m in WIDER_CASES:
+        x32, z_valid = clustered_embeddings(seed=90 + d, d=d)
+        checks[f"d{d}_m{m}"] = {
+            mode: check_kernels(mode, x32, z_valid, m=m,
+                                where=f", d = {d}, m = {m}")
+            for mode in modes}
+        del x32, z_valid
+    crop_checks: dict = {}
+    for d, m in WIDER_CROP_CASES:
+        x_crop, _ = clustered_embeddings(seed=95 + d, n=CROP * CROP, d=d)
+        crop_checks[f"d{d}_m{m}"] = {
+            mode: check_kernels(mode, x_crop, None, m=m,
+                                where=f", {CROP}^2, d = {d}, m = {m}")
+            for mode in modes}
+        del x_crop
+    d, m, k = WIDER_LABELS
+    x32, z_valid = clustered_embeddings(seed=97, k=k, d=d)
+    labels = {mode: check_kernels(mode, x32, z_valid, timed=False, far=False,
+                                  where=f", {k} clusters, d = {d}, m = {m}",
+                                  m=m)
+              for mode in modes}
+    label_routes = slice_routes(f"2x ({k} clusters) ", x32, None,
+                                num_seeds=m, z_valid=z_valid)
+    del x32, z_valid
+    clusters = {mode: r["connected_components"]["clusters"]
+                for mode, r in labels.items()}
+    clusters["route"] = label_routes["seed_clusters"]
+    print(f"[2x] {k} clusters, d = {d}, m = {m}: seed labels {clusters}")
+    if min(clusters.values()) <= 256:
+        raise AssertionError(f"[2x] {clusters} seed labels, not more than "
+                             "256")
+    kernels_s = time.perf_counter() - t0
+
+    bgr, depth = tabletop_frame()
+    configs = {}
+    for name, (yml, units, seeds, boxes) in WIDER_CONFIGS.items():
+        cfg = Config.from_yaml(os.path.join(REPO, yml)).replace(
+            MODE="TEST", TRAIN=dict(NUM_UNITS=units),
+            CLUSTER=dict(NUM_SEEDS=seeds))
+        torch.manual_seed(70)
+        net = get_network(NET, cfg)
+        d = net.embedding_dim
+        state = net.state_dict()
+        print(f"[2x ({name})] {os.path.basename(yml)} with NUM_UNITS "
+              f"{units}, NUM_SEEDS {seeds}: {d}-D embeddings")
+        if d != (256 if name == "c" else 64):
+            raise AssertionError(f"[2x ({name})] {d}-D embeddings")
+        img, xyz = preprocess_rgbd(torch.from_numpy(bgr).cuda(),
+                                   torch.from_numpy(depth).cuda(),
+                                   cfg.pixel_means, *INTR)
+        frame = {"image_color": img, "depth": xyz}
+        counts, timings, features = run_slice(cfg, state, frame, d=d,
+                                              where=f"2x ({name}) ")
+        out = dict(d=d, seeds=seeds, stage1_launches=counts,
+                   stage1_ms=timings,
+                   routes=slice_routes(f"2x ({name}) ", features, xyz,
+                                       num_seeds=seeds))
+        if boxes:
+            torch.manual_seed(71)
+            state_crop = get_network(NET, cfg).state_dict()
+            out["stage2"] = stage2_modes(f"2x ({name})", cfg, state,
+                                         state_crop, counts=boxes, d=d)
+            del state_crop
+        configs[name] = out
+        del state, net, features
+        torch.cuda.empty_cache()
+    out = dict(checks=checks, crop_checks=crop_checks, labels=labels,
+               label_routes=label_routes, clusters=clusters,
+               configs=configs, kernels_s=kernels_s,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 2x {out['phase_s']:.1f} s (kernels {kernels_s:.1f})")
     return out
 
 
@@ -4778,6 +4915,43 @@ def modality_launches(name: str, modalities: dict) -> dict:
     return out
 
 
+def wider_entries(wider: dict) -> list[dict]:
+    """Phase 2x's entries of the kernels line for each kernel:
+    configuration (c) at d = 256 with 100 seeds (the readings at 512 seeds
+    and at d = 160 with 300 beside it) and (d) at d = 64 with 512 seeds."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        for key, config in (("d256_m100", "c"), ("d64_m512", "d")):
+            c = wider["configs"][config]
+            checks_2x = wider["checks"][key]
+            crop_2x = ({CROP: wider["crop_checks"][key]}
+                       if key in wider["crop_checks"] else {})
+            entry = dict(
+                name=f"{name}_{key}", route="cuda", source=source,
+                replaces=replaces,
+                launches=c["stage1_launches"]["parity"][name],
+                fast_launches=c["stage1_launches"]["fast"][name],
+                kernel=checks_2x["parity"][name].get("launch", {}).get(
+                    "kernel"),
+                fast_kernel=checks_2x["fast"][name].get("launch", {}).get(
+                    "kernel"),
+                **kernel_readings(name, checks_2x, crop_2x))
+            if "stage2" in c:
+                entry.update(
+                    stage2_launches=c["stage2"]["launches"]["parity"][name],
+                    fast_stage2_launches=c["stage2"]["launches"]["fast"][
+                        name])
+            if key == "d256_m100":
+                for extra, crop in (("d256_m512", True), ("d160_m300", False)):
+                    prefix = "m512_" if extra == "d256_m512" else "d160_m300_"
+                    entry.update({prefix + k: v for k, v in kernel_readings(
+                        name, wider["checks"][extra],
+                        {CROP: wider["crop_checks"][extra]} if crop
+                        else {}).items()})
+            kernels.append(entry)
+    return kernels
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -4911,6 +5085,11 @@ def main() -> None:
             print(f"wall after phase 2w {time.perf_counter() - t_start:.1f}"
                   " s")
 
+            # phase 2x: widths 129..256 and up to 512 seeds
+            wider = run_wider()
+            print(f"wall after phase 2x {time.perf_counter() - t_start:.1f}"
+                  " s")
+
             # phase 9: phase 3's weights and timings, phase 8's U-Net,
             # phase 6's render cache, phase 7's OCID tree and phase 8b's
             # trained ResNet
@@ -5021,6 +5200,7 @@ def main() -> None:
                     name, widths["checks"]["d96_m256"],
                     {CROP: widths["crop_checks"]["d96_m256"]}).items()})
             kernels.append(entry)
+    kernels += wider_entries(wider)
     print(json.dumps({"stage1_ms": timings, "cluster_ms_clustered_input":
                       routes_ms, "stage2_ms": s2_timings,
                       "stage2_peak_gib": s2_memory}))
@@ -5051,6 +5231,7 @@ def main() -> None:
                                      if k != "checks"}}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"widths": widths}))
+    print(json.dumps({"wider": wider}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,35 +50,11 @@ import kernel_study as ks
 from unseenobjectclustering_torch.ops import _build, cuda_seeding
 
 
-def parent_seeder(lib: ctypes.CDLL):
-    """The parent's select_seeds as its wrapper called it: (x, m, first)
-    -> seed indices."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uoc_select_seeds.argtypes = [P, I, I, I, ctypes.c_longlong, I, I, P,
-                                     P, P, P]
-    lib.uoc_select_seeds_plan.argtypes = [I, I, I, P]
-
-    def run(x: torch.Tensor, m: int, first: int) -> torch.Tensor:
-        n, d = x.shape
-        code = _build.dtype_code(x, "parent")
-        plan = (ctypes.c_longlong * 7)()
-        assert lib.uoc_select_seeds_plan(code, n, d,
-                                         ctypes.addressof(plan)) == 0
-        scratch = torch.empty(m + 1, dtype=torch.int64, device=x.device)
-        idx = torch.empty(m, dtype=torch.int32, device=x.device)
-        xs_t = torch.empty(max(1, d * plan[0] * plan[6]), dtype=x.dtype,
-                           device=x.device)
-        err = lib.uoc_select_seeds(x.data_ptr(), code, n, d, x.stride(0), m,
-                                   first, scratch.data_ptr(), idx.data_ptr(),
-                                   xs_t.data_ptr(), _build.stream(x))
-        assert err == 0, err
-        return idx
-    return run
-
-
-def clocked_seeder(lib: ctypes.CDLL):
-    """This tree's select_seeds from the -DSEED_CLOCKS build, called as the
-    wrapper calls the kernel: (x, m, first) -> seed indices."""
+def seeder(lib: ctypes.CDLL):
+    """A build's select_seeds (the parent's, or this tree's -DSEED_CLOCKS
+    build), called as the wrapper calls the kernel since the lazy tiles
+    (a plan of 10 entries, the scratch and the transposed X it sizes):
+    (x, m, first) -> seed indices."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.uoc_select_seeds.argtypes = [P, I, I, I, ctypes.c_longlong, I, I, P,
                                      P, P, P]
@@ -149,7 +125,7 @@ def main() -> None:
     print("\n".join(out["ptxas"]))
     parent = None
     if args.parent:
-        parent = parent_seeder(ks.shared_lib(os.path.join(
+        parent = seeder(ks.shared_lib(os.path.join(
             args.parent, "unseenobjectclustering_torch", "csrc",
             "seeding.cu"), "libparent_seeding.so")[0])
     clocked = None
@@ -157,7 +133,7 @@ def main() -> None:
         clocked_lib, _ = ks.shared_lib(
             os.path.join(_build.CSRC, "seeding.cu"), "libseed_clocks.so",
             "-DSEED_CLOCKS")
-        clocked = clocked_seeder(clocked_lib)
+        clocked = seeder(clocked_lib)
     ok = True
     for name, x in cases():
         n, d = x.shape

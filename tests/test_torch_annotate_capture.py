@@ -11,7 +11,9 @@ erase, split, merge, keep, polygon and ellipse edits with the GrabCut
 refinement on.  Without OpenCV the port's propose writes its labels and
 then raises at the overlay's numbers, naming the step.  The connected
 components are also held to cv2.connectedComponents alone, and the
-polygon fill (utils/imgproc.fill_poly) to cv2.fillPoly.
+polygon fill (utils/imgproc.fill_poly) to cv2.fillPoly, on the canvas
+and past its borders; a spec whose polygons cross the border gives the
+JAX tool's labels.
 
 collect_images_realsense: rospy, message_filters, cv_bridge and
 sensor_msgs are fakes; each tool's synchronizer callback is driven with
@@ -124,6 +126,34 @@ def test_apply_equals_the_jax_tool(demo, jax_annotate, tmp_path):
     assert got.max() >= 4
 
 
+def test_apply_with_polygons_past_the_border_equals_the_jax_tool(
+        demo, jax_annotate, tmp_path):
+    """A spec whose split and polygon edits cross the image's border
+    (cv2.fillPoly clips them): the port's labels and PNGs are the JAX
+    tool's."""
+    jax_annotate.propose(0, 10.0, 40, str(tmp_path / "work"))
+    spec = {"split": [{"src": 1, "polygon": [[-20, 10], [35, 10],
+                                             [35, 60], [-20, 60]]}],
+            "polygon": {"new": [[140, -15], [175, 10], [150, 40],
+                                [130, 20]],
+                        "2": [[85, 100], [130, 110], [120, 140],
+                              [95, 135]]}}
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(spec))
+    work = str(tmp_path / "work")
+    jax_annotate.apply_spec(0, str(path), str(tmp_path / "jax"), work)
+    got = annotate_demo_gt.main(["apply", "--frame", "0", "--demo-dir",
+                                 str(demo), "--spec", str(path),
+                                 "--work-dir", work, "--out-dir",
+                                 str(tmp_path / "port")])
+    for name in ("000000-label.png", "000000-verify.png"):
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name
+    want = cv2.imread(str(tmp_path / "jax" / "000000-label.png"), -1)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) >= 4
+
+
 def test_propose_without_opencv_raises_at_the_overlay(demo, tmp_path,
                                                       monkeypatch):
     monkeypatch.setitem(sys.modules, "cv2", None)
@@ -149,23 +179,66 @@ def test_connected_components_are_cv2s(connectivity):
         np.testing.assert_array_equal(got, want)
 
 
+def assert_fill_is_cv2s(h, w, pts):
+    pts = np.asarray(pts)
+    want = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(want, [pts.astype(np.int32).reshape(-1, 1, 2)], 1)
+    got = imgproc.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
+    np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+    return int(want.sum())
+
+
 def test_fill_poly_is_cv2s():
     """On-canvas polygons of 1 to 11 vertices (non-convex,
     self-intersecting, degenerate) on canvases of 1 to 640 pixels a
-    side; an off-canvas vertex raises."""
+    side."""
     rng = np.random.RandomState(7)
     for t in range(600):
         h, w = (rng.randint(1, 60, 2) if t % 10 else
                 rng.randint(200, 640, 2))
         k = rng.randint(1, 12)
-        pts = np.stack([rng.randint(0, w, k), rng.randint(0, h, k)], 1)
-        want = np.zeros((h, w), np.uint8)
-        cv2.fillPoly(want, [pts.astype(np.int32).reshape(-1, 1, 2)], 1)
-        got = imgproc.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
-        np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
-    with pytest.raises(ValueError, match="canvas"):
-        imgproc.fill_poly(np.zeros((8, 8), np.uint8), [[0, 0], [8, 3],
-                                                       [2, 5]], 1)
+        assert_fill_is_cv2s(h, w, np.stack([rng.randint(0, w, k),
+                                            rng.randint(0, h, k)], 1))
+
+
+# polygons with vertices off a 40x60 canvas: (name, vertices)
+OFF_CANVAS = [
+    ("left", [[-15, 5], [30, 10], [25, 30], [-8, 35]]),
+    ("right", [[20, 4], [75, 12], [90, 30], [35, 33]]),
+    ("above", [[10, -20], [50, -5], [40, 25], [15, 18]]),
+    ("below", [[5, 10], [55, 15], [50, 70], [12, 52]]),
+    ("every_side", [[-10, -10], [70, -5], [65, 50], [-5, 45]]),
+    ("entirely_off", [[-30, -30], [-5, -40], [-2, -1], [-25, -3]]),
+    ("around_the_canvas", [[-30, -30], [100, -30], [100, 100],
+                           [-30, 100]]),
+    ("non_convex_two_edges", [[-12, 8], [30, 20], [-6, 32], [15, 20]]),
+    ("non_convex_corner", [[40, -10], [75, 30], [58, 22], [50, 55],
+                           [45, 18]]),
+]
+
+
+@pytest.mark.parametrize("name,pts", OFF_CANVAS, ids=[c[0] for c in
+                                                      OFF_CANVAS])
+def test_fill_poly_off_the_canvas_is_cv2s(name, pts):
+    """Vertices left of, right of, above and below the canvas, a polygon
+    entirely off it (nothing filled) or around it, and non-convex polygons
+    that cross two edges: cv2 clips each edge (clipLine) for its line and
+    its fill, and the fill's rows and spans to the canvas."""
+    filled = assert_fill_is_cv2s(40, 60, pts)
+    assert (filled == 0) == (name == "entirely_off")
+
+
+def test_fill_poly_off_the_canvas_random():
+    """Random polygons of 1 to 9 vertices up to a canvas side past each
+    border, on canvases of 1 to 400 pixels a side (the small ones clip
+    most edges to a point or a row)."""
+    rng = np.random.RandomState(8)
+    for t in range(600):
+        h, w = (rng.randint(1, 60, 2) if t % 10 else
+                rng.randint(100, 400, 2))
+        k = rng.randint(1, 10)
+        assert_fill_is_cv2s(h, w, np.stack([rng.randint(-w, 2 * w, k),
+                                            rng.randint(-h, 2 * h, k)], 1))
 
 
 # -- collect_images_realsense -------------------------------------------------

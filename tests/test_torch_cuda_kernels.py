@@ -23,8 +23,14 @@ pixels (a COLOR frame's stage 1), and the widths and seed counts past the
 recipes' (d = 16, 32 and 96 on the instantiations at 64 and 128 with zero
 columns, up to 256 seeds: the hill climb in launches of equal rows, each
 row bitwise independent of the others in float32, cc_kernel<d, 256> and
-the assignment's two passes; the JAX tests' own shapes; the raises past width
-128 and 256 seeds, before any launch).  The connected components run each
+the assignment's two passes; the JAX tests' own shapes), widths 129..256
+and up to 512 seeds (d = 129, 160 and 256 on the instantiation at 256;
+257..512 seeds at d = 32..128: hill_simt_kernel in launches of at most 64
+rows at d = 256, each row bitwise independent of the others in float32,
+cc_wide_kernel with its 16-word masks, more than 256 labels and a mode tie
+between labels above 255, assign_exact_kernel from one pixel to the frame
+with an exact tie between labels, the whole route at the frame; the
+raises past width 256 and 512 seeds, before any launch).  The connected components run each
 case at both widths (cc_kernel<64>, and cc_cluster_kernel at d = 128; the
 merge steps held to the plain merge's; the d = 128 kernel also against
 the d = 64 one on zero-padded seeds), and the width-128 assignment's
@@ -54,6 +60,7 @@ from unseenobjectclustering_torch.engine.pipeline import Segmentor
 from unseenobjectclustering_torch.models import get_network
 from unseenobjectclustering_torch.ops import cuda_mean_shift as cms
 from unseenobjectclustering_torch.ops import cuda_seeding
+from unseenobjectclustering_torch.ops import mean_shift as tms
 from unseenobjectclustering_torch.ops.mean_shift import mean_shift_smart_init
 from unseenobjectclustering_torch.ops.preprocess import preprocess_rgbd
 
@@ -355,7 +362,7 @@ def assign_both(x, z, slab, zv=None):
     before = cms.assign_labels_launches
     got = cms.assign_labels(x, z, slab, z_valid=zv)
     assert cms.assign_labels_launches == before + cms.assign_passes(
-        z.shape[0])
+        z.shape[0], x.shape[1])
     rechecked = int(cms.assign_labels_rechecked)
     want = cms.assign_labels_reference(x, z, slab, z_valid=zv)
     for g, w in zip(got, want):
@@ -536,7 +543,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card, monkeypatch):
         cuda_seeding.select_seeds(x, 4, 256)
     # past the widths and seeds the kernels take: a ValueError, never the
     # plain version
-    wide = torch.randn(256, 129, device=card)
+    wide = torch.randn(256, 257, device=card)
     launched = (cuda_seeding.launches, cms.hill_climb_launches,
                 cms.connected_components_launches,
                 cms.assign_labels_launches)
@@ -546,16 +553,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card, monkeypatch):
                  lambda: cms.assign_labels(wide, wide[:4], slab),
                  lambda: mean_shift_smart_init(wide, num_seeds=4,
                                                first_index=0)):
-        with pytest.raises(ValueError, match="widths 1..128, got 129"):
+        with pytest.raises(ValueError, match="widths 1..256, got 257"):
             call()
-    many = torch.randn(257, 64, device=card)
-    slab257 = torch.zeros(257, dtype=torch.int32, device=card)
+    x = torch.randn(1024, 64, device=card)
+    many = torch.randn(513, 64, device=card)
+    slab513 = torch.zeros(513, dtype=torch.int32, device=card)
     for call in (lambda: cms.hill_climb(x, many),
                  lambda: cms.connected_components(many, 0.04),
-                 lambda: cms.assign_labels(x, many, slab257),
-                 lambda: mean_shift_smart_init(x, num_seeds=257,
+                 lambda: cms.assign_labels(x, many, slab513),
+                 lambda: mean_shift_smart_init(x, num_seeds=513,
                                                first_index=0)):
-        with pytest.raises(ValueError, match="1..256 seeds, got m=257"):
+        with pytest.raises(ValueError, match="1..512 seeds, got m=513"):
             call()
     assert launched == (cuda_seeding.launches, cms.hill_climb_launches,
                         cms.connected_components_launches,
@@ -1126,10 +1134,12 @@ def kernels_against_plain(x, m, first, stride, z_valid=None):
     slab = torch.tensor(labels, dtype=torch.int32, device=x.device)
     assign_both(x, want_z, slab, z_valid)
     groups = cms.hill_climb_config(x, m)["launches"]
-    assert groups == (1 if m <= 128 else 2)
-    assert cms.assign_labels_config(x, m)["launches"] == groups
+    rows = 64 if d > 128 else 128
+    assert groups == -(-m // rows)
+    passes = cms.assign_labels_config(x, m)["launches"]
+    assert passes == (-(-m // 128) if d <= 128 else 1)
     assert launches() == tuple(b + k for b, k in
-                               zip(before, (1, groups, 1, groups)))
+                               zip(before, (1, groups, 1, passes)))
     return labels
 
 
@@ -1321,6 +1331,327 @@ def test_route_at_narrow_widths_and_many_seeds(card, compute_dtype, d, m):
     assert_same_seeds(x[::sub], got.seed_indices // sub,
                       want.seed_indices // sub)
     assert diff.numel() == 0, diff.tolist()
+    for name in ("seed_labels", "labels"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert len(torch.unique(want.labels)) > 2
+
+
+# -- widths 129..256 and up to 512 seeds ---------------------------------------
+# A width in 129..256 runs on the instantiation at 256 with zero columns
+# appended: the seeding without register pixels, hill_simt_kernel in
+# launches of at most 64 equal rows, cc_wide_kernel and assign_exact_kernel.
+# Past 256 seeds at d <= 128 the hill climb keeps its launches of at most
+# 128 rows, the connected components take cc_wide_kernel of the width and
+# the assignment its kernels in ceil(m / 128) passes (first, middle, last).
+
+WIDER = [129, 160, 256]
+MOST = [1, 64, 65, 257, 300, 512]
+
+
+def test_launch_configs_at_width_256(card):
+    """The width-256 plans at the frame: seeding 256 threads a block, every
+    SM, no register pixels, the rest of X past what shared memory holds
+    read from the transposed scratch every step; hill_simt_kernel one block
+    of 256 threads an SM, Z's 64 rows, a 64-pixel X tile and W in shared
+    memory (150,528 bytes), every block resident; cc_wide_kernel one block
+    of 512 threads with 64 KB of dynamic shared memory; assign_exact_kernel
+    one block of 256 threads an SM, a 128-pixel X tile and 32 seeds."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for dtype in DTYPES:
+        x = torch.zeros(480 * 640, 256, device=card, dtype=dtype)
+        seed = cuda_seeding.launch_config(x)
+        assert seed["threads"] == 256 and seed["grid"] == sms
+        assert not seed["lazy"] and seed["reread_pixels_per_block"] > 0
+        assert seed["x_on_chip_bytes"] == (
+            (seed["pixels_per_block"] - seed["reread_pixels_per_block"])
+            * 256 * x.element_size())
+        for m, launches_, rows in ((64, 1, 64), (100, 2, 50), (512, 8, 64)):
+            hill = cms.hill_climb_config(x, m)
+            assert (hill["launches"], hill["group_rows"]) == (launches_, rows)
+            assert hill["threads"] == 256 and hill["grid"] == sms
+            assert hill["smem_bytes"] == 4 * (2 * 64 * 260 + 64 * 68)
+        assign = cms.assign_labels_config(x, 512)
+        assert assign["kernel"] == ("assign_exact_kernel<float, 256>"
+                                    if dtype == torch.float32 else
+                                    "assign_exact_kernel<bf16, 256>")
+        assert assign["launches"] == 1 and assign["threads"] == 256
+        assert assign["grid"] == sms and assign["tile_pixels"] == 128
+        assert assign["smem_bytes"] == 4 * (128 * 260 + 32 * 256)
+    for m in (1, 100, 512):
+        cc = cms.connected_components_config(torch.zeros(m, 256, device=card))
+        assert cc["kernel"] == "cc_wide_kernel<256>" and cc["ctas"] == 1
+        assert cc["threads"] == 512 and cc["smem_bytes"] == 2 * 4 * 512 * 16
+    for d in (64, 128):
+        assert cms.connected_components_config(torch.zeros(
+            300, d, device=card))["kernel"] == f"cc_wide_kernel<{d}>"
+        # 129..256 seeds keep their kernels
+        assert cms.connected_components_config(torch.zeros(
+            256, d, device=card))["kernel"] == f"cc_kernel<{d}, 256>"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", MOST)
+@pytest.mark.parametrize("d", WIDER)
+def test_kernels_at_wider_widths_and_more_seeds(card, dtype, d, m):
+    """Each kernel at width d (on the card at 256) and m seeds, in both
+    modes (bf16 seeding at stride 8), with a depth mask."""
+    xf, z_valid = clustered(20000, d, seed=71)
+    kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype), m, 5,
+                          1 if dtype == torch.float32 else 8,
+                          torch.from_numpy(z_valid).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [257, 300, 512])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_kernels_past_256_seeds(card, dtype, d, m):
+    """Past 256 seeds at the widths below 129: the hill climb in launches
+    of at most 128 rows, cc_wide_kernel of the width and the assignment's
+    kernel in 3 or 4 passes, in both modes."""
+    xf, z_valid = clustered(20000, d, seed=72)
+    kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype), m, 5,
+                          1 if dtype == torch.float32 else 8,
+                          torch.from_numpy(z_valid).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 160, 256])
+def test_kernels_label_more_than_256_seeds(card, dtype, d):
+    """512 seeds over 400 well-separated clusters: more than 256 seed
+    labels (the 16-bit key, masks past word 8) and pixel labels past 256."""
+    xf, z_valid = clustered(100000, d, seed=73, k=400)
+    labels = kernels_against_plain(torch.from_numpy(xf).to(card).to(dtype),
+                                   512, 7, 1,
+                                   torch.from_numpy(z_valid).to(card))
+    assert len(set(labels)) > 256
+
+
+WIDE_CC = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
+           pytest.param(256, id="d256")]
+
+
+@pytest.mark.parametrize("width,m", [
+    (256, 1), (256, 33), (256, 128), (256, 256), (256, 257), (256, 300),
+    (256, 511), (256, 512), (64, 257), (64, 300), (64, 512), (128, 257),
+    (128, 511), (128, 512)])
+def test_connected_components_wide_kernel(card, m, width):
+    """cc_wide_kernel (every m at d = 256, past 256 seeds below): converged
+    seeds, then pairwise-far seeds (a merge step per seed: labels 0..m-1)
+    and one ball (one step)."""
+    x = on_card(card, clustered(4000, width, seed=74, k=40)[0],
+                torch.float32)
+    assert cms.connected_components_config(x[:m])["kernel"] == (
+        f"cc_wide_kernel<{width}>")
+    labels, _ = cc_both(converged(card, x, m))
+    if m >= 33:
+        assert max(labels) > 0
+    labels, steps = cc_both(unit(card, np.random.RandomState(m).randn(
+        m, width)))
+    assert labels == list(range(m)) and steps == m
+    base = np.random.RandomState(m + 1).randn(width)
+    z = base + 1e-3 * np.random.RandomState(m + 2).randn(m, width)
+    labels, steps = cc_both(unit(card, z))
+    assert labels == [0] * m and steps == 1
+
+
+@pytest.mark.parametrize("width", WIDE_CC)
+@pytest.mark.parametrize("degrees", [[0, 60, 30, 10, 50], [60, 0, 30, 50, 10]])
+def test_connected_components_mode_tie_above_255(card, degrees, width):
+    """300 far seeds (labels 0..299), then the arc of the mode-tie case:
+    seed 302 (30 deg) sees labels 300 and 301 once each and it and all its
+    neighbours take 300, the smaller, whichever side 300 is on."""
+    z = unit(card, np.concatenate([off_arc(300, seed=75, d=width),
+                                   on_arc(degrees, width)]))
+    labels, steps = cc_both(z)
+    assert labels[:300] == list(range(300))
+    assert labels[300:] == [300, 301, 300, 300, 300] and steps == 300 + 3
+
+
+@pytest.mark.parametrize("width", WIDE_CC)
+def test_connected_components_overwrite_above_255(card, width):
+    """300 far seeds, then the overwrite case: seed 302 (30 deg) sees label
+    300 once and 301 twice and moves 15 deg from 300 to 301."""
+    z = unit(card, np.concatenate([off_arc(300, seed=76, d=width),
+                                   on_arc([0, 60, 30, 15, 40, 45], width)]))
+    labels, steps = cc_both(z)
+    assert labels[300:] == [300, 301, 301, 301, 301, 301]
+    assert steps == 300 + 3
+
+
+@pytest.mark.parametrize("m", [1, 100, 257, 512])
+def test_connected_components_width_256_is_width_64_padded(card, m):
+    """cc_wide_kernel<256> on seeds whose last 192 dims are 0 has the width
+    64 kernel's adjacency bit for bit: the same labels and merge steps."""
+    x = on_card(card, clustered(4000, 64, seed=77, k=40)[0], torch.float32)
+    for z in (converged(card, x, m),
+              unit(card, np.random.RandomState(m).randn(m, 64))):
+        wide = torch.cat([z, torch.zeros(m, 192, device=card)], dim=1)
+        assert cc_both(wide) == cc_both(z)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 127, 129, 5001, 224 * 224, FRAME])
+@pytest.mark.parametrize("d,m", [(160, 1), (160, 300), (256, 1),
+                                 (256, 300), (256, 512)])
+def test_assign_exact_kernel_shapes(card, dtype, n, m, d):
+    """assign_exact_kernel from one pixel to the frame (ragged against its
+    128-pixel tiles and 32-seed groups), with and without a depth mask:
+    labels and histograms equal to the plain version's, one launch, every
+    pixel counted as re-checked."""
+    xf, z_valid = clustered(n, d, seed=78)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pool = torch.from_numpy(clustered(5000, d, seed=78)[0]).to(card)
+    z = converged(card, pool, m)
+    slab = cms.connected_components_reference(z, 0.04)
+    assert cms.assign_labels_config(x, m)["kernel"].startswith(
+        "assign_exact_kernel")
+    for zv in (torch.from_numpy(z_valid).to(card), None):
+        (_, counts, _), rechecked = assign_both(x, z, slab, zv)
+        assert float(counts.sum()) == n and rechecked == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 255, 257, 5001, 224 * 224, FRAME])
+@pytest.mark.parametrize("m", [257, 384, 385, 512])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_assign_passes_shapes(card, dtype, n, m, d):
+    """The assignment in 3 or 4 passes (first, middle, last) from one
+    pixel to the frame, with and without a depth mask: labels and
+    histograms of up to 512 labels equal to the plain version's, one
+    launch a pass."""
+    xf, z_valid = clustered(n, d, seed=86)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pool = torch.from_numpy(clustered(5000, d, seed=86, k=40)[0]).to(card)
+    z = converged(card, pool, m)
+    slab = cms.connected_components_reference(z, 0.04)
+    width = 64 if d <= 64 else 128
+    kernel = {(torch.float32, 64): "assign_tf32_kernel<64, {}>",
+              (torch.bfloat16, 64): "assign_bf16_kernel<64, {}>",
+              (torch.float32, 128): "assign_tf32_wide_kernel<128, {}>",
+              (torch.bfloat16, 128): "assign_bf16_wide_kernel<128, {}>"}[
+                  dtype, width]
+    assert cms.assign_labels_config(x, m)["kernel"] == " + ".join(
+        kernel.format(k) for k in (1, 3, 4))
+    assert cms.assign_passes(m, d) == -(-m // 128)
+    for zv in (torch.from_numpy(z_valid).to(card), None):
+        (_, counts, _), _ = assign_both(x, z, slab, zv)
+        assert float(counts.sum()) == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [300, 512])
+@pytest.mark.parametrize("d", [64, 128])
+def test_assign_passes_near_ties(card, dtype, m, d):
+    """Random unit pixels and seeds, every seed its own label: many pixels'
+    best two seeds are near-tied, some across the passes (first, middle
+    and last), and re-checked against all m seeds; labels and histograms
+    of m labels equal to the plain version's."""
+    rng = np.random.RandomState(m + d + 1)
+    x = unit(card, rng.randn(30000, d)).to(dtype)
+    z = unit(card, rng.randn(m, d))
+    slab = torch.arange(m, dtype=torch.int32, device=card)
+    _, rechecked = assign_both(x, z, slab)
+    assert rechecked > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_assign_tie_past_256_seeds_takes_the_lower_seed(card, dtype, d):
+    """Seed 290 an exact copy of seed 2 under another label (at d = 256
+    seeds in other 32-seed groups and other halves of a group of
+    assign_exact_kernel; below, seeds of the first and the last of three
+    passes, merged across the middle one): the pixels nearest them take
+    seed 2's label, as the plain argmax does."""
+    xf, _ = clustered(5001, d, seed=79)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(80).choice(5001, 300, replace=False)
+    z = x.float()[torch.from_numpy(pick).to(card)]
+    z[290] = z[2]
+    slab = torch.arange(300, dtype=torch.int32, device=card)
+    (labels, _, _), _ = assign_both(x, z, slab)
+    assert int((labels == 2).sum()) > 0 and int((labels == 290).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hill_climb_row_does_not_depend_on_its_launch_at_width_256(card,
+                                                                   dtype):
+    """hill_simt_kernel: a seed's row is the same whichever rows share its
+    launch: the first 32 rows of A = z0[:64], in A, beside 32 other seeds,
+    and in A reversed; bitwise in float32, within Z_ATOL in bf16."""
+    xf, _ = clustered(30000, 256, seed=81)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(82).choice(30000, 96, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    a = cms.hill_climb(x, z0[:64])
+    mixed = cms.hill_climb(x, torch.cat([z0[:32], z0[64:]]))
+    flipped = cms.hill_climb(x, z0[:64].flip(0)).flip(0)
+    for other in (mixed[:32], flipped[:32]):
+        err = float((other - a[:32]).abs().max())
+        if dtype == torch.float32:
+            assert torch.equal(other, a[:32]), err
+        else:
+            assert err <= Z_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [65, 100, 300, 512])
+def test_hill_climb_groups_at_width_256(card, dtype, m):
+    """At d = 256 the wrapper climbs groups of at most 64 equal rows, a
+    launch each: Z equals its groups climbed alone (the last with its pad
+    rows), bitwise."""
+    xf, _ = clustered(20000, 256, seed=83)
+    x = torch.from_numpy(xf).to(card).to(dtype)
+    pick = np.random.RandomState(84).choice(20000, m, replace=False)
+    z0 = x[torch.from_numpy(pick).to(card)].float()
+    groups, rows = cms.hill_climb_groups(m, 256)
+    assert rows <= 64 and groups == -(-m // 64)
+    before = cms.hill_climb_launches
+    z = cms.hill_climb(x, z0)
+    assert cms.hill_climb_launches == before + groups
+    padded = torch.cat([z0, z0[-1:].expand(groups * rows - m, 256)])
+    parts = torch.cat([cms.hill_climb(x, padded[g * rows:(g + 1) * rows])
+                       for g in range(groups)])
+    assert torch.equal(z, parts[:m])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,m", [(160, 100), (256, 100), (256, 512),
+                                 (64, 512)])
+def test_route_at_wider_widths_and_more_seeds(card, compute_dtype, d, m,
+                                             monkeypatch):
+    """mean_shift_smart_init at the frame at width d and m seeds (X padded
+    once to 256), with the 0.8 depth filter, against its plain route:
+    seeds equal up to a float32 near-tie (assert_same_seeds; over 512
+    picks at the frame the kernel's chains and cuBLAS's sums part at one
+    now and then), seed labels and labels equal (where the seeds part, the
+    plain route's phases 2-4 run again from the kernel route's seeds);
+    each kernel launched as its plan says.  12 clusters for 100 seeds, 512
+    for 512 (every pixel has its cluster's seed: with clusters left
+    without a seed, their pixels lie near-tied between far seeds, where
+    bf16(Z) rounding apart in the two routes moves them)."""
+    xf, z_valid = clustered(FRAME, d, seed=85, k=12 if m <= 128 else m)
+    x = torch.from_numpy(xf).to(card)
+    zv = torch.from_numpy(z_valid).to(card)
+    sub = 1 if compute_dtype == "float32" else 8
+    kw = dict(num_seeds=m, first_index=777 % -(-FRAME // sub),
+              seed_subsample=sub, compute_dtype=compute_dtype,
+              z_valid=zv, filter_threshold=0.8)
+    before = launches()
+    got = mean_shift_smart_init(x, use_pallas=True, **kw)
+    groups = cms.hill_climb_groups(m, d)[0]
+    passes = cms.assign_passes(m, d)
+    assert launches() == tuple(b + k for b, k in
+                               zip(before, (1, groups, 1, passes)))
+    want = mean_shift_smart_init(x, use_pallas=False, **kw)
+    assert got.seeds.shape == (m, d)
+    assert_same_seeds(x[::sub], got.seed_indices // sub,
+                      want.seed_indices // sub)
+    if not torch.equal(got.seed_indices, want.seed_indices):
+        idx = got.seed_indices
+        with monkeypatch.context() as patch:
+            patch.setattr(tms, "select_seeds_dispatch",
+                          lambda xc, *a, **k: (xc[idx.long()], idx))
+            want = mean_shift_smart_init(x, use_pallas=False, **kw)
     for name in ("seed_labels", "labels"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert len(torch.unique(want.labels)) > 2

@@ -125,16 +125,19 @@ def test_connected_components_overwrites_labeled_neighbours():
 
 
 # the kernels' seeds a row and a mask: 8 words of 32 (cc_kernel<d, 256>;
-# the kernels of m <= 128 keep 4, whose upper words would be zero here)
+# the kernels of m <= 128 keep 4, whose upper words would be zero here),
+# and 16 in cc_wide_kernel (up to 512 seeds)
 WORDS = 8
 SEEDS = 32 * WORDS
+WIDE_WORDS = 16
 
 
 def _words(bits):
-    """[..., 256] bool -> [..., 8] int64 holding uint32 words: bit b of word
-    w is entry 32 w + b, as the connected-components kernels store a row."""
+    """[..., 32 k] bool -> [..., k] int64 holding uint32 words: bit b of
+    word w is entry 32 w + b, as the connected-components kernels store a
+    row."""
     shifts = torch.arange(32, dtype=torch.int64)
-    return (bits.reshape(*bits.shape[:-1], WORDS, 32).long()
+    return (bits.reshape(*bits.shape[:-1], bits.shape[-1] // 32, 32).long()
             << shifts).sum(-1)
 
 
@@ -148,40 +151,44 @@ def _popcount(v):
 
 def _lowest(words):
     """The lowest entry whose bit is set, or -1 (__ffs over the words)."""
-    for w in range(WORDS):
+    for w in range(len(words)):
         v = int(words[w]) & 0xFFFFFFFF
         if v:
             return 32 * w + (v & -v).bit_length() - 1
     return -1
 
 
-def bitmask_merge(adj):
+def bitmask_merge(adj, words=WORDS):
     """The connected-components kernel's merge, modelled in torch on the
-    [m, m] bool adjacency: rows and per-label memberships as bitmasks, a
-    set of the seeds neither labeled nor visited whose lowest seed is the
-    next step, each label's count among the neighbours by popcount, and the
-    mode by the maximum of the keys (count << 8) | (255 - label).  Returns
-    (labels [m] int32, steps)."""
+    [m, m] bool adjacency: rows and per-label memberships as bitmasks of
+    `words` words, a set of the seeds neither labeled nor visited whose
+    lowest seed is the next step, each label's count among the neighbours
+    by popcount, and the mode by the maximum of the keys (count << 8) |
+    (255 - label) at 8 words (cc_kernel) or (count << 16) | (65535 - label)
+    at 16 (cc_wide_kernel).  Returns (labels [m] int32, steps)."""
     m = adj.shape[0]
-    bits = torch.zeros(m, SEEDS, dtype=torch.bool)
+    seeds = 32 * words
+    shift = 8 if words <= WORDS else 16
+    top = (1 << shift) - 1
+    bits = torch.zeros(m, seeds, dtype=torch.bool)
     bits[:, :m] = adj
-    rows = _words(bits)                                  # [m, 8]
-    member = torch.zeros(SEEDS, WORDS, dtype=torch.int64)  # label l's seeds
-    pending = _words(torch.arange(SEEDS) < m)
-    labeled = torch.zeros(WORDS, dtype=torch.int64)
-    tie = 255 - torch.arange(SEEDS)
+    rows = _words(bits)                                  # [m, words]
+    member = torch.zeros(seeds, words, dtype=torch.int64)  # label l's seeds
+    pending = _words(torch.arange(seeds) < m)
+    labeled = torch.zeros(words, dtype=torch.int64)
+    tie = top - torch.arange(seeds)
     num_labels = steps = 0
     i = _lowest(pending)
     while i >= 0:
         a = rows[i]
-        pending = pending & ~a & ~_words(torch.arange(SEEDS) == i)
+        pending = pending & ~a & ~_words(torch.arange(seeds) == i)
         seen = bool((a & labeled).any())
         labeled = labeled | a
-        key = int(((_popcount(member & a).sum(1) << 8) | tie).max())
+        key = int(((_popcount(member & a).sum(1) << shift) | tie).max())
         # the kernel's fast path: no labeled neighbour <=> every count is 0
-        assert seen == bool(key >> 8)
+        assert seen == bool(key >> shift)
         if seen:
-            label = 255 - (key & 255)
+            label = top - (key & top)
         else:
             label, num_labels = num_labels, num_labels + 1
         member = member & ~a
@@ -196,9 +203,9 @@ def bitmask_merge(adj):
     def bit(words):
         return (words[seed // 32] >> (seed % 32)) & 1
 
-    ids = torch.arange(SEEDS)
+    ids = torch.arange(seeds)
     label = sum(bit(member[(ids >> p) & 1 == 1].sum(0)) << p
-                for p in range(8))
+                for p in range(seeds.bit_length() - 1))
     return torch.where(bit(labeled) == 1, label, -1).int(), steps
 
 
@@ -268,6 +275,91 @@ def test_bitmask_merge_matches_reference_loop(m):
         got, steps = bitmask_merge(torch.from_numpy(a))
         want, want_steps = reference_loop(a.tolist())
         assert got.tolist() == want and steps == want_steps
+
+
+WIDE_MERGE_SIZES = [1, 33, 100, 256, 257, 300, 400, 511, 512]
+
+
+@pytest.mark.parametrize("m", WIDE_MERGE_SIZES)
+def test_wide_bitmask_merge_matches_plain_on_converged_seeds(m):
+    """cc_wide_kernel's merge (16-word rows and masks, the 16-bit key),
+    modelled: seeds around up to 400 modes, so that past 256 seeds more
+    than 256 labels occur; the plain connected_components' labels and the
+    reference loop's steps."""
+    rng = np.random.RandomState(300 + m)
+    d, eps = 64, 0.04
+    centers = rng.randn(min(400, max(1, m - m // 4)), d)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    z = (centers[np.arange(m) % len(centers)]
+         + 0.2 * rng.randn(m, d) / np.sqrt(d))
+    z = torch.from_numpy((z / np.linalg.norm(z, axis=1,
+                                             keepdims=True)).astype(np.float32))
+    adj = 0.5 * (1.0 - z @ z.T) <= eps
+    got, steps = bitmask_merge(adj, WIDE_WORDS)
+    want = tms.connected_components(z, eps)
+    assert torch.equal(got, want)
+    assert steps == reference_loop(adj.tolist())[1]
+    if m > 300:
+        assert int(want.max()) + 1 > 256
+
+
+@pytest.mark.parametrize("m", [257, 300, 400, 512])
+def test_wide_bitmask_merge_matches_reference_loop(m):
+    """Random symmetric adjacencies past 256 seeds, dense and sparse, some
+    seeds outside their own ball: the 16-word merge equals the reference
+    loop, labels and steps."""
+    rng = np.random.RandomState(400 + m)
+    for density in (0.002, 0.01, 0.1):
+        a = rng.rand(m, m) < density
+        a = np.triu(a, 1)
+        a = a | a.T
+        a[np.diag_indices(m)] = rng.rand(m) < 0.9
+        got, steps = bitmask_merge(torch.from_numpy(a), WIDE_WORDS)
+        want, want_steps = reference_loop(a.tolist())
+        assert got.tolist() == want and steps == want_steps
+
+
+def far_then(m_far, tail):
+    """A bool adjacency of m_far seeds each its own ball (labels 0 ..
+    m_far - 1), then the seeds of `tail` (pairs of tail indices that are
+    neighbours; each tail seed in its own ball)."""
+    m = m_far + 1 + max(max(p) for p in tail)
+    a = np.eye(m, dtype=bool)
+    for i, j in tail:
+        a[m_far + i, m_far + j] = a[m_far + j, m_far + i] = True
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("order", ["low_first", "high_first"])
+def test_wide_bitmask_merge_mode_tie_above_255(order):
+    """300 lone seeds, then seeds A and B (labels 300 and 301, each
+    labelling its neighbour D or E), then C, whose ball holds D and E: the
+    tie between labels 300 and 301 goes to 300 whichever of A and B comes
+    first, and C, D and E take it; the 16-bit key holds both labels."""
+    # tail seeds: 0 = A, 1 = B, 2 = C, 3 = D (near A), 4 = E (near B)
+    tail = [(0, 3), (1, 4), (2, 3), (2, 4)]
+    if order == "high_first":  # A and B swapped in seed order
+        swap = {0: 1, 1: 0, 3: 4, 4: 3}
+        tail = [(swap.get(i, i), swap.get(j, j)) for i, j in tail]
+    adj = far_then(300, tail)
+    got, steps = bitmask_merge(adj, WIDE_WORDS)
+    want, want_steps = reference_loop(adj.tolist())
+    assert got.tolist() == want and steps == want_steps
+    assert got[300:].tolist() == [300, 301, 300, 300, 300]
+
+
+def test_wide_bitmask_merge_overwrites_labeled_neighbours_above_255():
+    """Past 256 labels an unlabeled seed that sees label 300 once and
+    label 301 twice moves its neighbour labeled 300 to 301, as the
+    reference loop does."""
+    # tail: 0 = A (300), 1 = B (301), 2 = C; A-D, B-E, B-F; C sees D
+    # (label 300) and E, F (label 301)
+    tail = [(0, 3), (1, 4), (1, 5), (2, 3), (2, 4), (2, 5)]
+    adj = far_then(300, tail)
+    got, steps = bitmask_merge(adj, WIDE_WORDS)
+    want, want_steps = reference_loop(adj.tolist())
+    assert got.tolist() == want and steps == want_steps
+    assert got[300:].tolist() == [300, 301, 301, 301, 301, 301]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -349,32 +441,69 @@ def test_assign_labels_matches_pallas_at_width_128(dtype, with_valid):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("m", [100, 300, 512])
+def test_exact_assignment_chain_at_width_256(m):
+    """assign_exact_kernel (d = 256, and past 256 seeds) re-checks nothing:
+    every score is the sequential fp32 FMA chain over j = 0..d-1 (the
+    wgmma kernels' re-check), the best seed the lowest index on a tie.
+    Emulated (fmaf as one rounding of the float64 sum to float32), each
+    chain is within d * 2^-24 of the float64 dot, so wherever the float64
+    scores of a pixel's best seed and of every seed of another label are
+    2 d * 2^-24 apart the emulation gives the plain version's label (the
+    plain version's float32 sums are as close); on clustered embeddings
+    that is all but a few pixels, and there the labels agree too."""
+    n, d = 4096, 256
+    x, _ = clustered(17, k=8, n=n, d=d)
+    xt = torch.from_numpy(x)
+    z0 = xt[torch.from_numpy(np.random.RandomState(18).choice(n, m,
+                                                              replace=False))]
+    z = cms.hill_climb_reference(xt, z0, kappa=20.0, max_iters=10)
+    slab = cms.connected_components_reference(z, 0.04)
+    xd, zd = xt.double(), z.double()
+    acc = torch.zeros(n, m, dtype=torch.float64)
+    for j in range(d):
+        acc = (xd[:, j:j + 1] * zd[None, :, j] + acc).float().double()
+    exact = xd @ zd.T
+    bound = d * 2.0 ** -24
+    assert float((acc - exact).abs().max()) <= bound
+    got = slab[acc.argmax(dim=1)]        # the first (lowest) seed on a tie
+    want, _, _ = cms.assign_labels_reference(xt, z, slab)
+    b1, best = exact.max(dim=1)
+    other = slab[None, :] != slab[best][:, None]
+    b2 = torch.where(other, exact, torch.full_like(exact, -float("inf")))
+    clear = b1 - b2.max(dim=1).values >= 2 * bound
+    assert int(clear.sum()) > 0.99 * n
+    assert torch.equal(got[clear], want[clear])
+    assert torch.equal(got, want)
+
+
 def test_kernel_shape_checks_take_widths_64_and_128():
     """The checks the wrappers make before a launch on a CUDA tensor (and
-    the launch plans before they reach the library): widths 1..128, each
-    served by the instantiation at 64 (d <= 64) or 128, and 1..256 seeds
-    pass; width 129 and 257 seeds raise, naming the range."""
-    for d in range(1, 129):
-        width = 64 if d <= 64 else 128
+    the launch plans before they reach the library): widths 1..256, each
+    served by the instantiation at 64 (d <= 64), 128 (d <= 128) or 256,
+    and 1..512 seeds pass; width 257 and 513 seeds raise, naming the
+    range."""
+    for d in range(1, 257):
+        width = 64 if d <= 64 else 128 if d <= 128 else 256
         assert _build.kernel_width("select_seeds", d) == width
         assert cms.check_shapes("hill_climb", M, d) == width
-    for m in range(1, 257):
+    for m in range(1, 513):
         assert cms.check_shapes("assign_labels", m, 16) == 64
-    for check in (lambda: _build.kernel_width("select_seeds", 129),
-                  lambda: cms.check_shapes("assign_labels", M, 129),
-                  lambda: cuda_seeding.launch_config(torch.zeros(8, 129)),
-                  lambda: cms.hill_climb_config(torch.zeros(8, 129), M),
-                  lambda: cms.assign_labels_config(torch.zeros(8, 129), M),
+    for check in (lambda: _build.kernel_width("select_seeds", 257),
+                  lambda: cms.check_shapes("assign_labels", M, 257),
+                  lambda: cuda_seeding.launch_config(torch.zeros(8, 257)),
+                  lambda: cms.hill_climb_config(torch.zeros(8, 257), M),
+                  lambda: cms.assign_labels_config(torch.zeros(8, 257), M),
                   lambda: cms.connected_components_config(
-                      torch.zeros(M, 129))):
-        with pytest.raises(ValueError, match="widths 1..128, got 129"):
+                      torch.zeros(M, 257))):
+        with pytest.raises(ValueError, match="widths 1..256, got 257"):
             check()
-    for check in (lambda: cms.check_shapes("hill_climb", 257, 64),
-                  lambda: cms.hill_climb_config(torch.zeros(8, 64), 257),
-                  lambda: cms.assign_labels_config(torch.zeros(8, 64), 257),
+    for check in (lambda: cms.check_shapes("hill_climb", 513, 64),
+                  lambda: cms.hill_climb_config(torch.zeros(8, 64), 513),
+                  lambda: cms.assign_labels_config(torch.zeros(8, 64), 513),
                   lambda: cms.connected_components_config(
-                      torch.zeros(257, 64))):
-        with pytest.raises(ValueError, match="1..256 seeds, got m=257"):
+                      torch.zeros(513, 64))):
+        with pytest.raises(ValueError, match="1..512 seeds, got m=513"):
             check()
     with pytest.raises(ValueError, match="seeds"):
         cms.check_shapes("hill_climb", 0, 64)

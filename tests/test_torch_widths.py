@@ -294,13 +294,14 @@ def test_two_pass_best_merges_into_the_whole(m, labelled):
 
 
 def test_assign_passes_and_prepare():
-    """One assignment launch up to 128 seeds, two past it; prepare pads X
-    once to the kernel width and raises past 128 dims or 256 seeds."""
+    """One assignment launch up to 128 seeds, two past it (to 256); prepare
+    pads X once to the kernel width and raises past 256 dims or 512 seeds
+    (tests/test_torch_wide256.py takes the shapes between)."""
     assert [cms.assign_passes(m) for m in (1, 128, 129, 256)] == [1, 1, 2, 2]
     x = torch.randn(7, 32)
     p = cms.prepare(x, 256)
     assert p.shape == (7, 64) and torch.equal(p[:, :32], x)
     assert cms.prepare(p, 100) is p
-    for shape, m in (((7, 129), 100), ((7, 32), 257)):
+    for shape, m in (((7, 257), 100), ((7, 32), 513)):
         with pytest.raises(ValueError):
             cms.prepare(torch.zeros(shape), m)

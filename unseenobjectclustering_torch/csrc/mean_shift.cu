@@ -5,10 +5,11 @@
 //   hill_tf32_kernel, hill_tf32_wide_kernel,
 //   hill_bf16_kernel, hill_bf16_wide_kernel
 //                       <- _hill_climb_kernel / hill_climb_pallas
-//   cc_kernel, cc_cluster_kernel
+//   hill_simt_kernel    <- the same, at d = 256
+//   cc_kernel, cc_cluster_kernel, cc_wide_kernel
 //                       <- _cc_kernel / connected_components_pallas
 //   assign_tf32_kernel, assign_tf32_wide_kernel,
-//   assign_bf16_kernel, assign_bf16_wide_kernel
+//   assign_bf16_kernel, assign_bf16_wide_kernel, assign_exact_kernel
 //                       <- _assign_kernel / assign_labels_pallas
 //
 // The kernels take m <= 128 seeds of the embedding width d = 64 (NUM_UNITS
@@ -20,6 +21,15 @@
 // components run cc_kernel<d, 256> (rows and label masks of 8 words); the
 // assignment runs its kernel of the width twice over X (passes 1 and 2,
 // each against at most 128 seeds), which the entry points pick only there.
+// Past 256 seeds, up to 512, at d = 64 and 128: the hill climb in more
+// groups of 128, the assignment in ceil(m / 128) passes (a first, middle
+// ones and a last), the connected components on cc_wide_kernel (16-word
+// rows, label masks in shared memory).  At d = 256 (the cat fusion of two
+// 128-unit heads), up to 512 seeds, simple designs on the CUDA cores take
+// over what the tensor-core kernels' shared memory cannot hold: the hill
+// climb on hill_simt_kernel (groups of at most 64 seeds), the connected
+// components on cc_wide_kernel and the assignment on assign_exact_kernel
+// (one launch, every score the exact FMA chain).
 // The hill climb and the assignment stream X
 // through a ring of pixel tiles (cp.async, or TMA at d = 128 but for the
 // float32 hill climb) and run their products on the
@@ -46,6 +56,10 @@ constexpr int kMaxSeeds = 128;
 // of kMaxSeeds, the connected components on cc_kernel<kD, kMaxSeedsMany>, the
 // assignment in two passes (see each).
 constexpr int kMaxSeedsMany = 2 * kMaxSeeds;
+// The most seeds any kernel takes (MAX_SEEDS in ops/cuda_mean_shift.py):
+// past kMaxSeedsMany the connected components run cc_wide_kernel and the
+// assignment ceil(m / kMaxSeeds) passes.
+constexpr int kMaxSeedsAll = 4 * kMaxSeeds;
 
 // bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for the
 // bf16 hill climb at d = 64: the products of bf16 values
@@ -1845,6 +1859,225 @@ long long wide_bf16_resident_bytes(int n, int grid) {
   return bytes;
 }
 
+// ---------------------------------------------------------------------------
+// Hill climbing at d = 256 (hill_simt_kernel<T>, float32 and bfloat16 X):
+// the cat fusion of two 128-unit heads.  A simple design on the CUDA cores
+// (fp32 FMA), one persistent cooperative launch for all iterations, for up
+// to kSimtRows = 64 seed rows a launch (the wrapper runs groups of at most
+// 64: split TF32 Z for 128 seeds would take 256 KB of shared memory).
+//
+// Bound on the H100: 4*m*n*d flops per iteration, 315 GFLOP for 10
+// iterations at m = 100, n = 307200 (4.7 ms at 67 TFLOP/s of fp32 FMA),
+// against X read once per iteration and group (315 MB float32 at the frame).
+//
+// Design: one block of 256 threads per SM.  Each iteration the block
+// stages the launch's rows of Z in shared memory (bf16 X: rounded to bf16
+// and widened, as the plain version rounds Z), then walks its 64-pixel
+// tiles (tile blockIdx.x + k * gridDim.x): the tile's X is staged (widened
+// to fp32), S = Z X^T is computed as 64 x 64 sums (a thread 4 seeds x 4
+// pixels), W = exp(kappa S) (bf16 X: rounded to bf16; 0 past n) goes to
+// shared memory, and acc += W X (a thread 16 seeds x 4 dims), each tile's
+// sum an FMA chain over its 64 pixels in a fresh accumulator, added to the
+// block's running sum.  After a grid barrier, block b reduces seed rows b,
+// b + grid, ... over the blocks' partials in block order in fp64 (the same
+// result run to run) and normalizes them; a second barrier publishes Z.
+//
+// S's accuracy: each dot is taken as 8 FMA chains of 32 dims, each chain
+// from 0 and added in order to the dot's total.  A chain's rounding errors
+// add up to at most 32 u (u = 2^-24) times the sum of its |z_j x_j|, the 7
+// adds of the totals to at most 7 u times the sum over all dims, and the
+// sum of |z_j x_j| over all dims is at most |z||x| = 1: |S - S_exact| <=
+// 39 * 2^-24 = 2.3e-6, below the 2.5e-6 that the split-TF32 design keeps
+// at d = 128 (a single 256-long chain, the plain version's arithmetic,
+// would allow 256 * 2^-24 = 1.5e-5).
+// ---------------------------------------------------------------------------
+constexpr int kSimtD = 256;
+constexpr int kSimtRows = 64;
+constexpr int kSimtTile = 64;
+constexpr int kSimtThreads = 256;
+constexpr int kSimtChunk = 32;                // dims of one chain of S
+constexpr int kSimtPitch = kF32Pitch<kSimtD>;  // floats a row of Z or X
+constexpr int kSimtWPitch = kSimtTile + 4;     // floats a row of W
+
+constexpr size_t hill_simt_smem_bytes() {
+  return sizeof(float) * ((kSimtRows + kSimtTile) * kSimtPitch +
+                          kSimtRows * kSimtWPitch);
+}
+
+// Four consecutive elements of x's type at p (8- or 16-byte aligned),
+// widened to fp32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xFFFF0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+hill_simt_kernel(const T* __restrict__ x, int n, int m, float kappa,
+                 int max_iters, float* __restrict__ partial,
+                 unsigned* __restrict__ arrived, float* __restrict__ z) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kVec = kSimtD / 4;  // float4s a row
+  extern __shared__ __align__(16) float simt_smem[];
+  float* zs = simt_smem;                        // [kSimtRows][kSimtPitch]
+  float* xs = zs + kSimtRows * kSimtPitch;      // [kSimtTile][kSimtPitch]
+  float* ws = xs + kSimtTile * kSimtPitch;      // [kSimtRows][kSimtWPitch]
+  __shared__ double red[kSimtThreads / 32];
+  const int t = threadIdx.x;
+  // S: pixels sp + 16 i and seeds ss + 16 k (i, k < 4)
+  const int sp = t & 15, ss = t >> 4;
+  // W X: seeds vs + 4 k (k < 16), dims 4 vj .. 4 vj + 3
+  const int vs = t >> 6, vj = t & 63;
+  const int tiles = (n + kSimtTile - 1) / kSimtTile;
+  unsigned barriers = 0;
+  for (int it = 0; it < max_iters; ++it) {
+    for (int e = t; e < kSimtRows * kVec; e += kSimtThreads) {
+      const int s = e / kVec, j = 4 * (e % kVec);
+      float4 v = s < m ? __ldcg(reinterpret_cast<const float4*>(
+                             z + static_cast<size_t>(s) * kSimtD + j))
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (kBf16)
+        v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                        round_bf16(v.w));
+      *reinterpret_cast<float4*>(zs + s * kSimtPitch + j) = v;
+    }
+    float run[16][4];
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) run[k][c] = 0.0f;
+    for (int q = blockIdx.x; q < tiles; q += gridDim.x) {
+      __syncthreads();  // Z is staged; the last tile's X and W are done with
+      for (int e = t; e < kSimtTile * kVec; e += kSimtThreads) {
+        const int p = e / kVec, j = 4 * (e % kVec);
+        const int pix = q * kSimtTile + p;
+        *reinterpret_cast<float4*>(xs + p * kSimtPitch + j) =
+            pix < n ? load4(x + static_cast<size_t>(pix) * kSimtD + j)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      __syncthreads();
+      float tot[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tot[k][i] = 0.0f;
+#pragma unroll 1
+      for (int c = 0; c < kSimtD; c += kSimtChunk) {
+        float part[4][4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[k][i] = 0.0f;
+#pragma unroll
+        for (int j = c; j < c + kSimtChunk; j += 4) {
+          float4 zv[4], xv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            zv[k] = *reinterpret_cast<const float4*>(
+                zs + (ss + 16 * k) * kSimtPitch + j);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            xv[i] = *reinterpret_cast<const float4*>(
+                xs + (sp + 16 * i) * kSimtPitch + j);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              part[k][i] = fmaf(zv[k].x, xv[i].x, part[k][i]);
+              part[k][i] = fmaf(zv[k].y, xv[i].y, part[k][i]);
+              part[k][i] = fmaf(zv[k].z, xv[i].z, part[k][i]);
+              part[k][i] = fmaf(zv[k].w, xv[i].w, part[k][i]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tot[k][i] += part[k][i];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = sp + 16 * i;
+          float w = q * kSimtTile + p < n ? expf(kappa * tot[k][i]) : 0.0f;
+          if (kBf16) w = round_bf16(w);
+          ws[(ss + 16 * k) * kSimtWPitch + p] = w;
+        }
+      __syncthreads();
+      float acc[16][4];
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[k][c] = 0.0f;
+#pragma unroll 1
+      for (int p = 0; p < kSimtTile; p += 4) {
+        float4 xv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          xv[u] = *reinterpret_cast<const float4*>(
+              xs + (p + u) * kSimtPitch + 4 * vj);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              ws + (vs + 4 * k) * kSimtWPitch + p);
+          const float wu[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[k][0] = fmaf(wu[u], xv[u].x, acc[k][0]);
+            acc[k][1] = fmaf(wu[u], xv[u].y, acc[k][1]);
+            acc[k][2] = fmaf(wu[u], xv[u].z, acc[k][2]);
+            acc[k][3] = fmaf(wu[u], xv[u].w, acc[k][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) run[k][c] += acc[k][c];
+    }
+    // this block's partial: rows < m
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int s = vs + 4 * k;
+      if (s < m)
+        __stcg(reinterpret_cast<float4*>(
+                   partial + (static_cast<size_t>(blockIdx.x) * m + s) *
+                                 kSimtD + 4 * vj),
+               make_float4(run[k][0], run[k][1], run[k][2], run[k][3]));
+    }
+    uoc::grid_barrier(arrived, ++barriers);  // every partial is written
+    // row r: thread t sums dim t over the blocks in order, in fp64
+    for (int r = blockIdx.x; r < m; r += gridDim.x) {
+      double v = 0.0;
+      for (int b = 0; b < static_cast<int>(gridDim.x); ++b)
+        v += __ldcg(partial + (static_cast<size_t>(b) * m + r) * kSimtD + t);
+      double sq = v * v;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sq += __shfl_xor_sync(0xFFFFFFFFu, sq, off);
+      if ((t & 31) == 0) red[t >> 5] = sq;
+      __syncthreads();
+      double norm = 0.0;
+#pragma unroll
+      for (int w = 0; w < kSimtThreads / 32; ++w) norm += red[w];
+      __syncthreads();  // red is read before the next row writes it
+      z[static_cast<size_t>(r) * kSimtD + t] =
+          static_cast<float>(v / fmax(sqrt(norm), 1e-12));
+    }
+    uoc::grid_barrier(arrived, ++barriers);  // the new Z is written
+  }
+}
+
 size_t hill_tf32_smem_bytes() {
   return sizeof(float) * kTf32Stages * kHillTile * kF32Pitch<64> +
          sizeof(unsigned) * 8 * kHalfWords + sizeof(float) * kRedFloats<64>;
@@ -1885,7 +2118,8 @@ cudaError_t plan_hill_bf16(int dev, int m, HillPlan* p) {
 }
 
 cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
-  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (d != 64 && d != 128 && d != kSimtD) return cudaErrorInvalidValue;
+  if (m > (d == kSimtD ? kSimtRows : kMaxSeeds)) return cudaErrorInvalidValue;
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1893,7 +2127,17 @@ cudaError_t plan_hill_for(int dtype, int n, int m, int d, HillPlan* p) {
                                     dev)) != cudaSuccess)
     return err;
   p->resident_bytes = 0;
-  if (dtype == uoc::kBF16 && d == 64) {
+  if (d == kSimtD) {
+    p->threads = kSimtThreads;
+    p->smem = hill_simt_smem_bytes();
+    p->tile = kSimtTile;
+    p->x_bytes = 4LL * kSimtTile * d;  // the staged tile, widened to fp32
+    err = dtype == uoc::kBF16
+              ? uoc::blocks_per_sm<hill_simt_kernel<__nv_bfloat16>>(
+                    dev, p->threads, p->smem, p->smem, &p->per_sm)
+              : uoc::blocks_per_sm<hill_simt_kernel<float>>(
+                    dev, p->threads, p->smem, p->smem, &p->per_sm);
+  } else if (dtype == uoc::kBF16 && d == 64) {
     err = plan_hill_bf16(dev, m, p);
   } else if (dtype == uoc::kBF16) {
     // setmaxnreg as for the float32 kernel below
@@ -2042,11 +2286,10 @@ __device__ __forceinline__ void cc_mark_latest(int, long long) {}
 // is row r0 + r's word of block cb (by ballot); the result is the lane's
 // column j = 32 cb + lane's bits over these rows (bit r0 + r), its word of
 // row block rb in the mirror.
-template <int kD>
+template <int kD, int kPitch = kF32Pitch<kD>>
 __device__ __forceinline__ unsigned cc_dots(const float* zs, int m, float eps,
                                             int rb, int rows, int r0, int cb,
                                             unsigned (&word)[kCCRows]) {
-  constexpr int kPitch = kF32Pitch<kD>;
   const int lane = threadIdx.x & 31;
   const int j = 32 * cb + lane;
   const float* zj = zs + min(j, m - 1) * kPitch;
@@ -2094,14 +2337,15 @@ __device__ __forceinline__ unsigned cc_dots(const float* zs, int m, float eps,
 // cc_dots's words into the block's own adjacency (rows of kWords words):
 // row r0 + r's word of block cb, and when `mirror` is set each lane's bits
 // over these rows, OR-ed into its column's word of block rb.
-template <int kD, int kWords>
+template <int kD, int kWords, int kPitch = kF32Pitch<kD>>
 __device__ __forceinline__ void cc_rows(const float* zs,
                                         unsigned (*adj)[kWords], int m,
                                         float eps, int rb, int rows, int r0,
                                         int cb, bool mirror) {
   const int lane = threadIdx.x & 31;
   unsigned word[kCCRows];
-  const unsigned own = cc_dots<kD>(zs, m, eps, rb, rows, r0, cb, word);
+  const unsigned own =
+      cc_dots<kD, kPitch>(zs, m, eps, rb, rows, r0, cb, word);
 #pragma unroll
   for (int r = 0; r < kCCRows; ++r)
     if (lane == 0 && r0 + r < rows) adj[32 * rb + r0 + r][cb] = word[r];
@@ -2303,6 +2547,141 @@ cc_kernel(const float* __restrict__ z, int m, float eps,
   if (t == 0) *steps = n_steps;
   cc_mark(t == 0, 0, 5, cc_now());
   cc_mark(t == 0, 0, 6, n_steps);
+}
+
+// ---------------------------------------------------------------------------
+// Connected components for up to 512 seeds, at d = 64, 128 and 256
+// (cc_wide_kernel<kD>): every launch at d = 256, and past 256 seeds at the
+// other widths.  A simple design, cc_kernel's with what does not fit moved:
+//   Z is read where it lies, in device memory (512 rows of 256 floats, 512
+//   KB, do not fit in shared memory; the reads go through L1 and L2), by
+//   cc_dots with a row pitch of d: the same fp32 FMA chains over k = 0..d-1
+//   in the same order, so the adjacency and its mirror argument are
+//   cc_kernel's.  Rows of 16 words, in dynamic shared memory (32 KB).
+//   The merge on one warp, the steps cc_merge's (the lowest pending seed
+//   next; a step with no labeled neighbour opens a new label), with the
+//   label masks in shared memory ([512][16] words, 32 KB; as registers
+//   they would take 256 a lane): lane l counts labels l, l + 32, ... below
+//   the labels opened so far, skipping the words where the ball is empty,
+//   and the mode's key is (count << 16) | (65535 - label), which holds
+//   every count up to 512 and every label below 65536, so the largest key
+//   is the largest count and, on a tie, the smallest label.  At the end
+//   each label's seeds are read from its mask; a seed in no mask is -1.
+// ---------------------------------------------------------------------------
+constexpr int kCCWideWords = kMaxSeedsAll / 32;
+
+constexpr size_t cc_wide_smem_bytes() {
+  return 2 * sizeof(unsigned) * kMaxSeedsAll * kCCWideWords;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kCCThreads)
+cc_wide_kernel(const float* __restrict__ z, int m, float eps,
+               int* __restrict__ labels, int* __restrict__ steps) {
+  constexpr int kWords = kCCWideWords;
+  extern __shared__ __align__(16) unsigned cc_wide_smem[];
+  unsigned(*adj)[kWords] = reinterpret_cast<unsigned(*)[kWords]>(cc_wide_smem);
+  unsigned(*member)[kWords] = reinterpret_cast<unsigned(*)[kWords]>(
+      cc_wide_smem + kMaxSeedsAll * kWords);
+  __shared__ int lab[kMaxSeedsAll];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  for (int e = t; e < 2 * kMaxSeedsAll * kWords; e += kCCThreads)
+    cc_wide_smem[e] = 0u;
+  for (int e = t; e < kMaxSeedsAll; e += kCCThreads) lab[e] = -1;
+  __syncthreads();
+
+  // cc_kernel's work items, dealt to the warps in turn
+  const int blocks = (m + 31) / 32;
+  const bool short_last = m % 32 != 0;
+  int item = 0;
+  for (int a = 0; a < blocks; ++a)
+    for (int c = a; c < blocks; ++c) {
+      const bool swap = short_last && c == blocks - 1;
+      const int rb = swap ? c : a, cb = swap ? a : c;
+      const int rows = min(32, m - 32 * rb);
+      for (int r0 = 0; r0 < rows; r0 += kCCRows, ++item)
+        if (item % kCCWarps == warp)
+          cc_rows<kD, kWords, kD>(z, adj, m, eps, rb, rows, r0, cb, a != c);
+    }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // pending: the seeds neither labeled nor visited; labeled: the union of
+  // the label masks (both the same in every lane)
+  unsigned pending[kWords], labeled[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const int left = m - 32 * w;
+    pending[w] = left >= 32 ? 0xffffffffu : left > 0 ? (1u << left) - 1u : 0u;
+    labeled[w] = 0u;
+  }
+  int num_labels = 0, n_steps = 0;
+  int i = 0;  // m >= 1: seed 0 is the first step
+  while (true) {
+    unsigned ball[kWords];
+#pragma unroll
+    for (int v = 0; v < kWords / 4; ++v) {
+      const uint4 r = reinterpret_cast<const uint4*>(adj[i])[v];
+      ball[4 * v] = r.x;
+      ball[4 * v + 1] = r.y;
+      ball[4 * v + 2] = r.z;
+      ball[4 * v + 3] = r.w;
+    }
+    bool seen = false;  // some neighbour of i is labeled
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      pending[w] &= ~(ball[w] | (w == i >> 5 ? 1u << (i & 31) : 0u));
+      seen |= (ball[w] & labeled[w]) != 0u;
+      labeled[w] |= ball[w];
+    }
+    int label = num_labels;
+    if (seen) {
+      // the mode of the neighbours' labels, the smallest on a tie; the
+      // neighbours leave their labels
+      unsigned key = 0;
+      for (int l = lane; l < num_labels; l += 32) {
+        int count = 0;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          if (ball[w] != 0u) count += __popc(ball[w] & member[l][w]);
+        key = max(key, static_cast<unsigned>(count) << 16 |
+                           static_cast<unsigned>(65535 - l));
+      }
+      key = __reduce_max_sync(0xffffffffu, key);
+      label = 65535 - static_cast<int>(key & 0xFFFFu);
+      for (int l = lane; l < num_labels; l += 32)
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          if (ball[w] != 0u) member[l][w] &= ~ball[w];
+    } else {
+      ++num_labels;  // every count is 0: a new label
+    }
+    __syncwarp();
+    if (lane < kWords) {
+      unsigned b = 0u;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) b = w == lane ? ball[w] : b;
+      member[label][lane] |= b;
+    }
+    __syncwarp();
+    ++n_steps;
+    const int next = cc_first(pending);
+    if (next < 0) break;
+    i = next;
+  }
+  // each label's seeds from its mask (the masks are disjoint)
+  for (int l = lane; l < num_labels; l += 32)
+    for (int w = 0; w < kWords; ++w) {
+      unsigned bits = member[l][w];
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        lab[32 * w + b] = l;
+        bits &= bits - 1u;
+      }
+    }
+  __syncwarp();
+  for (int e = lane; e < m; e += 32) labels[e] = lab[e];
+  if (lane == 0) *steps = n_steps;
 }
 
 // ---------------------------------------------------------------------------
@@ -2861,8 +3240,30 @@ __device__ __forceinline__ void merge_quad(Best& r) {
 // no counts.  Every score keeps its kernel's steps and terms, so
 // kRecheckMargin<kD> holds as derived; a narrower embedding's zero columns
 // add exact zeros to both the products and the re-check's chains.
+//
+// Past 256 seeds, up to kMaxSeedsAll = 512, the same kernels run
+// k = ceil(m / 128) passes: pass 1 over seeds [0, 128) as above, k - 2
+// middle passes (kPass 3) over the next 128 seeds each (the launch points z
+// and seed_labels at them and passes m = 128), each merging the stored Best
+// into its own and storing the result in place (the quad's lanes read a
+// pixel's Best before its owner writes it: a __syncwarp between), and a
+// last pass (kPass 4) over seeds [128 (k - 1), m) that merges and finishes
+// as pass 2 does, with histograms of up to 512 labels.  merge_best is exact
+// over disjoint seed sets in any grouping, so the last pass's b1 - b2 is
+// what one product over all m seeds would give.
+
 template <int kPass>
-constexpr int kHistSeeds = kPass == 2 ? kMaxSeedsMany : kMaxSeeds;
+constexpr int kHistSeeds = kPass == 2   ? kMaxSeedsMany
+                           : kPass == 4 ? kMaxSeedsAll
+                                        : kMaxSeeds;
+// the passes that merge the stored Best, store theirs, or finish after
+// others (re-checking against all m seeds)
+template <int kPass>
+constexpr bool kMergesPart = kPass == 2 || kPass == 3 || kPass == 4;
+template <int kPass>
+constexpr bool kStoresPart = kPass == 1 || kPass == 3;
+template <int kPass>
+constexpr bool kLastOfMany = kPass == 2 || kPass == 4;
 
 // The seeds of one pass: their rows of Z, their labels and their count.
 struct PassSeeds {
@@ -2874,15 +3275,20 @@ struct PassSeeds {
 template <int kPass, int kD>
 __device__ __forceinline__ PassSeeds pass_seeds(const float* z,
                                                 const int* labels, int m) {
-  if constexpr (kPass == 2)
+  if constexpr (kPass == 2) {
     return {z + kMaxSeeds * kD, labels + kMaxSeeds, m - kMaxSeeds};
-  else if constexpr (kPass == 1)
+  } else if constexpr (kPass == 4) {
+    const int o = kMaxSeeds * ((m - 1) / kMaxSeeds);
+    return {z + static_cast<size_t>(o) * kD, labels + o, m - o};
+  } else if constexpr (kPass == 1) {
     return {z, labels, kMaxSeeds};
-  else
+  } else {
     return {z, labels, m};
+  }
 }
 
-// Pass 1: pixel p's Best into part; pass 2: part's into r.
+// Passes 1 and 3: pixel p's Best into part; passes 2, 3 and 4: part's
+// into r.
 __device__ __forceinline__ void store_part(float4* part, int p,
                                            const Best& r) {
   part[p] = make_float4(r.b1, r.b2, __int_as_float(r.l1), 0.0f);
@@ -3025,18 +3431,19 @@ __device__ __forceinline__ void assign_body(
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
-      if constexpr (kPass == 2)
+      if constexpr (kMergesPart<kPass>)
         if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
     }
-    if constexpr (kPass == 1) {
+    if constexpr (kStoresPart<kPass>) {
+      if constexpr (kPass == 3) __syncwarp();  // every lane has read part
       if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
       continue;
     }
     int2 l1 = make_int2(r[0].l1, r[1].l1);
     if (__any_sync(0xFFFFFFFFu, near != 0)) {
-      if constexpr (kPass == 2) {
+      if constexpr (kLastOfMany<kPass>) {
         const GlobalSeeds<T> all{z};
         l1 = recheck<T, GlobalSeeds<T>, kD, kPitch>(
             xs + row * kPitch, &all, m, t, near, seed_labels, rechecked, l1);
@@ -3065,7 +3472,7 @@ __device__ __forceinline__ void assign_body(
       atomicAdd(&hist[1][vkey], __popc(vsame));
   }
   cp_async_wait<0>();
-  if constexpr (kPass == 1) return;
+  if constexpr (kStoresPart<kPass>) return;
   __syncthreads();
   for (int s = threadIdx.x; s < m; s += blockDim.x) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -3205,12 +3612,13 @@ static_assert(kAWConsumers * 128 * kAWConsumerRegs + 128 * kAWProducerRegs <=
 // pixels per tile, stages of the ring and dynamic shared bytes (the layout
 // above); and the registers its setmaxnreg hands out, which the launch
 // must have given the block.  Pass 2's histograms of 256 labels (1 KB
-// more) leave no room for a third stage: its ring has two (200,240 bytes).
+// more) leave no room for a third stage: its ring has two (200,240 bytes),
+// as pass 4's of 512 labels (202,288 bytes).
 template <int kPass = 0>
 struct AssignWideShape {
   static constexpr int kThreads = kAWThreads;
   static constexpr int kTile = kAWTile;
-  static constexpr int kStages = kPass == 2 ? 2 : kAWStages;
+  static constexpr int kStages = kLastOfMany<kPass> ? 2 : kAWStages;
   static constexpr size_t kSmem =
       1024 + static_cast<size_t>(kStages) * kAWTileBytes +
       2 * sizeof(unsigned) * kMaxSeeds * kWideD +
@@ -3544,7 +3952,12 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   const int label = tid < ps.m ? ps.labels[tid] : 0;
   stage_wide_assign(ps.z, ps.m, zs, tid);
   if (tid < kMaxSeeds) slab[tid] = label;
-  if (tid < kHist) hist[0][tid] = hist[1][tid] = 0;
+  if constexpr (kHist > kAWConsumerThreads) {
+    for (int s = tid; s < kHist; s += kAWConsumerThreads)
+      hist[0][s] = hist[1][s] = 0;
+  } else if (tid < kHist) {
+    hist[0][tid] = hist[1][tid] = 0;
+  }
   uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
   bar_sync<1>(kAWConsumerThreads);
   aw_mark(tid == 0, 1, aw_now());
@@ -3603,12 +4016,13 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
-      if constexpr (kPass == 2)
+      if constexpr (kMergesPart<kPass>)
         if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
     }
-    if constexpr (kPass == 1) {
+    if constexpr (kStoresPart<kPass>) {
+      if constexpr (kPass == 3) __syncwarp();  // every lane has read part
       if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
       continue;
     }
@@ -3616,7 +4030,7 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     spent[3] += c0 - c1;
     int2 l1 = make_int2(r[0].l1, r[1].l1);
     if (__any_sync(0xFFFFFFFFu, near != 0)) {
-      if constexpr (kPass == 2) {
+      if constexpr (kLastOfMany<kPass>) {
         const GlobalSeeds<float> all{z};
         l1 = recheck<float, GlobalSeeds<float>, kD, kD>(
             x + static_cast<size_t>(p0) * kD, &all, m, t, near, seed_labels,
@@ -3653,7 +4067,7 @@ assign_tf32_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(me, 8 + wg, aw_now());
 #pragma unroll
   for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
-  if constexpr (kPass == 1) return;
+  if constexpr (kStoresPart<kPass>) return;
   bar_sync<1>(kAWConsumerThreads);
   for (int s = tid; s < m; s += kAWConsumerThreads) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -3954,7 +4368,12 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   const int label = tid < ps.m ? ps.labels[tid] : 0;
   stage_wide_bf16_assign(ps.z, ps.m, zs, tid);
   if (tid < kMaxSeeds) slab[tid] = label;
-  if (tid < kHist) hist[0][tid] = hist[1][tid] = 0;
+  if constexpr (kHist > kABConsumerThreads) {
+    for (int s = tid; s < kHist; s += kABConsumerThreads)
+      hist[0][s] = hist[1][s] = 0;
+  } else if (tid < kHist) {
+    hist[0][tid] = hist[1][tid] = 0;
+  }
   uoc::fence_proxy_async();  // Z is read by wgmma (the async proxy)
   bar_sync<1>(kABConsumerThreads);
   aw_mark(tid == 0, 1, aw_now());
@@ -4020,12 +4439,13 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       merge_quad(r[i]);
-      if constexpr (kPass == 2)
+      if constexpr (kMergesPart<kPass>)
         if (p0 + 8 * i < n) merge_part(part, p0 + 8 * i, r[i]);
       if (p0 + 8 * i < n && r[i].b1 - r[i].b2 < kRecheckMargin<kD>)
         near |= 1 << i;
     }
-    if constexpr (kPass == 1) {
+    if constexpr (kStoresPart<kPass>) {
+      if constexpr (kPass == 3) __syncwarp();  // every lane has read part
       if (owner) store_part(part, p, t == 0 ? r[0] : r[1]);
       continue;
     }
@@ -4033,7 +4453,7 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
     spent[3] += c0 - c1;
     int2 l1 = make_int2(r[0].l1, r[1].l1);
     if (__any_sync(0xFFFFFFFFu, near != 0)) {
-      if constexpr (kPass == 2) {
+      if constexpr (kLastOfMany<kPass>) {
         const GlobalSeeds<__nv_bfloat16> all{z};
         l1 = recheck<__nv_bfloat16, GlobalSeeds<__nv_bfloat16>, kD, kD>(
             x + static_cast<size_t>(p0) * kD, &all, m, t, near, seed_labels,
@@ -4070,7 +4490,7 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   aw_mark(me, 8 + wg, aw_now());
 #pragma unroll
   for (int i = 0; i < 6; ++i) aw_mark(me, 12 + 6 * wg + i, spent[i]);
-  if constexpr (kPass == 1) return;
+  if constexpr (kStoresPart<kPass>) return;
   bar_sync<1>(kABConsumerThreads);
   for (int s = tid; s < m; s += kABConsumerThreads) {
     if (hist[0][s]) atomicAdd(&counts[s], static_cast<float>(hist[0][s]));
@@ -4083,6 +4503,159 @@ assign_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
 // The launch: the kernel (and its name, for assign_labels_config), its
 // Shape's block, as many blocks as fit on the card at once (at most one
 // per X tile), and whether it takes X's tensor map before its arguments.
+// ---------------------------------------------------------------------------
+// The assignment at d = 256 (assign_exact_kernel<T, kD>, instantiated at
+// kD = 256; up to 512 seeds).  A simple design on the CUDA cores that
+// needs no re-check: every score is the exact argmax's own arithmetic, the
+// sequential fp32 FMA chain over j = 0..d-1 of X (bf16 widened) and Z
+// (float32, or bf16(Z) widened), as the wgmma kernels' re-check computes it
+// (exact_argmax), so no margin is derived for it.
+//
+// Bound on the H100: one read of X (315 MB float32 at the frame, d = 256)
+// against 2*m*n*d flops (15.7 GFLOP at m = 100; 80.5 at m = 512).
+//
+// Design: one persistent launch (no grid barrier), a block of 256 threads
+// per SM walking its 128-pixel tiles.  A tile's X is staged in shared
+// memory (widened to fp32); the seeds are staged kAXGroup at a time; the
+// two threads of a pixel (t and t + 128) take 16 seeds of each group each,
+// as 16 independent chains, reading each seed's 4 values a step as one
+// broadcast and the pixel's as one 16-byte load.  A thread keeps its
+// pixel's best score and seed (strictly larger wins, so the lowest seed on
+// a tie), the pair merges through shared memory (the lower seed on a tie),
+// and the pixel's first thread writes its label and adds it to the block's
+// histograms of up to 512 labels (warp-aggregated adds), flushed with one
+// float atomicAdd per label per block.  Every pixel is counted as
+// re-checked: its argmax is the exact one.
+// ---------------------------------------------------------------------------
+constexpr int kAXThreads = 256;
+constexpr int kAXTile = 128;  // pixels a tile: two threads a pixel
+constexpr int kAXGroup = 32;  // seeds staged at a time
+constexpr int kAXHalf = kAXGroup / 2;
+
+template <typename T, int kD>
+struct AssignExactShape {
+  static constexpr bool kTma = false;
+  static constexpr int kThreads = kAXThreads;
+  static constexpr int kTile = kAXTile;
+  static constexpr int kStages = 1;
+  static constexpr int kPitch = kF32Pitch<kD>;
+  static constexpr size_t kSmem =
+      sizeof(float) * (kAXTile * kPitch + kAXGroup * kD);
+  static constexpr int kRegs = 0;
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kAXThreads, 1)
+assign_exact_kernel(const T* __restrict__ x, int n,
+                    const float* __restrict__ z,
+                    const int* __restrict__ seed_labels, int m,
+                    const unsigned char* __restrict__ z_valid,
+                    int* __restrict__ labels, float* __restrict__ counts,
+                    float* __restrict__ rechecked, float4* __restrict__) {
+  constexpr int kPitch = AssignExactShape<T, kD>::kPitch;
+  constexpr int kVec = kD / 4;
+  extern __shared__ __align__(16) float ax_smem[];
+  float* xs = ax_smem;                  // [kAXTile][kPitch]
+  float* zs = xs + kAXTile * kPitch;    // [kAXGroup][kD]
+  __shared__ int slab[kMaxSeedsAll];
+  __shared__ int hist[2][kMaxSeedsAll];
+  __shared__ float other_b[kAXTile];
+  __shared__ int other_s[kAXTile];
+  const int t = threadIdx.x, lane = t & 31;
+  const int p = t % kAXTile, h = t / kAXTile;
+  for (int e = t; e < m; e += kAXThreads) {
+    slab[e] = seed_labels[e];
+    hist[0][e] = hist[1][e] = 0;
+  }
+  const int tiles = (n + kAXTile - 1) / kAXTile;
+  int done = 0;  // this block's pixels
+  for (int q = blockIdx.x; q < tiles; q += gridDim.x) {
+    __syncthreads();  // the last tile's X and its pair exchange are done
+    for (int e = t; e < kAXTile * kVec; e += kAXThreads) {
+      const int r = e / kVec, j = 4 * (e % kVec);
+      const int pix = q * kAXTile + r;
+      *reinterpret_cast<float4*>(xs + r * kPitch + j) =
+          pix < n ? load4(x + static_cast<size_t>(pix) * kD + j)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    float best = -INFINITY;
+    int best_s = kMaxSeedsAll;
+    for (int g0 = 0; g0 < m; g0 += kAXGroup) {
+      __syncthreads();  // X is staged; the last group is done with
+      for (int e = t; e < kAXGroup * kVec; e += kAXThreads) {
+        const int sd = e / kVec, j = 4 * (e % kVec);
+        float4 v = g0 + sd < m
+                       ? *reinterpret_cast<const float4*>(
+                             z + static_cast<size_t>(g0 + sd) * kD + j)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (sizeof(T) == 2)
+          v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                          round_bf16(v.w));
+        *reinterpret_cast<float4*>(zs + sd * kD + j) = v;
+      }
+      __syncthreads();
+      float acc[kAXHalf];
+#pragma unroll
+      for (int c = 0; c < kAXHalf; ++c) acc[c] = 0.0f;
+      const float* zh = zs + h * kAXHalf * kD;
+#pragma unroll 2
+      for (int j = 0; j < kD; j += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + p * kPitch + j);
+#pragma unroll
+        for (int c = 0; c < kAXHalf; ++c) {
+          const float4 zv = *reinterpret_cast<const float4*>(zh + c * kD + j);
+          acc[c] = fmaf(xv.x, zv.x, acc[c]);
+          acc[c] = fmaf(xv.y, zv.y, acc[c]);
+          acc[c] = fmaf(xv.z, zv.z, acc[c]);
+          acc[c] = fmaf(xv.w, zv.w, acc[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kAXHalf; ++c) {
+        const int sd = g0 + h * kAXHalf + c;
+        if (sd < m && acc[c] > best) {
+          best = acc[c];
+          best_s = sd;
+        }
+      }
+    }
+    if (h == 1) {
+      other_b[p] = best;
+      other_s[p] = best_s;
+    }
+    __syncthreads();
+    if (h == 0) {
+      const float ob = other_b[p];
+      const int os = other_s[p];
+      if (ob > best || (ob == best && os < best_s)) best_s = os;
+      const int pix = q * kAXTile + p;
+      int key = -1, vkey = -1;
+      if (pix < n) {
+        const int lab = slab[best_s];
+        labels[pix] = lab;
+        ++done;
+        if (lab >= 0 && lab < m) {
+          key = lab;
+          if (z_valid == nullptr || z_valid[pix]) vkey = lab;
+        }
+      }
+      const unsigned same = __match_any_sync(0xFFFFFFFFu, key);
+      if (key >= 0 && lane == __ffs(same) - 1)
+        atomicAdd(&hist[0][key], __popc(same));
+      const unsigned vsame = __match_any_sync(0xFFFFFFFFu, vkey);
+      if (vkey >= 0 && lane == __ffs(vsame) - 1)
+        atomicAdd(&hist[1][vkey], __popc(vsame));
+    }
+  }
+  done = __reduce_add_sync(0xFFFFFFFFu, done);
+  if (lane == 0 && done) atomicAdd(rechecked, static_cast<float>(done));
+  __syncthreads();
+  for (int e = t; e < m; e += kAXThreads) {
+    if (hist[0][e]) atomicAdd(&counts[e], static_cast<float>(hist[0][e]));
+    if (hist[1][e]) atomicAdd(&counts[m + e], static_cast<float>(hist[1][e]));
+  }
+}
+
 struct AssignPlan {
   const void* kernel;
   const char* name;
@@ -4090,6 +4663,10 @@ struct AssignPlan {
   int grid, per_sm, threads, tile, stages;
   size_t smem;
 };
+
+// The assignment at width d runs on assign_exact_kernel: at d = 256 (past
+// 256 seeds the other widths run their kernels in passes).
+bool assign_exact(int d) { return d == 256; }
 
 template <typename Shape, auto kKernel>
 cudaError_t plan_assign(int dev, int n, const char* name, int (&cache)[2],
@@ -4128,61 +4705,88 @@ cudaError_t plan_assign(int dev, int n, const char* name, int (&cache)[2],
 // The one place that picks the assignment kernel: by dtype, width and (at
 // d = 128) the seed columns that cover m, 104 for the recipes' 100 seeds;
 // past 128 seeds the kernel of the width and dtype in two passes (pass 1
-// or 2; 0 is the one pass of m <= 128), 128 seed columns each at d = 128.
-// A two-pass launch's plans carry the name of both.
+// or 2; 0 is the one pass of m <= 128), 128 seed columns each at d = 128,
+// and past 256 in ceil(m / 128) (pass 1, then 3 for each middle pass, then
+// 4); at d = 256 assign_exact_kernel in one pass (pass 0).  The plans of a
+// launch in passes carry the name of every pass kind.
+// One pass kind's plan of the kernel family of dtype and width d (64 or
+// 128), its cache slot and the launch's name.
+template <int kPass>
+cudaError_t plan_pass(int dtype, int d, int dev, int n, const char* name,
+                      int (&cache)[2], AssignPlan* p) {
+  if (dtype == uoc::kBF16)
+    return d == 64
+               ? plan_assign<AssignShape<__nv_bfloat16, 64>,
+                             assign_bf16_kernel<64, kPass>>(dev, n, name,
+                                                            cache, p)
+               : plan_assign<AssignBF16WideShape<kPass>,
+                             assign_bf16_wide_kernel<128, kPass>>(
+                     dev, n, name, cache, p);
+  return d == 64 ? plan_assign<AssignShape<float, 64>,
+                               assign_tf32_kernel<64, kPass>>(dev, n, name,
+                                                              cache, p)
+                 : plan_assign<AssignWideShape<kPass>,
+                               assign_tf32_wide_kernel<128, kPass>>(
+                       dev, n, name, cache, p);
+}
+
 cudaError_t plan_assign_for(int dtype, int n, int d, int m, int pass,
                             AssignPlan* p) {
   // {blocks per SM, SMs} per device and kernel, found at the first call
   // (0: not yet): the launch asks for its plan on every call
   constexpr int kDevices = 64;
-  static int cached[kDevices][14][2] = {};
-  if (d != 64 && d != 128) return cudaErrorInvalidValue;
-  if (m < 1 || m > kMaxSeedsMany || (pass != 0) != (m > kMaxSeeds) ||
-      pass < 0 || pass > 2)
+  static int cached[kDevices][24][2] = {};
+  if (d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
+  if (m < 1 || m > kMaxSeedsAll || pass < 0 || pass > 4)
     return cudaErrorInvalidValue;
+  const bool exact = assign_exact(d);
+  // the pass kinds of m seeds: 0 alone; 1, 2; or 1, 3, 4
+  const bool fits = exact || m <= kMaxSeeds
+                        ? pass == 0
+                        : m <= kMaxSeedsMany ? pass == 1 || pass == 2
+                                             : pass == 1 || pass >= 3;
+  if (!fits) return cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kDevices) return cudaErrorInvalidDevice;
   auto& c = cached[dev];
+  if (exact)
+    return dtype == uoc::kBF16
+               ? plan_assign<AssignExactShape<__nv_bfloat16, 256>,
+                             assign_exact_kernel<__nv_bfloat16, 256>>(
+                     dev, n, "assign_exact_kernel<bf16, 256>", c[14], p)
+               : plan_assign<AssignExactShape<float, 256>,
+                             assign_exact_kernel<float, 256>>(
+                     dev, n, "assign_exact_kernel<float, 256>", c[15], p);
   if (pass != 0) {
-    const bool one = pass == 1;
-    if (dtype == uoc::kBF16) {
-      constexpr const char* k64 =
-          "assign_bf16_kernel<64, 1> + assign_bf16_kernel<64, 2>";
-      constexpr const char* k128 =
-          "assign_bf16_wide_kernel<128, 1> + assign_bf16_wide_kernel<128, 2>";
-      if (d == 64)
-        return one ? plan_assign<AssignShape<__nv_bfloat16, 64>,
-                                 assign_bf16_kernel<64, 1>>(dev, n, k64, c[6],
-                                                            p)
-                   : plan_assign<AssignShape<__nv_bfloat16, 64>,
-                                 assign_bf16_kernel<64, 2>>(dev, n, k64, c[7],
-                                                            p);
-      return one ? plan_assign<AssignBF16WideShape<1>,
-                               assign_bf16_wide_kernel<128, 1>>(dev, n, k128,
-                                                                c[8], p)
-                 : plan_assign<AssignBF16WideShape<2>,
-                               assign_bf16_wide_kernel<128, 2>>(dev, n, k128,
-                                                                c[9], p);
+    // the family: bf16 64, bf16 128, float32 64, float32 128
+    const int f = 2 * (dtype != uoc::kBF16) + (d == 128);
+    static constexpr const char* kTwo[4] = {
+        "assign_bf16_kernel<64, 1> + assign_bf16_kernel<64, 2>",
+        "assign_bf16_wide_kernel<128, 1> + assign_bf16_wide_kernel<128, 2>",
+        "assign_tf32_kernel<64, 1> + assign_tf32_kernel<64, 2>",
+        "assign_tf32_wide_kernel<128, 1> + assign_tf32_wide_kernel<128, 2>"};
+    static constexpr const char* kMany[4] = {
+        "assign_bf16_kernel<64, 1> + assign_bf16_kernel<64, 3> + "
+        "assign_bf16_kernel<64, 4>",
+        "assign_bf16_wide_kernel<128, 1> + assign_bf16_wide_kernel<128, 3> + "
+        "assign_bf16_wide_kernel<128, 4>",
+        "assign_tf32_kernel<64, 1> + assign_tf32_kernel<64, 3> + "
+        "assign_tf32_kernel<64, 4>",
+        "assign_tf32_wide_kernel<128, 1> + assign_tf32_wide_kernel<128, 3> + "
+        "assign_tf32_wide_kernel<128, 4>"};
+    const char* name = m <= kMaxSeedsMany ? kTwo[f] : kMany[f];
+    switch (pass) {
+      case 1:
+        return plan_pass<1>(dtype, d, dev, n, name, c[6 + 2 * f], p);
+      case 2:
+        return plan_pass<2>(dtype, d, dev, n, name, c[7 + 2 * f], p);
+      case 3:
+        return plan_pass<3>(dtype, d, dev, n, name, c[16 + f], p);
+      default:
+        return plan_pass<4>(dtype, d, dev, n, name, c[20 + f], p);
     }
-    constexpr const char* k64 =
-        "assign_tf32_kernel<64, 1> + assign_tf32_kernel<64, 2>";
-    constexpr const char* k128 =
-        "assign_tf32_wide_kernel<128, 1> + assign_tf32_wide_kernel<128, 2>";
-    if (d == 64)
-      return one ? plan_assign<AssignShape<float, 64>,
-                               assign_tf32_kernel<64, 1>>(dev, n, k64, c[10],
-                                                          p)
-                 : plan_assign<AssignShape<float, 64>,
-                               assign_tf32_kernel<64, 2>>(dev, n, k64, c[11],
-                                                          p);
-    return one ? plan_assign<AssignWideShape<1>,
-                             assign_tf32_wide_kernel<128, 1>>(dev, n, k128,
-                                                              c[12], p)
-               : plan_assign<AssignWideShape<2>,
-                             assign_tf32_wide_kernel<128, 2>>(dev, n, k128,
-                                                              c[13], p);
   }
   if (dtype == uoc::kBF16) {
     if (d == 64)
@@ -4241,16 +4845,24 @@ bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
+// The pass kind of the last pass of m seeds of width d: 0 for one pass,
+// 2 after one pass, 4 after two or more.
+int last_pass(int d, int m) {
+  if (assign_exact(d) || m <= kMaxSeeds) return 0;
+  return m <= kMaxSeedsMany ? 2 : 4;
+}
+
 }  // namespace
 
 // The launch configuration uoc_hill_climb uses for n pixels and m seeds of
-// width d (64 or 128; any other width returns cudaErrorInvalidValue): out
-// = [grid, blocks per SM, threads per block, dynamic shared bytes, bytes
-// of X held on chip per block, bytes of X the grid keeps on chip for the
-// whole launch (bfloat16 at d = 128; 0 for the other kernels)].
+// width d (64, 128 or 256; any other width, or more than 128 seeds, 64 at
+// d = 256, returns cudaErrorInvalidValue): out = [grid, blocks per SM,
+// threads per block, dynamic shared bytes, bytes of X held on chip per
+// block, bytes of X the grid keeps on chip for the whole launch (bfloat16
+// at d = 128; 0 for the other kernels)].
 extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
                                    long long* out) {
-  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   HillPlan p;
   const cudaError_t err = plan_hill_for(dtype, n, m, d, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -4263,19 +4875,19 @@ extern "C" int uoc_hill_climb_plan(int dtype, int n, int m, int d,
   return 0;
 }
 
-// x: [n, d] row-major float32 or bfloat16 (d = 64 or 128), rows 16-byte
-// aligned; z0: [m, d] float32; partial: [grid, m, d] float32 scratch with
-// the grid of uoc_hill_climb_plan; arrived: one uint32 scratch (the grid
-// barrier's counter, zero-filled here); z: [m, d] float32 out, rows
-// 16-byte aligned.  m <= 128.  One cooperative launch on `stream` runs all
-// iterations; a grid that cannot be resident at once is refused by the
-// launch.
+// x: [n, d] row-major float32 or bfloat16 (d = 64, 128 or 256), rows
+// 16-byte aligned; z0: [m, d] float32; partial: [grid, m, d] float32
+// scratch with the grid of uoc_hill_climb_plan; arrived: one uint32
+// scratch (the grid barrier's counter, zero-filled here); z: [m, d]
+// float32 out, rows 16-byte aligned.  m <= 128 (64 at d = 256).  One
+// cooperative launch on `stream` runs all iterations; a grid that cannot
+// be resident at once is refused by the launch.
 extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
                               const float* z0, int m, float kappa,
                               int max_iters, float* partial, unsigned* arrived,
                               float* z, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m < 1 || m > kMaxSeeds) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(x) || misaligned(z))
     return static_cast<int>(cudaErrorMisalignedAddress);
   HillPlan p;
@@ -4289,7 +4901,16 @@ extern "C" int uoc_hill_climb(const void* x, int dtype, int n, int d,
     return static_cast<int>(err);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* xf = static_cast<const float*>(x);
-  if (dtype == uoc::kBF16 && d == 128) {
+  if (d == kSimtD) {
+    err = dtype == uoc::kBF16
+              ? uoc::launch_cooperative(hill_simt_kernel<__nv_bfloat16>,
+                                        p.grid, p.threads, p.smem, s, xb, n,
+                                        m, kappa, max_iters, partial, arrived,
+                                        z)
+              : uoc::launch_cooperative(hill_simt_kernel<float>, p.grid,
+                                        p.threads, p.smem, s, xf, n, m, kappa,
+                                        max_iters, partial, arrived, z);
+  } else if (dtype == uoc::kBF16 && d == 128) {
     // the map goes into the kernel's parameters by value
     CUtensorMap map;
     if ((err = wide_bf16_map(x, n, &map)) != cudaSuccess)
@@ -4351,6 +4972,37 @@ cudaError_t launch_cc_many(const float* z, int m, float epsilon, int* labels,
   return cudaGetLastError();
 }
 
+// cc_wide_kernel<kD> for d = 256, and for 257..512 seeds at the other
+// widths, on `s`, its dynamic shared-memory limit raised once per device.
+template <int kD>
+cudaError_t launch_cc_wide(const float* z, int m, float epsilon, int* labels,
+                           int* steps, cudaStream_t s) {
+  constexpr int kDevices = 64;
+  static bool raised[kDevices] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(cc_wide_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cc_wide_smem_bytes()));
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  cc_wide_kernel<kD><<<1, kCCThreads, cc_wide_smem_bytes(), s>>>(
+      z, m, epsilon, labels, steps);
+  return cudaGetLastError();
+}
+
+// The connected components of m seeds of width d run on cc_wide_kernel.
+bool cc_wide(int m, int d) { return d == 256 || m > kMaxSeedsMany; }
+
+// Whether uoc_connected_components takes m seeds of width d.
+bool cc_takes(int m, int d) {
+  return m >= 1 && m <= kMaxSeedsAll && (d == 64 || d == 128 || d == 256);
+}
+
 // cc_kernel's work items for m seeds (one per kCCRows rows of each tile on
 // or above the diagonal).
 int cc_items(int m) {
@@ -4367,18 +5019,23 @@ int cc_items(int m) {
 
 }  // namespace
 
-// z: [m, d] float32 (d = 64 or 128), rows 16-byte aligned; labels: [m]
-// int32 out; steps: one int32 out, the merge steps taken (the seeds still
-// unlabeled when their turn came).  1 <= m <= 256.  One launch on
+// z: [m, d] float32 (d = 64, 128 or 256), rows 16-byte aligned; labels:
+// [m] int32 out; steps: one int32 out, the merge steps taken (the seeds
+// still unlabeled when their turn came).  1 <= m <= 512.  One launch on
 // `stream`: cc_kernel<64> at d = 64, cc_cluster_kernel (one cluster of
-// kCCCluster CTAs) at d = 128; past 128 seeds cc_kernel<d, 256>.
+// kCCCluster CTAs) at d = 128; for 129..256 seeds cc_kernel<d, 256>; at d
+// = 256, and past 256 seeds, cc_wide_kernel<d>.
 extern "C" int uoc_connected_components(const float* z, int m, int d,
                                         float epsilon, int* labels,
                                         int* steps, void* stream) {
-  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!cc_takes(m, d)) return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(z)) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cc_wide(m, d))
+    return static_cast<int>(
+        d == 64    ? launch_cc_wide<64>(z, m, epsilon, labels, steps, s)
+        : d == 128 ? launch_cc_wide<128>(z, m, epsilon, labels, steps, s)
+                   : launch_cc_wide<256>(z, m, epsilon, labels, steps, s));
   if (m > kMaxSeeds)
     return static_cast<int>(
         d == 64 ? launch_cc_many<64>(z, m, epsilon, labels, steps, s)
@@ -4427,14 +5084,21 @@ extern "C" int uoc_connected_components(const float* z, int m, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch uoc_connected_components makes for m seeds of width d (64 or
-// 128; any other width, or m outside [1, 256], returns
+// The launch uoc_connected_components makes for m seeds of width d (64,
+// 128 or 256; any other width, or m outside [1, 512], returns
 // cudaErrorInvalidValue): out = [CTAs (the cluster's at d = 128), threads
 // per CTA, dynamic shared bytes, the adjacency's work items, the most Z
-// rows a CTA stages].
+// rows a CTA stages (0 for cc_wide_kernel, which reads Z in place)].
 extern "C" int uoc_connected_components_plan(int m, int d, long long* out) {
-  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!cc_takes(m, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (cc_wide(m, d)) {
+    out[0] = 1;
+    out[1] = kCCThreads;
+    out[2] = static_cast<long long>(cc_wide_smem_bytes());
+    out[3] = cc_items(m);
+    out[4] = 0;
+    return 0;
+  }
   if (m > kMaxSeeds) {
     out[0] = 1;
     out[1] = kCCThreads;
@@ -4466,9 +5130,13 @@ extern "C" int uoc_connected_components_plan(int m, int d, long long* out) {
 }
 
 // The name of the kernel that uoc_connected_components launches for m
-// seeds of width d; null for another width or m outside [1, 256].
+// seeds of width d; null for another width or m outside [1, 512].
 extern "C" const char* uoc_connected_components_kernel(int m, int d) {
-  if (m < 1 || m > kMaxSeedsMany || (d != 64 && d != 128)) return nullptr;
+  if (!cc_takes(m, d)) return nullptr;
+  if (cc_wide(m, d))
+    return d == 64    ? "cc_wide_kernel<64>"
+           : d == 128 ? "cc_wide_kernel<128>"
+                      : "cc_wide_kernel<256>";
   if (m > kMaxSeeds)
     return d == 64 ? "cc_kernel<64, 256>" : "cc_kernel<128, 256>";
   return d == 64 ? "cc_kernel<64>" : "cc_cluster_kernel";
@@ -4508,24 +5176,29 @@ extern "C" int uoc_cc_one_block(const float* z, int m, int d, float epsilon,
 }
 #endif
 
-// The launch configuration uoc_assign_labels (m <= 128) or
-// uoc_assign_labels_two_pass (129..256: pass 2's; pass 1's differs only
-// in the float32 d = 128 ring, three stages) uses for n pixels and m seeds
-// of width d (64 or 128; any other width, or m outside [1, 256], returns
+
+// The launch configuration uoc_assign_labels (m <= 128; at d = 256
+// assign_exact_kernel's) or uoc_assign_labels_passes (129..512 at d = 64
+// and 128: the last pass's; the first and middle passes differ only in the
+// float32 d = 128 ring, three stages) uses for n pixels and m seeds of
+// width d (64, 128 or 256; any other width, or m outside [1, 512], returns
 // cudaErrorInvalidValue): out = [grid, blocks per SM, threads per block,
 // dynamic shared bytes, bytes of X held on chip per block (its ring of
 // tiles), the ring's stages, pixels per tile].
 extern "C" int uoc_assign_labels_plan(int dtype, int n, int m, int d,
                                       long long* out) {
   AssignPlan p;
+  const bool exact = assign_exact(d);
   const cudaError_t err =
-      plan_assign_for(dtype, n, d, m, m > kMaxSeeds ? 2 : 0, &p);
+      plan_assign_for(dtype, n, d, m, last_pass(d, m), &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.per_sm;
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
-  out[4] = (dtype == uoc::kBF16 ? 2LL : 4LL) * p.stages * p.tile * d;
+  // assign_exact_kernel stages X widened to fp32
+  out[4] = (dtype == uoc::kBF16 && !exact ? 2LL : 4LL) * p.stages * p.tile *
+           d;
   out[5] = p.stages;
   out[6] = p.tile;
   return 0;
@@ -4560,14 +5233,15 @@ extern "C" double uoc_assign_map_us(const void* x, int n, int reps) {
 // z_valid: [n] bytes (0 or 1) or null (every pixel valid); labels: [n]
 // int32 out; counts: [2 m + 1] float32 out, zero-filled here: pixels per
 // label, valid pixels per label, then the count of re-checked pixels.
-// 1 <= m <= 128 (past that uoc_assign_labels_two_pass), n < 2^24 (the
-// float counts stay exact).  One launch on `stream`.
+// 1 <= m <= 128, or at d = 256 up to 512 (past 128 at d = 64 and 128:
+// uoc_assign_labels_passes), n < 2^24 (the float counts stay exact).  One
+// launch on `stream`.
 extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
                                  const float* z, const int* seed_labels,
                                  int m, const unsigned char* z_valid,
                                  int* labels, float* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m < 1 || m > kMaxSeeds || n >= (1 << 24))
+  if (m < 1 || (m > kMaxSeeds && !assign_exact(d)) || n >= (1 << 24))
     return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(x) || misaligned(z))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -4581,42 +5255,54 @@ extern "C" int uoc_assign_labels(const void* x, int dtype, int n, int d,
                                         z_valid, labels, counts, nullptr, s));
 }
 
-// uoc_assign_labels for 129 <= m <= 256 seeds: two launches on `stream`,
-// pass 1 against seeds [0, 128) and pass 2 against the rest (see the
-// two-pass note above); part: [n] float4 (16 bytes a pixel, 16-byte
-// aligned), pass 1's results for pass 2.
-extern "C" int uoc_assign_labels_two_pass(
+// uoc_assign_labels for 129 <= m <= 512 seeds at d = 64 and 128:
+// ceil(m / 128) launches on `stream`, pass 1 against seeds [0, 128), a
+// middle pass against each next 128 (z and seed_labels advanced to them,
+// m = 128) and the last pass against the rest (see the notes on passes
+// above); part: [n] float4 (16 bytes a pixel, 16-byte aligned), the Best
+// that each pass leaves for the next.
+extern "C" int uoc_assign_labels_passes(
     const void* x, int dtype, int n, int d, const float* z,
     const int* seed_labels, int m, const unsigned char* z_valid, int* labels,
     float* counts, void* part, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= kMaxSeeds || m > kMaxSeedsMany || n >= (1 << 24))
+  if (m <= kMaxSeeds || m > kMaxSeedsAll || assign_exact(d) ||
+      n >= (1 << 24))
     return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(x) || misaligned(z) || misaligned(part))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  AssignPlan p1, p2;
-  cudaError_t err = plan_assign_for(dtype, n, d, m, 1, &p1);
-  if (err == cudaSuccess) err = plan_assign_for(dtype, n, d, m, 2, &p2);
+  AssignPlan first, middle, last;
+  const int passes = (m + kMaxSeeds - 1) / kMaxSeeds;
+  cudaError_t err = plan_assign_for(dtype, n, d, m, 1, &first);
+  if (err == cudaSuccess && passes > 2)
+    err = plan_assign_for(dtype, n, d, m, 3, &middle);
+  if (err == cudaSuccess) err = plan_assign_for(dtype, n, d, m,
+                                                last_pass(d, m), &last);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaMemsetAsync(counts, 0, sizeof(float) * (2 * m + 1), s)) !=
       cudaSuccess)
     return static_cast<int>(err);
   float4* best = static_cast<float4*>(part);
-  err = launch_assign(p1, x, dtype, n, z, seed_labels, m, z_valid, labels,
+  err = launch_assign(first, x, dtype, n, z, seed_labels, m, z_valid, labels,
                       counts, best, s);
+  for (int j = 1; err == cudaSuccess && j + 1 < passes; ++j)
+    err = launch_assign(middle, x, dtype, n,
+                        z + static_cast<size_t>(j) * kMaxSeeds * d,
+                        seed_labels + j * kMaxSeeds, kMaxSeeds, z_valid,
+                        labels, counts, best, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_assign(p2, x, dtype, n, z, seed_labels, m,
+  return static_cast<int>(launch_assign(last, x, dtype, n, z, seed_labels, m,
                                         z_valid, labels, counts, best, s));
 }
 
 // The name of the kernel that uoc_assign_labels launches for these
-// arguments, as "assign_tf32_wide_kernel<104>" (past 128 seeds both
-// passes' of uoc_assign_labels_two_pass); null where the plan fails (a
-// width other than 64 or 128, m outside [1, 256]).
+// arguments, as "assign_tf32_wide_kernel<104>" (past 128 seeds at d = 64
+// and 128 every pass kind's of uoc_assign_labels_passes); null where the
+// plan fails (a width other than 64, 128 or 256, m outside [1, 512]).
 extern "C" const char* uoc_assign_labels_kernel(int dtype, int n, int m,
                                                 int d) {
   AssignPlan p;
-  return plan_assign_for(dtype, n, d, m, m > kMaxSeeds ? 1 : 0, &p) ==
+  return plan_assign_for(dtype, n, d, m, last_pass(d, m) ? 1 : 0, &p) ==
                  cudaSuccess
              ? p.name
              : nullptr;

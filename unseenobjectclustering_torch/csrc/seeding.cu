@@ -34,12 +34,19 @@
 // into one 64-bit key: a warp/block max, then one atomicMax per block into
 // keys[s + 1] before the barrier; every block reads the winner after it.
 //
-// The width d is a template parameter, 64 or 128 (2 * NUM_UNITS under the
-// cat fusion).  At d = 64 a block has 512 threads (128 registers each at
-// most).  At d = 128 a pixel's values take 128 registers, so a block has
-// 256 threads (255 registers each at most) and holds 256 pixels in
-// registers: the register file holds the same 128 KB of X per SM either
-// way, and the sequential chain per pixel stays one thread's.
+// The width d is a template parameter, 64, 128 (2 * NUM_UNITS under the
+// cat fusion) or 256 (the cat fusion of two 128-unit heads).  At d = 64 a
+// block has 512 threads (128 registers each at most).  At d = 128 a
+// pixel's values take 128 registers, so a block has 256 threads (255
+// registers each at most) and holds 256 pixels in registers: the register
+// file holds the same 128 KB of X per SM either way, and the sequential
+// chain per pixel stays one thread's.  At d = 256 a pixel's values would
+// take 256 registers, past the 255 a thread may have, so no pixel is held
+// in registers: a block of 256 threads keeps as many pixels as fit in
+// shared memory (about 215 in float32) and reads the rest, eager, from the
+// transposed scratch at every step (the lazy tiles' per-warp staging would
+// take 256 KB there).  Each dot stays one thread's sequential chain over
+// j = 0..255.
 //
 // Off-chip pixels, eager (kLazy false: d = 64, and d = 128 past the lazy
 // path's limit): every step reads all of them again.  At d = 64's parity
@@ -93,6 +100,10 @@ constexpr int kCandPitch = kD * sizeof(T) + 16;
 // of the refresh list, the candidate rows' mbarrier and one per warp.
 __host__ __device__ constexpr int seed_threads(int d) {
   return d == 64 ? 512 : 256;
+}
+// Pixels a block holds in registers, one a thread: none at d = 256.
+__host__ __device__ constexpr int reg_pixels(int d) {
+  return d <= 128 ? seed_threads(d) : 0;
 }
 __host__ __device__ constexpr size_t fixed_bytes(int d, bool lazy) {
   return (lazy ? kRing : 1) * d * sizeof(float) +
@@ -250,6 +261,7 @@ select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
                     T* __restrict__ xs_t, int* __restrict__ refreshed,
                     unsigned long long* __restrict__ block_best) {
   constexpr int kThreads = seed_threads(kD);
+  constexpr int kRegPx = reg_pixels(kD);
   constexpr int kWarps = kThreads / 32;
   constexpr size_t kFixedBytes = fixed_bytes(kD, kLazy);
   constexpr int kTileElems = kLazyTile * kD;
@@ -264,10 +276,10 @@ select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * len;
   const int count = max(0, min(n - p0, len));
-  const int reg_px = min(kThreads, count);
+  const int reg_px = min(kRegPx, count);
   const int rest = count - reg_px;  // pixels past the register ones
   const int s_px = min(smem_px, rest);
-  const int rest_max = max(0, len - kThreads);
+  const int rest_max = max(0, len - kRegPx);
   const size_t md_bytes = align16(sizeof(float) * rest_max);
   // [kD][smem_px] X values of pixels p0 + reg_px + [0, s_px)
   T* sx = reinterpret_cast<T*>(smem + kFixedBytes + md_bytes +
@@ -321,10 +333,12 @@ select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
     }
     __syncthreads();
   }
-  float xr[kD];
-  if (tid < reg_px) {
+  float xr[kRegPx > 0 ? kD : 1];
+  if constexpr (kRegPx > 0) {
+    if (tid < reg_px) {
 #pragma unroll
-    for (int j = 0; j < kD; ++j) xr[j] = uoc::to_f32(row(p0 + tid)[j]);
+      for (int j = 0; j < kD; ++j) xr[j] = uoc::to_f32(row(p0 + tid)[j]);
+    }
   }
 #pragma unroll 8
   for (int e = tid; e < s_px * kD; e += kThreads)
@@ -381,7 +395,7 @@ select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
     if (kLazy) mark(step, 1, clock64());
 
     unsigned long long best = 0;
-    if (tid < reg_px) {
+    if (kRegPx > 0 && tid < reg_px) {
       float acc = 0.0f;
 #pragma unroll
       for (int j4 = 0; j4 < kD / 4; ++j4) {
@@ -516,7 +530,7 @@ select_seeds_kernel(const T* __restrict__ x, long long ld, int n, int len,
 // shared memory, `str_px` off-chip; `lazy`: the off-chip pixels in lazy
 // tiles.
 struct SeedPlan {
-  int grid, per_sm, threads, len, smem_px, str_px, optin;
+  int grid, per_sm, threads, reg_px, len, smem_px, str_px, optin;
   bool lazy;
   size_t smem;
 };
@@ -544,11 +558,12 @@ cudaError_t plan_seeds(int n, SeedPlan* p) {
       cudaSuccess)
     return err;
   p->threads = kThreads;
+  p->reg_px = reg_pixels(kD);
   p->optin = optin;
   p->lazy = kLazy;
   p->grid = std::max(1, std::min(sms, (n + kThreads - 1) / kThreads));
   p->len = (n + p->grid - 1) / p->grid;
-  const int rest = std::max(0, p->len - kThreads);
+  const int rest = std::max(0, p->len - p->reg_px);
   const size_t base = base_bytes<T, kD, kLazy>(rest);
   // min_dist of the pixels past the register ones must fit on chip
   if (base > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
@@ -573,10 +588,12 @@ cudaError_t plan_seeds(int n, SeedPlan* p) {
 // with off-chip pixels: the lazy one where its tiles' state and staging
 // tiles fit beside min_dist (a block of up to about 15,400 pixels in
 // float32, 30,000 in bfloat16: n up to about 2.0M and 4.0M on 132 SMs),
-// the eager one past that.
+// the eager one past that.  d = 256: the eager kernel, no register pixels
+// (min_dist of a block's pixels must fit: about 55,000 a block).
 template <typename T>
 cudaError_t plan_width(int n, int d, SeedPlan* p) {
   if (d == 64) return plan_seeds<T, 64, false>(n, p);
+  if (d == 256) return plan_seeds<T, 256, false>(n, p);
   if (d != 128) return cudaErrorInvalidValue;
   const cudaError_t err = plan_seeds<T, 128, false>(n, p);
   if (err != cudaSuccess || p->str_px == 0 ||
@@ -614,6 +631,10 @@ cudaError_t launch_typed(const SeedPlan& p, int d, const void* x,
     return launch_seeds<T, 64, false>(p, x, ld, n, num_seeds, first, keys,
                                       arrived, idx, xs_t, nullptr, nullptr,
                                       s);
+  if (d == 256)
+    return launch_seeds<T, 256, false>(p, x, ld, n, num_seeds, first, keys,
+                                       arrived, idx, xs_t, nullptr, nullptr,
+                                       s);
   if (p.lazy)
     return launch_seeds<T, 128, true>(p, x, ld, n, num_seeds, first, keys,
                                       arrived, idx, xs_t, refreshed,
@@ -625,7 +646,7 @@ cudaError_t launch_typed(const SeedPlan& p, int d, const void* x,
 }  // namespace
 
 // The launch configuration uoc_select_seeds uses for n pixels of width d
-// (64 or 128; any other width returns cudaErrorInvalidValue): out = [grid,
+// (64, 128 or 256; any other width returns cudaErrorInvalidValue): out = [grid,
 // blocks per SM, threads per block, dynamic shared bytes, bytes of X held
 // on chip by the fullest block, pixels per block, off-chip pixels per
 // block, 1 on the lazy path (else 0), pixels per lazy tile (0 off it),
@@ -640,7 +661,7 @@ extern "C" int uoc_select_seeds_plan(int dtype, int n, int d,
   out[1] = p.per_sm;
   out[2] = p.threads;
   out[3] = static_cast<long long>(p.smem);
-  out[4] = static_cast<long long>(std::min(p.len, p.threads)) * d * 4 +
+  out[4] = static_cast<long long>(std::min(p.len, p.reg_px)) * d * 4 +
            static_cast<long long>(p.smem_px) * d * esize;
   out[5] = p.len;
   out[6] = p.str_px;
@@ -651,7 +672,7 @@ extern "C" int uoc_select_seeds_plan(int dtype, int n, int d,
   return 0;
 }
 
-// x: [n, d] rows (d = 64 or 128; float32 or bfloat16, unit stride along a
+// x: [n, d] rows (d = 64, 128 or 256; float32 or bfloat16, unit stride along a
 // row) ld elements apart; keys: scratch of num_seeds + 1 + num_seeds / 2 +
 // 2 * grid uint64 (the argmax keys, the grid barrier's counter, then on
 // the lazy path the int32 count of tiles refreshed at each of the

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "uoc_connected_components": [_P, _I, _I, _F, _P, _P, _P],
     "uoc_connected_components_plan": [_I, _I, _P],
     "uoc_assign_labels": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
-    "uoc_assign_labels_two_pass": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
-                                   _P, _P],
+    "uoc_assign_labels_passes": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                                 _P, _P],
     "uoc_assign_labels_plan": [_I, _I, _I, _I, _P],
 }
 # entries that return a kernel's name (a C string, null on a failed plan)
@@ -51,10 +51,11 @@ _NAMED = {
     "uoc_assign_labels_kernel": [_I, _I, _I, _I],
     "uoc_connected_components_kernel": [_I, _I],
 }
-# The kernels' instantiated widths: NUM_UNITS (64 in every recipe) and
-# 2 * NUM_UNITS (the RGB-D cat fusion).  A narrower embedding runs on the
-# next of them with zero columns appended (kernel_width, pad_columns).
-WIDTHS = (64, 128)
+# The kernels' instantiated widths: NUM_UNITS (64 in every recipe),
+# 2 * NUM_UNITS (the RGB-D cat fusion) and the cat fusion of two 128-unit
+# heads.  A narrower embedding runs on the next of them with zero columns
+# appended (kernel_width, pad_columns).
+WIDTHS = (64, 128, 256)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -181,7 +182,7 @@ def dtype_code(x: torch.Tensor, what: str) -> int:
 
 def kernel_width(what: str, d: int) -> int:
     """The instantiated width that serves embedding width d: 64 for d in
-    1..64, 128 for d in 65..128; raise above 128."""
+    1..64, 128 for d in 65..128, 256 for d in 129..256; raise above 256."""
     for width in WIDTHS:
         if 1 <= d <= width:
             return width

@@ -32,26 +32,38 @@ kernels are in ``csrc/mean_shift.cu``:
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
 on a CUDA tensor (or raises).  The kernels are instantiated at widths d =
-64 and 128 (NUM_UNITS is 64 in every recipe in experiments/cfgs, and the
-RGB-D cat fusion concatenates two towers' embeddings into 2 * NUM_UNITS);
-a narrower X and Z run on the next of them with zero columns appended
-(``_build.pad_columns``), which leave every score, norm and Z as they were.
-Up to 128 seeds, the recipes' shapes, each kernel launches once; past 128,
-up to MAX_SEEDS:
+64, 128 and 256 (NUM_UNITS is 64 in every recipe in experiments/cfgs, the
+RGB-D cat fusion concatenates two towers' embeddings into 2 * NUM_UNITS,
+and two 128-unit heads give 256); a narrower X and Z run on the next of
+them with zero columns appended (``_build.pad_columns``), which leave every
+score, norm and Z as they were.  Up to 128 seeds at d <= 128, the recipes'
+shapes, each kernel launches once; past 128, up to MAX_SEEDS:
 
   * hill_climb launches once per group of at most GROUP_SEEDS seeds (a
     row's update reads only X and the row itself; every group has the same
     number of rows, so each launch has the same plan);
   * connected_components launches cc_kernel<d, 256> (8-word rows and
-    masks);
-  * assign_labels launches its kernel twice over X, each pass against at
-    most GROUP_SEEDS seeds on the tensor cores: pass 1 stores each pixel's
-    best two scores (and the label of the best) in a scratch of 16 bytes a
-    pixel, pass 2 merges them with its own and finishes (re-check, labels,
-    histograms).
+    masks) up to 256 seeds, cc_wide_kernel<d> past them (16-word rows,
+    label masks in shared memory, a 16-bit label in the mode's key);
+  * assign_labels launches its kernel once per 128 seeds over X
+    (assign_passes), each pass against at most GROUP_SEEDS seeds on the
+    tensor cores: the first stores each pixel's best two scores (and the
+    label of the best) in a scratch of 16 bytes a pixel, a middle one
+    merges them with its own and stores the result, the last merges and
+    finishes (re-check against all m seeds, labels, histograms).
 
-Widths past 128 and more than MAX_SEEDS seeds raise on a CUDA tensor; the
-plain versions take any shape.
+At d = 256, at any seed count up to MAX_SEEDS, simple kernels on the CUDA
+cores run where the tensor-core kernels' shared memory does not reach:
+
+  * hill_climb launches hill_simt_kernel once per group of at most
+    SIMT_GROUP_SEEDS seeds (fp32 FMA; S as chains of 32 dims);
+  * connected_components launches cc_wide_kernel<256>;
+  * assign_labels launches assign_exact_kernel<T, 256> once: every score
+    is the exact fp32 FMA chain, so no pixel needs a re-check (all are
+    counted as re-checked).
+
+Widths past 256 and more than MAX_SEEDS seeds raise on a CUDA tensor,
+before any launch; the plain versions take any shape.
 """
 
 from __future__ import annotations
@@ -64,10 +76,12 @@ from unseenobjectclustering_torch.ops import _build
 from unseenobjectclustering_torch.ops.mean_shift import (
     connected_components as _connected_components_plain)
 
-MAX_SEEDS = 256
+MAX_SEEDS = 512
 # the seed rows of one hill-climb launch and of one assignment pass
 # (kMaxSeeds in csrc/mean_shift.cu)
 GROUP_SEEDS = 128
+# the seed rows of one hill-climb launch at d = 256 (kSimtRows)
+SIMT_GROUP_SEEDS = 64
 # the wgmma assignment kernels re-check a pixel exactly where its best score
 # beats every seed of another label by less than this, per kernel width
 # (kRecheckMargin<d> in csrc/mean_shift.cu, where it is derived; a narrower
@@ -105,16 +119,23 @@ def prepare(x: torch.Tensor, m: int) -> torch.Tensor:
                                               x.shape[1]))
 
 
-def assign_passes(m: int) -> int:
-    """The assignment's launches for m seeds: 1 up to GROUP_SEEDS, else 2."""
-    return 1 if m <= GROUP_SEEDS else 2
+def assign_passes(m: int, d: int = 64) -> int:
+    """The assignment's launches for m seeds of width d: one per
+    GROUP_SEEDS seeds, and one at the kernel width 256
+    (assign_exact_kernel)."""
+    if _build.kernel_width("assign_labels", d) == 256:
+        return 1
+    return -(-m // GROUP_SEEDS)
 
 
-def hill_climb_groups(m: int) -> tuple[int, int]:
-    """(launches, rows per launch) of the hill climb for m seeds: one launch
-    up to GROUP_SEEDS, else ceil(m / GROUP_SEEDS) launches of equal rows
-    (the last group padded with copies of its last seed)."""
-    groups = -(-m // GROUP_SEEDS)
+def hill_climb_groups(m: int, d: int = 64) -> tuple[int, int]:
+    """(launches, rows per launch) of the hill climb for m seeds of width
+    d: one launch up to the rows a launch takes (GROUP_SEEDS; at the kernel
+    width 256 SIMT_GROUP_SEEDS), else as few launches of equal rows as
+    hold them (the last group padded with copies of its last seed)."""
+    cap = (SIMT_GROUP_SEEDS if _build.kernel_width("hill_climb", d) == 256
+           else GROUP_SEEDS)
+    groups = -(-m // cap)
     return groups, -(-m // groups)
 
 
@@ -176,7 +197,7 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
     lib = _build.library()
     xc = _build.pad_columns(_rows(x), width)
     z0c = _build.pad_columns(z0.to(torch.float32).contiguous(), width)
-    groups, rows = hill_climb_groups(m)
+    groups, rows = hill_climb_groups(m, width)
     if groups > 1:
         z0c = torch.cat([z0c, z0c[-1:].expand(groups * rows - m, width)])
     grid = hill_climb_config(xc, rows)["grid"]
@@ -197,17 +218,17 @@ def hill_climb(x: torch.Tensor, z0: torch.Tensor, *, kappa: float = 20.0,
 
 def hill_climb_config(x: torch.Tensor, m: int) -> dict[str, int]:
     """The hill-climb kernel's launches for x ([n, d] on the card, d <=
-    128: the plan of the width that serves d) and m seeds: the launches and
+    256: the plan of the width that serves d) and m seeds: the launches and
     the seed rows of each (hill_climb_groups), then each launch's grid,
     blocks per SM, threads per block, dynamic shared-memory bytes, bytes of
     X held on chip per block (its ring of tiles; for float32 the split-TF32
     copies: the current tile's at d = 64, two stages of them at d = 128;
-    for bfloat16 at d = 128 also its resident tiles), and the bytes of X
-    that the grid keeps on chip for the whole launch (bfloat16 at d = 128,
-    else 0: X is read from L2 or device memory every iteration but for
-    these)."""
+    for bfloat16 at d = 128 also its resident tiles; at d = 256 its staged
+    tile), and the bytes of X that the grid keeps on chip for the whole
+    launch (bfloat16 at d = 128, else 0: X is read from L2 or device memory
+    every iteration but for these)."""
     width = check_shapes("hill_climb", m, x.shape[1])
-    groups, rows = hill_climb_groups(m)
+    groups, rows = hill_climb_groups(m, width)
     return {"launches": groups, "group_rows": rows,
             **_build.plan(x.device, "uoc_hill_climb_plan",
                           _build.dtype_code(x, "hill_climb"), x.shape[0],
@@ -250,10 +271,11 @@ def connected_components(z: torch.Tensor, epsilon: float) -> torch.Tensor:
 
 def connected_components_config(z: torch.Tensor) -> dict[str, int | str]:
     """The connected-components kernel's launch for z ([m, d] on the card,
-    d <= 128: the launch at the width that serves d): the kernel's name,
-    its CTAs (one at d = 64 and past 128 seeds; the thread-block cluster's
-    at d = 128), threads per CTA, dynamic shared-memory bytes, the
-    adjacency's work items, and the most Z rows a CTA stages."""
+    d <= 256: the launch at the width that serves d): the kernel's name,
+    its CTAs (one at d = 64, past 128 seeds and at d = 256; the
+    thread-block cluster's at d = 128), threads per CTA, dynamic
+    shared-memory bytes, the adjacency's work items, and the most Z rows a
+    CTA stages (0 for cc_wide_kernel, which reads Z in place)."""
     m, d = z.shape
     width = check_shapes("connected_components", m, d)
     return {"kernel": _build.kernel_name(
@@ -328,14 +350,15 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
     args = (xc.data_ptr(), code, n, width, zc.data_ptr(), slab.data_ptr(), m,
             None if zv is None else zv.data_ptr(), labels.data_ptr(),
             out.data_ptr())
-    passes = assign_passes(m)
+    passes = assign_passes(m, width)
     if passes == 1:
         err = lib.uoc_assign_labels(*args, _build.stream(x))
     else:
-        # pass 1's best two scores and best label, a float4 a pixel
+        # each pass's best two scores and best label for the next, a
+        # float4 a pixel
         part = torch.empty((n, 4), dtype=torch.float32, device=x.device)
-        err = lib.uoc_assign_labels_two_pass(*args, part.data_ptr(),
-                                             _build.stream(x))
+        err = lib.uoc_assign_labels_passes(*args, part.data_ptr(),
+                                           _build.stream(x))
     _build.check(err, "assign_labels")
     assign_labels_launches += passes
     counts, valid_counts, assign_labels_rechecked = out.split((m, m, 1))
@@ -343,17 +366,17 @@ def assign_labels(x: torch.Tensor, seeds: torch.Tensor,
 
 
 def assign_labels_config(x: torch.Tensor, m: int) -> dict[str, int | str]:
-    """The assignment kernel's launch for x ([n, d] on the card, d <= 128:
+    """The assignment kernel's launch for x ([n, d] on the card, d <= 256:
     the launch at the width that serves d) and m seeds: the kernel's name
-    (past GROUP_SEEDS both passes'), its launches (assign_passes), grid,
+    (in passes every pass kind's), its launches (assign_passes), grid,
     blocks per SM, threads per block, dynamic shared-memory bytes, bytes
     of X held on chip per block (its ring of tiles), the ring's stages and
-    the pixels of a tile (past GROUP_SEEDS pass 2's)."""
+    the pixels of a tile (past GROUP_SEEDS the last pass's)."""
     width = check_shapes("assign_labels", m, x.shape[1])
     args = (_build.dtype_code(x, "assign_labels"), x.shape[0], m, width)
     return {"kernel": _build.kernel_name(x.device, "uoc_assign_labels_kernel",
                                          *args),
-            "launches": assign_passes(m),
+            "launches": assign_passes(m, width),
             **_build.plan(x.device, "uoc_assign_labels_plan", *args,
                           names=("grid", "blocks_per_sm", "threads",
                                  "smem_bytes", "x_on_chip_bytes", "stages",

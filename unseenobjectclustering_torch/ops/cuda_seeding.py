@@ -9,12 +9,15 @@ barrier per step.  At width 128, where a block's pixels do not all fit on
 chip, the pixels past those are kept in lazy tiles with stale bounds and
 only the tiles that could hold the next argmax are brought up to date
 (``select_seeds_lazy_reference`` models that schedule in torch).  It is
-instantiated at widths 64 and 128 (NUM_UNITS, 64 in every recipe, and twice
-that under the RGB-D cat fusion); a narrower X runs on the next of them
-with zero columns appended (``_build.pad_columns``: every dot's fp32 FMA
-chain keeps its value, so the picks are the unpadded ones), and a width
-past 128 raises on a CUDA tensor.  Any number of seeds.  The plain version
-takes any width.
+instantiated at widths 64, 128 and 256 (NUM_UNITS, 64 in every recipe,
+twice that under the RGB-D cat fusion, and the cat fusion of two 128-unit
+heads; at 256 a pixel's values no longer fit one thread's registers, so
+the pixels a block does not hold in shared memory are read eagerly from
+device memory at every step); a narrower X runs on the next of them with
+zero columns appended (``_build.pad_columns``: every dot's fp32 FMA chain
+keeps its value, so the picks are the unpadded ones), and a width past 256
+raises on a CUDA tensor.  Any number of seeds.  The plain version takes
+any width.
 """
 
 from __future__ import annotations
@@ -204,7 +207,7 @@ def select_seeds(x: torch.Tensor, num_seeds: int, first_index: int
 
 
 def launch_config(x: torch.Tensor) -> dict[str, int]:
-    """The kernel's launch shape for x ([n, d] on the card, d <= 128: the
+    """The kernel's launch shape for x ([n, d] on the card, d <= 256: the
     plan of the width that serves d, which x is padded to): grid, blocks
     per SM, threads per block, dynamic shared-memory bytes, bytes of X
     held on chip by the fullest block (registers and shared memory),

@@ -607,13 +607,22 @@ class _PolyEdge:
 
 
 def _fill_edges(img, edges: list, color) -> None:
-    """FillEdgeCollection with LINE_8 for edges on the image: the active
-    edge list walked row by row, spans filled between its pairs (their
-    fixed-point ends rounded inwards), then bubble-sorted by x."""
+    """FillEdgeCollection with LINE_8: nothing when the edges' bounding box
+    misses the image; else the active edge list walked row by row from the
+    first edge's top to the image's last row, spans filled between its
+    pairs (their fixed-point ends rounded inwards, rows above the image
+    skipped, each span clipped to the image's columns), then bubble-sorted
+    by x."""
     total = len(edges)
     if total < 2:
         return
+    h, w = img.shape[:2]
+    ends = [x for e in edges for x in (e.x, e.x + (e.y1 - e.y0) * e.dx)]
     y_max = max(e.y1 for e in edges)
+    if (y_max < 0 or min(e.y0 for e in edges) >= h or max(ends) < 0
+            or min(ends) >= w << _XY_SHIFT):
+        return
+    y_max = min(y_max, h)
     edges = sorted(edges, key=lambda e: (e.y0, e.x, e.dx))
     edges.append(_PolyEdge(y0=2 ** 31 - 1))
     head = _PolyEdge()
@@ -638,10 +647,13 @@ def _fill_edges(img, edges: list, color) -> None:
             else:
                 break
             if draw:
-                a, b = sorted((keep_prelast.x, prelast.x))
-                # the span's ends rounded inwards
-                img[y, (a + _XY_ONE - 1) >> _XY_SHIFT:(b >> _XY_SHIFT) + 1] \
-                    = color
+                if y >= 0:
+                    a, b = sorted((keep_prelast.x, prelast.x))
+                    # the span's ends rounded inwards, clipped to the image
+                    x1 = (a + _XY_ONE - 1) >> _XY_SHIFT
+                    x2 = b >> _XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0):min(x2, w - 1) + 1] = color
                 keep_prelast.x += keep_prelast.dx
                 prelast.x += prelast.dx
             draw = not draw
@@ -669,28 +681,39 @@ def _fill_edges(img, edges: list, color) -> None:
 
 def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
     """cv2.fillPoly(img, [pts], color) in place (and returned), bit for
-    bit, for one contour of integer [x, y] vertices that all lie on the
-    canvas, of any shape (non-convex, self-intersecting, degenerate):
+    bit, for one contour of integer [x, y] vertices anywhere (on or off the
+    canvas), of any shape (non-convex, self-intersecting, degenerate):
     LINE_8, shift 0; each edge drawn by Line (LineIterator's 8-connected
-    walk) and collected as a fixed-point PolyEdge, then
-    FillEdgeCollection's scanline fill.  A vertex off the canvas raises
-    ValueError (cv2 clips such polygons in a way not replicated here)."""
+    walk of the edge clipped to the canvas by clipLine) and collected as a
+    fixed-point PolyEdge, then FillEdgeCollection's scanline fill.  An
+    edge with an end off the canvas takes its x from the ends clipLine
+    gives (shifted to fixed point), and its rows from them too unless they
+    share a row; its x is then carried back to its own top row along that
+    slope, as cv2 collects it."""
     h, w = img.shape[:2]
     v = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
-    off = [p for p in v if not (0 <= p[0] < w and 0 <= p[1] < h)]
-    if off:
-        raise ValueError(f"fill_poly takes vertices on the {w}x{h} canvas, "
-                         f"not {off[:3]}")
     edges = []
     x0, y0 = v[-1]
     for x1, y1 in v:
-        _line8(img, (x0, y0), (x1, y1), color)
+        on = 0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h
+        # the clipped ends (each clip may move them even when the line
+        # misses the canvas)
+        visible, t0, t1 = (True, (x0, y0), (x1, y1)) if on else \
+            _clip_line(w, h, (x0, y0), (x1, y1))
+        if visible:
+            _line8(img, t0, t1, color)
         if y0 != y1:
-            dx = _c_div((x1 - x0) << _XY_SHIFT, y1 - y0)
+            c0, c1 = (x0 << _XY_SHIFT, y0), (x1 << _XY_SHIFT, y1)
+            if not on:
+                r0, r1 = (t0[1], t1[1]) if t0[1] != t1[1] else (y0, y1)
+                c0, c1 = (t0[0] << _XY_SHIFT, r0), (t1[0] << _XY_SHIFT, r1)
+            dx = _c_div(c1[0] - c0[0], c1[1] - c0[1])
             if y0 < y1:
-                edges.append(_PolyEdge(y0, y1, x0 << _XY_SHIFT, dx))
+                edges.append(_PolyEdge(y0, y1, c0[0] + (y0 - c0[1]) * dx,
+                                       dx))
             else:
-                edges.append(_PolyEdge(y1, y0, x1 << _XY_SHIFT, dx))
+                edges.append(_PolyEdge(y1, y0, c1[0] + (y1 - c1[1]) * dx,
+                                       dx))
         x0, y0 = x1, y1
     _fill_edges(img, edges, color)
     return img
